@@ -1,0 +1,630 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+  1. device  — the card's name and power limit (nvidia-smi);
+  2. build   — nvcc builds every CUDA source of ``repro_torch`` from this
+               checkout (one nvcc per source, all at once);
+  3. kernels — each CUDA kernel against its plain PyTorch version at the
+               serving path's full smollm-360m shapes (tile 128, gain 8,
+               noise 0.5): bf16 equal but for <= 1 one-ULP flip in each
+               started 1,000 elements (kernels 1-2), within one bf16 ULP
+               (kernel 3);
+  4. serve   — the port's ServingEngine (``repro_torch.launch.serve``'s
+               engine) serves 8 requests on full-width smollm-360m in
+               ``abfp_fused`` mode, capacity 4; every request must finish,
+               no logits may be NaN, and every kernel must have launched
+               (launch counts zeroed just before, read just after; the
+               launches of each pass are read around it, by pass kind);
+  5. compare — the first prefill pass and decode tick once through the
+               kernels and once through the plain versions: every kernel
+               call of the kernel run against its plain version on its own
+               inputs (phase 3's bars), the logits' max-abs difference
+               (bar DECODE_LOGIT_BAR) and share of equal greedy tokens,
+               and the tick rerun with kernel 3's plain version, which must
+               then equal the plain run bit for bit;
+  6. time    — each kernel's device time for one decode tick's worth of
+               its launches (CUDA graph replay of the serving weights and
+               caches), its plain version's time, its bound, and a
+               profiler breakdown of one decode tick and one prefill pass.
+
+The last two lines of standard output are the ``{"kernels": [...]}`` line
+and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
+Without CUDA, or without the ``repro_torch`` sources beside this file, it
+exits 1 before printing anything to standard output.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (dense): HBM bytes/s, int8 tensor ops/s, f32
+# (non-tensor) flop/s.
+HBM_BPS = 3.35e12
+INT8_OPS = 1979e12
+F32_FLOPS = 67e12
+# f32 operations of the ABFP epilogue per (row, K-tile, column): ADC scale,
+# gain, noise (3), round, clamp (2), LSB, two rescales, gain divide, sum.
+EPILOGUE_FLOPS = 13
+# Phase 5's bar on the first pass's logits (kernels vs plain versions): the
+# first decode tick measured 0.52 on an H100, from kernel 3's one-ULP flips
+# carried through 32 layers; twice that.
+DECODE_LOGIT_BAR = 1.0
+
+SEED = 0
+CAPACITY = 4
+MAX_LEN = 512
+MAX_NEW = 16
+N_REQUESTS = 8
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bits(t):
+    """bf16 tensor -> int32 numpy bit patterns."""
+    import torch
+    u = t.detach().to(torch.bfloat16).cpu().view(torch.int16).numpy()
+    return u.view(np.uint16).astype(np.int32)
+
+
+def bf16_diff(got, want):
+    """(one-ULP flips, elements, largest ULP distance, max-abs difference)
+    of two bf16 tensors."""
+    g, w = bits(got), bits(want)
+    d = np.abs(g - w)
+    return (int((d == 1).sum()), g.size, int(d.max()) if d.size else 0,
+            float((got.float() - want.float()).abs().max()))
+
+
+def bf16_flips(got, want, what: str, per_mille: bool = True,
+               quiet: bool = False):
+    """Check the bf16 bar (no difference beyond one ULP; with
+    ``per_mille``, at most one flip in each started 1,000 elements);
+    return (flips, elements, max-abs difference)."""
+    n, size, ulp, err = bf16_diff(got, want)
+    if ulp > 1:
+        fail(f"{what}: a difference of {ulp} bf16 ULPs")
+    if per_mille and n > -(-size // 1000):
+        fail(f"{what}: {n}/{size} one-ULP flips")
+    if not quiet:
+        log(f"{what}: {n}/{size} one-ULP flips, max-abs {err:.3g}")
+    return n, size, err
+
+
+def median_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def graph_ms(fn, reps: int):
+    """Device time of ``fn``'s launches: capture once, time the replays.
+    Returns (ms, how)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    try:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+    except RuntimeError as e:
+        log(f"graph capture refused ({e}); timing eagerly instead")
+        return median_ms(fn, reps), "eager"
+    return median_ms(g.replay, reps), "graph"
+
+
+def k1_cost(m: int, pw, x_bytes: int):
+    """(bytes, int8 ops, f32 ops) of one packed-matmul call, counting only
+    what the function needs: K x N codes and ceil(K / tile) x N scales,
+    not the zero padding of K to the tile and of N to 128 lanes."""
+    t = -(-pw.k // pw.tile_width)
+    b = (pw.k * pw.n_cols + t * pw.n_cols * 2
+         + (t * 4 if pw.gains is not None else 0)
+         + m * pw.k * x_bytes + m * pw.n_cols * 2)
+    return b, 2 * m * pw.k * pw.n_cols, EPILOGUE_FLOPS * m * t * pw.n_cols
+
+
+def k3_cost(lengths, s_max: int, kh: int, h: int, d: int):
+    """(bytes, f32 ops) of one decode-attention call for these lengths."""
+    vis = sum(min(int(v), s_max) for v in lengths)
+    rep = h // kh
+    b = vis * kh * (2 * d + 2 * 2) + 2 * len(lengths) * h * d * 2 \
+        + 4 * len(lengths)
+    return b, vis * kh * rep * (4 * d + 6)
+
+
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0):
+    t = {"bytes": nbytes / HBM_BPS,
+         "operations": max(int8_ops / INT8_OPS, f32_ops / F32_FLOPS)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels import _build, ops
+        from repro_torch.kernels.abfp_decode_fused import (
+            fused_qkv_packed,
+            fused_qkv_packed_ref,
+            fused_quantized_decode_attention,
+            quantized_decode_attention,
+        )
+        from repro_torch.kernels.abfp_matmul import (
+            abfp_matmul_packed,
+            abfp_matmul_packed_ref,
+        )
+        from repro_torch.launch import serve as serve_cli
+        from repro_torch.models import (
+            Numerics,
+            clone_state,
+            decode_step,
+            init_decode_state,
+            init_params,
+            prefill,
+        )
+    except ImportError as e:
+        fail(f"the repro_torch sources are not beside this script ({e})")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device -----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    if smi.returncode != 0 or not card:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    print(card, flush=True)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    # 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"built {len(_build.SIGNATURES)} CUDA sources in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+
+    # The served model, as ``python -m repro_torch.launch.serve --full
+    # --fused`` builds it: full smollm-360m, abfp_fused (tile 128, gain 8,
+    # noise 0.5), int8 KV cache.
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--fused", "--capacity", str(CAPACITY), "--max-len",
+         str(MAX_LEN), "--max-new", str(MAX_NEW), "--seed", str(SEED)])
+    mcfg, quant = serve_cli.model_and_quant(args)
+    if (mcfg.name, mcfg.num_layers, mcfg.d_model, quant.mode) != (
+            "smollm-360m", 32, 960, "abfp_fused") or not mcfg.kv_quant:
+        fail(f"unexpected serving config {mcfg.name} {quant}")
+    params = init_params(SEED, mcfg, device=dev)
+    from repro_torch.serving import Request, ServingEngine
+
+    class CheckedEngine(ServingEngine):
+        """Checks every fetched logits block for NaN and records each
+        pass's kernel launches (the counts' growth across the pass) by
+        pass kind."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.per_pass = {"decode": [], "prefill": []}
+
+        def _counted(self, kind, run, *a):
+            before = ops.launch_counts()
+            run(*a)
+            after = ops.launch_counts()
+            self.per_pass[kind].append(
+                {k: after[k] - before[k] for k in after})
+
+        def _prefill_pass(self, live):
+            self._counted("prefill", super()._prefill_pass, live)
+
+        def _decode_tick(self):
+            self._counted("decode", super()._decode_tick)
+
+        def _fetch_logits(self, kind, t0, logits):
+            lg = super()._fetch_logits(kind, t0, logits)
+            if not np.isfinite(lg).all():
+                fail(f"non-finite logits in a {kind} pass")
+            return lg
+
+    t0 = time.perf_counter()
+    eng = CheckedEngine(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                        quant=quant, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"packed smollm-360m ({mcfg.num_layers} layers, d={mcfg.d_model}, "
+        f"vocab {mcfg.vocab_size}) in {time.perf_counter() - t0:.1f}s")
+    layers = eng.params["layers"]
+    lp0 = layers[0]
+
+    # 3. kernels against their plain versions ------------------------------
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def act(m, k):
+        return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+
+    e1 = []
+    for m in (4, 512):
+        for name, pw in (("attn.wo", lp0["attn"]["wo"]),
+                         ("mlp.wi", lp0["mlp"]["wi"]),
+                         ("mlp.wo", lp0["mlp"]["wo"]),
+                         ("lm_head", eng.params["lm_head"])):
+            if name == "lm_head" and m != 4:
+                continue
+            x = act(m, pw.k)
+            got = abfp_matmul_packed(x, pw, quant, 12345)
+            want = abfp_matmul_packed_ref(x, pw, quant, 12345)
+            e1.append(bf16_flips(got, want, f"kernel 1 {name} M={m}")[2])
+    errs["abfp_matmul_packed"] = max(e1)
+    pws = tuple(lp0["attn"][w] for w in ("wq", "wk", "wv"))
+    x = act(CAPACITY, mcfg.d_model)
+    seeds = (11, -22, 33)
+    got = fused_qkv_packed(x, pws, quant, seeds, qkv=lp0["attn"]["qkv"])
+    want = fused_qkv_packed_ref(x, pws, quant, seeds)
+    errs["fused_qkv_packed"] = max(
+        bf16_flips(g, w, f"kernel 2 {n} M={CAPACITY}")[2]
+        for g, w, n in zip(got, want, ("q", "k", "v")))
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    q = torch.randn(CAPACITY, 1, h, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kc = torch.randint(-127, 128, (CAPACITY, MAX_LEN, kh, hd),
+                       generator=gen, device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (CAPACITY, MAX_LEN, kh, hd),
+                       generator=gen, device=dev, dtype=torch.int8)
+    ks = (torch.rand(CAPACITY, MAX_LEN, kh, generator=gen, device=dev)
+          * 4).to(torch.bfloat16)
+    vs = (torch.rand(CAPACITY, MAX_LEN, kh, generator=gen, device=dev)
+          * 4).to(torch.bfloat16)
+    lengths = torch.tensor([1, MAX_LEN, 77, 300], dtype=torch.int32,
+                           device=dev)
+    got = fused_quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    errs["fused_quantized_decode_attention"] = bf16_flips(
+        got, want, f"kernel 3 S_max={MAX_LEN}", per_mille=False)[2]
+    torch.cuda.synchronize()
+
+    # 4. serve (the main path) -------------------------------------------
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i,
+                    prompt=rng.integers(1, mcfg.vocab_size,
+                                        int(rng.integers(16, 101))).tolist(),
+                    max_new_tokens=MAX_NEW)
+            for i in range(N_REQUESTS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"launch counts over the serve run: {launches}")
+    if len(done) != N_REQUESTS or any(
+            len(r.generated) != MAX_NEW or not r.done for r in done):
+        fail("not every request finished with its tokens")
+    if any(not 0 <= t < mcfg.vocab_size for r in done for t in r.generated):
+        fail("a generated token is outside the vocabulary")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    per_pass = {}
+    for kind, rows_ in eng.per_pass.items():
+        per_pass[kind] = {}
+        for name in launches:
+            vals = sorted({r[name] for r in rows_})
+            per_pass[kind][name] = vals[0] if len(vals) == 1 else vals
+    if any(sum(r[name] for rs in eng.per_pass.values() for r in rs) != n
+           for name, n in launches.items()):
+        fail("the per-pass launch counts do not add up to the run's")
+    log(f"launches in the serve run per prefill pass {per_pass['prefill']}, "
+        f"per decode tick {per_pass['decode']}")
+    med, counts = eng.pass_stats()
+    tokens = sum(len(r.generated) for r in done)
+    log(f"served {len(done)} requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, max_new {MAX_NEW}) in "
+        f"{wall:.2f}s: {tokens} tokens, {tokens / wall:.1f} tokens/s, "
+        f"{counts['decode']} decode ticks (median "
+        f"{med['decode'] * 1e3:.2f} ms), {counts['prefill']} prefill passes "
+        f"(median {med['prefill'] * 1e3:.2f} ms), {eng.ticks} passes")
+    for r in done[:2]:
+        log(f"req {r.uid}: prompt[{len(r.prompt)}] -> {r.generated}")
+
+    # 5. first pass: kernels against plain versions ----------------------
+    # The first prefill pass and decode tick of the first four requests run
+    # from one state through the kernels, then through the plain versions.
+    # Every kernel call of the kernel run is recorded and held to its
+    # phase-3 bar against its plain version on the same inputs (the served
+    # activations, weights and caches).  Where every kernel-1/2 call of a
+    # pass was bit-equal, the pass must give the plain run's logits bit for
+    # bit once kernel 3 (the only other kernel) is swapped for its plain
+    # version: a difference left in the logits then comes from kernel 3's
+    # one-ULP flips alone.  The tick's logits may differ from the plain
+    # run's by at most DECODE_LOGIT_BAR.
+    from repro_torch.core import prng
+    from repro_torch.models import layers as model_layers
+    state0 = init_decode_state(mcfg, CAPACITY, MAX_LEN, device=dev)
+    first = reqs[:CAPACITY]
+    n_tok = np.array([len(r.prompt) for r in first], np.int32)
+    toks = np.zeros((CAPACITY, 128), np.int32)
+    for i, r in enumerate(first):
+        toks[i, :len(r.prompt)] = r.prompt
+    toks_t = torch.from_numpy(toks).to(dev)
+    n_t = torch.from_numpy(n_tok).to(dev)
+    key = prng.split(prng.PRNGKey(SEED))[1]
+    key_d = prng.fold_in(key, 1)
+    sites = {"abfp_matmul_packed": (ops, abfp_matmul_packed_ref),
+             "fused_qkv_packed": (model_layers, lambda x, pws, cfg, seeds,
+                                  qkv=None: fused_qkv_packed_ref(
+                                      x, pws, cfg, seeds)),
+             "fused_quantized_decode_attention": (
+                 model_layers, quantized_decode_attention)}
+    calls = {name: [] for name in sites}
+
+    @contextlib.contextmanager
+    def patched(mod, name, fn):
+        old = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, old)
+
+    @contextlib.contextmanager
+    def recording():
+        with contextlib.ExitStack() as stack:
+            for name, (mod, _) in sites.items():
+                def call(*a, _fn=getattr(mod, name), _name=name, **kw):
+                    out = _fn(*a, **kw)
+                    calls[_name].append((a, kw, out))
+                    return out
+                stack.enter_context(patched(mod, name, call))
+            yield
+
+    def check_calls(kind) -> bool:
+        """Each recorded call against its plain version (its max-abs
+        difference joins the kernel's ``max_abs_err``); True when every
+        kernel-1/2 call was bit-equal."""
+        torch.cuda.synchronize()
+        exact = True
+        for name, rec in calls.items():
+            if not rec:
+                continue
+            n = size = 0
+            err = 0.0
+            for a, kw, out in rec:
+                want = sites[name][1](*a, **kw)
+                for g, w in zip(*((out, want) if isinstance(out, tuple)
+                                  else ((out,), (want,)))):
+                    f, z, e = bf16_flips(
+                        g, w, f"{name} in the first {kind}",
+                        per_mille=name != "fused_quantized_decode_attention",
+                        quiet=True)
+                    n, size, err = n + f, size + z, max(err, e)
+            if name != "fused_quantized_decode_attention":
+                exact = exact and n == 0
+            errs[name] = max(errs[name], err)
+            log(f"first {kind}, {name} on its {len(rec)} calls' own "
+                f"inputs against its plain version: {n}/{size} one-ULP "
+                f"flips, max-abs {err:.3g}")
+            rec.clear()
+        return exact
+
+    def compare(what, a, b, bar=None):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"non-finite logits in the first {what}")
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        n, err = int((a != b).sum()), float((a - b).abs().max())
+        log(f"first {what}: logits max-abs difference {err:.4g} "
+            f"(logits max-abs {float(b.abs().max()):.4g}; {n}/{a.numel()} "
+            f"logits differ), greedy tokens equal {same:.0%}")
+        if bar is not None and err > bar:
+            fail(f"first {what}: logits differ by {err:.4g} > {bar}")
+        return n
+
+    st_k, st_p = clone_state(state0), clone_state(state0)
+    with recording():
+        lg_k, st_k = prefill(eng.params, st_k, toks_t, n_t, mcfg,
+                             Numerics(quant, key))
+    exact = check_calls("prefill pass")
+    lg_p, st_p = prefill(eng.params, st_p, toks_t, n_t, mcfg,
+                         Numerics(quant, key, plain=True))
+    if compare("prefill pass, kernels vs plain versions", lg_k, lg_p,
+               DECODE_LOGIT_BAR) and exact:
+        fail("the prefill pass runs no kernel 3, yet its logits differ")
+    tok = lg_k.argmax(-1).to(torch.int32)
+    st_a = clone_state(st_p)
+    with recording():
+        lg_k, _ = decode_step(eng.params, st_k, tok, mcfg,
+                              Numerics(quant, key_d))
+    exact = check_calls("decode tick")
+    lg_p, _ = decode_step(eng.params, st_p, tok, mcfg,
+                          Numerics(quant, key_d, plain=True))
+    compare("decode tick, kernels vs plain versions", lg_k, lg_p,
+            DECODE_LOGIT_BAR)
+    with patched(model_layers, "fused_quantized_decode_attention",
+                 quantized_decode_attention):
+        lg_a, _ = decode_step(eng.params, st_a, tok, mcfg,
+                              Numerics(quant, key_d))
+    if compare("decode tick, kernels but kernel 3's plain version vs plain "
+               "versions", lg_a, lg_p) and exact:
+        fail("the decode tick differs from the plain run with kernel 3 "
+             "swapped out, yet every kernel-1/2 call was bit-equal")
+    del st_k, st_p, st_a
+    ops.reset_launch_counts()
+
+    # 6. time: one decode tick's worth of each kernel --------------------
+    xb = torch.bfloat16
+    x_d = act(CAPACITY, mcfg.d_model)
+    x_f = act(CAPACITY, mcfg.d_ff)
+    mats = [(lp["attn"]["wo"], x_d) for lp in layers] \
+        + [(lp["mlp"][w], x_d) for lp in layers for w in ("wi", "wg")] \
+        + [(lp["mlp"]["wo"], x_f) for lp in layers] \
+        + [(eng.params["lm_head"], x_d)]
+    c1 = np.sum([k1_cost(CAPACITY, pw, 2) for pw, _ in mats], axis=0)
+
+    def k1_tick(fn=abfp_matmul_packed):
+        for pw, xx in mats:
+            fn(xx, pw, quant, 7)
+
+    pf = act(CAPACITY * 128, mcfg.d_model)
+    pf_f = act(CAPACITY * 128, mcfg.d_ff)
+    pmats = [(lp["attn"][w], pf) for lp in layers
+             for w in ("wq", "wk", "wv", "wo")] \
+        + [(lp["mlp"][w], pf) for lp in layers for w in ("wi", "wg")] \
+        + [(lp["mlp"]["wo"], pf_f) for lp in layers]
+    cp = np.sum([k1_cost(CAPACITY * 128, pw, 2) for pw, _ in pmats], axis=0)
+
+    def k1_prefill():
+        for pw, xx in pmats:
+            abfp_matmul_packed(xx, pw, quant, 7)
+
+    def k2_tick(fn=None):
+        for lp in layers:
+            p3 = tuple(lp["attn"][w] for w in ("wq", "wk", "wv"))
+            if fn is None:
+                fused_qkv_packed(x_d, p3, quant, seeds, qkv=lp["attn"]["qkv"])
+            else:
+                fn(x_d, p3, quant, seeds)
+
+    c2 = np.sum([k1_cost(CAPACITY, lp["attn"][w], 2) for lp in layers
+                 for w in ("wq", "wk", "wv")], axis=0)
+    c2[0] -= 2 * (len(layers) * CAPACITY * mcfg.d_model * 2)  # x read once
+    caches = [lp["kv"] for lp in eng.state["layers"]]
+    lens = caches[0]["length"].clone()
+    qd = torch.randn(CAPACITY, 1, h, hd, generator=gen,
+                     device=dev).to(torch.bfloat16)
+
+    def k3_tick(fn=fused_quantized_decode_attention):
+        for c in caches:
+            fn(qd, c["k"], c["k_scale"], c["v"], c["v_scale"], lengths=lens)
+
+    b3, f3 = k3_cost(lens.tolist(), MAX_LEN, kh, h, hd)
+    b3 *= len(caches)
+    f3 *= len(caches)
+    rows = []
+    spec = [
+        ("abfp_matmul_packed", "src/repro_torch/kernels/csrc/abfp_matmul.cu",
+         "src/repro/kernels/abfp_matmul.py:437", "abfp_matmul_packed_pallas",
+         k1_tick, lambda: k1_tick(abfp_matmul_packed_ref), bound(*c1),
+         "one decode tick: 32 x (attn.wo, mlp.wi, mlp.wg, mlp.wo) + lm_head, "
+         "M=4"),
+        ("fused_qkv_packed", "src/repro_torch/kernels/csrc/abfp_matmul.cu",
+         "src/repro/kernels/abfp_decode_fused.py:186", "fused_qkv_packed_pallas",
+         k2_tick, lambda: k2_tick(fused_qkv_packed_ref), bound(*c2),
+         "one decode tick: 32 x (wq|wk|wv), M=4"),
+        ("fused_quantized_decode_attention",
+         "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "src/repro/kernels/abfp_decode_fused.py:360",
+         "fused_quantized_decode_attention",
+         k3_tick, lambda: k3_tick(quantized_decode_attention),
+         bound(b3, 0.0, f3),
+         f"one decode tick: 32 layers, S_max={MAX_LEN}, lengths "
+         f"{lens.tolist()}"),
+    ]
+    for name, src, repl, repl_fn, fn, plain_fn, (bms, by), work in spec:
+        ms, how = graph_ms(fn, 20)
+        eager = median_ms(fn, 5)
+        pms = median_ms(plain_fn, 3)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": repl, "replaces_function": repl_fn,
+               "launches": launches[name],
+               "launches_per_decode_tick": per_pass["decode"][name],
+               "launches_per_prefill_pass": per_pass["prefill"][name],
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "work": work, "timing": how, "eager_ms": eager}
+        rows.append(row)
+        log(f"{name}: {ms:.4f} ms ({how}), eager {eager:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}) for {work}")
+    pms_, how = graph_ms(k1_prefill, 5)
+    pb, pby = bound(*cp)
+    rows[0]["prefill_pass_ms"] = pms_
+    rows[0]["prefill_pass_bound_ms"] = pb
+    rows[0]["prefill_pass_bound_by"] = pby
+    log(f"abfp_matmul_packed over one prefill pass (32 x 7 matmuls, "
+        f"M={CAPACITY * 128}): {pms_:.3f} ms ({how}), bound {pb:.4f} ms "
+        f"({pby})")
+    ops.reset_launch_counts()
+
+    # Where a tick's device time goes (profiler; measurement only).
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        st = clone_state(state0)
+        prefill(eng.params, st, toks_t, n_t, mcfg, Numerics(quant, key))
+        tok = torch.zeros(CAPACITY, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        for kind in ("decode", "prefill"):
+            stp = clone_state(st)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if kind == "decode":
+                    decode_step(eng.params, stp, tok, mcfg,
+                                Numerics(quant, key))
+                else:
+                    prefill(eng.params, stp, toks_t, n_t, mcfg,
+                            Numerics(quant, key))
+                torch.cuda.synchronize()
+                host = time.perf_counter() - t0
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
+            cnt = {e.key: e.count for e in ev}
+            order = sorted(dt, key=lambda k: -dt[k])
+            total = sum(dt.values())
+            top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k])
+                   for k in order[:8]]
+            log(f"profile of one {kind} pass: host {host * 1e3:.2f} ms, "
+                f"device busy {total / 1e3:.3f} ms "
+                f"({total / 1e3 / (host * 1e3):.1%}) in "
+                f"{sum(cnt.values())} kernel launches; top by device ms: "
+                f"{json.dumps(top)}")
+    except Exception as e:      # the profiler is a measurement aid only
+        log(f"profiler unavailable: {e!r}")
+    ops.reset_launch_counts()
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

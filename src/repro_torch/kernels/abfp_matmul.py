@@ -1,0 +1,261 @@
+"""Packed ABFP matmul: the CUDA kernel's wrapper and its plain version.
+
+``abfp_matmul_packed(x, pw, cfg, seed)`` computes ``y = ABFP(x @ W)`` from
+a ``PackedWeight`` (int8 codes, bf16 per-(tile, column) scales, optional
+per-tile ADC gains).  Per (row, K-tile):
+
+    s_x = bf16(max |x_tile|)                  x_q = clamp(rint(x / s_x * L_x))
+    p   = x_q . w_q                           (exact integer tile dot)
+    y_q = clamp(rint(p * scale [* G_t] + (u - 0.5) * 2 * noise)) * bin_y
+    acc += y_q * s_x * s_w [/ G_t]            (f32, bf16 out; / gain after
+                                               each K block without gains)
+
+Replaces the TPU kernel ``abfp_matmul_packed_pallas``
+(``repro/kernels/abfp_matmul.py``).  The noise ``u`` is the reference's
+murmur3-style lattice hash, a function of the reference grid: ``bm =
+auto_bm(M)``, ``bn = 128``, ``bk = default_bk(n, K)``; salt
+``(i * nj + j) * nk + k``, hash row ``t * bm + r``, hash column the
+column within its 128-column block.  Both versions here recompute those
+coordinates, whatever their own tiling.
+
+On a CPU tensor the wrapper runs ``abfp_matmul_packed_ref``; on a CUDA
+tensor it launches ``csrc/abfp_matmul.cu`` (see its header for what bounds
+it and how it is built) or raises.  ``abfp_matmul_packed.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core.abfp import PackedWeight, QuantConfig, ceil_to, f32_const
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+
+DEFAULT_BM = 128
+DEFAULT_BN = 128
+
+
+def auto_bm(m: int) -> int:
+    """Reference row block: smallest multiple of 8 covering m, at most 128."""
+    return min(DEFAULT_BM, max(8, ((m + 7) // 8) * 8))
+
+
+def default_bk(n: int, k: int) -> int:
+    """Reference K block: a multiple of the tile width n, capped at 512
+    (256 for n <= 8).  Takes the logical K, not the padded Kp."""
+    cap = 256 if n <= 8 else 512
+    bk = min(cap, max(n, k))
+    return max(n, (bk // n) * n)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: Tensor, c: int) -> Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash_uniform(rows: Tensor, cols: Tensor, seed, salt) -> Tensor:
+    """Uniform [0, 1) lattice: hash(row, col, seed, salt), the reference's
+    uint32 arithmetic done in int64 with explicit wrapping.  Arguments
+    broadcast; returns float32."""
+    seed = torch.as_tensor(seed, dtype=torch.int64) & _M32
+    salt = torch.as_tensor(salt, dtype=torch.int64) & _M32
+    x = (_mul32(rows.to(torch.int64), 0x9E3779B9)
+         + _mul32(cols.to(torch.int64), 0x85EBCA6B)
+         + _mul32(seed.to(rows.device), 0xC2B2AE35)
+         + _mul32(salt.to(rows.device), 0x27D4EB2F)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return (x >> 8).to(torch.float32) / float(1 << 24)
+
+
+def check_packed(pw: PackedWeight, cfg: QuantConfig) -> None:
+    """Raise unless ``pw`` is a 2-D pack at this config's geometry."""
+    if pw.codes.ndim != 2:
+        raise ValueError(f"packed kernel takes a 2-D PackedWeight, got "
+                         f"codes {tuple(pw.codes.shape)}")
+    if pw.tile_width != cfg.tile_width or pw.bits_w != cfg.bits_w:
+        raise ValueError(
+            f"PackedWeight(n={pw.tile_width}, bits_w={pw.bits_w}) does not "
+            f"match cfg(n={cfg.tile_width}, bits_w={cfg.bits_w})")
+    if pw.scales.dtype != cfg.scale_dtype:
+        raise ValueError(f"PackedWeight scales are {pw.scales.dtype} but "
+                         f"cfg.scale_dtype is {cfg.scale_dtype}")
+
+
+class Grid:
+    """The reference kernel's grid for an (M, K) x packed-(K, N) call."""
+
+    def __init__(self, m: int, pw: PackedWeight, cfg: QuantConfig):
+        n = cfg.tile_width
+        self.n = n
+        self.bm = auto_bm(m)
+        self.bk = default_bk(n, pw.k)
+        self.tk = self.bk // n
+        self.nk = ceil_to(pw.kp, self.bk) // self.bk
+        self.T = pw.num_tiles
+
+
+def _seed_or_zero(seed, cfg: QuantConfig) -> int:
+    if seed is None:
+        if cfg.noise_lsb > 0.0:
+            raise ValueError("noise_lsb > 0 requires a seed")
+        return 0
+    return int(seed)
+
+
+def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
+                    grid: Grid, nj: int) -> Tensor:
+    """(T, M, Np) f32 per-tile terms ``y_q * s_x * s_w [/ G_t]``."""
+    dev = x2.device
+    n, T = grid.n, grid.T
+    m = x2.shape[0]
+    npad = pw.n_padded
+
+    def c32(v):
+        return torch.tensor(f32_const(v), dtype=torch.float32, device=dev)
+
+    xt = torch.nn.functional.pad(x2, (0, T * n - x2.shape[1])).reshape(m, T, n)
+    sx = xt.abs().amax(dim=-1).to(cfg.scale_dtype).float()        # (M, T)
+    sx_safe = torch.where(sx == 0.0, torch.ones_like(sx), sx)
+    lx = float(2 ** (cfg.bits_x - 1) - 1)
+    xq = torch.clamp(torch.round(xt / sx_safe[:, :, None] * c32(lx)), -lx, lx)
+    wq = pw.codes.float().reshape(T, n, npad)
+    p = torch.einsum("mtn,tnc->tmc", xq, wq)      # exact: |p| < 2**24
+    g = None if pw.gains is None else pw.gains.float()[:, None, None]
+    if g is None:
+        v = p * c32(cfg.adc_code_scale)
+    else:
+        v = p * c32(cfg.adc_base_scale) * g
+    if cfg.noise_lsb > 0.0:
+        tau = torch.arange(T, device=dev)
+        rows = torch.arange(m, device=dev)
+        cols = torch.arange(npad, device=dev)
+        salt = ((rows // grid.bm)[None, :, None] * nj
+                + (cols // DEFAULT_BN)[None, None, :]) * grid.nk \
+            + (tau // grid.tk)[:, None, None]
+        hrow = (tau % grid.tk)[:, None, None] * grid.bm \
+            + (rows % grid.bm)[None, :, None]
+        u = _hash_uniform(hrow, (cols % DEFAULT_BN)[None, None, :], seed, salt)
+        v = v + (u - c32(0.5)) * c32(2.0 * cfg.noise_lsb)
+    ly = float(2 ** (cfg.bits_y - 1) - 1)
+    yq = torch.clamp(torch.round(v), -ly, ly) * c32(cfg.bin_y)
+    term = yq * sx.t()[:, :, None] * pw.scales.float()[:, None, :]
+    if g is not None:
+        term = term / g
+    return term
+
+
+def _reduce_terms_ref(term: Tensor, pw: PackedWeight, cfg: QuantConfig,
+                      grid: Grid) -> Tensor:
+    """Sum per-tile terms in the reference order; (M, Np) bf16."""
+    gain = torch.tensor(f32_const(cfg.gain), dtype=torch.float32,
+                        device=term.device)
+    acc = torch.zeros(term.shape[1:], dtype=torch.float32, device=term.device)
+    for kb in range(grid.nk):
+        t0 = kb * grid.tk
+        bs = term[t0]
+        for t in range(t0 + 1, min(t0 + grid.tk, grid.T)):
+            bs = bs + term[t]
+        if pw.gains is None:
+            bs = bs / gain
+        acc = acc + bs
+    return acc.to(cfg.out_dtype)
+
+
+def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
+                           seed: Optional[int] = None) -> Tensor:
+    """Plain PyTorch version of the packed ABFP kernel; x: (..., K) ->
+    (..., N) in ``cfg.out_dtype``."""
+    check_packed(pw, cfg)
+    if x.shape[-1] != pw.k:
+        raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
+    batch = x.shape[:-1]
+    x2 = x.reshape(-1, pw.k).float()
+    grid = Grid(x2.shape[0], pw, cfg)
+    term = _tile_terms_ref(x2, pw, cfg, _seed_or_zero(seed, cfg), grid,
+                           pw.n_padded // DEFAULT_BN)
+    out = _reduce_terms_ref(term, pw, cfg, grid)
+    return out[:, :pw.n_cols].reshape(*batch, pw.n_cols)
+
+
+def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
+                    gains: Optional[Tensor], pw0: PackedWeight,
+                    cfg: QuantConfig, njs: Sequence[int],
+                    seeds: Sequence[int]) -> Tensor:
+    """One launch of ``csrc/abfp_matmul.cu`` over up to three weights whose
+    column blocks are concatenated (``njs`` blocks each); returns the
+    (M, sum(njs) * 128) bf16 output."""
+    if not x.is_cuda:
+        raise ValueError("the CUDA kernel takes CUDA tensors")
+    if cfg.out_dtype != torch.bfloat16 or cfg.scale_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel writes bf16 and reads bf16 scales")
+    if kcodes is None:
+        raise ValueError("PackedWeight has no kernel-layout codes (kcodes)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    dev = x.device
+    for t in (kcodes, scales) + (() if gains is None else (gains,)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous on x's device")
+    x2 = x.reshape(-1, pw0.k).contiguous()
+    m = x2.shape[0]
+    grid = Grid(m, pw0, cfg)
+    n, T = grid.n, grid.T
+    ntot = kcodes.shape[1]
+    nseg = len(njs)
+    starts = [0, njs[0], njs[0] + (njs[1] if nseg > 1 else 0)]
+    nj = list(njs) + [0] * (3 - nseg)
+    sd = list(seeds) + [0] * (3 - nseg)
+    xq = torch.empty((m, pw0.kp), dtype=torch.int8, device=dev)
+    sx = torch.empty((m, T), dtype=torch.float32, device=dev)
+    terms = torch.empty((T, m, ntot), dtype=torch.float32, device=dev)
+    out = torch.empty((m, ntot), dtype=torch.bfloat16, device=dev)
+    has_g = gains is not None
+    err = _build.lib("abfp_matmul").abfp_matmul_packed_launch(
+        x2.data_ptr(), int(x2.dtype == torch.bfloat16), m, pw0.k,
+        kcodes.data_ptr(), scales.data_ptr(),
+        gains.data_ptr() if has_g else None, pw0.kp, T, n, ntot,
+        nseg, starts[1], starts[2], nj[0], nj[1], nj[2], sd[0], sd[1], sd[2],
+        grid.bm, grid.tk, grid.nk,
+        f32_const(cfg.adc_base_scale if has_g else cfg.adc_code_scale),
+        f32_const(2.0 * cfg.noise_lsb), int(cfg.noise_lsb > 0.0),
+        float(2 ** (cfg.bits_y - 1) - 1), f32_const(cfg.bin_y),
+        f32_const(cfg.gain), float(2 ** (cfg.bits_x - 1) - 1),
+        xq.data_ptr(), sx.data_ptr(), terms.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(dev))
+    _build.check(err, "abfp_matmul_packed_launch")
+    return out
+
+
+def abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
+                       seed: Optional[int] = None) -> Tensor:
+    """y = ABFP(x @ W) from a packed weight; x: (..., K) -> (..., N) bf16.
+
+    CPU tensors run ``abfp_matmul_packed_ref``; CUDA tensors launch the
+    CUDA kernel (and count one launch) or raise."""
+    if not x.is_cuda:
+        return abfp_matmul_packed_ref(x, pw, cfg, seed)
+    check_packed(pw, cfg)
+    if x.shape[-1] != pw.k:
+        raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
+    gains = None if pw.gains is None else pw.gains.float().contiguous()
+    out = launch_segments(x, pw.kcodes, pw.scales, gains, pw, cfg,
+                          [pw.n_padded // DEFAULT_BN],
+                          [_seed_or_zero(seed, cfg)])
+    abfp_matmul_packed.launches += 1
+    return out[:, :pw.n_cols].reshape(*x.shape[:-1], pw.n_cols)
+
+
+abfp_matmul_packed.launches = 0

@@ -1,0 +1,67 @@
+"""Unified dense-matmul dispatch: the single entry point models use.
+
+``dense(x, w, cfg, key)`` routes by ``cfg.mode``:
+  * ``"float"``       — plain matmul in the operand dtype
+  * ``"abfp_packed"`` — packs ``w`` on the fly, then the packed kernel
+  * ``"abfp_fused"``  — the same with per-tile adaptive ADC gains
+``dense_packed(x, pw, cfg, key)`` takes an already packed weight: the
+quantize-once serving path.  Forward only.
+
+``key`` is a PRNG key (``core.prng``) or None; ``key_to_seed`` turns it
+into the kernel's int32 noise seed.  ``plain=True`` calls the kernel's
+plain PyTorch version instead of the wrapper, on any device: it is how a
+whole model pass is compared against its kernels on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.abfp import PackedWeight, QuantConfig, pack_abfp_weight
+from repro_torch.core.prng import key_to_seed
+from repro_torch.kernels.abfp_decode_fused import (
+    fused_qkv_packed,
+    fused_quantized_decode_attention,
+)
+from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul_packed,
+    abfp_matmul_packed_ref,
+)
+
+Tensor = torch.Tensor
+
+
+def dense_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
+                 key=None, plain: bool = False) -> Tensor:
+    """x (..., K) @ packed weight (K, N) -> (..., N) via the packed kernel."""
+    fn = abfp_matmul_packed_ref if plain else abfp_matmul_packed
+    return fn(x, pw, cfg, key_to_seed(key))
+
+
+def dense(x: Tensor, w, cfg: QuantConfig, key=None,
+          plain: bool = False) -> Tensor:
+    """x (..., K) @ w (K, N) -> (..., N) under the QuantConfig's mode."""
+    if isinstance(w, PackedWeight):
+        return dense_packed(x, w, cfg, key, plain)
+    if cfg.mode == "float":
+        return torch.matmul(x, w.to(x.dtype))
+    if cfg.mode in ("abfp_packed", "abfp_fused"):
+        pw = pack_abfp_weight(w, cfg, adaptive_gain=cfg.mode == "abfp_fused")
+        return dense_packed(x, pw, cfg, key, plain)
+    raise ValueError(f"unknown or unported quant mode: {cfg.mode!r}")
+
+
+# Every kernel wrapper; each counts its launches in ``.launches``.
+WRAPPERS = (abfp_matmul_packed, fused_qkv_packed,
+            fused_quantized_decode_attention)
+
+
+def launch_counts() -> dict:
+    """Current launch counts of every kernel wrapper, by wrapper name."""
+    return {f.__name__: f.launches for f in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for f in WRAPPERS:
+        f.launches = 0

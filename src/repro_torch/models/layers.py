@@ -1,0 +1,416 @@
+"""Model layers of the dense decoder: the serving (KV-cache) paths.
+
+Every weight-activation matmul goes through ``Numerics.dense``, so one
+switch runs the model in ``float``, ``abfp_packed`` or ``abfp_fused``
+numerics.  Norms, softmax, rotary embedding and the nonlinearities run in
+float32 (range-sensitive ops stay digital, as in the paper).
+
+The KV cache is a dict of tensors per layer, ``{"k", "v", "length"}`` plus
+``"k_scale"``/``"v_scale"`` for the int8 cache, and is UPDATED IN PLACE:
+a decode tick writes one slot per row instead of copying the whole cache
+(about 84 MB per tick for smollm-360m at capacity 4, max_len 512 in bf16).
+Rows whose ``n_tokens`` is 0 and padding lanes are never written.  Only
+append-only caches (``window == 0``) are ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.abfp import PackedWeight, QuantConfig
+from repro_torch.core.prng import fold_in, key_to_seed
+from repro_torch.kernels import ops
+from repro_torch.kernels.abfp_decode_fused import (
+    fused_qkv_packed,
+    fused_qkv_packed_ref,
+    fused_quantized_decode_attention,
+    quantized_decode_attention,
+)
+
+Tensor = torch.Tensor
+
+NEG = -1e30     # the mask constant of every attention core
+
+
+# ---------------------------------------------------------------------------
+# Numerics context: quant mode + PRNG threading for AMS noise
+# ---------------------------------------------------------------------------
+
+
+class Numerics:
+    """Per-pass numerics state.
+
+    Each ``dense`` call folds ``(base key, call counter)`` into its own
+    noise key; the caller folds the layer index into the base key first,
+    so streams are unique per (layer, call) and match the JAX package's.
+
+    ``plain=True`` runs every kernel's plain PyTorch version instead of its
+    wrapper, on any device: the whole-model reference a kernel run on the
+    card is compared with.
+    """
+
+    def __init__(self, quant: QuantConfig, key=None, plain: bool = False):
+        self.quant = quant
+        self._key = key
+        self.plain = plain
+        self._count = 0
+
+    def fold(self, idx: int) -> "Numerics":
+        key = None if self._key is None else fold_in(self._key, idx)
+        return Numerics(self.quant, key, self.plain)
+
+    def next_key(self):
+        """The noise key of the next dense call (None without noise), and
+        one step of the call counter."""
+        key = None
+        if self._key is not None and self.quant.noise_lsb > 0.0 \
+                and self.quant.mode != "float":
+            key = fold_in(self._key, self._count)
+        self._count += 1
+        return key
+
+    def dense(self, x: Tensor, w) -> Tensor:
+        return ops.dense(x, w, self.quant, self.next_key(), plain=self.plain)
+
+
+# ---------------------------------------------------------------------------
+# Norms and positions (digital float32)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return y.to(dtype)
+
+
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor,
+              eps: float = 1e-5) -> Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+def norm(x: Tensor, params: dict, kind: str) -> Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+def rope(x: Tensor, positions: Tensor, theta: float,
+         fraction: float) -> Tensor:
+    """x: (B, S, H, D); positions: (B, S).  ``fraction`` < 1 rotates only
+    the first fraction * D dims (partial rotary)."""
+    d = x.shape[-1]
+    rot_d = int(d * fraction)
+    rot_d -= rot_d % 2
+    if rot_d == 0:
+        return x
+    x_rot, x_pass = x[..., :rot_d], x[..., rot_d:]
+    half = rot_d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exps)
+    ang = positions[..., None].float() * freq                 # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1 = x_rot[..., :half].float()
+    x2 = x_rot[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k: Tensor, num_heads: int) -> Tensor:
+    """(B, S, KH, D) -> (B, S, H, D) for GQA/MQA."""
+    kh = k.shape[2]
+    if kh == num_heads:
+        return k
+    return torch.repeat_interleave(k, num_heads // kh, dim=2)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
+                     lengths: Tensor) -> Tensor:
+    """One-token attention against a float KV cache.
+
+    q: (B, 1, H, D); caches: (B, S_max, KH, D); ``lengths``: (B,) number of
+    valid cache positions.  Returns (B, 1, H, D) in q's dtype."""
+    _, _, h, d = q.shape
+    s_max = k_cache.shape[1]
+    k = _repeat_kv(k_cache, h).float()
+    v = _repeat_kv(v_cache, h).float()
+    qf = q.float() * (d ** -0.5)
+    s = torch.einsum("bshd,bchd->bhsc", qf, k)[:, :, 0]       # (B, H, S_max)
+    valid = torch.arange(s_max, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhc,bchd->bhd", p, v)
+    return out[:, None].to(q.dtype)
+
+
+def _kv_encode(v: Tensor):
+    """(..., D) -> int8 codes + per-vector bf16 max-abs scale (..., )."""
+    vf = v.float()
+    s = vf.abs().amax(dim=-1).to(torch.bfloat16).float()
+    s_safe = torch.where(s == 0.0, torch.ones_like(s), s)
+    codes = torch.clamp(torch.round(vf / s_safe[..., None] * 127.0), -127, 127)
+    return codes.to(torch.int8), s.to(torch.bfloat16)
+
+
+def _kv_decode(codes: Tensor, scales: Tensor, dtype) -> Tensor:
+    """int8 codes + scales -> the dequantized cache in ``dtype``."""
+    return (codes.float() * (scales.float() / 127.0)[..., None]).to(dtype)
+
+
+def chunk_cache_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
+                          q_pos: Tensor) -> Tensor:
+    """S-query attention against a float cache buffer; query (b, t) attends
+    cache slots <= q_pos[b, t].  q: (B, S, H, D) -> (B, S, H, D)."""
+    _, _, h, d = q.shape
+    s_max = k_cache.shape[1]
+    k = _repeat_kv(k_cache, h).float()
+    v = _repeat_kv(v_cache, h).float()
+    qf = q.float() * (d ** -0.5)
+    sc = torch.einsum("bshd,bchd->bhsc", qf, k)               # (B, H, S, C)
+    mask = torch.arange(s_max, device=q.device)[None, None, :] \
+        <= q_pos[:, :, None]
+    sc = torch.where(mask[:, None], sc, torch.full_like(sc, NEG))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhsc,bchd->bhsd", p, v)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def quantized_chunk_attention(q: Tensor, k_codes: Tensor, k_scale: Tensor,
+                              v_codes: Tensor, v_scale: Tensor, *,
+                              q_pos: Tensor) -> Tensor:
+    """Chunked-prefill attention directly on int8 KV codes: the S-query
+    form of ``quantized_decode_attention`` (scale factored out of both
+    contractions)."""
+    b, s, h, d = q.shape
+    s_max, kh = k_codes.shape[1], k_codes.shape[2]
+    rep = h // kh
+    qg = (q.float() * (d ** -0.5)).reshape(b, s, kh, rep, d)
+    sc = torch.einsum("bsgrd,bcgd->bgrsc", qg, k_codes.float())
+    sc = sc * (k_scale.float().transpose(1, 2)[:, :, None, None, :] / 127.0)
+    mask = torch.arange(s_max, device=q.device)[None, None, :] \
+        <= q_pos[:, :, None]                                  # (B, S, C)
+    sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG))
+    p = torch.softmax(sc, dim=-1)
+    pv = p * (v_scale.float().transpose(1, 2)[:, :, None, None, :] / 127.0)
+    out = torch.einsum("bgrsc,bcgd->bsgrd", pv, v_codes.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _append_attend_one(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict):
+    """Append ONE token's K/V per row (in place) and attend: the decode
+    tick core.  q: (B, 1, H, D); k, v: (B, 1, KH, D).  Returns (out,
+    kv_cache) with the cache updated in place."""
+    b = q.shape[0]
+    length = kv_cache["length"]
+    bidx = torch.arange(b, device=q.device)
+    slot = length.long()
+    if "k_scale" in kv_cache:
+        kc, ks = _kv_encode(k[:, 0])
+        vc, vs = _kv_encode(v[:, 0])
+        kv_cache["k"][bidx, slot] = kc
+        kv_cache["v"][bidx, slot] = vc
+        kv_cache["k_scale"][bidx, slot] = ks
+        kv_cache["v_scale"][bidx, slot] = vs
+        out = quantized_decode_attention(
+            q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+            kv_cache["v_scale"], lengths=length + 1)
+    else:
+        kv_cache["k"][bidx, slot] = k[:, 0].to(kv_cache["k"].dtype)
+        kv_cache["v"][bidx, slot] = v[:, 0].to(kv_cache["v"].dtype)
+        out = decode_attention(q, kv_cache["k"], kv_cache["v"],
+                               lengths=length + 1)
+    kv_cache["length"] = length + 1
+    return out, kv_cache
+
+
+def chunk_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict, *,
+                        n_tokens: Tensor):
+    """Append up to S new K/V per row (in place) and attend all S chunk
+    queries: the chunked-prefill core (append-only cache).
+
+    q: (B, S, H, D); k, v: (B, S, KH, D); ``n_tokens``: (B,) — tokens
+    0..n-1 of row b's chunk are real, the rest padding.  Padding lanes and
+    rows with n_tokens == 0 write nothing, so their cache slots stay
+    bit-for-bit unchanged; this also covers the drop lane past the buffer
+    when ``length + n_tokens == S_max``.  Returns (out (B, S, H, D),
+    kv_cache)."""
+    b, s = q.shape[:2]
+    length = kv_cache["length"]
+    s_max = kv_cache["k"].shape[1]
+    offs = torch.arange(s, device=q.device)[None, :]
+    q_pos = length[:, None] + offs                            # (B, S)
+    valid = (offs < n_tokens[:, None]) & (q_pos < s_max)
+    bi, ti = valid.nonzero(as_tuple=True)
+    pos = q_pos[bi, ti].long()
+
+    def scatter(buf, vals):
+        buf[bi, pos] = vals[bi, ti].to(buf.dtype)
+
+    if "k_scale" in kv_cache:
+        kc, ks = _kv_encode(k)
+        vc, vs = _kv_encode(v)
+        scatter(kv_cache["k"], kc)
+        scatter(kv_cache["v"], vc)
+        scatter(kv_cache["k_scale"], ks)
+        scatter(kv_cache["v_scale"], vs)
+        out = quantized_chunk_attention(
+            q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+            kv_cache["v_scale"], q_pos=q_pos)
+    else:
+        scatter(kv_cache["k"], k)
+        scatter(kv_cache["v"], v)
+        out = chunk_cache_attention(q, kv_cache["k"], kv_cache["v"],
+                                    q_pos=q_pos)
+    kv_cache["length"] = length + n_tokens.to(length.dtype)
+    return out, kv_cache
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections through Numerics)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, mcfg, device) -> dict:
+    d, h, kh = mcfg.d_model, mcfg.num_heads, mcfg.num_kv_heads
+    hd = mcfg.resolved_head_dim
+    std = d ** -0.5
+
+    def init(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * std
+                ).to(mcfg.param_dtype)
+
+    return {"wq": init(d, h * hd), "wk": init(d, kh * hd),
+            "wv": init(d, kh * hd), "wo": init(h * hd, d)}
+
+
+def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
+                                  positions, kv_cache):
+    """One fused-kernel decode tick of ``attention_block``: ONE fused QKV
+    launch and the int8-KV decode-attention kernel in place of the three
+    projection dispatches and the plain attention.
+
+    PRNG contract: the fused launch consumes the same three (key, counter)
+    pairs as three ``Numerics.dense`` calls for wq, wk, wv, so wo and every
+    later layer see an unchanged stream."""
+    b, s, _ = x.shape
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    seeds = [key_to_seed(nx.next_key()) for _ in range(3)]
+    pws = (params["wq"], params["wk"], params["wv"])
+    if nx.plain:
+        yq, yk, yv = fused_qkv_packed_ref(x, pws, nx.quant, seeds)
+    else:
+        yq, yk, yv = fused_qkv_packed(x, pws, nx.quant, seeds,
+                                      qkv=params.get("qkv"))
+    q = yq.reshape(b, s, h, hd)
+    k = yk.reshape(b, s, kh, hd)
+    v = yv.reshape(b, s, kh, hd)
+    if mcfg.pos_type == "rope":
+        q = rope(q, positions, mcfg.rope_theta, mcfg.rope_fraction)
+        k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
+
+    length = kv_cache["length"]
+    bidx = torch.arange(b, device=x.device)
+    slot = length.long()
+    kc, ks = _kv_encode(k[:, 0])
+    vc, vs = _kv_encode(v[:, 0])
+    kv_cache["k"][bidx, slot] = kc
+    kv_cache["v"][bidx, slot] = vc
+    kv_cache["k_scale"][bidx, slot] = ks
+    kv_cache["v_scale"][bidx, slot] = vs
+    attend = (quantized_decode_attention if nx.plain
+              else fused_quantized_decode_attention)
+    out = attend(q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+                 kv_cache["v_scale"], lengths=length + 1)
+    kv_cache["length"] = length + 1
+    return nx.dense(out.reshape(b, s, h * hd), params["wo"]), kv_cache
+
+
+def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens) -> bool:
+    """Does this call take the fused decode path?  ``abfp_fused`` mode, a
+    single-token decode tick, an int8 KV cache and all three projection
+    weights packed; anything else runs the packed chain."""
+    return (nx.quant.mode == "abfp_fused"
+            and s == 1 and n_tokens is None
+            and "k_scale" in kv_cache
+            and all(isinstance(params[w], PackedWeight)
+                    for w in ("wq", "wk", "wv")))
+
+
+def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
+                    positions: Tensor, kv_cache: dict,
+                    n_tokens: Optional[Tensor] = None):
+    """Self-attention over a KV cache.  Returns (output, kv_cache).
+
+    With S == 1 and ``n_tokens`` None this is a decode tick; otherwise x
+    holds a prompt chunk of which ``n_tokens`` (B,) tokens are real per row
+    (None == all S), appended and attended in one pass."""
+    if kv_cache is None:
+        raise NotImplementedError(
+            "repro_torch ports the KV-cache attention paths only")
+    b, s, _ = x.shape
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    if _use_fused_decode(params, nx, s, kv_cache, n_tokens):
+        return _fused_decode_attention_block(
+            params, x, mcfg, nx, positions=positions, kv_cache=kv_cache)
+
+    q = nx.dense(x, params["wq"]).reshape(b, s, h, hd)
+    k = nx.dense(x, params["wk"]).reshape(b, s, kh, hd)
+    v = nx.dense(x, params["wv"]).reshape(b, s, kh, hd)
+    if mcfg.pos_type == "rope":
+        q = rope(q, positions, mcfg.rope_theta, mcfg.rope_fraction)
+        k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
+    if s == 1 and n_tokens is None:
+        out, kv_cache = _append_attend_one(q, k, v, kv_cache)
+    else:
+        n = n_tokens if n_tokens is not None else torch.full(
+            (b,), s, dtype=torch.int32, device=x.device)
+        out, kv_cache = chunk_append_attend(q, k, v, kv_cache, n_tokens=n)
+    return nx.dense(out.reshape(b, s, h * hd), params["wo"]), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu / geglu / gelu)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, mcfg, device) -> dict:
+    d, f = mcfg.d_model, mcfg.d_ff
+
+    def init(std, *shape):
+        return (torch.randn(shape, generator=gen, device=device) * std
+                ).to(mcfg.param_dtype)
+
+    p = {"wi": init(d ** -0.5, d, f), "wo": init(f ** -0.5, f, d)}
+    if mcfg.mlp_type in ("swiglu", "geglu"):
+        p["wg"] = init(d ** -0.5, d, f)
+    return p
+
+
+def mlp_block(params: dict, x: Tensor, mcfg, nx: Numerics) -> Tensor:
+    h = nx.dense(x, params["wi"])
+    if mcfg.mlp_type == "swiglu":
+        g = nx.dense(x, params["wg"])
+        h = F.silu(g.float()).to(h.dtype) * h
+    elif mcfg.mlp_type == "geglu":
+        g = nx.dense(x, params["wg"])
+        h = F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return nx.dense(h, params["wo"])

@@ -1,0 +1,247 @@
+"""The dense decoder LM: parameters, decode state, decode tick, chunked
+prefill and token sampling.
+
+Params and decode state are plain dicts and lists of tensors, one list
+entry per layer (the JAX package stacks layers on a leading axis and scans;
+the port loops).  The layer index folded into the noise key is the layer's
+position, ``g * len(pattern) + j`` in the JAX package, which for the dense
+pattern ``("attention",)`` is the same number.
+
+Forward only, KV-cache paths only: ``decode_step`` (one token per row) and
+``prefill`` (a prompt chunk per row) update the decode state in place
+(see ``models.layers``) and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.abfp import QuantConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models.layers import (
+    Numerics,
+    attention_block,
+    init_attention,
+    init_mlp,
+    mlp_block,
+    norm,
+)
+
+Tensor = torch.Tensor
+
+LM_HEAD_FOLD = 999_983
+
+
+def check_supported(mcfg: ModelConfig) -> None:
+    """Raise unless ``mcfg`` is a dense decoder this slice of the port runs:
+    full attention only, no experts, no recurrent blocks, no encoder."""
+    if (mcfg.family != "dense" or mcfg.block_pattern or mcfg.num_experts
+            or mcfg.is_encoder_decoder or mcfg.pos_type != "rope"
+            or mcfg.window_size):
+        raise NotImplementedError(
+            f"repro_torch serves dense rope decoders only; {mcfg.name} is "
+            f"family={mcfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _norm_params(mcfg, device) -> dict:
+    if mcfg.norm_type == "layernorm":
+        return {"scale": torch.ones(mcfg.d_model, device=device),
+                "bias": torch.zeros(mcfg.d_model, device=device)}
+    return {"scale": torch.zeros(mcfg.d_model, device=device)}
+
+
+def init_params(seed: int, mcfg: ModelConfig,
+                device: DeviceLike = None) -> dict:
+    """Random parameters from ``seed``: the JAX package's shapes, dtypes
+    and standard deviations (not its values: the generators differ)."""
+    check_supported(mcfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    d = mcfg.d_model
+    params = {
+        "embed": (torch.randn(mcfg.vocab_size, d, generator=gen, device=dev)
+                  * d ** -0.5).to(mcfg.param_dtype),
+        "final_norm": _norm_params(mcfg, dev),
+        "layers": [],
+    }
+    for _ in range(mcfg.num_layers):
+        layer = {"norm1": _norm_params(mcfg, dev),
+                 "attn": init_attention(gen, mcfg, dev),
+                 "norm2": _norm_params(mcfg, dev)}
+        if mcfg.d_ff:
+            layer["mlp"] = init_mlp(gen, mcfg, dev)
+        params["layers"].append(layer)
+    if not mcfg.tie_embeddings:
+        params["lm_head"] = (torch.randn(d, mcfg.vocab_size, generator=gen,
+                                         device=dev)
+                             * d ** -0.5).to(mcfg.param_dtype)
+    return params
+
+
+def param_count(params) -> int:
+    """Number of scalar parameters in an (unpacked) param tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel() if isinstance(params, torch.Tensor) else 0
+
+
+# ---------------------------------------------------------------------------
+# Layers, embedding, head
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
+                 positions: Tensor, state: dict,
+                 n_tokens: Optional[Tensor] = None):
+    """One pre-norm residual layer; returns (x, state)."""
+    h = norm(x, lp["norm1"], mcfg.norm_type)
+    attn_out, kv = attention_block(lp["attn"], h, mcfg, nx,
+                                   positions=positions, kv_cache=state["kv"],
+                                   n_tokens=n_tokens)
+    x = x + attn_out
+    h = norm(x, lp["norm2"], mcfg.norm_type)
+    if mcfg.d_ff:
+        x = x + mlp_block(lp["mlp"], h, mcfg, nx)
+    return x, {"kv": kv}
+
+
+def _embed(params, tokens: Tensor, mcfg: ModelConfig) -> Tensor:
+    x = params["embed"][tokens.long()].to(mcfg.activation_dtype)
+    if mcfg.embed_scale:
+        x = x * torch.tensor(mcfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
+    # An explicit "lm_head" wins even for tied embeddings: packing inserts
+    # the pre-quantized embed.T there.
+    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return nx.dense(x, w).float()
+
+
+def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
+    for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
+        x, state["layers"][li] = _apply_layer(
+            lp, x, mcfg, nx.fold(li), positions=positions, state=ls,
+            n_tokens=n_tokens)
+    return norm(x, params["final_norm"], mcfg.norm_type)
+
+
+# ---------------------------------------------------------------------------
+# Decode state, decode tick, chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(mcfg: ModelConfig, batch: int, max_len: int,
+                      device: DeviceLike = None) -> dict:
+    """Per-layer KV caches of ``max_len`` slots for ``batch`` rows: int8
+    codes plus bf16 per-(token, head) scales with ``mcfg.kv_quant``, else
+    the activation dtype.  Unpaged."""
+    check_supported(mcfg)
+    dev = resolve_device(device)
+    kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
+
+    def one():
+        shape = (batch, max_len, kh, hd)
+        kv = {"length": torch.zeros(batch, dtype=torch.int32, device=dev)}
+        if mcfg.kv_quant:
+            kv["k"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            kv["v"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            kv["k_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                        device=dev)
+            kv["v_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                        device=dev)
+        else:
+            kv["k"] = torch.zeros(shape, dtype=mcfg.activation_dtype,
+                                  device=dev)
+            kv["v"] = torch.zeros(shape, dtype=mcfg.activation_dtype,
+                                  device=dev)
+        return {"kv": kv}
+
+    return {"layers": [one() for _ in range(mcfg.num_layers)],
+            "position": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def clone_state(state):
+    """A deep copy of a decode state (the passes update it in place)."""
+    if isinstance(state, dict):
+        return {k: clone_state(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [clone_state(v) for v in state]
+    return state.clone()
+
+
+def decode_step(params: dict, state: dict, token: Tensor, mcfg: ModelConfig,
+                nx: Optional[Numerics] = None):
+    """One decode tick.  token: (B,) int.  Returns (logits (B, V) f32,
+    state), the state updated in place.
+
+    In ``abfp_fused`` numerics every layer runs the fused QKV and int8-KV
+    attention kernels (``models.layers._fused_decode_attention_block``)."""
+    nx = nx or Numerics(QuantConfig(mode="float"))
+    positions = state["position"][:, None]                      # (B, 1)
+    x = _embed(params, token[:, None], mcfg)
+    x = _run_layers(params, state, x, mcfg, nx, positions)
+    logits = _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
+    state["position"] = state["position"] + 1
+    return logits, state
+
+
+def prefill(params: dict, state: dict, tokens: Tensor, n_tokens: Tensor,
+            mcfg: ModelConfig, nx: Optional[Numerics] = None):
+    """Advance every row by a prompt chunk in one pass.
+
+    tokens: (B, S) int (padding values arbitrary); ``n_tokens``: (B,) —
+    tokens[b, :n_tokens[b]] are real.  A row with n_tokens == 0 is left
+    unchanged.  Returns (logits (B, V) f32 at each row's LAST real token,
+    state), the state updated in place."""
+    nx = nx or Numerics(QuantConfig(mode="float"))
+    b, s = tokens.shape[:2]
+    dev = tokens.device
+    positions = state["position"][:, None] \
+        + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    n_tokens = n_tokens.to(device=dev, dtype=torch.int32)
+    x = _embed(params, tokens, mcfg)
+    x = _run_layers(params, state, x, mcfg, nx, positions, n_tokens)
+    last = torch.clamp(n_tokens.long() - 1, 0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last][:, None]     # (B, 1, d)
+    logits = _lm_head(params, x_last, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
+    state["position"] = state["position"] + n_tokens
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_tokens(logits: Tensor, temperatures, uids, token_idxs,
+                  seed: int) -> Tensor:
+    """One next token per row.  Rows with temperature 0 take the argmax
+    (first occurrence on ties, as ``np.argmax``); rows with temperature > 0
+    draw from the temperature-scaled softmax with a generator keyed by
+    ``(seed, uid, token_idx)``, so a draw does not depend on how requests
+    share a batch.  ``temperatures``/``uids``/``token_idxs`` are host
+    sequences of length B.  Returns (B,) int32 on logits' device."""
+    out = torch.argmax(logits, dim=-1).to(torch.int32)
+    for i, t in enumerate(np.asarray(temperatures, np.float32)):
+        if t <= 0:
+            continue
+        ss = np.random.SeedSequence(
+            (int(seed), int(uids[i]), int(token_idxs[i])))
+        gen = torch.Generator(device=logits.device).manual_seed(
+            int(ss.generate_state(1, np.uint64)[0] >> 1))
+        p = torch.softmax(logits[i].double() / float(t), dim=-1)
+        out[i] = torch.multinomial(p, 1, generator=gen)[0].to(torch.int32)
+    return out

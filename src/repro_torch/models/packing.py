@@ -1,0 +1,73 @@
+"""Whole-model ABFP weight packing: quantize once, serve forever.
+
+``pack_model_params`` walks a param tree and replaces every dense weight
+(the operand of ``Numerics.dense``) with a ``PackedWeight`` — int8 tile
+codes plus bf16 per-(tile, column) scales — so serving never re-derives
+weight scales or codes.  In ``abfp_fused`` mode the packs also carry the
+per-tile ADC gains, and each attention layer gains a ``"qkv"`` entry: wq,
+wk and wv concatenated once for the fused QKV kernel
+(``kernels.abfp_decode_fused.concat_qkv``).
+
+Embedding tables, norm scales and biases stay in their original dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.abfp import PackedWeight, QuantConfig, pack_abfp_weight
+from repro_torch.kernels.abfp_decode_fused import PackedQKV, concat_qkv
+
+# Leaf names that feed Numerics.dense as the weight operand.
+DENSE_WEIGHT_NAMES = frozenset({
+    "wq", "wk", "wv", "wo", "wi", "wg",
+    "w_gate", "w_in", "w_rg", "w_ig", "w_out",
+    "w_up", "w_down", "w_if", "w_x",
+    "lm_head",
+})
+
+
+def pack_model_params(params: dict, cfg: QuantConfig,
+                      mcfg: Any = None) -> dict:
+    """A copy of ``params`` with every dense weight packed at ``cfg``'s
+    tile width and bit widths.  ``mcfg`` (optional) enables packing the
+    tied LM head (``embed.T`` under ``"lm_head"``)."""
+    adaptive = cfg.mode == "abfp_fused"
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            out = {k: walk(v, k) for k, v in node.items()}
+            if adaptive and all(isinstance(out.get(w), PackedWeight)
+                                for w in ("wq", "wk", "wv")):
+                out["qkv"] = concat_qkv(
+                    (out["wq"], out["wk"], out["wv"]), cfg)
+            return out
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if (name in DENSE_WEIGHT_NAMES and isinstance(node, torch.Tensor)
+                and node.ndim == 2):
+            return pack_abfp_weight(node, cfg, adaptive_gain=adaptive)
+        return node
+
+    packed = walk(params)
+    if getattr(mcfg, "tie_embeddings", False) and "lm_head" not in params:
+        packed["lm_head"] = pack_abfp_weight(params["embed"].T, cfg,
+                                             adaptive_gain=adaptive)
+    return packed
+
+
+def packed_param_bytes(params) -> int:
+    """Device bytes of a (possibly partly) packed param tree, counting each
+    PackedWeight's canonical form (codes, scales, gains) as the JAX package
+    does; the kernel-layout copies are not counted."""
+    if isinstance(params, dict):
+        return sum(packed_param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(packed_param_bytes(v) for v in params)
+    if isinstance(params, PackedWeight):
+        return params.nbytes()
+    if isinstance(params, PackedQKV):
+        return 0
+    return params.numel() * params.element_size()

@@ -1,0 +1,163 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
+marker and skips where ``torch.cuda.is_available()`` is false.  This file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Bars: kernels 1 and 2 equal their plain versions bit for bit in bf16,
+except at most one element in each started 1,000 that is one bf16 ULP off
+(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
+from repro_torch.kernels import ops
+from repro_torch.kernels.abfp_decode_fused import (
+    fused_qkv_packed,
+    fused_qkv_packed_ref,
+    fused_quantized_decode_attention,
+    quantized_decode_attention,
+)
+from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul_packed,
+    abfp_matmul_packed_ref,
+)
+
+CFG = QuantConfig(mode="abfp_fused", tile_width=128, gain=8.0, noise_lsb=0.5)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _bf16_match(got, want):
+    g = got.cpu().view(torch.int16).numpy().view(np.uint16).astype(np.int32)
+    w = want.cpu().view(torch.int16).numpy().view(np.uint16).astype(np.int32)
+    diff = g != w
+    assert np.all(np.abs(g[diff] - w[diff]) == 1)
+    assert int(diff.sum()) <= -(-g.size // 1000)
+
+
+def _weight(rng, k, n):
+    return torch.from_numpy((rng.laplace(size=(k, n)) * 0.08)
+                            .astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 960, 320), (4, 960, 2560),
+                                   (40, 2560, 960), (512, 960, 960)])
+def test_cuda_packed_matmul_matches_plain(m, k, n):
+    _need_cuda()
+    rng = np.random.default_rng(m)
+    pw = pack_abfp_weight(_weight(rng, k, n), CFG, adaptive_gain=True)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    ops.reset_launch_counts()
+    got = abfp_matmul_packed(x.to(torch.bfloat16), pw, CFG, 99)
+    want = abfp_matmul_packed_ref(x.to(torch.bfloat16), pw, CFG, 99)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["abfp_matmul_packed"] == 1
+    _bf16_match(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_qkv_matches_plain():
+    _need_cuda()
+    rng = np.random.default_rng(1)
+    pws = [pack_abfp_weight(_weight(rng, 960, c), CFG, adaptive_gain=True)
+           for c in (960, 320, 320)]
+    x = torch.from_numpy(rng.normal(size=(4, 960)).astype(np.float32)).cuda()
+    got = fused_qkv_packed(x, pws, CFG, (1, -2, 3))
+    for g, w in zip(got, fused_qkv_packed_ref(x, pws, CFG, (1, -2, 3))):
+        _bf16_match(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_matches_plain(dtype):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(4, 1, 15, 64, device="cuda", generator=g).to(dtype)
+    kc = torch.randint(-127, 128, (4, 512, 5, 64), dtype=torch.int8,
+                       device="cuda", generator=g)
+    vc = torch.randint(-127, 128, (4, 512, 5, 64), dtype=torch.int8,
+                       device="cuda", generator=g)
+    ks = torch.rand(4, 512, 5, device="cuda", generator=g).to(torch.bfloat16)
+    vs = torch.rand(4, 512, 5, device="cuda", generator=g).to(torch.bfloat16)
+    lengths = torch.tensor([1, 512, 9, 333], dtype=torch.int32, device="cuda")
+    got = fused_quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.5])
+@pytest.mark.parametrize("m,k,n,tile", [(40, 200, 136, 32), (3, 300, 256, 128)])
+def test_cuda_packed_matmul_without_gains_matches_plain(m, k, n, tile, noise):
+    """The abfp_packed path: scalar gain, ragged K and N, M across
+    auto_bm's 8-row steps, noise on and off."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_packed", tile_width=tile, gain=4.0,
+                      noise_lsb=noise)
+    rng = np.random.default_rng(k + m)
+    pw = pack_abfp_weight(_weight(rng, k, n), cfg)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    seed = 5 if noise else None
+    _bf16_match(abfp_matmul_packed(x, pw, cfg, seed),
+                abfp_matmul_packed_ref(x, pw, cfg, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_without_gqa_matches_plain():
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 1, 4, 32, device="cuda", generator=g)
+    kc = torch.randint(-127, 128, (2, 40, 4, 32), dtype=torch.int8,
+                       device="cuda", generator=g)
+    ks = torch.rand(2, 40, 4, device="cuda", generator=g).to(torch.bfloat16)
+    lengths = torch.tensor([40, 3], dtype=torch.int32, device="cuda")
+    got = fused_quantized_decode_attention(q, kc, ks, kc, ks, lengths=lengths)
+    want = quantized_decode_attention(q, kc, ks, kc, ks, lengths=lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "abfp_packed", "abfp_fused"])
+def test_cuda_engine_serves_the_smoke_config(mode):
+    """Every mode serves on the card; the ABFP modes launch their kernels."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    mcfg = dataclasses.replace(smoke_config("smollm-360m"),
+                               kv_quant=mode == "abfp_fused")
+    quant = (QuantConfig(mode="float") if mode == "float" else
+             QuantConfig(mode=mode, tile_width=32, gain=8.0, noise_lsb=0.5))
+    eng = ServingEngine(init_params(0, mcfg, device="cuda"), mcfg,
+                        capacity=2, max_len=64, quant=quant, device="cuda")
+    ops.reset_launch_counts()
+    done = eng.run([Request(uid=i, prompt=list(range(1, 3 + 7 * i)),
+                            max_new_tokens=4) for i in range(3)])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 4 for r in done)
+    counts = ops.launch_counts()
+    if mode == "float":
+        assert sum(counts.values()) == 0
+    else:
+        assert counts["abfp_matmul_packed"] > 0
+        fused = mode == "abfp_fused"
+        assert (counts["fused_qkv_packed"] > 0) == fused
+        assert (counts["fused_quantized_decode_attention"] > 0) == fused

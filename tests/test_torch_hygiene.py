@@ -1,0 +1,91 @@
+"""The port stands alone and never runs on the CPU by accident.
+
+In a fresh interpreter, importing every ``repro_torch`` module and
+``chip_smoke`` (without running it) must load no ``jax``/``jaxlib``, no
+module of the JAX package ``repro`` and no ``ml_dtypes``.  On a machine
+without CUDA, the entry points called without ``device`` raise instead of
+running on the CPU.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.core.abfp import QuantConfig
+from repro_torch.models import init_decode_state, init_params
+from repro_torch.serving import ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc["bad"] == []
+    for mod in ("repro_torch.kernels.abfp_matmul",
+                "repro_torch.kernels.abfp_decode_fused",
+                "repro_torch.serving.engine", "repro_torch.launch.serve",
+                "repro_torch.models.convert"):
+        assert mod in doc["modules"]
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+
+
+def test_entry_points_without_device_raise_on_a_cpu_machine():
+    _no_cuda()
+    mcfg = smoke_config("smollm-360m")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(0, mcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_decode_state(mcfg, 2, 16)
+    params = init_params(0, mcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(params, mcfg, capacity=1,
+                      quant=QuantConfig(mode="float"))
+
+
+def test_serve_cli_without_device_raises_on_a_cpu_machine():
+    _no_cuda()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--requests",
+         "1"], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    _no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""

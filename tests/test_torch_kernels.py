@@ -1,0 +1,225 @@
+"""The port's kernel plain versions against the JAX Pallas kernels.
+
+Each plain PyTorch version (``repro_torch.kernels``) runs on the CPU
+beside the JAX kernel it stands for, which runs in Pallas interpret mode
+as the JAX package's own tests run it.  Inputs are made with numpy from a
+seed and handed to both.
+
+Bars (stated per test):
+  * kernels 1 and 2 (packed ABFP matmul, fused QKV): bf16 outputs equal
+    bit for bit, except at most one element in 1,000 that differs by
+    exactly one bf16 ULP (f32 sum order; the count is printed);
+  * kernel 3 (int8-KV decode attention): rtol 1e-5, atol 1e-6 in f32,
+    because the softmax sums run in another order.
+
+The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.abfp import QuantConfig as JQuantConfig
+from repro.core.abfp import pack_abfp_weight as j_pack
+from repro.kernels.abfp_decode_fused import (
+    fused_qkv_packed_pallas,
+)
+from repro.kernels.abfp_decode_fused import (
+    fused_quantized_decode_attention as j_attn,
+)
+from repro.kernels.abfp_matmul import abfp_matmul_packed_pallas
+from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
+from repro_torch.kernels import ops
+from repro_torch.kernels.abfp_decode_fused import (
+    concat_qkv,
+    fused_qkv_packed,
+    fused_qkv_packed_ref,
+    fused_quantized_decode_attention,
+    quantized_decode_attention,
+)
+from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul_packed,
+    abfp_matmul_packed_ref,
+)
+
+
+def bf16_bits(a) -> np.ndarray:
+    """bf16 values (JAX array or torch tensor) as int32 bit patterns."""
+    if isinstance(a, torch.Tensor):
+        a = a.to(torch.bfloat16).view(torch.int16).numpy()
+        return a.view(np.uint16).astype(np.int32)
+    return np.asarray(a).view(np.uint16).astype(np.int32)
+
+
+def assert_bf16_match(got, want, what=""):
+    """Equal bits, except <= 1 in each started 1,000 elements one bf16 ULP
+    apart."""
+    g, w = bf16_bits(got), bf16_bits(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    diff = g != w
+    n_diff = int(diff.sum())
+    print(f"{what}: {n_diff}/{g.size} one-ULP flips")
+    if n_diff:
+        assert np.all(np.abs(g[diff] - w[diff]) == 1), \
+            f"{what}: a difference larger than one bf16 ULP"
+    assert n_diff <= -(-g.size // 1000), f"{what}: {n_diff}/{g.size} flips"
+
+
+def _cfgs(tile, noise, gain):
+    mode = "abfp_fused" if gain > 1 else "abfp_packed"
+    return (JQuantConfig(mode=mode, tile_width=tile, gain=gain,
+                         noise_lsb=noise),
+            QuantConfig(mode=mode, tile_width=tile, gain=gain,
+                        noise_lsb=noise))
+
+
+def _weight(rng, k, n):
+    return (rng.laplace(size=(k, n)) * 0.08).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: packed ABFP matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gains", [False, True])
+@pytest.mark.parametrize("noise", [0.0, 0.5])
+@pytest.mark.parametrize("tile,k,n", [(32, 200, 136), (128, 300, 136)])
+@pytest.mark.parametrize("m", [1, 4, 8, 40])
+def test_packed_matmul_matches_pallas(m, tile, k, n, noise, gains):
+    rng = np.random.default_rng(1000 * m + k + tile)
+    jcfg, cfg = _cfgs(tile, noise, 8.0 if gains else 1.0)
+    x = (rng.normal(size=(m, k)) * 0.7).astype(np.float32)
+    w = _weight(rng, k, n)
+    seed = 1234567 if noise else None
+    want = abfp_matmul_packed_pallas(
+        jnp.asarray(x), j_pack(jnp.asarray(w), jcfg, adaptive_gain=gains),
+        jcfg, None if seed is None else jnp.int32(seed))
+    pw = pack_abfp_weight(torch.from_numpy(w), cfg, adaptive_gain=gains)
+    got = abfp_matmul_packed_ref(torch.from_numpy(x), pw, cfg, seed)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert_bf16_match(got, want, f"m={m} tile={tile} noise={noise} "
+                                 f"gains={gains}")
+
+
+def test_packed_matmul_batched_input_and_negative_seed():
+    """Leading axes flatten into rows; an int32 seed below 0 wraps the
+    same way in both hashes."""
+    rng = np.random.default_rng(7)
+    jcfg, cfg = _cfgs(32, 0.5, 8.0)
+    x = rng.normal(size=(2, 3, 96)).astype(np.float32)
+    w = _weight(rng, 96, 40)
+    want = abfp_matmul_packed_pallas(
+        jnp.asarray(x), j_pack(jnp.asarray(w), jcfg, adaptive_gain=True),
+        jcfg, jnp.int32(-5))
+    pw = pack_abfp_weight(torch.from_numpy(w), cfg, adaptive_gain=True)
+    got = abfp_matmul_packed_ref(torch.from_numpy(x), pw, cfg, -5)
+    assert got.shape == (2, 3, 40)
+    assert_bf16_match(got, want, "batched")
+
+
+def test_noise_requires_seed():
+    _, cfg = _cfgs(32, 0.5, 1.0)
+    pw = pack_abfp_weight(torch.ones(32, 8), cfg)
+    with pytest.raises(ValueError, match="seed"):
+        abfp_matmul_packed_ref(torch.ones(1, 32), pw, cfg, None)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: fused QKV
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gains", [False, True])
+@pytest.mark.parametrize("m", [1, 8])
+def test_fused_qkv_matches_pallas(m, gains):
+    rng = np.random.default_rng(50 + m)
+    jcfg, cfg = _cfgs(32, 0.5, 8.0 if gains else 1.0)
+    k = 160
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    ws = [_weight(rng, k, c) for c in (160, 64, 64)]
+    seeds = (11, -22, 33)
+    want = fused_qkv_packed_pallas(
+        jnp.asarray(x),
+        tuple(j_pack(jnp.asarray(w), jcfg, adaptive_gain=gains) for w in ws),
+        jcfg, tuple(jnp.int32(s) for s in seeds))
+    pws = [pack_abfp_weight(torch.from_numpy(w), cfg, adaptive_gain=gains)
+           for w in ws]
+    got = fused_qkv_packed_ref(torch.from_numpy(x), pws, cfg, seeds)
+    for name, g, wnt in zip("qkv", got, want):
+        assert_bf16_match(g, wnt, f"fused {name} m={m} gains={gains}")
+
+
+def test_concat_qkv_layout():
+    """The pack-time concatenation keeps each weight's columns and gains
+    side by side, in kernel layout."""
+    rng = np.random.default_rng(3)
+    _, cfg = _cfgs(32, 0.5, 8.0)
+    pws = [pack_abfp_weight(torch.from_numpy(_weight(rng, 96, c)), cfg,
+                            adaptive_gain=True) for c in (96, 32, 32)]
+    qkv = concat_qkv(pws, cfg)
+    assert qkv.njs == (1, 1, 1)
+    assert qkv.kcodes.shape == (96 // 4, 384)
+    assert torch.equal(qkv.scales[:, 128:256], pws[1].scales)
+    assert torch.equal(qkv.gains[:, 2], pws[2].gains)
+    # Word (q, c) packs codes rows 4q..4q+3 of column c, low byte first.
+    b = qkv.kcodes.view(torch.int8).reshape(24, 384, 4)
+    assert torch.equal(b.permute(0, 2, 1).reshape(96, 384)[:, :128],
+                       pws[0].codes)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: int8-KV decode attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rep", [1, 3])
+def test_decode_attention_matches_pallas(rep):
+    rng = np.random.default_rng(rep)
+    b, s_max, kh, d = 4, 24, 2, 16
+    h = kh * rep
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    kc = rng.integers(-127, 128, size=(b, s_max, kh, d), dtype=np.int8)
+    vc = rng.integers(-127, 128, size=(b, s_max, kh, d), dtype=np.int8)
+    ks = np.abs(rng.normal(size=(b, s_max, kh))).astype(np.float32)
+    vs = np.abs(rng.normal(size=(b, s_max, kh))).astype(np.float32)
+    lengths = np.array([1, s_max, 7, 13], np.int32)
+    want = j_attn(jnp.asarray(q), jnp.asarray(kc),
+                  jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vc),
+                  jnp.asarray(vs, jnp.bfloat16),
+                  lengths=jnp.asarray(lengths))
+    t = torch.from_numpy
+    got = quantized_decode_attention(
+        t(q), t(kc), t(ks).to(torch.bfloat16), t(vc),
+        t(vs).to(torch.bfloat16), lengths=t(lengths))
+    assert got.dtype == torch.float32 and got.shape == (b, 1, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# On the CPU the wrappers run the plain versions and launch nothing
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_calls_launch_no_kernel():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    _, cfg = _cfgs(32, 0.5, 8.0)
+    pws = [pack_abfp_weight(torch.from_numpy(_weight(rng, 64, c)), cfg,
+                            adaptive_gain=True) for c in (64, 32, 32)]
+    x = torch.from_numpy(rng.normal(size=(2, 64)).astype(np.float32))
+    y = abfp_matmul_packed(x, pws[0], cfg, 5)
+    assert torch.equal(y, abfp_matmul_packed_ref(x, pws[0], cfg, 5))
+    outs = fused_qkv_packed(x, pws, cfg, (1, 2, 3))
+    for o, r in zip(outs, fused_qkv_packed_ref(x, pws, cfg, (1, 2, 3))):
+        assert torch.equal(o, r)
+    q = torch.randn(2, 1, 4, 8)
+    codes = torch.zeros(2, 5, 2, 8, dtype=torch.int8)
+    sc = torch.ones(2, 5, 2, dtype=torch.bfloat16)
+    fused_quantized_decode_attention(q, codes, sc, codes, sc,
+                                     lengths=torch.tensor([1, 5]))
+    assert ops.launch_counts() == {
+        "abfp_matmul_packed": 0, "fused_qkv_packed": 0,
+        "fused_quantized_decode_attention": 0}
