@@ -7,11 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every CUDA source of ``repro_torch`` from this
                checkout (one nvcc per source, all at once);
-  3. kernels — each CUDA kernel against its plain PyTorch version at the
-               serving path's full smollm-360m shapes (tile 128, gain 8,
-               noise 0.5): bf16 equal but for <= 1 one-ULP flip in each
-               started 1,000 elements (kernels 1-2), within one bf16 ULP
-               (kernel 3);
+  3. kernels — each CUDA kernel against its plain PyTorch version: kernels
+               1-3 at the serving path's full smollm-360m shapes (tile 128,
+               gain 8, noise 0.5): bf16 equal but for <= 1 one-ULP flip in
+               each started 1,000 elements (kernels 1-2), within one bf16
+               ULP (kernel 3); kernel 4 (unpacked ABFP matmul) at the
+               evaluation forward's shapes (M = 4 x 512 and M = 4, every
+               weight shape of a layer and the LM head) bit-equal to kernel
+               1 on the packed weight and within kernel 1's bar of its plain
+               version; kernel 5 (flash attention) at (4, 512, 15 / 5 heads,
+               64), causal, non-causal and windowed, within one bf16 ULP
+               (rtol 2**-7, atol 1e-5) of its plain version;
   4. serve   — the port's ServingEngine (``repro_torch.launch.serve``'s
                engine) serves 8 requests on full-width smollm-360m in
                ``abfp_fused`` mode, capacity 4; every request must finish,
@@ -27,8 +33,27 @@ Phases (any failure exits non-zero and prints no result line):
                then equal the plain run bit for bit;
   6. time    — each kernel's device time for one decode tick's worth of
                its launches (CUDA graph replay of the serving weights and
-               caches), its plain version's time, its bound, and a
-               profiler breakdown of one decode tick and one prefill pass.
+               caches), its plain version's time and its bound;
+  7. evaluate — this slice's main path: ``evaluate_abfp`` of full
+               smollm-360m with flash attention over 2 batches of 4 x 513
+               tokens in ``abfp_kernel`` mode (tile 128, gain 8, noise
+               0.5), then in float; launch counts zeroed just before and
+               read just after (exactly 2 x 225 of kernel 4 and 2 x 32 of
+               kernel 5); the first forward once more, read around it
+               (225 / 32), every kernel call held against its plain version
+               on its own inputs, its logits against the plain forward's
+               (bar EVAL_LOGIT_BAR), and the forward rerun with kernel 5's
+               plain version, which must equal the plain forward bit for
+               bit; DNF's ``capture_histograms`` on one batch (32 per-layer
+               stds);
+  8. eval time — kernel 4's and kernel 5's device time for one forward's
+               launches (graph replay), eager and plain times, bounds,
+               ``scaled_dot_product_attention``'s time on kernel 5's inputs,
+               and the whole forward's host time;
+  9. profile — a profiler breakdown of one decode tick, one prefill pass and
+               one evaluation forward (the profiler's own set-up may fail
+               and is then skipped; an error in a profiled pass fails the
+               run).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -39,6 +64,7 @@ exits 1 before printing anything to standard output.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -58,16 +84,33 @@ F32_FLOPS = 67e12
 # f32 operations of the ABFP epilogue per (row, K-tile, column): ADC scale,
 # gain, noise (3), round, clamp (2), LSB, two rescales, gain divide, sum.
 EPILOGUE_FLOPS = 13
+# f32 operations of kernel 4's weight quantizer per weight element: abs,
+# max, divide, multiply, round, clamp (2).
+W_QUANT_FLOPS = 7
 # Phase 5's bar on the first pass's logits (kernels vs plain versions): the
 # first decode tick measured 0.52 on an H100, from kernel 3's one-ULP flips
 # carried through 32 layers; twice that.
 DECODE_LOGIT_BAR = 1.0
+# Phase 7's bar on the evaluation forward's logits (kernels vs plain
+# versions); kernel 4 is bit-equal, so what is left comes from kernel 5's
+# f32 sum order moving activation codes (checked by the rerun with kernel
+# 5's plain version).
+EVAL_LOGIT_BAR = 1.0
 
 SEED = 0
 CAPACITY = 4
 MAX_LEN = 512
 MAX_NEW = 16
 N_REQUESTS = 8
+# The kernels of the serving path (the other two run on the evaluation
+# path only).
+SERVE_KERNELS = ("abfp_matmul_packed", "fused_qkv_packed",
+                 "fused_quantized_decode_attention")
+# The evaluation forward: batches of EVAL_BATCH x (EVAL_SEQ + 1) tokens.
+EVAL_BATCH = 4
+EVAL_SEQ = 512
+EVAL_BATCHES = 2
+EVAL_ROWS = EVAL_BATCH * EVAL_SEQ
 
 
 def fail(msg: str) -> None:
@@ -162,6 +205,50 @@ def k3_cost(lengths, s_max: int, kh: int, h: int, d: int):
     return b, vis * kh * rep * (4 * d + 6)
 
 
+def k4_cost(m: int, k: int, n: int, tile: int, w_bytes: int = 2,
+            x_bytes: int = 2):
+    """(bytes, int8 ops, f32 ops) of one unpacked-matmul call: the float
+    weight read once, activations in, bf16 out; the integer tile dots; the
+    ADC epilogue per (row, K-tile, column) and the weight quantizer."""
+    t = -(-k // tile)
+    b = k * n * w_bytes + m * k * x_bytes + m * n * 2
+    return (b, 2 * m * k * n,
+            EPILOGUE_FLOPS * m * t * n + W_QUANT_FLOPS * k * n)
+
+
+def k5_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int,
+            causal: bool, window: int, nbytes: int = 2):
+    """(bytes, f32 ops) of one flash-attention call: q, k, v read once,
+    out written once; per visible (query, key) pair the two dots (4 D)
+    and the softmax update (6)."""
+    qpos = np.arange(sq)[:, None]
+    kpos = np.arange(skv)[None, :]
+    valid = np.ones((sq, skv), bool)
+    if causal:
+        valid &= kpos <= qpos
+    if window > 0:
+        valid &= kpos > qpos - window
+    pairs = int(valid.sum()) * b * h
+    return (2 * b * sq * h * d + 2 * b * skv * kh * d) * nbytes, \
+        pairs * (4 * d + 6)
+
+
+def allclose_bar(got, want, what: str, rtol: float = 2 ** -7,
+                 atol: float = 1e-5, quiet: bool = False) -> float:
+    """Fail unless |got - want| <= atol + rtol |want| everywhere; return the
+    max-abs difference."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bad = int((d > atol + rtol * w.abs()).sum())
+    err = float(d.max()) if d.numel() else 0.0
+    if bad:
+        fail(f"{what}: {bad}/{d.numel()} elements beyond rtol {rtol:g}, "
+             f"atol {atol:g} (max-abs {err:.3g})")
+    if not quiet:
+        log(f"{what}: max-abs {err:.3g} (rtol {rtol:g}, atol {atol:g})")
+    return err
+
+
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0):
     t = {"bytes": nbytes / HBM_BPS,
          "operations": max(int8_ops / INT8_OPS, f32_ops / F32_FLOPS)}
@@ -185,19 +272,29 @@ def main() -> None:
             fused_quantized_decode_attention,
             quantized_decode_attention,
         )
+        from repro_torch.configs import get_config
+        from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
         from repro_torch.kernels.abfp_matmul import (
+            abfp_matmul,
             abfp_matmul_packed,
             abfp_matmul_packed_ref,
+            abfp_matmul_ref,
+        )
+        from repro_torch.kernels.flash_attention import (
+            flash_attention,
+            flash_attention_ref,
         )
         from repro_torch.launch import serve as serve_cli
         from repro_torch.models import (
             Numerics,
             clone_state,
             decode_step,
+            forward,
             init_decode_state,
             init_params,
             prefill,
         )
+        from repro_torch.training import capture_histograms, evaluate_abfp
     except ImportError as e:
         fail(f"the repro_torch sources are not beside this script ({e})")
     dev = torch.device("cuda")
@@ -319,6 +416,55 @@ def main() -> None:
         got, want, f"kernel 3 S_max={MAX_LEN}", per_mille=False)[2]
     torch.cuda.synchronize()
 
+    # Kernels 4-5 at the evaluation forward's shapes, on the unpacked
+    # weights.
+    emcfg = dataclasses.replace(get_config("smollm-360m"),
+                                use_flash_attention=True)
+    equant = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                         noise_lsb=0.5)
+    if (emcfg.num_layers, emcfg.d_model, emcfg.vocab_size) != (
+            32, 960, 49152) or params["lm_head"].dtype != torch.bfloat16:
+        fail(f"unexpected evaluation config {emcfg}")
+    lpu = params["layers"][0]
+    e4 = []
+    for m in (EVAL_ROWS, CAPACITY):
+        for name, w in (("attn.wq", lpu["attn"]["wq"]),
+                        ("attn.wk", lpu["attn"]["wk"]),
+                        ("attn.wv", lpu["attn"]["wv"]),
+                        ("attn.wo", lpu["attn"]["wo"]),
+                        ("mlp.wi", lpu["mlp"]["wi"]),
+                        ("mlp.wo", lpu["mlp"]["wo"]),
+                        ("lm_head", params["lm_head"])):
+            x = act(m, w.shape[0])
+            got = abfp_matmul(x, w, equant, 4321)
+            k1 = abfp_matmul_packed(x, pack_abfp_weight(w, equant), equant,
+                                    4321)
+            n, size, _, _ = bf16_diff(got, k1)
+            if n or not torch.equal(got, k1):
+                fail(f"kernel 4 {name} M={m}: differs from kernel 1 on the "
+                     f"packed weight in {n}/{size} elements")
+            e4.append(bf16_flips(
+                got, abfp_matmul_ref(x, w, equant, 4321),
+                f"kernel 4 {name} {tuple(w.shape)} M={m} (kernel 1 on the "
+                f"packed weight: bit-equal); against its plain version")[2])
+            del got, k1
+    errs["abfp_matmul"] = max(e4)
+    e5 = []
+    for causal, window in ((True, 0), (False, 0), (True, 128)):
+        qa = torch.randn(EVAL_BATCH, EVAL_SEQ, h, hd, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        ka, va = (torch.randn(EVAL_BATCH, EVAL_SEQ, kh, hd, generator=gen,
+                              device=dev).to(torch.bfloat16) for _ in "kv")
+        got = flash_attention(qa, ka, va, causal=causal, window=window)
+        want = flash_attention_ref(qa, ka, va, causal=causal, window=window)
+        n, size, ulp, _ = bf16_diff(got, want)
+        e5.append(allclose_bar(
+            got, want, f"kernel 5 {tuple(qa.shape)} kv {tuple(ka.shape)} "
+            f"causal={causal} window={window}: {int((got != want).sum())}"
+            f"/{size} differ ({n} by one bf16 ULP; largest {ulp} ULP)"))
+    errs["flash_attention"] = max(e5)
+    torch.cuda.synchronize()
+
     # 4. serve (the main path) -------------------------------------------
     rng = np.random.default_rng(SEED)
     reqs = [Request(uid=i,
@@ -339,8 +485,8 @@ def main() -> None:
     if any(not 0 <= t < mcfg.vocab_size for r in done for t in r.generated):
         fail("a generated token is outside the vocabulary")
     for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
+        if (n <= 0) == (name in SERVE_KERNELS):
+            fail(f"kernel {name} was launched {n} times on the serving path")
     per_pass = {}
     for kind, rows_ in eng.per_pass.items():
         per_pass[kind] = {}
@@ -392,7 +538,14 @@ def main() -> None:
                                   qkv=None: fused_qkv_packed_ref(
                                       x, pws, cfg, seeds)),
              "fused_quantized_decode_attention": (
-                 model_layers, quantized_decode_attention)}
+                 model_layers, quantized_decode_attention),
+             "abfp_matmul": (ops, abfp_matmul_ref),
+             "flash_attention": (model_layers, lambda q, k, v, causal=True,
+                                 window=0: flash_attention_ref(
+                                     q, k, v, causal=causal,
+                                     window=window))}
+    # Kernels held to a tolerance, not to the bf16 bar (another sum order).
+    loose = ("fused_quantized_decode_attention", "flash_attention")
     calls = {name: [] for name in sites}
 
     @contextlib.contextmanager
@@ -418,7 +571,8 @@ def main() -> None:
     def check_calls(kind) -> bool:
         """Each recorded call against its plain version (its max-abs
         difference joins the kernel's ``max_abs_err``); True when every
-        kernel-1/2 call was bit-equal."""
+        call of the kernels held to the bf16 bar (1, 2, 4) was
+        bit-equal."""
         torch.cuda.synchronize()
         exact = True
         for name, rec in calls.items():
@@ -430,12 +584,17 @@ def main() -> None:
                 want = sites[name][1](*a, **kw)
                 for g, w in zip(*((out, want) if isinstance(out, tuple)
                                   else ((out,), (want,)))):
-                    f, z, e = bf16_flips(
-                        g, w, f"{name} in the first {kind}",
-                        per_mille=name != "fused_quantized_decode_attention",
-                        quiet=True)
+                    if name == "flash_attention":
+                        f, z = bf16_diff(g, w)[:2]
+                        e = allclose_bar(g, w, f"{name} in the first {kind}",
+                                         quiet=True)
+                    else:
+                        f, z, e = bf16_flips(
+                            g, w, f"{name} in the first {kind}",
+                            per_mille=name not in loose, quiet=True)
                     n, size, err = n + f, size + z, max(err, e)
-            if name != "fused_quantized_decode_attention":
+                del want
+            if name not in loose:
                 exact = exact and n == 0
             errs[name] = max(errs[name], err)
             log(f"first {kind}, {name} on its {len(rec)} calls' own "
@@ -581,43 +740,226 @@ def main() -> None:
         f"({pby})")
     ops.reset_launch_counts()
 
-    # Where a tick's device time goes (profiler; measurement only).
+    # 7. evaluate: this slice's main path --------------------------------
+    # evaluate_abfp over EVAL_BATCHES batches, the launch counts zeroed just
+    # before and read just after.
+    nl = emcfg.num_layers
+    per_forward = {name: 0 for name in launches}
+    per_forward.update(abfp_matmul=7 * nl + 1, flash_attention=nl)
+    rng = np.random.default_rng(SEED)
+    batches = [{"tokens": rng.integers(1, emcfg.vocab_size,
+                                       (EVAL_BATCH, EVAL_SEQ + 1))
+                .astype(np.int32)} for _ in range(EVAL_BATCHES)]
+    ekey = prng.PRNGKey(SEED)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc_q = evaluate_abfp(params, batches, emcfg, equant, key=ekey)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    elaunch = ops.launch_counts()
+    log(f"launch counts over evaluate_abfp ({EVAL_BATCHES} batches of "
+        f"{EVAL_BATCH} x {EVAL_SEQ + 1} tokens): {elaunch}")
+    for name in ("abfp_matmul", "flash_attention"):
+        if elaunch[name] <= 0:
+            fail(f"kernel {name} was not launched on the evaluation path")
+    if elaunch != {k: EVAL_BATCHES * v for k, v in per_forward.items()}:
+        fail(f"evaluate_abfp launched {elaunch}, expected "
+             f"{EVAL_BATCHES} x {per_forward}")
+    acc_f = evaluate_abfp(params, batches, emcfg, QuantConfig(mode="float"),
+                          key=ekey)
+    log(f"evaluate_abfp on full smollm-360m (random weights, random tokens) "
+        f"in {eval_wall:.2f}s: next-token accuracy {acc_q:.6f} under ABFP "
+        f"(abfp_kernel, tile 128, gain 8, noise 0.5), {acc_f:.6f} in float")
+
+    # The first batch's forward once more, read around it, every kernel
+    # call held against its plain version, then the logits against the
+    # plain forward's.  With every kernel-4 call bit-equal, the forward
+    # rerun with kernel 5's plain version must equal the plain forward.
+    inputs = torch.from_numpy(batches[0]["tokens"][:, :-1]).to(dev)
+    k0 = prng.fold_in(ekey, 0)
+    ops.reset_launch_counts()
+    with recording():
+        lg_k, _ = forward(params, inputs, emcfg, Numerics(equant, k0))
+    got_counts = ops.launch_counts()
+    if got_counts != per_forward:
+        fail(f"one evaluation forward launched {got_counts}, expected "
+             f"{per_forward}")
+    exact = check_calls("evaluation forward")
+    lg_p, _ = forward(params, inputs, emcfg,
+                      Numerics(equant, k0, plain=True))
+    eval_logit_err = float((lg_k - lg_p).abs().max())
+    compare("evaluation forward, kernels vs plain versions", lg_k, lg_p,
+            EVAL_LOGIT_BAR)
+    with patched(model_layers, "flash_attention", flash_attention_ref):
+        lg_a, _ = forward(params, inputs, emcfg, Numerics(equant, k0))
+    if compare("evaluation forward, kernel 4 but kernel 5's plain version "
+               "vs plain versions", lg_a, lg_p) and exact:
+        fail("the evaluation forward differs from the plain run with kernel "
+             "5 swapped out, yet every kernel-4 call was bit-equal")
+    del lg_a, lg_p
+    lg_f, _ = forward(params, inputs, emcfg, Numerics(QuantConfig(
+        mode="float")))
+    top1 = float((lg_f.argmax(-1) == lg_k.argmax(-1)).float().mean())
+    log(f"evaluation forward: top-1 agreement between float and ABFP "
+        f"logits {top1:.4f} over {lg_k.shape[0] * lg_k.shape[1]} positions")
+    del lg_f, lg_k
+    ops.reset_launch_counts()
+
+    # DNF step 1 on one batch.
+    t0 = time.perf_counter()
+    _, stds = capture_histograms(params, inputs, emcfg, equant,
+                                 key=prng.fold_in(ekey, 7))
+    cap_counts = ops.launch_counts()
+    if len(stds) != nl or not all(np.isfinite(stds)) or min(stds) <= 0:
+        fail(f"capture_histograms gave per-layer stds {stds}")
+    log(f"capture_histograms on one batch in {time.perf_counter() - t0:.2f}s"
+        f" (kernel 4 x {cap_counts['abfp_matmul']}, kernel 5 x "
+        f"{cap_counts['flash_attention']}): per-layer dy std "
+        f"{json.dumps([float(f'{v:.4g}') for v in stds])}")
+    ops.reset_launch_counts()
+
+    # 8. eval time: one forward's worth of kernels 4 and 5 ----------------
+    xe = act(EVAL_ROWS, emcfg.d_model)
+    xf = act(EVAL_ROWS, emcfg.d_ff)
+    lays = params["layers"]
+    emats = [(lp["attn"][w], xe) for lp in lays
+             for w in ("wq", "wk", "wv", "wo")] \
+        + [(lp["mlp"][w], xe) for lp in lays for w in ("wi", "wg")] \
+        + [(lp["mlp"]["wo"], xf) for lp in lays] \
+        + [(params["lm_head"], xe)]
+    if len(emats) != per_forward["abfp_matmul"]:
+        fail("kernel 4's timed forward does not match the path's calls")
+    c4 = np.sum([k4_cost(EVAL_ROWS, w.shape[0], w.shape[1], 128)
+                 for w, _ in emats], axis=0)
+
+    def k4_forward(fn=abfp_matmul):
+        for w, xx in emats:
+            fn(xx, w, equant, 7)
+
+    qkv5 = [(torch.randn(EVAL_BATCH, EVAL_SEQ, h, hd, generator=gen,
+                         device=dev).to(torch.bfloat16),
+             torch.randn(EVAL_BATCH, EVAL_SEQ, kh, hd, generator=gen,
+                         device=dev).to(torch.bfloat16),
+             torch.randn(EVAL_BATCH, EVAL_SEQ, kh, hd, generator=gen,
+                         device=dev).to(torch.bfloat16)) for _ in range(nl)]
+    qkv5_t = [tuple(t.transpose(1, 2).contiguous() for t in a) for a in qkv5]
+
+    def k5_forward(fn=flash_attention):
+        for qq, kk, vv in qkv5:
+            fn(qq, kk, vv, causal=True)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_forward():
+        for qq, kk, vv in qkv5_t:
+            sdpa(qq, kk, vv, is_causal=True, enable_gqa=True)
+
+    sd_err = float((sdpa(*qkv5_t[0], is_causal=True, enable_gqa=True)
+                    .transpose(1, 2).float()
+                    - flash_attention(*qkv5[0]).float()).abs().max())
+    b5, f5 = k5_cost(EVAL_BATCH, EVAL_SEQ, EVAL_SEQ, h, kh, hd, True, 0)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(params, inputs, emcfg, Numerics(equant, k0))
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    fwd_host_ms = statistics.median(host)
+    log(f"one evaluation forward (4 x 512 tokens, abfp_kernel + flash): "
+        f"host time {fwd_host_ms:.2f} ms (median of 3: "
+        f"{[round(v, 2) for v in host]})")
+    torch.cuda.reset_peak_memory_stats()
+    espec = [
+        ("abfp_matmul", "src/repro/kernels/abfp_matmul.py:309",
+         "abfp_matmul_pallas", k4_forward,
+         lambda: k4_forward(abfp_matmul_ref), bound(*c4), None,
+         f"one evaluation forward: 32 x (wq, wk, wv, wo, wi, wg, mlp.wo) + "
+         f"lm_head, M={EVAL_ROWS}, bf16 weights"),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:99",
+         "flash_attention", k5_forward,
+         lambda: k5_forward(flash_attention_ref),
+         bound(b5 * nl, 0.0, f5 * nl), sdpa_forward,
+         f"one evaluation forward: 32 layers x (B={EVAL_BATCH}, S={EVAL_SEQ},"
+         f" H={h}, KH={kh}, D={hd}) causal, bf16"),
+    ]
+    for name, repl, repl_fn, fn, plain_fn, (bms, by), lib_fn, work in espec:
+        src = ("src/repro_torch/kernels/csrc/abfp_matmul.cu"
+               if name == "abfp_matmul"
+               else "src/repro_torch/kernels/csrc/flash_attention.cu")
+        ms, how = graph_ms(fn, 10)
+        eager = median_ms(fn, 3)
+        pms = median_ms(plain_fn, 1)
+        lib_ms = graph_ms(lib_fn, 10)[0] if lib_fn is not None else None
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": repl, "replaces_function": repl_fn,
+               "launches": elaunch[name],
+               "launches_per_forward": per_forward[name],
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+               "work": work, "timing": how, "eager_ms": eager,
+               "forward_host_ms": fwd_host_ms}
+        rows.append(row)
+        log(f"{name}: {ms:.4f} ms ({how}), eager {eager:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'} for {work}")
+    log(f"kernel 5 against scaled_dot_product_attention on one layer's "
+        f"inputs: max-abs {sd_err:.3g}; peak device memory in the timing "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del qkv5, qkv5_t, xe, xf
+    ops.reset_launch_counts()
+
+    # 9. profile: where a pass's device time goes (measurement only) ------
+    # Only the profiler's own import and set-up may fail (and are then
+    # skipped); an error in a profiled pass fails the run.
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        st = clone_state(state0)
-        prefill(eng.params, st, toks_t, n_t, mcfg, Numerics(quant, key))
-        tok = torch.zeros(CAPACITY, dtype=torch.int32, device=dev)
-        torch.cuda.synchronize()
-        for kind in ("decode", "prefill"):
-            stp = clone_state(st)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if kind == "decode":
-                    decode_step(eng.params, stp, tok, mcfg,
-                                Numerics(quant, key))
-                else:
-                    prefill(eng.params, stp, toks_t, n_t, mcfg,
-                            Numerics(quant, key))
-                torch.cuda.synchronize()
-                host = time.perf_counter() - t0
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-            dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
-            cnt = {e.key: e.count for e in ev}
-            order = sorted(dt, key=lambda k: -dt[k])
-            total = sum(dt.values())
-            top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k])
-                   for k in order[:8]]
-            log(f"profile of one {kind} pass: host {host * 1e3:.2f} ms, "
-                f"device busy {total / 1e3:.3f} ms "
-                f"({total / 1e3 / (host * 1e3):.1%}) in "
-                f"{sum(cnt.values())} kernel launches; top by device ms: "
-                f"{json.dumps(top)}")
-    except Exception as e:      # the profiler is a measurement aid only
+    except ImportError as e:
+        profile = None
         log(f"profiler unavailable: {e!r}")
+    st = clone_state(state0)
+    prefill(eng.params, st, toks_t, n_t, mcfg, Numerics(quant, key))
+    tok = torch.zeros(CAPACITY, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    for kind in ("decode", "prefill", "evaluation forward"):
+        if profile is None:
+            break
+        stp = clone_state(st)
+        torch.cuda.synchronize()
+        try:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as e:   # the profiler's own set-up only
+            log(f"profiler unavailable: {e!r}")
+            break
+        try:
+            t0 = time.perf_counter()
+            if kind == "decode":
+                decode_step(eng.params, stp, tok, mcfg, Numerics(quant, key))
+            elif kind == "prefill":
+                prefill(eng.params, stp, toks_t, n_t, mcfg,
+                        Numerics(quant, key))
+            else:
+                forward(params, inputs, emcfg, Numerics(equant, k0))
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        finally:
+            prof.__exit__(None, None, None)
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
+        cnt = {e.key: e.count for e in ev}
+        order = sorted(dt, key=lambda k: -dt[k])
+        total = sum(dt.values())
+        top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k]) for k in order[:8]]
+        log(f"profile of one {kind} pass: host {host * 1e3:.2f} ms, "
+            f"device busy {total / 1e3:.3f} ms "
+            f"({total / 1e3 / (host * 1e3):.1%}) in "
+            f"{sum(cnt.values())} kernel launches; top by device ms: "
+            f"{json.dumps(top)}")
+    del st
     ops.reset_launch_counts()
 
     print(json.dumps({"kernels": rows}), flush=True)

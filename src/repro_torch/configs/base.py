@@ -54,7 +54,8 @@ class ModelConfig:
     remat: bool = False
     # Decode KV cache as int8 codes with a per-(token, head) ABFP scale.
     kv_quant: bool = False
-    # Fused flash-attention kernel for cacheless attention (not ported yet).
+    # Cacheless attention through the flash-attention kernel
+    # (kernels/flash_attention.py) instead of chunked_attention.
     use_flash_attention: bool = False
 
     @property

@@ -33,6 +33,8 @@ class QuantConfig:
     ``mode`` selects the execution path used by ``repro_torch.kernels.ops``:
 
       * ``"float"``       — plain matmul in the operand dtype (no ABFP)
+      * ``"abfp_kernel"`` — the unpacked ABFP kernel: the weight is
+        quantized inside every call (the cacheless evaluation forward)
       * ``"abfp_packed"`` — packed ABFP kernel over pre-quantized weights
       * ``"abfp_fused"``  — the packed path plus per-tile adaptive ADC gains
         baked into the packed weights and, on single-token decode ticks,

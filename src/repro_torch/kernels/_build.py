@@ -39,6 +39,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             + [_I] * 12                                     # nseg .. nk
             + [_F, _F, _I, _F, _F, _F, _F]                  # adc .. lx
             + [_P] * 5),                                    # buffers, stream
+        "abfp_quantize_w_launch": [_P] + [_I] * 6 + [_F] + [_P] * 3,
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_launch": (

@@ -1,4 +1,5 @@
-"""Packed ABFP matmul: the CUDA kernel's wrapper and its plain version.
+"""ABFP matmul, packed and unpacked: the CUDA kernels' wrappers and their
+plain versions.
 
 ``abfp_matmul_packed(x, pw, cfg, seed)`` computes ``y = ABFP(x @ W)`` from
 a ``PackedWeight`` (int8 codes, bf16 per-(tile, column) scales, optional
@@ -22,15 +23,31 @@ On a CPU tensor the wrapper runs ``abfp_matmul_packed_ref``; on a CUDA
 tensor it launches ``csrc/abfp_matmul.cu`` (see its header for what bounds
 it and how it is built) or raises.  ``abfp_matmul_packed.launches`` counts
 kernel launches.
+
+``abfp_matmul(x, w, cfg, seed)`` is the same function on a float weight
+(the ``abfp_kernel`` mode): it replaces the TPU kernel
+``abfp_matmul_pallas``, which derives the bf16 max-abs weight scales and
+codes in every grid step.  Its CUDA path quantizes W on the card, straight
+into the packed kernel's ``kcodes`` layout, then runs the packed kernel's
+launches on that scratch, so it equals ``abfp_matmul_packed`` on
+``pack_abfp_weight(w)`` by construction.  Its plain version is that
+composition.  ``abfp_matmul.launches`` counts its calls on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.abfp import PackedWeight, QuantConfig, ceil_to, f32_const
+from repro_torch.core.abfp import (
+    PackedWeight,
+    QuantConfig,
+    ceil_to,
+    f32_const,
+    pack_abfp_weight,
+    quant_levels,
+)
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -51,6 +68,10 @@ def default_bk(n: int, k: int) -> int:
     bk = min(cap, max(n, k))
     return max(n, (bk // n) * n)
 
+
+# The plain version computes at most this many (tile, row, column) terms
+# at once (a few GB of temporaries on the card at the LM head's width).
+REF_TERM_ELEMENTS = 1 << 25
 
 _M32 = 0xFFFFFFFF
 
@@ -94,10 +115,21 @@ def check_packed(pw: PackedWeight, cfg: QuantConfig) -> None:
                          f"cfg.scale_dtype is {cfg.scale_dtype}")
 
 
-class Grid:
-    """The reference kernel's grid for an (M, K) x packed-(K, N) call."""
+class Geometry(NamedTuple):
+    """K-side shape of a weight as the kernels see it: logical K, K padded
+    to whole tiles, and the tile count (a ``PackedWeight`` has the same
+    three attributes)."""
 
-    def __init__(self, m: int, pw: PackedWeight, cfg: QuantConfig):
+    k: int
+    kp: int
+    num_tiles: int
+
+
+class Grid:
+    """The reference kernel's grid for an (M, K) x (K, N) call; ``pw`` is a
+    ``PackedWeight`` or a ``Geometry``."""
+
+    def __init__(self, m: int, pw, cfg: QuantConfig):
         n = cfg.tile_width
         self.n = n
         self.bm = auto_bm(m)
@@ -116,8 +148,10 @@ def _seed_or_zero(seed, cfg: QuantConfig) -> int:
 
 
 def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
-                    grid: Grid, nj: int) -> Tensor:
-    """(T, M, Np) f32 per-tile terms ``y_q * s_x * s_w [/ G_t]``."""
+                    grid: Grid, nj: int, row0: int = 0) -> Tensor:
+    """(T, M, Np) f32 per-tile terms ``y_q * s_x * s_w [/ G_t]`` of the
+    rows ``x2``, which start at row ``row0`` of the call (the noise
+    lattice is a function of the call's row index)."""
     dev = x2.device
     n, T = grid.n, grid.T
     m = x2.shape[0]
@@ -140,7 +174,7 @@ def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
         v = p * c32(cfg.adc_base_scale) * g
     if cfg.noise_lsb > 0.0:
         tau = torch.arange(T, device=dev)
-        rows = torch.arange(m, device=dev)
+        rows = torch.arange(row0, row0 + m, device=dev)
         cols = torch.arange(npad, device=dev)
         salt = ((rows // grid.bm)[None, :, None] * nj
                 + (cols // DEFAULT_BN)[None, None, :]) * grid.nk \
@@ -183,20 +217,27 @@ def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
     batch = x.shape[:-1]
     x2 = x.reshape(-1, pw.k).float()
-    grid = Grid(x2.shape[0], pw, cfg)
-    term = _tile_terms_ref(x2, pw, cfg, _seed_or_zero(seed, cfg), grid,
-                           pw.n_padded // DEFAULT_BN)
-    out = _reduce_terms_ref(term, pw, cfg, grid)
+    m = x2.shape[0]
+    grid = Grid(m, pw, cfg)
+    seed = _seed_or_zero(seed, cfg)
+    # Row chunks bound the (T, rows, Np) term arrays; every step is per row,
+    # so the chunking changes no bit.
+    step = max(1, REF_TERM_ELEMENTS // (grid.T * pw.n_padded))
+    outs = [_reduce_terms_ref(
+        _tile_terms_ref(x2[r:r + step], pw, cfg, seed, grid,
+                        pw.n_padded // DEFAULT_BN, r), pw, cfg, grid)
+            for r in range(0, m, step)]
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return out[:, :pw.n_cols].reshape(*batch, pw.n_cols)
 
 
 def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
-                    gains: Optional[Tensor], pw0: PackedWeight,
-                    cfg: QuantConfig, njs: Sequence[int],
-                    seeds: Sequence[int]) -> Tensor:
+                    gains: Optional[Tensor], pw0, cfg: QuantConfig,
+                    njs: Sequence[int], seeds: Sequence[int]) -> Tensor:
     """One launch of ``csrc/abfp_matmul.cu`` over up to three weights whose
-    column blocks are concatenated (``njs`` blocks each); returns the
-    (M, sum(njs) * 128) bf16 output."""
+    column blocks are concatenated (``njs`` blocks each); ``pw0`` (a
+    ``PackedWeight`` or ``Geometry``) gives their shared K side.  Returns
+    the (M, sum(njs) * 128) bf16 output."""
     if not x.is_cuda:
         raise ValueError("the CUDA kernel takes CUDA tensors")
     if cfg.out_dtype != torch.bfloat16 or cfg.scale_dtype != torch.bfloat16:
@@ -259,3 +300,72 @@ def abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
 
 
 abfp_matmul_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Unpacked ABFP matmul (the abfp_kernel mode): weight quantized per call
+# ---------------------------------------------------------------------------
+
+
+def check_unpacked(w: Tensor, cfg: QuantConfig) -> None:
+    """Raise unless ``w`` is a 2-D float weight this config can quantize
+    to int8 codes with max-abs scales."""
+    if w.ndim != 2:
+        raise ValueError(f"abfp_matmul takes a 2-D weight, got {tuple(w.shape)}")
+    if quant_levels(cfg.bits_w) > 127:
+        raise ValueError(f"bits_w={cfg.bits_w} does not fit int8 codes")
+    if cfg.scale_percentile is not None:
+        raise ValueError("abfp_matmul supports max-abs scales only")
+
+
+def abfp_matmul_ref(x: Tensor, w: Tensor, cfg: QuantConfig,
+                    seed: Optional[int] = None) -> Tensor:
+    """Plain version of the unpacked ABFP kernel: pack ``w`` and run the
+    packed plain version (the reference holds packed and unpacked
+    bit-identical).  x: (..., K), w: (K, N) -> (..., N) in
+    ``cfg.out_dtype``."""
+    check_unpacked(w, cfg)
+    return abfp_matmul_packed_ref(x, pack_abfp_weight(w, cfg), cfg, seed)
+
+
+def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
+                seed: Optional[int] = None) -> Tensor:
+    """y = ABFP(x @ W) on a float weight; x: (..., K) -> (..., N) bf16.
+
+    CPU tensors run ``abfp_matmul_ref``.  CUDA tensors quantize ``w`` on
+    the card (``abfp_quantize_w_launch``: bf16 max-abs scales per (K-tile,
+    column), round-half-even int8 codes in the ``kcodes`` layout), then
+    run the packed kernel's launches on that scratch without gains (the
+    scalar ``cfg.gain``); one count per call, or raise."""
+    if not x.is_cuda:
+        return abfp_matmul_ref(x, w, cfg, seed)
+    check_unpacked(w, cfg)
+    k, n_cols = w.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x K dim {x.shape[-1]} != weight K {k}")
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w must be float32 or bfloat16, got {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    n = cfg.tile_width
+    if n % 4:
+        raise ValueError(f"the CUDA kernel needs tile_width % 4 == 0, got {n}")
+    geo = Geometry(k, ceil_to(k, n), ceil_to(k, n) // n)
+    npad = ceil_to(n_cols, DEFAULT_BN)
+    w = w.contiguous()
+    kcodes = torch.empty((geo.kp // 4, npad), dtype=torch.int32,
+                         device=x.device)
+    scales = torch.empty((geo.num_tiles, npad), dtype=torch.bfloat16,
+                         device=x.device)
+    err = _build.lib("abfp_matmul").abfp_quantize_w_launch(
+        w.data_ptr(), int(w.dtype == torch.bfloat16), k, n_cols, npad,
+        geo.num_tiles, n, float(quant_levels(cfg.bits_w)), kcodes.data_ptr(),
+        scales.data_ptr(), _build.stream_ptr(x.device))
+    _build.check(err, "abfp_quantize_w_launch")
+    out = launch_segments(x, kcodes, scales, None, geo, cfg,
+                          [npad // DEFAULT_BN], [_seed_or_zero(seed, cfg)])
+    abfp_matmul.launches += 1
+    return out[:, :n_cols].reshape(*x.shape[:-1], n_cols)
+
+
+abfp_matmul.launches = 0

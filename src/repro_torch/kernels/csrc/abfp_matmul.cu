@@ -1,9 +1,13 @@
-// Packed ABFP matmul (kernel 1) and fused QKV projection (kernel 2) for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes.
+// Packed ABFP matmul (kernel 1), fused QKV projection (kernel 2) and the
+// unpacked ABFP matmul's weight quantizer (kernel 4) for Hopper (sm_90a),
+// with a plain C interface loaded through ctypes.
 //
 // Replaces the TPU kernels
 //   repro/kernels/abfp_matmul.py        abfp_matmul_packed_pallas
 //   repro/kernels/abfp_decode_fused.py  fused_qkv_packed_pallas
+//   repro/kernels/abfp_matmul.py        abfp_matmul_pallas (kernel 4:
+//                                       abfp_quantize_w_launch, then the
+//                                       kernel-1 launches)
 // Both compute y = ABFP(x @ W) from int8 weight codes, bf16 per-(tile,
 // column) scales and optional f32 per-tile ADC gains.  Kernel 2 is kernel 1
 // run over up to three weights whose column blocks are concatenated; each
@@ -34,6 +38,21 @@
 // The epilogue keeps the reference's f32 operation order; build with
 // --fmad=false and without fast math (the __f*_rn intrinsics below also
 // forbid contraction).
+//
+// Kernel 4 (abfp_matmul_pallas) is the same function on a float W: the TPU
+// kernel re-derives the bf16 max-abs weight scales and the DAC codes of
+// every (K-tile, column) in every grid step.  Here one launch,
+// abfp_quantize_w, does that once per call and writes the codes straight
+// into kernel 1's kcodes word layout and the bf16 scales into scratch;
+// then kernel 1's three launches run on it with the scalar gain and no
+// per-tile gains.  So kernel 4 equals kernel 1 on pack_abfp_weight(W) bit
+// for bit by construction.  What bounds it: reading W once (bf16 at full
+// width) adds K x N x 2 bytes to kernel 1's traffic, and the quantizer's
+// int8 codes make one more round trip through device memory (K x N bytes
+// written and read); at the evaluation shape (M = 2,048 rows) the f32 ADC
+// epilogue per (row, K-tile, column) dominates both, as in kernel 1 at
+// prefill.  A thread owns one (K-tile, column): its reads and writes are
+// coalesced across the warp's 32 neighbouring columns.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,6 +108,45 @@ __global__ void abfp_quantize_x(const void* __restrict__ x, int x_bf16, int M,
     xq[(long)m * Kp + k] = (int8_t)q;
   }
   if (lane == 0) sx[m * T + t] = s;
+}
+
+// One thread per (K-tile t, padded column c): scale = bf16(max |w|) over
+// the tile's n rows, codes = clamp(rint(w / safe(scale) * lw)) (divide,
+// then multiply, as the reference), packed four K rows to an int32 word
+// (kcodes layout, lowest row in the lowest byte).  Rows past K and columns
+// past N are zero padding: codes 0, scale 0 (the pack stores the raw
+// scale; only the division uses 1 in place of 0).
+__global__ void abfp_quantize_w(const void* __restrict__ w, int w_bf16,
+                                int K, int N, int Np, int n, float lw,
+                                int32_t* __restrict__ kcodes,
+                                __nv_bfloat16* __restrict__ scales) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.y;
+  if (c >= Np) return;
+  const bool real = c < N;
+  float mx = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    int k = t * n + i;
+    float v = real && k < K ? load_x(w, w_bf16, (long)k * N + c) : 0.0f;
+    mx = fmaxf(mx, fabsf(v));
+  }
+  const __nv_bfloat16 sb = __float2bfloat16_rn(mx);
+  const float s = __bfloat162float(sb);
+  const float ss = s == 0.0f ? 1.0f : s;
+  const int nq = n >> 2;
+  for (int q = 0; q < nq; ++q) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      int k = t * n + 4 * q + b;
+      float v = real && k < K ? load_x(w, w_bf16, (long)k * N + c) : 0.0f;
+      float code = rintf(__fmul_rn(__fdiv_rn(v, ss), lw));
+      code = fminf(fmaxf(code, -lw), lw);
+      word |= (uint32_t)(uint8_t)(int8_t)code << (8 * b);
+    }
+    kcodes[((long)t * nq + q) * Np + c] = (int32_t)word;
+  }
+  scales[(long)t * Np + c] = sb;
 }
 
 struct Segments {
@@ -244,5 +302,17 @@ extern "C" int abfp_matmul_packed_launch(
   abfp_reduce<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
       (const float*)terms, M, T, Ntot, tk, nk, gains != nullptr, gain,
       (__nv_bfloat16*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int abfp_quantize_w_launch(const void* w, int w_bf16, int K, int N,
+                                      int Np, int T, int n, float lw,
+                                      void* kcodes, void* scales,
+                                      void* stream) {
+  if (n % 4 != 0 || Np % BN != 0 || N > Np || (long)T * n < K)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(Np / BN, T);
+  abfp_quantize_w<<<grid, BN, 0, (cudaStream_t)stream>>>(
+      w, w_bf16, K, N, Np, n, lw, (int32_t*)kcodes, (__nv_bfloat16*)scales);
   return (int)cudaGetLastError();
 }

@@ -2,6 +2,8 @@
 
 ``dense(x, w, cfg, key)`` routes by ``cfg.mode``:
   * ``"float"``       — plain matmul in the operand dtype
+  * ``"abfp_kernel"`` — the unpacked ABFP kernel, which quantizes ``w``
+    itself on every call (the cacheless evaluation forward's mode)
   * ``"abfp_packed"`` — packs ``w`` on the fly, then the packed kernel
   * ``"abfp_fused"``  — the same with per-tile adaptive ADC gains
 ``dense_packed(x, pw, cfg, key)`` takes an already packed weight: the
@@ -24,9 +26,12 @@ from repro_torch.kernels.abfp_decode_fused import (
     fused_quantized_decode_attention,
 )
 from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul,
     abfp_matmul_packed,
     abfp_matmul_packed_ref,
+    abfp_matmul_ref,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 
 Tensor = torch.Tensor
 
@@ -45,6 +50,9 @@ def dense(x: Tensor, w, cfg: QuantConfig, key=None,
         return dense_packed(x, w, cfg, key, plain)
     if cfg.mode == "float":
         return torch.matmul(x, w.to(x.dtype))
+    if cfg.mode == "abfp_kernel":
+        fn = abfp_matmul_ref if plain else abfp_matmul
+        return fn(x, w, cfg, key_to_seed(key))
     if cfg.mode in ("abfp_packed", "abfp_fused"):
         pw = pack_abfp_weight(w, cfg, adaptive_gain=cfg.mode == "abfp_fused")
         return dense_packed(x, pw, cfg, key, plain)
@@ -53,7 +61,7 @@ def dense(x: Tensor, w, cfg: QuantConfig, key=None,
 
 # Every kernel wrapper; each counts its launches in ``.launches``.
 WRAPPERS = (abfp_matmul_packed, fused_qkv_packed,
-            fused_quantized_decode_attention)
+            fused_quantized_decode_attention, abfp_matmul, flash_attention)
 
 
 def launch_counts() -> dict:

@@ -41,10 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--quant", choices=("float", "abfp-packed"),
+    ap.add_argument("--quant", choices=("float", "abfp-kernel",
+                                        "abfp-packed"),
                     default="float",
-                    help="abfp-packed: weights quantized once at init, "
-                         "the packed ABFP kernel every pass")
+                    help="abfp-kernel: the unpacked ABFP kernel, weights "
+                         "quantized inside every call; abfp-packed: "
+                         "weights quantized once at init, the packed ABFP "
+                         "kernel every pass")
     ap.add_argument("--fused", action="store_true",
                     help="abfp_fused serving: per-tile ADC gains (capped "
                          "by --gain), int8 KV cache, fused QKV and "
@@ -74,7 +77,8 @@ def model_and_quant(args):
         raise SystemExit(f"[serve] unknown arch {args.arch!r}; registered: "
                          f"{', '.join(list_archs())}")
     mcfg = smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    mode = {"float": "float", "abfp-packed": "abfp_packed"}[args.quant]
+    mode = {"float": "float", "abfp-kernel": "abfp_kernel",
+            "abfp-packed": "abfp_packed"}[args.quant]
     if args.fused:
         # The fused decode kernels attend over the int8 KV cache.
         mcfg = dataclasses.replace(mcfg, kv_quant=True)

@@ -1,10 +1,12 @@
 """repro_torch.models — the dense decoder with ABFP-dispatched matmuls:
-layers, the LM (params, decode tick, chunked prefill, sampling), packing
-and conversion of the JAX package's parameters."""
+layers, the LM (params, teacher-forced forward and DNF capture, decode
+tick, chunked prefill, sampling), packing and conversion of the JAX
+package's parameters."""
 
 from repro_torch.models.layers import (  # noqa: F401
     Numerics,
     attention_block,
+    chunked_attention,
     decode_attention,
     mlp_block,
     rmsnorm,
@@ -13,8 +15,11 @@ from repro_torch.models.layers import (  # noqa: F401
 from repro_torch.models.lm import (  # noqa: F401
     clone_state,
     decode_step,
+    forward,
+    forward_capture,
     init_decode_state,
     init_params,
+    lm_head_logits,
     param_count,
     prefill,
     sample_tokens,

@@ -1,9 +1,11 @@
-"""Model layers of the dense decoder: the serving (KV-cache) paths.
+"""Model layers of the dense decoder: the serving (KV-cache) paths and
+the cacheless teacher-forced attention.
 
 Every weight-activation matmul goes through ``Numerics.dense``, so one
-switch runs the model in ``float``, ``abfp_packed`` or ``abfp_fused``
-numerics.  Norms, softmax, rotary embedding and the nonlinearities run in
-float32 (range-sensitive ops stay digital, as in the paper).
+switch runs the model in ``float``, ``abfp_kernel``, ``abfp_packed`` or
+``abfp_fused`` numerics.  Norms, softmax, rotary embedding and the
+nonlinearities run in float32 (range-sensitive ops stay digital, as in the
+paper).
 
 The KV cache is a dict of tensors per layer, ``{"k", "v", "length"}`` plus
 ``"k_scale"``/``"v_scale"`` for the int8 cache, and is UPDATED IN PLACE:
@@ -11,6 +13,10 @@ a decode tick writes one slot per row instead of copying the whole cache
 (about 84 MB per tick for smollm-360m at capacity 4, max_len 512 in bf16).
 Rows whose ``n_tokens`` is 0 and padding lanes are never written.  Only
 append-only caches (``window == 0``) are ported.
+
+Without a cache, attention runs over the whole sequence at once: the flash
+kernel (``kernels.flash_attention``) with ``mcfg.use_flash_attention``,
+else ``chunked_attention``, the JAX package's plain online-softmax scan.
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ from repro_torch.kernels.abfp_decode_fused import (
     fused_qkv_packed_ref,
     fused_quantized_decode_attention,
     quantized_decode_attention,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_ref,
 )
 
 Tensor = torch.Tensor
@@ -139,6 +149,52 @@ def _repeat_kv(k: Tensor, num_heads: int) -> Tensor:
     if kh == num_heads:
         return k
     return torch.repeat_interleave(k, num_heads // kh, dim=2)
+
+
+def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_offset: int = 0, chunk: int = 512) -> Tensor:
+    """Flash-semantics attention in plain PyTorch: a loop over KV chunks
+    with an f32 online softmax, so the scores of one chunk at a time are
+    held, O(B * H * Sq * chunk).
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KH, D).  ``window`` > 0 restricts keys
+    to the last ``window`` positions; ``q_offset`` is the position of
+    q[0].  Returns (B, Sq, H, D) in q's dtype."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    chunk = min(chunk, skv)
+    pad = (-skv) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    qf = q.float() * (d ** -0.5)
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=dev)
+    den = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    for c0 in range(0, skv + pad, chunk):
+        k_c = k[:, c0:c0 + chunk].float()
+        v_c = v[:, c0:c0 + chunk].float()
+        kpos = c0 + torch.arange(chunk, device=dev)
+        s = torch.einsum("bshd,bchd->bhsc", qf, k_c)           # (B, H, Sq, c)
+        valid = (kpos[None, :] < skv).expand(sq, chunk)
+        if causal:
+            valid = valid & (kpos[None, :] <= q_pos[:, None])
+        if window > 0:
+            valid = valid & (kpos[None, :] > q_pos[:, None] - window)
+        s = torch.where(valid[None, None], s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhsc,bchd->bhsd", p, v_c)
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]      # (B, H, Sq, D)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
@@ -354,19 +410,32 @@ def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens) -> bool:
 
 
 def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
-                    positions: Tensor, kv_cache: dict,
-                    n_tokens: Optional[Tensor] = None):
-    """Self-attention over a KV cache.  Returns (output, kv_cache).
+                    positions: Tensor, kv_cache: Optional[dict] = None,
+                    n_tokens: Optional[Tensor] = None, cross_kv=None,
+                    train_mode: bool = False):
+    """Causal self-attention, over a KV cache or over the whole sequence.
+    Returns (output, kv_cache).
 
-    With S == 1 and ``n_tokens`` None this is a decode tick; otherwise x
-    holds a prompt chunk of which ``n_tokens`` (B,) tokens are real per row
-    (None == all S), appended and attended in one pass."""
-    if kv_cache is None:
+    With a cache and S == 1 and ``n_tokens`` None this is a decode tick;
+    with a cache otherwise, x holds a prompt chunk of which ``n_tokens``
+    (B,) tokens are real per row (None == all S), appended and attended in
+    one pass.  Without a cache (the teacher-forced ``forward``), each of
+    the S queries attends the keys up to its own position: the flash
+    kernel with ``mcfg.use_flash_attention`` (its plain version under
+    ``nx.plain``), else ``chunked_attention``; the returned cache is
+    None."""
+    if cross_kv is not None:
         raise NotImplementedError(
-            "repro_torch ports the KV-cache attention paths only")
+            "cross attention belongs to the encoder-decoder slice of the "
+            "port (ROADMAP queue 1 item 12)")
+    if train_mode and kv_cache is None:
+        raise NotImplementedError(
+            "train_attention (remat) belongs to the training slice of the "
+            "port (ROADMAP queue 1 item 13)")
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
-    if _use_fused_decode(params, nx, s, kv_cache, n_tokens):
+    if kv_cache is not None and _use_fused_decode(params, nx, s, kv_cache,
+                                                  n_tokens):
         return _fused_decode_attention_block(
             params, x, mcfg, nx, positions=positions, kv_cache=kv_cache)
 
@@ -376,7 +445,14 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
     if mcfg.pos_type == "rope":
         q = rope(q, positions, mcfg.rope_theta, mcfg.rope_fraction)
         k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
-    if s == 1 and n_tokens is None:
+    if kv_cache is None:
+        if mcfg.use_flash_attention:
+            flash = flash_attention_ref if nx.plain else flash_attention
+            out = flash(q, k, v, causal=True)
+        else:
+            out = chunked_attention(q, k, v, causal=True,
+                                    chunk=mcfg.attn_chunk)
+    elif s == 1 and n_tokens is None:
         out, kv_cache = _append_attend_one(q, k, v, kv_cache)
     else:
         n = n_tokens if n_tokens is not None else torch.full(

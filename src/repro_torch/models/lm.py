@@ -1,5 +1,6 @@
-"""The dense decoder LM: parameters, decode state, decode tick, chunked
-prefill and token sampling.
+"""The dense decoder LM: parameters, the teacher-forced forward, decode
+state, decode tick, chunked prefill, token sampling and the paired
+FLOAT/ABFP capture of DNF.
 
 Params and decode state are plain dicts and lists of tensors, one list
 entry per layer (the JAX package stacks layers on a leading axis and scans;
@@ -7,9 +8,11 @@ the port loops).  The layer index folded into the noise key is the layer's
 position, ``g * len(pattern) + j`` in the JAX package, which for the dense
 pattern ``("attention",)`` is the same number.
 
-Forward only, KV-cache paths only: ``decode_step`` (one token per row) and
-``prefill`` (a prompt chunk per row) update the decode state in place
-(see ``models.layers``) and return it.
+Forward only.  ``forward`` runs a whole teacher-forced sequence without a
+cache (the evaluation path, ``training.finetune.evaluate_abfp``);
+``decode_step`` (one token per row) and ``prefill`` (a prompt chunk per
+row) update the decode state in place (see ``models.layers``) and return
+it; ``forward_capture`` is DNF's paired per-layer pass.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ LM_HEAD_FOLD = 999_983
 
 
 def check_supported(mcfg: ModelConfig) -> None:
-    """Raise unless ``mcfg`` is a dense decoder this slice of the port runs:
-    full attention only, no experts, no recurrent blocks, no encoder."""
+    """Raise unless ``mcfg`` is a dense decoder the port runs: full
+    attention only, no experts, no recurrent blocks, no encoder (those
+    families are ROADMAP queue 1 item 12)."""
     if (mcfg.family != "dense" or mcfg.block_pattern or mcfg.num_experts
             or mcfg.is_encoder_decoder or mcfg.pos_type != "rope"
             or mcfg.window_size):
@@ -102,18 +106,21 @@ def param_count(params) -> int:
 
 
 def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
-                 positions: Tensor, state: dict,
+                 positions: Tensor, state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None):
-    """One pre-norm residual layer; returns (x, state)."""
+    """One pre-norm residual layer; returns (x, state).  Without a state
+    (the teacher-forced forward) attention is cacheless and the returned
+    state is None."""
     h = norm(x, lp["norm1"], mcfg.norm_type)
-    attn_out, kv = attention_block(lp["attn"], h, mcfg, nx,
-                                   positions=positions, kv_cache=state["kv"],
-                                   n_tokens=n_tokens)
+    attn_out, kv = attention_block(
+        lp["attn"], h, mcfg, nx, positions=positions,
+        kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
+        train_mode=mcfg.remat)
     x = x + attn_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
     if mcfg.d_ff:
         x = x + mlp_block(lp["mlp"], h, mcfg, nx)
-    return x, {"kv": kv}
+    return x, None if state is None else {"kv": kv}
 
 
 def _embed(params, tokens: Tensor, mcfg: ModelConfig) -> Tensor:
@@ -136,6 +143,70 @@ def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
             lp, x, mcfg, nx.fold(li), positions=positions, state=ls,
             n_tokens=n_tokens)
     return norm(x, params["final_norm"], mcfg.norm_type)
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced forward (evaluation) and DNF's paired capture
+# ---------------------------------------------------------------------------
+
+
+def _positions(tokens: Tensor) -> Tensor:
+    b, s = tokens.shape[:2]
+    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+
+
+def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
+            nx: Optional[Numerics] = None, *, return_hidden: bool = False):
+    """Teacher-forced forward over whole sequences, without a cache.
+
+    tokens: (B, S) int ids.  Returns (logits (B, S, V) f32, aux), or
+    (hidden (B, S, d), aux) with ``return_hidden``; ``aux`` is the f32
+    auxiliary loss, 0 for the dense decoder.  Layer ``li`` runs under
+    ``nx.fold(li)`` and the head under ``nx.fold(999_983)``, as the JAX
+    package's scan folds them.  The JAX signature's ``encoder_features``,
+    ``dnf``/``dnf_key`` and ``mesh`` belong to later slices (ROADMAP
+    queue 1 items 11-13)."""
+    check_supported(mcfg)
+    nx = nx or Numerics(QuantConfig(mode="float"))
+    positions = _positions(tokens)
+    x = _embed(params, tokens, mcfg)
+    for li, lp in enumerate(params["layers"]):
+        x, _ = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
+    x = norm(x, params["final_norm"], mcfg.norm_type)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD)), aux
+
+
+def lm_head_logits(params: dict, hidden: Tensor, mcfg: ModelConfig,
+                   nx: Optional[Numerics] = None) -> Tensor:
+    """Project (B, S, d) hidden states to f32 logits (fold 999_983)."""
+    nx = nx or Numerics(QuantConfig(mode="float"))
+    return _lm_head(params, hidden, mcfg, nx.fold(LM_HEAD_FOLD))
+
+
+def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
+                    nx_float: Numerics, nx_abfp_factory):
+    """DNF's paired pass (paper Fig. 3): every layer runs in FLOAT on the
+    FLOAT stream and, on the same input, in ABFP; ``dy = ABFP - FLOAT``
+    per layer.  ``nx_abfp_factory()`` returns a fresh ABFP ``Numerics``
+    for each layer, which is then folded with the layer index.
+
+    Returns (logits of the FLOAT stream, [dy_0, ..., dy_{L-1}] in f32)."""
+    check_supported(mcfg)
+    positions = _positions(tokens)
+    x = _embed(params, tokens, mcfg)
+    deltas = []
+    for li, lp in enumerate(params["layers"]):
+        x_f, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li),
+                              positions=positions)
+        x_q, _ = _apply_layer(lp, x, mcfg, nx_abfp_factory().fold(li),
+                              positions=positions)
+        deltas.append(x_q.float() - x_f.float())
+        x = x_f
+    x = norm(x, params["final_norm"], mcfg.norm_type)
+    return _lm_head(params, x, mcfg, nx_float.fold(LM_HEAD_FOLD)), deltas
 
 
 # ---------------------------------------------------------------------------

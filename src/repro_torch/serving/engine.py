@@ -33,8 +33,10 @@ token is streamed to ``Request.on_token`` as it is sampled.
 
 Numerics
 --------
-``QuantConfig.mode`` picks ``float``, ``abfp_packed`` (every dense weight
-packed once at engine init, every pass through the packed ABFP kernel) or
+``QuantConfig.mode`` picks ``float``, ``abfp_kernel`` (no packing: every
+pass through the unpacked ABFP kernel, which quantizes each weight inside
+the call), ``abfp_packed`` (every dense weight packed once at engine init,
+every pass through the packed ABFP kernel) or
 ``abfp_fused`` (packs with per-tile ADC gains; decode ticks run the fused
 QKV and int8-KV attention kernels).  The kernels run on the engine's
 device: the CUDA kernels on a GPU, their plain versions on the CPU.

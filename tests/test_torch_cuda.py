@@ -8,7 +8,11 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Bars: kernels 1 and 2 equal their plain versions bit for bit in bf16,
 except at most one element in each started 1,000 that is one bf16 ULP off
-(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).
+(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).  Kernel 4
+equals its plain version and kernel 1 on ``pack_abfp_weight(w)`` bit for
+bit (it runs kernel 1's launches on codes it quantized itself).  Kernel 5
+(flash attention) within rtol 1e-5 / atol 2e-5 in f32 (another sum order,
+f32 FMAs) and within one bf16 ULP (rtol 2**-7, atol 1e-5) in bf16.
 """
 
 import numpy as np
@@ -24,8 +28,14 @@ from repro_torch.kernels.abfp_decode_fused import (
     quantized_decode_attention,
 )
 from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul,
     abfp_matmul_packed,
     abfp_matmul_packed_ref,
+    abfp_matmul_ref,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_ref,
 )
 
 CFG = QuantConfig(mode="abfp_fused", tile_width=128, gain=8.0, noise_lsb=0.5)
@@ -161,3 +171,105 @@ def test_cuda_engine_serves_the_smoke_config(mode):
         fused = mode == "abfp_fused"
         assert (counts["fused_qkv_packed"] > 0) == fused
         assert (counts["fused_quantized_decode_attention"] > 0) == fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.5])
+@pytest.mark.parametrize("m,k,n,tile", [(1, 72, 40, 8), (40, 200, 136, 32),
+                                        (130, 300, 260, 128),
+                                        (9, 960, 1600, 128)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_cuda_unpacked_matmul_matches_plain_and_packed(m, k, n, tile, noise,
+                                                       wdtype):
+    """Kernel 4 against its plain version and against kernel 1 on the
+    packed weight, ragged M/K/N, f32 and bf16 weights: equal bits."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=tile, gain=8.0,
+                      noise_lsb=noise)
+    rng = np.random.default_rng(m + k + tile)
+    w = _weight(rng, k, n).to(wdtype)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    seed = 17 if noise else None
+    ops.reset_launch_counts()
+    got = abfp_matmul(x, w, cfg, seed)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["abfp_matmul"] == 1
+    assert ops.launch_counts()["abfp_matmul_packed"] == 0
+    assert torch.equal(got, abfp_matmul_ref(x, w, cfg, seed))
+    assert torch.equal(got, abfp_matmul_packed(x, pack_abfp_weight(w, cfg),
+                                               cfg, seed))
+
+
+def _flash_inputs(b, sq, skv, h, kh, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, device="cuda", generator=g).to(dtype)
+                 for shape in ((b, sq, h, d), (b, skv, kh, d),
+                               (b, skv, kh, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100), (False, 130)])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 4, 4, 64),
+                                   (2, 300, 300, 8, 2, 32),
+                                   (1, 384, 640, 5, 1, 128),
+                                   (4, 512, 512, 15, 5, 64)])
+def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
+    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/128."""
+    _need_cuda()
+    q, k, v = _flash_inputs(*shape, dtype=dtype, seed=sum(shape))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = (dict(rtol=1e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_other_head_dims():
+    _need_cuda()
+    q, k, v = _flash_inputs(1, 16, 16, 2, 2, 48, torch.float32, 0)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "abfp_kernel"])
+def test_cuda_forward_through_the_kernels(mode):
+    """The smoke config's teacher-forced forward with flash attention,
+    through the kernels and through their plain versions: 2 x 7 + 1
+    kernel-4 launches and 2 kernel-5 launches in ABFP; logits within
+    1e-4 in float and 0.5 in ABFP (kernel 5's f32 sum order can move an
+    activation code, as between the port and JAX)."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import prng
+    from repro_torch.models import Numerics, forward, init_params
+
+    mcfg = dataclasses.replace(smoke_config("smollm-360m"),
+                               use_flash_attention=True)
+    params = init_params(0, mcfg, device="cuda")
+    quant = (QuantConfig(mode="float") if mode == "float" else
+             QuantConfig(mode=mode, tile_width=32, gain=8.0, noise_lsb=0.5))
+    toks = torch.randint(1, mcfg.vocab_size, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    key = prng.PRNGKey(3)
+    ops.reset_launch_counts()
+    got, _ = forward(params, toks, mcfg, Numerics(quant, key))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want, _ = forward(params, toks, mcfg, Numerics(quant, key, plain=True))
+    assert counts["flash_attention"] == mcfg.num_layers
+    assert counts["abfp_matmul"] == (0 if mode == "float"
+                                     else 7 * mcfg.num_layers + 1)
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err < (1e-4 if mode == "float" else 0.5), err

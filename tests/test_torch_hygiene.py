@@ -50,8 +50,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert doc["bad"] == []
     for mod in ("repro_torch.kernels.abfp_matmul",
                 "repro_torch.kernels.abfp_decode_fused",
+                "repro_torch.kernels.flash_attention",
                 "repro_torch.serving.engine", "repro_torch.launch.serve",
-                "repro_torch.models.convert"):
+                "repro_torch.models.convert", "repro_torch.core.dnf",
+                "repro_torch.training.finetune"):
         assert mod in doc["modules"]
 
 

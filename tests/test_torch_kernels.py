@@ -6,9 +6,10 @@ as the JAX package's own tests run it.  Inputs are made with numpy from a
 seed and handed to both.
 
 Bars (stated per test):
-  * kernels 1 and 2 (packed ABFP matmul, fused QKV): bf16 outputs equal
-    bit for bit, except at most one element in 1,000 that differs by
-    exactly one bf16 ULP (f32 sum order; the count is printed);
+  * kernels 1, 2 and 4 (packed ABFP matmul, fused QKV, unpacked ABFP
+    matmul): bf16 outputs equal bit for bit, except at most one element in
+    1,000 that differs by exactly one bf16 ULP (f32 sum order; the count
+    is printed);
   * kernel 3 (int8-KV decode attention): rtol 1e-5, atol 1e-6 in f32,
     because the softmax sums run in another order.
 
@@ -28,7 +29,10 @@ from repro.kernels.abfp_decode_fused import (
 from repro.kernels.abfp_decode_fused import (
     fused_quantized_decode_attention as j_attn,
 )
-from repro.kernels.abfp_matmul import abfp_matmul_packed_pallas
+from repro.kernels.abfp_matmul import (
+    abfp_matmul_packed_pallas,
+    abfp_matmul_pallas,
+)
 from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
 from repro_torch.kernels import ops
 from repro_torch.kernels.abfp_decode_fused import (
@@ -39,9 +43,12 @@ from repro_torch.kernels.abfp_decode_fused import (
     quantized_decode_attention,
 )
 from repro_torch.kernels.abfp_matmul import (
+    abfp_matmul,
     abfp_matmul_packed,
     abfp_matmul_packed_ref,
+    abfp_matmul_ref,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def bf16_bits(a) -> np.ndarray:
@@ -124,6 +131,67 @@ def test_noise_requires_seed():
     pw = pack_abfp_weight(torch.ones(32, 8), cfg)
     with pytest.raises(ValueError, match="seed"):
         abfp_matmul_packed_ref(torch.ones(1, 32), pw, cfg, None)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: unpacked ABFP matmul (the abfp_kernel mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("noise,gain", [(0.0, 1.0), (0.5, 8.0), (0.5, 1.0)])
+@pytest.mark.parametrize("tile,k,n", [(8, 72, 40), (32, 200, 136),
+                                      (128, 300, 136)])
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_unpacked_matmul_matches_pallas(m, tile, k, n, noise, gain):
+    """``abfp_matmul_ref`` against ``abfp_matmul_pallas`` in interpret
+    mode, K and N off every block multiple; kernel 1's bf16 bar."""
+    rng = np.random.default_rng(10 * m + k + tile)
+    jcfg = JQuantConfig(mode="abfp_kernel", tile_width=tile, gain=gain,
+                        noise_lsb=noise)
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=tile, gain=gain,
+                      noise_lsb=noise)
+    x = (rng.normal(size=(m, k)) * 0.7).astype(np.float32)
+    w = _weight(rng, k, n)
+    seed = 7654321 if noise else None
+    want = abfp_matmul_pallas(jnp.asarray(x), jnp.asarray(w), jcfg,
+                              None if seed is None else jnp.int32(seed))
+    got = abfp_matmul_ref(torch.from_numpy(x), torch.from_numpy(w), cfg, seed)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert_bf16_match(got, want, f"unpacked m={m} tile={tile} "
+                                 f"noise={noise} gain={gain}")
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [8, 32, 128])
+def test_unpacked_equals_packed_bit_for_bit(tile, wdtype, monkeypatch):
+    """Kernel 4's plain version is kernel 1's on ``pack_abfp_weight(w)``:
+    equal bits, with and without the plain version's row chunking (forced
+    down to a few rows here)."""
+    from repro_torch.kernels import abfp_matmul as am
+
+    rng = np.random.default_rng(tile)
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=tile, gain=8.0,
+                      noise_lsb=0.5)
+    w = torch.from_numpy(_weight(rng, 2 * tile + 24, 300)).to(wdtype)
+    x = torch.from_numpy(rng.normal(size=(2, 21, w.shape[0]))
+                         .astype(np.float32))
+    want = abfp_matmul_packed_ref(x, pack_abfp_weight(w, cfg), cfg, 3)
+    assert torch.equal(abfp_matmul_ref(x, w, cfg, 3), want)
+    monkeypatch.setattr(am, "REF_TERM_ELEMENTS", 3 * 384 * 5)
+    assert torch.equal(abfp_matmul_ref(x, w, cfg, 3), want)
+
+
+def test_dense_routes_abfp_kernel_to_the_unpacked_kernel():
+    rng = np.random.default_rng(5)
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=32, gain=4.0,
+                      noise_lsb=0.5)
+    w = torch.from_numpy(_weight(rng, 64, 48))
+    x = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    key = np.array([1, 2], np.uint32)
+    assert torch.equal(ops.dense(x, w, cfg, key),
+                       abfp_matmul_ref(x, w, cfg, 1 ^ 2))
+    assert torch.equal(ops.dense(x, w, cfg, key, plain=True),
+                       abfp_matmul_ref(x, w, cfg, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +288,12 @@ def test_cpu_calls_launch_no_kernel():
     sc = torch.ones(2, 5, 2, dtype=torch.bfloat16)
     fused_quantized_decode_attention(q, codes, sc, codes, sc,
                                      lengths=torch.tensor([1, 5]))
+    w = torch.from_numpy(_weight(rng, 64, 32))
+    assert torch.equal(abfp_matmul(x, w, cfg, 5),
+                       abfp_matmul_ref(x, w, cfg, 5))
+    qa = torch.randn(1, 8, 4, 32)
+    flash_attention(qa, qa[:, :, :2], qa[:, :, :2])
     assert ops.launch_counts() == {
         "abfp_matmul_packed": 0, "fused_qkv_packed": 0,
-        "fused_quantized_decode_attention": 0}
+        "fused_quantized_decode_attention": 0, "abfp_matmul": 0,
+        "flash_attention": 0}

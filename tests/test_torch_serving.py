@@ -220,3 +220,30 @@ def test_mid_prompt_passes_fetch_no_logits(tiny):
     assert eng._stream.host_syncs == 3
     assert len(eng.pass_seconds["prefill"]) == 1
     assert len(eng.pass_seconds["decode"]) == 2
+
+
+def test_engine_abfp_kernel_equals_abfp_packed():
+    """The ``tests/test_packed.py`` engine analogue: an ``abfp_kernel``
+    engine (no packing, the weight quantized in every call) and an
+    ``abfp_packed`` engine emit the same tokens (tile 32, gain 4, noise
+    0), and ``--quant abfp-kernel`` asks for the first."""
+    from repro_torch.core.abfp import PackedWeight
+    from repro_torch.launch.serve import build_parser, model_and_quant
+
+    mcfg = smoke_config("tinyllama-1.1b")
+    params = init_params(0, mcfg, device="cpu")
+    outs = {}
+    for mode in ("abfp_kernel", "abfp_packed"):
+        q = QuantConfig(mode=mode, tile_width=32, gain=4.0, noise_lsb=0.0)
+        eng = ServingEngine(params, mcfg, capacity=2, max_len=32, quant=q,
+                            device="cpu")
+        packed = isinstance(eng.params["layers"][0]["attn"]["wq"],
+                            PackedWeight)
+        assert packed == (mode == "abfp_packed")
+        done = eng.run([Request(uid=i, prompt=[2 + i, 7, 11],
+                                max_new_tokens=3) for i in range(2)])
+        outs[mode] = {r.uid: r.generated for r in done}
+    assert outs["abfp_kernel"] == outs["abfp_packed"]
+    _, quant = model_and_quant(build_parser().parse_args(
+        ["--quant", "abfp-kernel", "--tile", "32"]))
+    assert (quant.mode, quant.tile_width) == ("abfp_kernel", 32)
