@@ -6,18 +6,27 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every CUDA source of ``repro_torch`` from this
-               checkout (one nvcc per source, all at once);
+               checkout (one nvcc per source, all at once); cuobjdump's
+               SASS must show int8 MMAs (IMMA) in every fused ABFP kernel
+               and bf16 MMAs (HMMA) in every tensor-core flash kernel;
   3. kernels — each CUDA kernel against its plain PyTorch version: kernels
                1-3 at the serving path's full smollm-360m shapes (tile 128,
                gain 8, noise 0.5): bf16 equal but for <= 1 one-ULP flip in
                each started 1,000 elements (kernels 1-2), within one bf16
-               ULP (kernel 3); kernel 4 (unpacked ABFP matmul) at the
-               evaluation forward's shapes (M = 4 x 512 and M = 4, every
-               weight shape of a layer and the LM head) bit-equal to kernel
-               1 on the packed weight and within kernel 1's bar of its plain
-               version; kernel 5 (flash attention) at (4, 512, 15 / 5 heads,
-               64), causal, non-causal and windowed, within one bf16 ULP
-               (rtol 2**-7, atol 1e-5) of its plain version;
+               ULP (kernel 3); the ABFP core's routes (the fused launch at
+               each row block and the two-launch route) at M = 9 to 2,048
+               on three weight shapes, and the LM head (not L2-resident:
+               the wrapper's 32-row blocks and 64-row blocks) at M = 17
+               and 40, bit-equal to the plain version;
+               kernel 4 (unpacked ABFP matmul) at the evaluation forward's
+               shapes (M = 4 x 512 and M = 4, every weight shape of a layer
+               and the LM head) bit-equal to kernel 1 on the packed weight
+               and within kernel 1's bar of its plain version; kernel 5
+               (flash attention) at (4, 512, 15 / 5 heads, 64), causal,
+               non-causal and windowed, on bf16 (tensor cores) and on f32
+               (the FMA kernel), within one bf16 ULP (rtol
+               2**-7, atol 1e-5; f32: rtol 1e-5, atol 2e-5) of its plain
+               version;
   4. serve   — the port's ServingEngine (``repro_torch.launch.serve``'s
                engine) serves 8 requests on full-width smollm-360m in
                ``abfp_fused`` mode, capacity 4; every request must finish,
@@ -33,7 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
                then equal the plain run bit for bit;
   6. time    — each kernel's device time for one decode tick's worth of
                its launches (CUDA graph replay of the serving weights and
-               caches), its plain version's time and its bound;
+               caches), its plain version's time and its bound; kernel 1's
+               prefill pass on its route and on the two-launch route, and
+               one layer's seven matmuls and the LM head at M = 16 to 2,048
+               on every route, in turns;
   7. evaluate — this slice's main path: ``evaluate_abfp`` of full
                smollm-360m with flash attention over 2 batches of 4 x 513
                tokens in ``abfp_kernel`` mode (tile 128, gain 8, noise
@@ -48,8 +60,12 @@ Phases (any failure exits non-zero and prints no result line):
                stds);
   8. eval time — kernel 4's and kernel 5's device time for one forward's
                launches (graph replay), eager and plain times, bounds,
-               ``scaled_dot_product_attention``'s time on kernel 5's inputs,
-               and the whole forward's host time;
+               ``scaled_dot_product_attention``'s time on kernel 5's inputs;
+               in turns, kernel 4 on its route and on the two-launch route
+               (with the peak device memory of each) and kernel 5 on the
+               tensor cores and on the FMA kernel (its f32 route, on the
+               same inputs cast to f32); the whole forward's host
+               time and its issue time (host clock to the last enqueue);
   9. profile — a profiler breakdown of one decode tick, one prefill pass and
                one evaluation forward (the profiler's own set-up may fail
                and is then skipped; an error in a profiled pass fails the
@@ -76,10 +92,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (dense): HBM bytes/s, int8 tensor ops/s, f32
-# (non-tensor) flop/s.
+# H100 SXM published peaks (dense): HBM bytes/s, int8 and bf16 tensor
+# ops/s, f32 (non-tensor) flop/s.
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 # f32 operations of the ABFP epilogue per (row, K-tile, column): ADC scale,
 # gain, noise (3), round, clamp (2), LSB, two rescales, gain divide, sum.
@@ -218,9 +235,9 @@ def k4_cost(m: int, k: int, n: int, tile: int, w_bytes: int = 2,
 
 def k5_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int,
             causal: bool, window: int, nbytes: int = 2):
-    """(bytes, f32 ops) of one flash-attention call: q, k, v read once,
-    out written once; per visible (query, key) pair the two dots (4 D)
-    and the softmax update (6)."""
+    """(bytes, dot ops, softmax ops) of one flash-attention call: q, k, v
+    read once, out written once; per visible (query, key) pair the two
+    dots (4 D) and the softmax update (6)."""
     qpos = np.arange(sq)[:, None]
     kpos = np.arange(skv)[None, :]
     valid = np.ones((sq, skv), bool)
@@ -230,7 +247,7 @@ def k5_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int,
         valid &= kpos > qpos - window
     pairs = int(valid.sum()) * b * h
     return (2 * b * sq * h * d + 2 * b * skv * kh * d) * nbytes, \
-        pairs * (4 * d + 6)
+        pairs * 4 * d, pairs * 6
 
 
 def allclose_bar(got, want, what: str, rtol: float = 2 ** -7,
@@ -249,11 +266,42 @@ def allclose_bar(got, want, what: str, rtol: float = 2 ** -7,
     return err
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0):
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     t = {"bytes": nbytes / HBM_BPS,
-         "operations": max(int8_ops / INT8_OPS, f32_ops / F32_FLOPS)}
+         "operations": max(int8_ops / INT8_OPS, f32_ops / F32_FLOPS,
+                           bf16_ops / BF16_FLOPS)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+def sass_mma_counts(lib) -> dict:
+    """{kernel function: (IMMA, HMMA) instruction counts} from cuobjdump's
+    SASS of a built library."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {r.stderr.strip()[:500]}")
+    counts, cur = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = [0, 0]
+        elif cur is not None:
+            counts[cur][0] += " IMMA" in line
+            counts[cur][1] += " HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def in_turns(fns: dict, time_fn) -> dict:
+    """Time each of ``fns`` twice, in the order a, b, ..., ..., b, a; returns
+    {name: (first, second)}."""
+    out = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        out[name].append(time_fn(fns[name]))
+    return {name: tuple(v) for name, v in out.items()}
 
 
 def main() -> None:
@@ -275,10 +323,13 @@ def main() -> None:
         from repro_torch.configs import get_config
         from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
         from repro_torch.kernels.abfp_matmul import (
+            _abfp_matmul,
+            _abfp_matmul_packed,
             abfp_matmul,
             abfp_matmul_packed,
             abfp_matmul_packed_ref,
             abfp_matmul_ref,
+            fused_rows,
         )
         from repro_torch.kernels.flash_attention import (
             flash_attention,
@@ -318,6 +369,16 @@ def main() -> None:
     _build.build_all()
     log(f"built {len(_build.SIGNATURES)} CUDA sources in "
         f"{time.perf_counter() - t0:.1f}s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    # The redesigned kernels must run on the tensor cores: int8 MMAs in the
+    # fused ABFP core, bf16 MMAs in the bf16 flash kernel.
+    for src, tag, col, op in (("abfp_matmul", "abfp_fused", 0, "IMMA"),
+                              ("flash_attention", "flash_fwd_tc", 1, "HMMA")):
+        found = {k: v[col] for k, v in
+                 sass_mma_counts(_build.lib_path(src)).items() if tag in k}
+        if not found or min(found.values()) == 0:
+            fail(f"{src}: no {op} in the SASS of {tag}: {found}")
+        log(f"SASS of {src}.cu: {op} per {tag} instantiation "
+            f"{sorted(found.values())}")
 
     # The served model, as ``python -m repro_torch.launch.serve --full
     # --fused`` builds it: full smollm-360m, abfp_fused (tile 128, gain 8,
@@ -389,6 +450,50 @@ def main() -> None:
             want = abfp_matmul_packed_ref(x, pw, quant, 12345)
             e1.append(bf16_flips(got, want, f"kernel 1 {name} M={m}")[2])
     errs["abfp_matmul_packed"] = max(e1)
+    # The ABFP core's routes above decode size: the wrapper's own route,
+    # the fused launch at every row block and the two-launch route, each
+    # bit-equal to the plain version.
+    for m in (9, 16, 64, 256, 512, 2048):
+        picked = []
+        for name, pw in (("mlp.wi", lp0["mlp"]["wi"]),
+                         ("attn.wk", lp0["attn"]["wk"]),
+                         ("mlp.wo", lp0["mlp"]["wo"])):
+            x = act(m, pw.k)
+            want = abfp_matmul_packed_ref(x, pw, quant, 321)
+            picked.append(fused_rows(m, quant.tile_width,
+                                     pw.n_padded // 128, quant,
+                                     pw.num_tiles))
+            for rows in (None, 0, 16, 32, 64):
+                got = (abfp_matmul_packed(x, pw, quant, 321) if rows is None
+                       else _abfp_matmul_packed(x, pw, quant, 321, rows))
+                n, size, ulp, err = bf16_diff(got, want)
+                if ulp:
+                    fail(f"kernel 1 {name} M={m} route rows={rows}: {n}/"
+                         f"{size} one-ULP flips, largest {ulp} ULP")
+                e1.append(err)
+        log(f"kernel 1 routes at M={m} (mlp.wi, attn.wk, mlp.wo; the "
+            f"wrapper's row blocks {picked}; fused at 16/32/64 rows and "
+            f"the two-launch route): 0 flips against the plain version")
+    # The LM head does not stay in L2: the wrapper's 32-row blocks, and
+    # 64-row blocks, at M that fill no whole block.
+    pw = eng.params["lm_head"]
+    for m in (17, 40):
+        x = act(m, pw.k)
+        rows = fused_rows(m, quant.tile_width, pw.n_padded // 128, quant,
+                          pw.num_tiles)
+        want = abfp_matmul_packed_ref(x, pw, quant, 321)
+        for forced in (None, 64):
+            got = (abfp_matmul_packed(x, pw, quant, 321) if forced is None
+                   else _abfp_matmul_packed(x, pw, quant, 321, forced))
+            n, size, ulp, err = bf16_diff(got, want)
+            if ulp:
+                fail(f"kernel 1 lm_head M={m} rows={forced or rows}: {n}/"
+                     f"{size} one-ULP flips, largest {ulp} ULP")
+            e1.append(err)
+        log(f"kernel 1 lm_head {tuple(pw.codes.shape)} M={m} (the "
+            f"wrapper's row block {rows}, and 64): 0 flips against the "
+            f"plain version")
+    torch.cuda.synchronize()
     pws = tuple(lp0["attn"][w] for w in ("wq", "wk", "wv"))
     x = act(CAPACITY, mcfg.d_model)
     seeds = (11, -22, 33)
@@ -455,13 +560,21 @@ def main() -> None:
                          device=dev).to(torch.bfloat16)
         ka, va = (torch.randn(EVAL_BATCH, EVAL_SEQ, kh, hd, generator=gen,
                               device=dev).to(torch.bfloat16) for _ in "kv")
-        got = flash_attention(qa, ka, va, causal=causal, window=window)
+        what = (f"kernel 5 {tuple(qa.shape)} kv {tuple(ka.shape)} "
+                f"causal={causal} window={window}")
         want = flash_attention_ref(qa, ka, va, causal=causal, window=window)
+        got = flash_attention(qa, ka, va, causal=causal, window=window)
         n, size, ulp, _ = bf16_diff(got, want)
         e5.append(allclose_bar(
-            got, want, f"kernel 5 {tuple(qa.shape)} kv {tuple(ka.shape)} "
-            f"causal={causal} window={window}: {int((got != want).sum())}"
-            f"/{size} differ ({n} by one bf16 ULP; largest {ulp} ULP)"))
+            got, want, f"{what} bf16 tensor cores: "
+            f"{int((got != want).sum())}/{size} differ ({n} by one bf16 ULP;"
+            f" largest {ulp} ULP)"))
+        q32, k32, v32 = (t.float() for t in (qa, ka, va))
+        allclose_bar(flash_attention(q32, k32, v32, causal=causal,
+                                     window=window),
+                     flash_attention_ref(q32, k32, v32, causal=causal,
+                                         window=window),
+                     f"{what} f32 (FMA kernel)", rtol=1e-5, atol=2e-5)
     errs["flash_attention"] = max(e5)
     torch.cuda.synchronize()
 
@@ -730,14 +843,64 @@ def main() -> None:
         rows.append(row)
         log(f"{name}: {ms:.4f} ms ({how}), eager {eager:.3f} ms, plain "
             f"{pms:.3f} ms, bound {bms:.4f} ms ({by}) for {work}")
-    pms_, how = graph_ms(k1_prefill, 5)
+    def k1_prefill_two_launch():
+        for pw, xx in pmats:
+            _abfp_matmul_packed(xx, pw, quant, 7, 0)
+
+    pt = in_turns({"route": k1_prefill, "two_launch": k1_prefill_two_launch},
+                  lambda f: graph_ms(f, 5)[0])
+    pms_ = statistics.mean(pt["route"])
     pb, pby = bound(*cp)
     rows[0]["prefill_pass_ms"] = pms_
+    rows[0]["prefill_pass_two_launch_ms"] = statistics.mean(pt["two_launch"])
     rows[0]["prefill_pass_bound_ms"] = pb
     rows[0]["prefill_pass_bound_by"] = pby
     log(f"abfp_matmul_packed over one prefill pass (32 x 7 matmuls, "
-        f"M={CAPACITY * 128}): {pms_:.3f} ms ({how}), bound {pb:.4f} ms "
-        f"({pby})")
+        f"M={CAPACITY * 128}, row block "
+        f"{fused_rows(CAPACITY * 128, 128, 8, quant, 8)} for 960 columns): "
+        f"{pms_:.3f} ms (graph, in turns {pt['route']}), two-launch route "
+        f"{pt['two_launch']} ms, bound {pb:.4f} ms ({pby})")
+
+    # The row block and route by M: one layer's seven matmuls on every
+    # route, in turns.
+    sweep = {}
+    layer7 = [lp0["attn"][w] for w in ("wq", "wk", "wv", "wo")] \
+        + [lp0["mlp"][w] for w in ("wi", "wg", "wo")]
+    for m in (16, 32, 64, 256, 512, 2048):
+        xs = {pw.k: act(m, pw.k) for pw in layer7}
+
+        def layer_at(rows, xs=xs):
+            return lambda: [_abfp_matmul_packed(xs[pw.k], pw, quant, 7, rows)
+                            for pw in layer7]
+
+        t = in_turns({r: layer_at(r) for r in (0, 16, 32, 64)},
+                     lambda f: graph_ms(f, 10)[0])
+        sweep[m] = {("two_launch" if r == 0 else f"fused_{r}"):
+                    statistics.mean(v) for r, v in t.items()}
+        picked = [fused_rows(m, 128, pw.n_padded // 128, quant, pw.num_tiles)
+                  for pw in layer7]
+        shown = {k: round(v, 4) for k, v in sweep[m].items()}
+        log(f"one layer's 7 matmuls at M={m}: ms by route (mean of two "
+            f"turns) {json.dumps(shown)}; the wrapper's row blocks {picked}")
+        del xs
+    rows[0]["layer_ms_by_route"] = sweep
+    # The same for the LM head, the one weight that does not stay in L2.
+    head = eng.params["lm_head"]
+    hsweep = {}
+    for m in (16, 32, 48, 64, 512, 2048):
+        x = act(m, head.k)
+        t = in_turns({r: (lambda r=r: _abfp_matmul_packed(x, head, quant, 7,
+                                                          r))
+                      for r in (0, 16, 32, 64)},
+                     lambda f: graph_ms(f, 10)[0])
+        hsweep[m] = {("two_launch" if r == 0 else f"fused_{r}"):
+                     statistics.mean(v) for r, v in t.items()}
+        shown = {k: round(v, 4) for k, v in hsweep[m].items()}
+        log(f"lm_head {tuple(head.codes.shape)} at M={m}: ms by route (mean "
+            f"of two turns) {json.dumps(shown)}; the wrapper's row block "
+            f"{fused_rows(m, 128, head.n_padded // 128, quant, head.num_tiles)}")
+        del x
+    rows[0]["lm_head_ms_by_route"] = hsweep
     ops.reset_launch_counts()
 
     # 7. evaluate: this slice's main path --------------------------------
@@ -857,37 +1020,68 @@ def main() -> None:
     sd_err = float((sdpa(*qkv5_t[0], is_causal=True, enable_gqa=True)
                     .transpose(1, 2).float()
                     - flash_attention(*qkv5[0]).float()).abs().max())
-    b5, f5 = k5_cost(EVAL_BATCH, EVAL_SEQ, EVAL_SEQ, h, kh, hd, True, 0)
-    host = []
+    b5, d5, f5 = k5_cost(EVAL_BATCH, EVAL_SEQ, EVAL_SEQ, h, kh, hd, True, 0)
+    # Host time of a forward to a synchronized device, and its issue time:
+    # the host clock at the last enqueue, before the sync.
+    host, issue = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         forward(params, inputs, emcfg, Numerics(equant, k0))
+        issue.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
     fwd_host_ms = statistics.median(host)
+    fwd_issue_ms = statistics.median(issue)
     log(f"one evaluation forward (4 x 512 tokens, abfp_kernel + flash): "
         f"host time {fwd_host_ms:.2f} ms (median of 3: "
-        f"{[round(v, 2) for v in host]})")
-    torch.cuda.reset_peak_memory_stats()
+        f"{[round(v, 2) for v in host]}), issue time {fwd_issue_ms:.2f} ms "
+        f"(host clock to the last enqueue: {[round(v, 2) for v in issue]})")
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def k4_two_launch():
+        for w, xx in emats:
+            _abfp_matmul(xx, w, equant, 7, 0)
+
+    # The FMA kernel is kernel 5's f32 route: timed on the same inputs cast
+    # to f32 (cast after the peak-memory reading, outside the timed calls).
+    def k5_fma():
+        for qq, kk, vv in qkv5_f32:
+            flash_attention(qq, kk, vv)
+
+    peaks = {"route": peak_gib(k4_forward), "two_launch": peak_gib(
+        k4_two_launch)}
+    log(f"peak device memory over one forward's kernel-4 calls (params "
+        f"resident): {peaks['route']:.3f} GiB on the wrapper's route, "
+        f"{peaks['two_launch']:.3f} GiB on the two-launch route")
+    qkv5_f32 = [tuple(t.float() for t in qkv) for qkv in qkv5]
     espec = [
         ("abfp_matmul", "src/repro/kernels/abfp_matmul.py:309",
-         "abfp_matmul_pallas", k4_forward,
+         "abfp_matmul_pallas", k4_forward, ("two_launch", k4_two_launch),
          lambda: k4_forward(abfp_matmul_ref), bound(*c4), None,
          f"one evaluation forward: 32 x (wq, wk, wv, wo, wi, wg, mlp.wo) + "
          f"lm_head, M={EVAL_ROWS}, bf16 weights"),
         ("flash_attention", "src/repro/kernels/flash_attention.py:99",
-         "flash_attention", k5_forward,
+         "flash_attention", k5_forward, ("fma", k5_fma),
          lambda: k5_forward(flash_attention_ref),
-         bound(b5 * nl, 0.0, f5 * nl), sdpa_forward,
+         bound(b5 * nl, 0.0, f5 * nl, d5 * nl), sdpa_forward,
          f"one evaluation forward: 32 layers x (B={EVAL_BATCH}, S={EVAL_SEQ},"
          f" H={h}, KH={kh}, D={hd}) causal, bf16"),
     ]
-    for name, repl, repl_fn, fn, plain_fn, (bms, by), lib_fn, work in espec:
+    for name, repl, repl_fn, fn, (ab, ab_fn), plain_fn, (bms, by), lib_fn, \
+            work in espec:
         src = ("src/repro_torch/kernels/csrc/abfp_matmul.cu"
                if name == "abfp_matmul"
                else "src/repro_torch/kernels/csrc/flash_attention.cu")
-        ms, how = graph_ms(fn, 10)
+        turns = in_turns({"route": fn, ab: ab_fn},
+                         lambda f: graph_ms(f, 10)[0])
+        ms, ab_ms = statistics.mean(turns["route"]), statistics.mean(turns[ab])
         eager = median_ms(fn, 3)
         pms = median_ms(plain_fn, 1)
         lib_ms = graph_ms(lib_fn, 10)[0] if lib_fn is not None else None
@@ -897,16 +1091,25 @@ def main() -> None:
                "launches_per_forward": per_forward[name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-               "work": work, "timing": how, "eager_ms": eager,
-               "forward_host_ms": fwd_host_ms}
+               "work": work, "timing": "graph, mean of two turns",
+               "turns_ms": turns["route"], f"{ab}_ms": ab_ms,
+               f"{ab}_turns_ms": turns[ab], "eager_ms": eager,
+               "forward_host_ms": fwd_host_ms,
+               "forward_issue_ms": fwd_issue_ms}
+        if name == "abfp_matmul":
+            row["peak_gib"] = peaks["route"]
+            row["peak_two_launch_gib"] = peaks["two_launch"]
+        else:
+            row["fma_bound_ms"] = bound(b5 * nl, 0.0, (d5 + f5) * nl)[0]
         rows.append(row)
-        log(f"{name}: {ms:.4f} ms ({how}), eager {eager:.3f} ms, plain "
-            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), library "
+        log(f"{name}: {ms:.4f} ms (graph, turns {turns['route']}), {ab} "
+            f"route {ab_ms:.4f} ms (turns {turns[ab]}; {ab_ms / ms:.2f}x), "
+            f"eager {eager:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+            f"({by}), library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'} for {work}")
     log(f"kernel 5 against scaled_dot_product_attention on one layer's "
-        f"inputs: max-abs {sd_err:.3g}; peak device memory in the timing "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del qkv5, qkv5_t, xe, xf
+        f"inputs: max-abs {sd_err:.3g}")
+    del qkv5, qkv5_f32, qkv5_t, xe, xf
     ops.reset_launch_counts()
 
     # 9. profile: where a pass's device time goes (measurement only) ------

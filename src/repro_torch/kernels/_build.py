@@ -38,6 +38,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I]   # x .. Ntot
             + [_I] * 12                                     # nseg .. nk
             + [_F, _F, _I, _F, _F, _F, _F]                  # adc .. lx
+            + [_I]                                          # rows (route)
             + [_P] * 5),                                    # buffers, stream
         "abfp_quantize_w_launch": [_P] + [_I] * 6 + [_F] + [_P] * 3,
     },
@@ -64,7 +65,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the shared library of ``csrc/<name>.cu`` is built."""
     src = (_CSRC / f"{name}.cu").read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / f"lib{name}-{h}.so"
@@ -78,7 +80,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         _BUILD.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in SIGNATURES:
-            out = _lib_path(name)
+            out = lib_path(name)
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -95,7 +97,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         for name, sigs in SIGNATURES.items():
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             for fn, argtypes in sigs.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

@@ -22,7 +22,11 @@ coordinates, whatever their own tiling.
 On a CPU tensor the wrapper runs ``abfp_matmul_packed_ref``; on a CUDA
 tensor it launches ``csrc/abfp_matmul.cu`` (see its header for what bounds
 it and how it is built) or raises.  ``abfp_matmul_packed.launches`` counts
-kernel launches.
+kernel launches.  The CUDA source has two routes, chosen here by shape
+(``fused_rows``): above decode size (M > 8) with n a power of two from
+32, one fused launch with the tile dots on int8 tensor cores and the ADC
+in registers; at decode size, or for n = 8 or 16, a tile-terms launch and
+a reduce launch through an (T, M, N) f32 scratch array.
 
 ``abfp_matmul(x, w, cfg, seed)`` is the same function on a float weight
 (the ``abfp_kernel`` mode): it replaces the TPU kernel
@@ -72,6 +76,15 @@ def default_bk(n: int, k: int) -> int:
 # The plain version computes at most this many (tile, row, column) terms
 # at once (a few GB of temporaries on the card at the LM head's width).
 REF_TERM_ELEMENTS = 1 << 25
+
+# The fused route's row blocks (the only ones the CUDA launch takes).  Every
+# row block re-reads the weight's codes: a weight that stays in the H100's
+# 50 MB L2 cache across row blocks takes the smallest block (the most blocks
+# in flight); a larger one (the LM head) takes 32 rows, which halves its
+# re-reads from device memory and was the fastest block from M = 32 up
+# (``chip_smoke.py``'s route sweep).
+FUSED_ROWS = (16, 32, 64)
+FUSED_L2_RESIDENT_BYTES = 12 << 20
 
 _M32 = 0xFFFFFFFF
 
@@ -231,13 +244,40 @@ def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
     return out[:, :pw.n_cols].reshape(*batch, pw.n_cols)
 
 
+# The fused block keeps s_x and s_w of every K-tile in shared memory.
+FUSED_MAX_TILES = 128
+
+
+def fused_rows(m: int, n: int, n_blocks: int, cfg: QuantConfig,
+               num_tiles: int) -> int:
+    """The route of an (M, K) x (K, n_blocks * 128) call with ``num_tiles``
+    K-tiles of width n: the fused launch's row block (``FUSED_ROWS``), or 0
+    for the tile-terms + reduce route.  Decode sizes (M <= 8) stream the
+    weight and keep the split-K two-launch route; so do tiles that are not
+    whole 32-deep MMA steps (n must be a power of two from 32), more than
+    FUSED_MAX_TILES K-tiles, and configurations whose tile dot or ADC level
+    could reach 2**22 (the fused epilogue's exact conversions need less)."""
+    lx = 2 ** (cfg.bits_x - 1) - 1
+    ly = 2 ** (cfg.bits_y - 1) - 1
+    if m <= 8 or n < 32 or n & (n - 1) or num_tiles > FUSED_MAX_TILES \
+            or n * lx * 127 >= 1 << 22 or ly >= 1 << 22:
+        return 0
+    resident = num_tiles * n * n_blocks * DEFAULT_BN <= FUSED_L2_RESIDENT_BYTES
+    rows = 16 if resident else 32
+    assert rows in FUSED_ROWS
+    return rows
+
+
 def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
                     gains: Optional[Tensor], pw0, cfg: QuantConfig,
-                    njs: Sequence[int], seeds: Sequence[int]) -> Tensor:
+                    njs: Sequence[int], seeds: Sequence[int],
+                    rows: Optional[int] = None) -> Tensor:
     """One launch of ``csrc/abfp_matmul.cu`` over up to three weights whose
     column blocks are concatenated (``njs`` blocks each); ``pw0`` (a
     ``PackedWeight`` or ``Geometry``) gives their shared K side.  Returns
-    the (M, sum(njs) * 128) bf16 output."""
+    the (M, sum(njs) * 128) bf16 output.  ``rows`` overrides the route
+    (``fused_rows``): 0 for the two-launch route, 16/32/64 for the fused
+    one; only the A/B entries below pass it."""
     if not x.is_cuda:
         raise ValueError("the CUDA kernel takes CUDA tensors")
     if cfg.out_dtype != torch.bfloat16 or cfg.scale_dtype != torch.bfloat16:
@@ -259,9 +299,17 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
     starts = [0, njs[0], njs[0] + (njs[1] if nseg > 1 else 0)]
     nj = list(njs) + [0] * (3 - nseg)
     sd = list(seeds) + [0] * (3 - nseg)
-    xq = torch.empty((m, pw0.kp), dtype=torch.int8, device=dev)
+    if rows is None:
+        rows = fused_rows(m, n, ntot // DEFAULT_BN, cfg, T)
+    if rows and (kcodes.data_ptr() % 16 or scales.data_ptr() % 16):
+        raise ValueError("the fused route needs 16-byte aligned kcodes and "
+                         "scales")
+    # The fused route stages whole row blocks: rows past M are scratch.
+    xq = torch.empty((ceil_to(m, rows) if rows else m, pw0.kp),
+                     dtype=torch.int8, device=dev)
     sx = torch.empty((m, T), dtype=torch.float32, device=dev)
-    terms = torch.empty((T, m, ntot), dtype=torch.float32, device=dev)
+    terms = None if rows else torch.empty((T, m, ntot), dtype=torch.float32,
+                                          device=dev)
     out = torch.empty((m, ntot), dtype=torch.bfloat16, device=dev)
     has_g = gains is not None
     err = _build.lib("abfp_matmul").abfp_matmul_packed_launch(
@@ -273,8 +321,9 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
         f32_const(cfg.adc_base_scale if has_g else cfg.adc_code_scale),
         f32_const(2.0 * cfg.noise_lsb), int(cfg.noise_lsb > 0.0),
         float(2 ** (cfg.bits_y - 1) - 1), f32_const(cfg.bin_y),
-        f32_const(cfg.gain), float(2 ** (cfg.bits_x - 1) - 1),
-        xq.data_ptr(), sx.data_ptr(), terms.data_ptr(), out.data_ptr(),
+        f32_const(cfg.gain), float(2 ** (cfg.bits_x - 1) - 1), rows,
+        xq.data_ptr(), sx.data_ptr(),
+        None if terms is None else terms.data_ptr(), out.data_ptr(),
         _build.stream_ptr(dev))
     _build.check(err, "abfp_matmul_packed_launch")
     return out
@@ -288,13 +337,21 @@ def abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
     CUDA kernel (and count one launch) or raise."""
     if not x.is_cuda:
         return abfp_matmul_packed_ref(x, pw, cfg, seed)
+    return _abfp_matmul_packed(x, pw, cfg, seed, None)
+
+
+def _abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
+                        seed: Optional[int], rows: Optional[int]) -> Tensor:
+    """The CUDA path of ``abfp_matmul_packed``; ``rows`` forces a route
+    (an A/B entry for the card tests and ``chip_smoke.py``'s timing; no
+    model path passes it)."""
     check_packed(pw, cfg)
     if x.shape[-1] != pw.k:
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
     gains = None if pw.gains is None else pw.gains.float().contiguous()
     out = launch_segments(x, pw.kcodes, pw.scales, gains, pw, cfg,
                           [pw.n_padded // DEFAULT_BN],
-                          [_seed_or_zero(seed, cfg)])
+                          [_seed_or_zero(seed, cfg)], rows)
     abfp_matmul_packed.launches += 1
     return out[:, :pw.n_cols].reshape(*x.shape[:-1], pw.n_cols)
 
@@ -339,14 +396,18 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
     scalar ``cfg.gain``); one count per call, or raise."""
     if not x.is_cuda:
         return abfp_matmul_ref(x, w, cfg, seed)
+    return _abfp_matmul(x, w, cfg, seed, None)
+
+
+def quantize_weight(w: Tensor, cfg: QuantConfig):
+    """Quantize a float CUDA weight on the card (``abfp_quantize_w_launch``)
+    into the packed kernel's layout: returns (geometry, int32 kcodes
+    (Kp/4, Np), bf16 scales (T, Np)), byte-equal to ``pack_abfp_weight``'s
+    ``kcodes`` and ``scales``.  Part of ``abfp_matmul``'s CUDA path."""
     check_unpacked(w, cfg)
-    k, n_cols = w.shape
-    if x.shape[-1] != k:
-        raise ValueError(f"x K dim {x.shape[-1]} != weight K {k}")
     if w.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"w must be float32 or bfloat16, got {w.dtype}")
-    if w.device != x.device:
-        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    k, n_cols = w.shape
     n = cfg.tile_width
     if n % 4:
         raise ValueError(f"the CUDA kernel needs tile_width % 4 == 0, got {n}")
@@ -354,16 +415,32 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
     npad = ceil_to(n_cols, DEFAULT_BN)
     w = w.contiguous()
     kcodes = torch.empty((geo.kp // 4, npad), dtype=torch.int32,
-                         device=x.device)
+                         device=w.device)
     scales = torch.empty((geo.num_tiles, npad), dtype=torch.bfloat16,
-                         device=x.device)
+                         device=w.device)
     err = _build.lib("abfp_matmul").abfp_quantize_w_launch(
         w.data_ptr(), int(w.dtype == torch.bfloat16), k, n_cols, npad,
         geo.num_tiles, n, float(quant_levels(cfg.bits_w)), kcodes.data_ptr(),
-        scales.data_ptr(), _build.stream_ptr(x.device))
+        scales.data_ptr(), _build.stream_ptr(w.device))
     _build.check(err, "abfp_quantize_w_launch")
+    return geo, kcodes, scales
+
+
+def _abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
+                 seed: Optional[int], rows: Optional[int]) -> Tensor:
+    """The CUDA path of ``abfp_matmul``; ``rows`` forces a route (an A/B
+    entry for the card tests and ``chip_smoke.py``'s timing; no model path
+    passes it)."""
+    check_unpacked(w, cfg)
+    k, n_cols = w.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x K dim {x.shape[-1]} != weight K {k}")
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    geo, kcodes, scales = quantize_weight(w, cfg)
     out = launch_segments(x, kcodes, scales, None, geo, cfg,
-                          [npad // DEFAULT_BN], [_seed_or_zero(seed, cfg)])
+                          [kcodes.shape[1] // DEFAULT_BN],
+                          [_seed_or_zero(seed, cfg)], rows)
     abfp_matmul.launches += 1
     return out[:, :n_cols].reshape(*x.shape[:-1], n_cols)
 

@@ -16,47 +16,73 @@
 //
 // What bounds it: at decode (M = 4 rows) the int8 codes are read once and
 // every code feeds 4 multiply-adds, so the weight stream from device memory
-// is the bound.  At prefill (M = 4 x 128 rows) the integer dots and the
-// per-(row, tile, column) ADC epilogue dominate.
+// is the bound.  Above decode size (prefill, the evaluation forward) the
+// f32 ADC epilogue, once per (row, K-tile, column), sets the pace: the
+// integer dots are exact and cheap on int8 tensor cores, and the epilogue's
+// murmur-style noise hash is integer work at half the f32 rate.
 //
-// Design (simple first):
-//   1. abfp_quantize_x: one warp per (row, K-tile) derives the bf16-rounded
-//      max-abs activation scale and the 8-bit DAC codes once per call (the
-//      TPU kernel re-derived them in every grid step).
-//   2. abfp_tile_terms: one block per (128-column block, K-tile, row block);
-//      a thread owns one column.  Codes come in a kernel layout made at
-//      pack time (int32 words of four K rows of one column), so a warp reads
-//      128 contiguous bytes and feeds __dp4a.  The exact integer tile dot
-//      goes through the ADC (gain, hash noise, round-half-even, clamp) in
-//      registers and the rescaled per-tile term is stored in f32.  Splitting
-//      over K-tiles gives every weight enough blocks to fill the card.
-//   3. abfp_reduce: one thread per output sums the terms in the reference's
-//      order (tiles of one reference K block, then blocks) and rounds to bf16.
+// Design, by route (the wrapper picks it from M, n and the tile count):
+//   1. abfp_quantize_x (every route): one warp per (row, K-tile) derives the
+//      bf16-rounded max-abs activation scale and the 8-bit DAC codes once
+//      per call (the TPU kernel re-derived them in every grid step).
+//   2. M > 8, n a power of two from 32, at most 128 K-tiles: abfp_fused,
+//      one launch.  One block per (BM-row block, 128-column block); it
+//      walks the K-tiles in order, as the TPU grid's sequential K axis did,
+//      so nothing carries between blocks and no per-tile term reaches
+//      device memory.  The block's s_x and s_w of every K-tile are loaded
+//      into shared memory once; each K-tile's activation codes (BM x n
+//      bytes) and code words (n / 4 x 128 int32, the kcodes layout made at
+//      pack time) are staged with cp.async, double-buffered, rows padded so
+//      that the lanes of a fragment quad hit distinct banks (a thread
+//      copies the same chunks of every tile, so its addresses are computed
+//      once).  A warp owns 16 rows x 32 columns:
+//      the exact integer tile dots run on mma.sync m16n8k32 s8 x s8 -> s32
+//      (a kcodes word is exactly one B-fragment register), and the ADC
+//      epilogue (scale, gain, hash noise, round half to even, clamp, LSB,
+//      rescale) runs on the accumulator fragment in registers, into the
+//      reference-order sums: a block sum over the tiles of one reference K
+//      block, divided by the scalar gain, then the f32 accumulator; bf16
+//      once at the end.  BM (16, 32 or 64 rows) is the wrapper's choice:
+//      16 for a weight that stays in L2 across row blocks, 32 for one that
+//      does not (the LM head), which halves its re-reads from device memory.
+//   3. Otherwise (M <= 8 at decode, n = 8 or 16: m16n8k32 needs whole
+//      32-deep k steps): abfp_tile_terms, one block per (128-column block,
+//      K-tile, row block) with a thread per column and __dp4a dots, writes
+//      the rescaled per-tile f32 terms; abfp_reduce sums them in the
+//      reference's order.  Splitting over K-tiles gives a weight streamed
+//      at decode enough blocks to fill the card.
 // The noise depends on the reference grid (bm = auto_bm(M), bn = 128,
 // bk = default_bk(n, K)), not on this tiling: every coordinate of the
 // reference hash (salt, row, column) is recomputed here.
 // The epilogue keeps the reference's f32 operation order; build with
 // --fmad=false and without fast math (the __f*_rn intrinsics below also
-// forbid contraction).
+// forbid contraction).  The fused route replaces slow conversions by
+// bit-identical arithmetic: the s32 accumulator starts at the bits of
+// 1.5 * 2^23, so the dot (|p| < 2^22) becomes an exact f32 by one
+// subtraction; round half to even of the clamped ADC value is the add and
+// subtraction of 1.5 * 2^23; the hash's / 2^24 is * 2^-24; a division by a
+// power-of-two gain is a multiplication by its exact reciprocal.
 //
 // Kernel 4 (abfp_matmul_pallas) is the same function on a float W: the TPU
 // kernel re-derives the bf16 max-abs weight scales and the DAC codes of
 // every (K-tile, column) in every grid step.  Here one launch,
 // abfp_quantize_w, does that once per call and writes the codes straight
 // into kernel 1's kcodes word layout and the bf16 scales into scratch;
-// then kernel 1's three launches run on it with the scalar gain and no
-// per-tile gains.  So kernel 4 equals kernel 1 on pack_abfp_weight(W) bit
-// for bit by construction.  What bounds it: reading W once (bf16 at full
-// width) adds K x N x 2 bytes to kernel 1's traffic, and the quantizer's
-// int8 codes make one more round trip through device memory (K x N bytes
-// written and read); at the evaluation shape (M = 2,048 rows) the f32 ADC
-// epilogue per (row, K-tile, column) dominates both, as in kernel 1 at
-// prefill.  A thread owns one (K-tile, column): its reads and writes are
-// coalesced across the warp's 32 neighbouring columns.
+// then kernel 1's launches run on it with the scalar gain and no per-tile
+// gains.  So kernel 4 equals kernel 1 on pack_abfp_weight(W) bit for bit
+// by construction.  What bounds it: reading W once (bf16 at full width)
+// adds K x N x 2 bytes to kernel 1's traffic; at the evaluation shape
+// (M = 2,048 rows) the f32 ADC epilogue dominates, as in kernel 1 at
+// prefill.  The quantizer gives each (K-tile, 32-column group) a block of
+// eight warps: a warp's 32 lanes read 32 neighbouring columns, the eight
+// warps split the tile's rows and meet in a shared-memory max.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
 
 namespace {
 
@@ -79,8 +105,19 @@ __device__ __forceinline__ float load_x(const void* x, int x_bf16, long i) {
                 : ((const float*)x)[i];
 }
 
+// True when g is a power of two whose reciprocal is a normal float: then
+// t / g and t * (1 / g) are both the correctly rounded t * 2^-e.
+__host__ __device__ __forceinline__ bool exact_reciprocal(uint32_t bits) {
+  const uint32_t e = (bits >> 23) & 0xFFu;
+  return (bits & 0x7FFFFFu) == 0 && e >= 1 && e <= 253;
+}
+
 // One warp per (row m, tile t): scale = bf16(max |x|), codes = clamp(
-// rint(x / scale * lx)).  Elements past K (zero padding) quantize to 0.
+// rint(x / scale * lx)).  Elements past K (zero padding) quantize to 0.  A
+// lane keeps its first QX_CACHE elements in registers between the max and
+// the codes (all of them for n <= 32 * QX_CACHE).
+constexpr int QX_CACHE = 4;
+
 __global__ void abfp_quantize_x(const void* __restrict__ x, int x_bf16, int M,
                                 int K, int Kp, int T, int n, float lx,
                                 int8_t* __restrict__ xq,
@@ -90,63 +127,107 @@ __global__ void abfp_quantize_x(const void* __restrict__ x, int x_bf16, int M,
   if (warp >= M * T) return;
   int m = warp / T, t = warp % T;
   long base = (long)m * K;
+  auto elem = [&](int i) {
+    const int k = t * n + i;
+    return i < n && k < K ? load_x(x, x_bf16, base + k) : 0.0f;
+  };
+  auto store = [&](int i, float e, float ss) {
+    float q = rintf(__fmul_rn(__fdiv_rn(e, ss), lx));
+    q = fminf(fmaxf(q, -lx), lx);
+    if (i < n) xq[(long)m * Kp + t * n + i] = (int8_t)q;
+  };
+  float v[QX_CACHE];
   float mx = 0.0f;
-  for (int i = lane; i < n; i += 32) {
-    int k = t * n + i;
-    float v = k < K ? load_x(x, x_bf16, base + k) : 0.0f;
-    mx = fmaxf(mx, fabsf(v));
+#pragma unroll
+  for (int c = 0; c < QX_CACHE; ++c) {
+    v[c] = elem(lane + 32 * c);
+    mx = fmaxf(mx, fabsf(v[c]));
   }
+  for (int i = lane + 32 * QX_CACHE; i < n; i += 32)
+    mx = fmaxf(mx, fabsf(elem(i)));
   for (int o = 16; o > 0; o >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   float s = __bfloat162float(__float2bfloat16_rn(mx));
   float ss = s == 0.0f ? 1.0f : s;
-  for (int i = lane; i < n; i += 32) {
-    int k = t * n + i;
-    float v = k < K ? load_x(x, x_bf16, base + k) : 0.0f;
-    float q = rintf(__fmul_rn(__fdiv_rn(v, ss), lx));
-    q = fminf(fmaxf(q, -lx), lx);
-    xq[(long)m * Kp + k] = (int8_t)q;
-  }
+#pragma unroll
+  for (int c = 0; c < QX_CACHE; ++c) store(lane + 32 * c, v[c], ss);
+  for (int i = lane + 32 * QX_CACHE; i < n; i += 32) store(i, elem(i), ss);
   if (lane == 0) sx[m * T + t] = s;
 }
 
-// One thread per (K-tile t, padded column c): scale = bf16(max |w|) over
-// the tile's n rows, codes = clamp(rint(w / safe(scale) * lw)) (divide,
-// then multiply, as the reference), packed four K rows to an int32 word
-// (kcodes layout, lowest row in the lowest byte).  Rows past K and columns
-// past N are zero padding: codes 0, scale 0 (the pack stores the raw
-// scale; only the division uses 1 in place of 0).
-__global__ void abfp_quantize_w(const void* __restrict__ w, int w_bf16,
-                                int K, int N, int Np, int n, float lw,
-                                int32_t* __restrict__ kcodes,
-                                __nv_bfloat16* __restrict__ scales) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+// Block (32 columns, QW_GROUPS row groups) per (32-column group, K-tile t):
+// lane x owns column c, warp y the tile's code words y, y + QW_GROUPS, ...
+// (the first QW_CACHE of them held in registers between the two passes).
+// scale = bf16(max |w|) over the tile's n rows (a shared-memory max across
+// the warps), codes = clamp(rint(w / safe(scale) * lw)) (divide, then
+// multiply, as the reference), packed four K rows to an int32 word (kcodes
+// layout, lowest row in the lowest byte).  Rows past K and columns past N
+// are zero padding: codes 0, scale 0 (the pack stores the raw scale; only
+// the division uses 1 in place of 0).
+constexpr int QW_COLS = 32;
+constexpr int QW_GROUPS = 8;
+constexpr int QW_CACHE = 4;
+
+__global__ void __launch_bounds__(QW_COLS * QW_GROUPS)
+abfp_quantize_w(const void* __restrict__ w, int w_bf16, int K, int N, int Np,
+                int n, float lw, int32_t* __restrict__ kcodes,
+                __nv_bfloat16* __restrict__ scales) {
+  __shared__ float part[QW_GROUPS][QW_COLS];
+  const int c = blockIdx.x * QW_COLS + threadIdx.x;
   const int t = blockIdx.y;
-  if (c >= Np) return;
   const bool real = c < N;
-  float mx = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    int k = t * n + i;
-    float v = real && k < K ? load_x(w, w_bf16, (long)k * N + c) : 0.0f;
-    mx = fmaxf(mx, fabsf(v));
-  }
-  const __nv_bfloat16 sb = __float2bfloat16_rn(mx);
-  const float s = __bfloat162float(sb);
-  const float ss = s == 0.0f ? 1.0f : s;
   const int nq = n >> 2;
-  for (int q = 0; q < nq; ++q) {
-    uint32_t word = 0;
+  auto word_values = [&](int q, float (&e)[4]) {   // zeros past the tile
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       int k = t * n + 4 * q + b;
-      float v = real && k < K ? load_x(w, w_bf16, (long)k * N + c) : 0.0f;
-      float code = rintf(__fmul_rn(__fdiv_rn(v, ss), lw));
+      e[b] = real && q < nq && k < K ? load_x(w, w_bf16, (long)k * N + c)
+                                     : 0.0f;
+    }
+  };
+  auto store = [&](int q, const float (&e)[4], float ss) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float code = rintf(__fmul_rn(__fdiv_rn(e[b], ss), lw));
       code = fminf(fmaxf(code, -lw), lw);
       word |= (uint32_t)(uint8_t)(int8_t)code << (8 * b);
     }
     kcodes[((long)t * nq + q) * Np + c] = (int32_t)word;
+  };
+  float v[QW_CACHE][4];
+  float mx = 0.0f;
+#pragma unroll
+  for (int i = 0; i < QW_CACHE; ++i) {
+    const int q = threadIdx.y + QW_GROUPS * i;
+    word_values(q, v[i]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) mx = fmaxf(mx, fabsf(v[i][b]));
   }
-  scales[(long)t * Np + c] = sb;
+  for (int q = threadIdx.y + QW_GROUPS * QW_CACHE; q < nq; q += QW_GROUPS) {
+    float e[4];
+    word_values(q, e);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) mx = fmaxf(mx, fabsf(e[b]));
+  }
+  part[threadIdx.y][threadIdx.x] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int y = 0; y < QW_GROUPS; ++y) mx = fmaxf(mx, part[y][threadIdx.x]);
+  const __nv_bfloat16 sb = __float2bfloat16_rn(mx);
+  const float s = __bfloat162float(sb);
+  const float ss = s == 0.0f ? 1.0f : s;
+#pragma unroll
+  for (int i = 0; i < QW_CACHE; ++i) {
+    const int q = threadIdx.y + QW_GROUPS * i;
+    if (q < nq) store(q, v[i], ss);
+  }
+  for (int q = threadIdx.y + QW_GROUPS * QW_CACHE; q < nq; q += QW_GROUPS) {
+    float e[4];
+    word_values(q, e);
+    store(q, e, ss);
+  }
+  if (threadIdx.y == 0) scales[(long)t * Np + c] = sb;
 }
 
 struct Segments {
@@ -161,9 +242,19 @@ struct Adc {
   float noise2;   // f32(2 * noise_lsb)
   float ly;       // output levels L_y
   float bin_y;    // f32(n * delta_y)
+  float gain;     // f32(gain), the scalar gain of the gain-free path
+  float inv_gain; // 1 / gain when exact (gain_pow2)
   int noisy;
   int has_gains;
+  int gain_pow2;  // gain is a power of two with a normal reciprocal
 };
+
+__device__ __forceinline__ void segment_of(const Segments& seg, int jj,
+                                           int& s, int& j_local) {
+  s = seg.nseg > 2 && jj >= seg.start2 ? 2
+    : (seg.nseg > 1 && jj >= seg.start1 ? 1 : 0);
+  j_local = jj - (s == 2 ? seg.start2 : (s == 1 ? seg.start1 : 0));
+}
 
 template <int RB>
 __global__ void __launch_bounds__(BN)
@@ -198,9 +289,8 @@ abfp_tile_terms(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     for (int r = 0; r < RB; ++r) acc[r] = __dp4a(sxq[r * nq + q], w, acc[r]);
   }
 
-  const int s = seg.nseg > 2 && jj >= seg.start2 ? 2
-              : (seg.nseg > 1 && jj >= seg.start1 ? 1 : 0);
-  const int j_local = jj - (s == 2 ? seg.start2 : (s == 1 ? seg.start1 : 0));
+  int s, j_local;
+  segment_of(seg, jj, s, j_local);
   const float g = adc.has_gains ? gains[t * seg.nseg + s] : 1.0f;
   const float sw = __bfloat162float(scales[(long)t * Ntot + c]);
   const int kb = t / tk, tt = t % tk;
@@ -246,17 +336,381 @@ __global__ void abfp_reduce(const float* __restrict__ terms, int M, int T,
   out[idx] = __float2bfloat16_rn(acc);
 }
 
+// ---------------------------------------------------------------------------
+// The fused route (M > 8): int8 tensor-core tile dots, ADC in registers
+// ---------------------------------------------------------------------------
+
+constexpr int MAGIC_BITS = 0x4B400000;   // 1.5 * 2^23 as f32 bits
+constexpr float MAGIC = 12582912.0f;     // 1.5 * 2^23
+constexpr int FUSED_STAGES = 2;          // K-tiles in flight
+constexpr int FUSED_BROW = BN * 4 + 32;  // padded code-word row (bytes)
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d = a . b + c on one m16n8k32 tile, s8 x s8 -> s32 (exact).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1,
+                                       const int (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
+}
+
+// The ADC on one K-tile's fragment (dot[j][e]: subtile j, element e; rows
+// h = e / 2, columns col0 + 8 j + (e & 1)) in the reference's f32 order,
+// into the block sums.  A block sum starts at -0, so its first addition
+// returns the first term exactly, as the reference's sum that starts from
+// the first term.  GDIV: a per-tile gain that is not a power of two, so the
+// rescale divides.
+template <bool NOISY, bool GAINS, bool GDIV>
+__device__ __forceinline__ void adc_tile(
+    const int (&dot)[4][4], float (&bsum)[4][4], const Adc& adc, float gt,
+    float gt_inv, const float (&sxr)[2], const float2 (&sw)[4],
+    const uint32_t (&hrow)[2], uint32_t col0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float v = __fmul_rn(__fsub_rn(__int_as_float(dot[j][e]), MAGIC),
+                          adc.scale);
+      if (GAINS) v = __fmul_rn(v, gt);
+      if (NOISY) {
+        uint32_t x = hrow[h] + (col0 + 8 * j + (e & 1)) * 0x85EBCA6Bu;
+        x ^= x >> 16;
+        x *= 0x85EBCA6Bu;
+        x ^= x >> 13;
+        x *= 0xC2B2AE35u;
+        x ^= x >> 16;
+        const float u05 = __fmaf_rn((float)(x >> 8), 0x1p-24f, -0.5f);
+        v = __fadd_rn(v, __fmul_rn(u05, adc.noise2));
+      }
+      const float c = fminf(fmaxf(v, -adc.ly), adc.ly);
+      const float yq = __fmul_rn(__fsub_rn(__fadd_rn(c, MAGIC), MAGIC),
+                                 adc.bin_y);
+      float term =
+          __fmul_rn(__fmul_rn(yq, sxr[h]), (e & 1) ? sw[j].y : sw[j].x);
+      if (GAINS) term = GDIV ? __fdiv_rn(term, gt) : __fmul_rn(term, gt_inv);
+      bsum[j][e] = __fadd_rn(bsum[j][e], term);
+    }
+}
+
+// Shared memory of one block: the staged K-tiles, then the block's s_x
+// (BM rows x T tiles), s_w (T tiles x 128 columns, bf16) and per-tile gains
+// (T).  Rows are padded so that the lanes of a fragment quad read distinct
+// banks.
+struct FusedSmem {
+  int a_row, a_stage, b_stage, stage, sx, sw, gains, total;
+  __host__ __device__ FusedSmem(int bm_rows, int n, int T) {
+    a_row = n + 16;                       // padded activation row (bytes)
+    a_stage = bm_rows * a_row;
+    b_stage = (n / 4) * FUSED_BROW;
+    stage = a_stage + b_stage;
+    sx = FUSED_STAGES * stage;
+    sw = sx + bm_rows * T * 4;
+    gains = sw + T * BN * 2;
+    total = gains + T * 4;
+  }
+};
+
+// One block per (BM-row block, 128-column block jj); warps (wr, wc) own
+// rows wr * 16 .. + 15 and columns wc * 32 .. + 31 of it.  A thread holds,
+// per 8-column subtile j, the fragment elements e = 0..3: row g (e < 2) or
+// g + 8, column 2 * tig + (e & 1).  The K-tiles are staged with cp.async,
+// FUSED_STAGES - 1 tiles ahead; a thread copies the same 16-byte chunks of
+// every tile.  xq has at least ceil(M / BM) * BM rows (the rows past M are
+// never stored).  n is a power of two from 32 to 256.
+template <int WR, bool NOISY, bool GAINS>
+__global__ void __launch_bounds__(128 * WR)
+abfp_fused(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+           const int32_t* __restrict__ kcodes,
+           const __nv_bfloat16* __restrict__ scales,
+           const float* __restrict__ gains, int M, int Kp, int T, int n,
+           int Ntot, int bm, int tk, int nk, Segments seg, Adc adc,
+           __nv_bfloat16* __restrict__ out) {
+  constexpr int BM = 16 * WR;
+  constexpr int THREADS = 128 * WR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FusedSmem L(BM, n, T);
+  const int nq = n >> 2;                 // code words per tile row
+  const int jj = blockIdx.x;
+  const int m0 = blockIdx.y * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r0 = (warp >> 2) * 16;       // warp's first row in the block
+  const int cw = (warp & 3) * 32;        // warp's first column in the block
+  const bool warp_live = m0 + r0 < M;    // rows past M need no epilogue
+
+  int s, j_local;
+  segment_of(seg, jj, s, j_local);
+
+  // This thread's 16-byte chunks of every tile: activation rows ar,
+  // ar + ar_step, ..., chunk ac; code-word rows warp, warp + THREADS / 32,
+  // ..., chunk `lane`.
+  const int ach = n >> 4;
+  const int ar = threadIdx.x / ach, ac = threadIdx.x % ach;
+  const int ar_step = THREADS / ach;
+  const int8_t* a_src = xq + (long)(m0 + ar) * Kp + ac * 16;
+  const int32_t* b_src = kcodes + (long)warp * Ntot + jj * BN + lane * 4;
+  auto load = [&](int buf, int t) {
+    unsigned char* st = smem + buf * L.stage;
+    for (int r = ar; r < BM; r += ar_step)
+      cp_async16(st + r * L.a_row + ac * 16,
+                 a_src + (long)(r - ar) * Kp + t * n);
+    for (int q = warp; q < nq; q += THREADS / 32)
+      cp_async16(st + L.a_stage + q * FUSED_BROW + lane * 16,
+                 b_src + (long)(t * nq + q - warp) * Ntot);
+  };
+
+  for (int p = 0; p < FUSED_STAGES - 1; ++p) {
+    if (p < T) load(p, p);
+    cp_async_commit();
+  }
+
+  // The block's s_x, s_w and gains for every K-tile, once.
+  float* sxs = (float*)(smem + L.sx);
+  __nv_bfloat16* sws = (__nv_bfloat16*)(smem + L.sw);
+  float* gs = (float*)(smem + L.gains);
+  for (int i = threadIdx.x; i < BM * T; i += THREADS) {
+    const long k = (long)m0 * T + i;
+    sxs[i] = k < (long)M * T ? sx[k] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < T * (BN / 2); i += THREADS) {
+    const int t = i / (BN / 2), c2 = i % (BN / 2);
+    ((__nv_bfloat162*)sws)[i] =
+        ((const __nv_bfloat162*)(scales + (long)t * Ntot + jj * BN))[c2];
+  }
+  if (GAINS)
+    for (int t = threadIdx.x; t < T; t += THREADS)
+      gs[t] = gains[t * seg.nseg + s];
+
+  // Per-row parts of the reference hash (row, seed and salt terms) that do
+  // not change with the K-tile: hash row tt * bm + rr, salt
+  // (i * nj + j_local) * nk + kb.
+  const int m_row[2] = {m0 + r0 + g, m0 + r0 + g + 8};
+  uint32_t hbase[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t i = (uint32_t)(m_row[h] / bm);
+    const uint32_t rr = (uint32_t)(m_row[h] % bm);
+    hbase[h] = rr * 0x9E3779B9u + (uint32_t)seg.seed[s] * 0xC2B2AE35u +
+               (i * (uint32_t)seg.nj[s] + (uint32_t)j_local) * (uint32_t)nk *
+                   0x27D4EB2Fu;
+  }
+  int magic[4] = {MAGIC_BITS, MAGIC_BITS, MAGIC_BITS, MAGIC_BITS};
+
+  float bsum[4][4], acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bsum[j][e] = -0.0f;
+      acc[j][e] = 0.0f;
+    }
+
+  int kb = 0, tt = 0;                    // reference K block, tile in it
+  for (int t = 0; t < T; ++t) {
+    const int buf = t % FUSED_STAGES;
+    cp_async_wait<FUSED_STAGES - 2>();
+    // Tile t has landed for every thread, every warp is done with the
+    // buffer that tile t + STAGES - 1 refills, and the s_x / s_w / gain
+    // loads above are visible.
+    __syncthreads();
+    if (t + FUSED_STAGES - 1 < T)
+      load((t + FUSED_STAGES - 1) % FUSED_STAGES, t + FUSED_STAGES - 1);
+    cp_async_commit();
+
+    if (warp_live) {
+      const unsigned char* st = smem + buf * L.stage;
+      const uint32_t* as_ = (const uint32_t*)st;
+      const uint32_t* bs_ = (const uint32_t*)(st + L.a_stage);
+      const int as = L.a_row / 4, bstr = FUSED_BROW / 4;
+      // k step kk (8 code words): the first one starts every accumulator
+      // at the bits of 1.5 * 2^23.
+      int dot[4][4];
+      auto k_step = [&](int kk, bool first) {
+        uint32_t a[4];
+        a[0] = as_[(r0 + g) * as + kk + tig];
+        a[1] = as_[(r0 + g + 8) * as + kk + tig];
+        a[2] = as_[(r0 + g) * as + kk + 4 + tig];
+        a[3] = as_[(r0 + g + 8) * as + kk + 4 + tig];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = cw + j * 8 + g;
+          mma_s8(dot[j], a, bs_[(kk + tig) * bstr + col],
+                 bs_[(kk + 4 + tig) * bstr + col], first ? magic : dot[j]);
+        }
+      };
+      k_step(0, true);
+      for (int kk = 8; kk < nq; kk += 8) k_step(kk, false);
+
+      const float sxr[2] = {sxs[(r0 + g) * T + t],
+                            sxs[(r0 + g + 8) * T + t]};
+      float2 sw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sw[j] = __bfloat1622float2(
+            ((const __nv_bfloat162*)(sws + t * BN))[(cw + j * 8) / 2 + tig]);
+      uint32_t hrow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        hrow[h] = hbase[h] + (uint32_t)(tt * bm) * 0x9E3779B9u +
+                  (uint32_t)kb * 0x27D4EB2Fu;
+      const uint32_t col0 = (uint32_t)(cw + 2 * tig);
+      if (GAINS) {
+        const float gt = gs[t];
+        if (exact_reciprocal(__float_as_uint(gt)))
+          adc_tile<NOISY, true, false>(dot, bsum, adc, gt, 1.0f / gt, sxr,
+                                       sw, hrow, col0);
+        else
+          adc_tile<NOISY, true, true>(dot, bsum, adc, gt, 1.0f, sxr, sw,
+                                      hrow, col0);
+      } else {
+        adc_tile<NOISY, false, false>(dot, bsum, adc, 1.0f, 1.0f, sxr, sw,
+                                      hrow, col0);
+      }
+      if (tt == tk - 1 || t == T - 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float b = bsum[j][e];
+            if (!GAINS)
+              b = adc.gain_pow2 ? __fmul_rn(b, adc.inv_gain)
+                                : __fdiv_rn(b, adc.gain);
+            acc[j][e] = __fadd_rn(acc[j][e], b);
+            bsum[j][e] = -0.0f;
+          }
+      }
+    }
+    if (++tt == tk) {
+      tt = 0;
+      ++kb;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (m_row[h] >= M) continue;
+    __nv_bfloat16* o = out + (long)m_row[h] * Ntot + jj * BN + cw + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *(__nv_bfloat162*)(o + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// The H100's opt-in shared memory per block.
+constexpr int MAX_SMEM = 227 * 1024;
+
+// cudaFuncSetAttribute applies to the current device only: raise a kernel's
+// dynamic shared-memory cap to `bytes` once on each device (`done` holds a
+// bit per device; two threads may both set it, which is harmless).
+template <typename Kernel>
+cudaError_t raise_smem_cap(Kernel kernel, int bytes,
+                           std::atomic<uint64_t>& done) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int WR, bool NOISY, bool GAINS>
+cudaError_t launch_fused(const int8_t* xq, const float* sx,
+                         const int32_t* kcodes, const __nv_bfloat16* scales,
+                         const float* gains, int M, int Kp, int T, int n,
+                         int Ntot, int bm, int tk, int nk, const Segments& seg,
+                         const Adc& adc, __nv_bfloat16* out, cudaStream_t st) {
+  const size_t smem = (size_t)FusedSmem(16 * WR, n, T).total;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  // The cap covers every size a launch may ask, so it is set once on each
+  // device (never again once warm, e.g. under CUDA graph capture).
+  static std::atomic<uint64_t> cap_set{0};
+  cudaError_t err =
+      raise_smem_cap(abfp_fused<WR, NOISY, GAINS>, MAX_SMEM, cap_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Ntot / BN, (M + 16 * WR - 1) / (16 * WR));
+  abfp_fused<WR, NOISY, GAINS><<<grid, 128 * WR, smem, st>>>(
+      xq, sx, kcodes, scales, gains, M, Kp, T, n, Ntot, bm, tk, nk, seg, adc,
+      out);
+  return cudaGetLastError();
+}
+
+template <int WR>
+cudaError_t launch_fused_wr(const int8_t* xq, const float* sx,
+                            const int32_t* kcodes,
+                            const __nv_bfloat16* scales, const float* gains,
+                            int M, int Kp, int T, int n, int Ntot, int bm,
+                            int tk, int nk, const Segments& seg,
+                            const Adc& adc, __nv_bfloat16* out,
+                            cudaStream_t st) {
+  if (adc.noisy && adc.has_gains)
+    return launch_fused<WR, true, true>(xq, sx, kcodes, scales, gains, M, Kp,
+                                        T, n, Ntot, bm, tk, nk, seg, adc, out,
+                                        st);
+  if (adc.noisy)
+    return launch_fused<WR, true, false>(xq, sx, kcodes, scales, gains, M,
+                                         Kp, T, n, Ntot, bm, tk, nk, seg, adc,
+                                         out, st);
+  if (adc.has_gains)
+    return launch_fused<WR, false, true>(xq, sx, kcodes, scales, gains, M,
+                                         Kp, T, n, Ntot, bm, tk, nk, seg, adc,
+                                         out, st);
+  return launch_fused<WR, false, false>(xq, sx, kcodes, scales, gains, M, Kp,
+                                        T, n, Ntot, bm, tk, nk, seg, adc, out,
+                                        st);
+}
+
+bool host_pow2(float v) {
+  uint32_t bits;
+  memcpy(&bits, &v, sizeof bits);
+  return exact_reciprocal(bits);
+}
+
 }  // namespace
 
+// rows: the fused route's row block (16, 32 or 64), or 0 for the
+// tile-terms + reduce route (terms: (T, M, Ntot) f32 scratch, unused on
+// the fused route).
 extern "C" int abfp_matmul_packed_launch(
     const void* x, int x_bf16, int M, int K, const void* kcodes,
     const void* scales, const void* gains, int Kp, int T, int n, int Ntot,
     int nseg, int start1, int start2, int nj0, int nj1, int nj2, int seed0,
     int seed1, int seed2, int bm, int tk, int nk, float adc_scale,
     float noise2, int noisy, float ly, float bin_y, float gain, float lx,
-    void* xq, void* sx, void* terms, void* out, void* stream) {
+    int rows, void* xq, void* sx, void* terms, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n % 4 != 0 || Ntot % BN != 0 || nseg < 1 || nseg > 3)
+  if (n % 4 != 0 || Ntot % BN != 0 || nseg < 1 || nseg > 3 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  // The fused route's conditions: whole 32-deep k steps (n a power of two
+  // from 32), s_x and s_w of every K-tile in shared memory (T <= 128), and
+  // a tile dot and an ADC level below 2^22 (the 1.5 * 2^23 conversions).
+  if (rows != 0 &&
+      (n < 32 || (n & (n - 1)) != 0 || T > 128 ||
+       (double)n * lx * 127.0 >= 4194304.0 || ly >= 4194304.0f ||
+       (rows != 16 && rows != 32 && rows != 64)))
     return (int)cudaErrorInvalidValue;
   {
     long warps = (long)M * T;
@@ -279,8 +733,30 @@ extern "C" int abfp_matmul_packed_launch(
   adc.noise2 = noise2;
   adc.ly = ly;
   adc.bin_y = bin_y;
+  adc.gain = gain;
+  adc.gain_pow2 = host_pow2(gain);
+  adc.inv_gain = adc.gain_pow2 ? 1.0f / gain : 0.0f;
   adc.noisy = noisy;
   adc.has_gains = gains != nullptr;
+
+  if (rows != 0) {
+    const int8_t* a = (const int8_t*)xq;
+    const float* s = (const float*)sx;
+    const int32_t* w = (const int32_t*)kcodes;
+    const __nv_bfloat16* sc = (const __nv_bfloat16*)scales;
+    const float* gn = (const float*)gains;
+    __nv_bfloat16* o = (__nv_bfloat16*)out;
+    if (rows == 16)
+      err = launch_fused_wr<1>(a, s, w, sc, gn, M, Kp, T, n, Ntot, bm, tk,
+                               nk, seg, adc, o, st);
+    else if (rows == 32)
+      err = launch_fused_wr<2>(a, s, w, sc, gn, M, Kp, T, n, Ntot, bm, tk,
+                               nk, seg, adc, o, st);
+    else
+      err = launch_fused_wr<4>(a, s, w, sc, gn, M, Kp, T, n, Ntot, bm, tk,
+                               nk, seg, adc, o, st);
+    return (int)err;
+  }
 
   const int rb = M <= 8 ? 8 : 32;
   dim3 grid(Ntot / BN, T, (M + rb - 1) / rb);
@@ -311,8 +787,9 @@ extern "C" int abfp_quantize_w_launch(const void* w, int w_bf16, int K, int N,
                                       void* stream) {
   if (n % 4 != 0 || Np % BN != 0 || N > Np || (long)T * n < K)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(Np / BN, T);
-  abfp_quantize_w<<<grid, BN, 0, (cudaStream_t)stream>>>(
+  dim3 grid(Np / QW_COLS, T);
+  dim3 block(QW_COLS, QW_GROUPS);
+  abfp_quantize_w<<<grid, block, 0, (cudaStream_t)stream>>>(
       w, w_bf16, K, N, Np, n, lw, (int32_t*)kcodes, (__nv_bfloat16*)scales);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,10 @@ flash_attention.py``).  ``flash_attention_ref`` is the plain version: the
 TPU kernel's block-wise online softmax over ``bq`` x ``bk`` blocks, in its
 order, skipping the KV blocks it skips.  On a CPU tensor the wrapper runs
 it; on a CUDA tensor it launches ``csrc/flash_attention.cu`` (see its
-header for what bounds it and its design) or raises.
-``flash_attention.launches`` counts kernel launches.
+header for what bounds it and its design) or raises: bf16 inputs run on
+the bf16 tensor cores (the scaled query and the softmax weights split into
+bf16 hi + lo parts where one bf16 would round), f32 inputs on the f32 FMA
+kernel.  ``flash_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -121,7 +123,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # cp.async reads 16-byte chunks: a view at an odd offset is copied.
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     err = _build.lib("flash_attention").flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -10,7 +10,13 @@ numpy from a seed and handed to both.
 Bars: f32 outputs within rtol = atol = 1e-5 (both run the same block
 order; only the dot products' f32 sum order differs); bf16 outputs within
 one bf16 ULP (rtol 2**-7), since an f32 difference can round either way.
+
+The CUDA kernel's bf16 route runs on tensor cores; its arithmetic is
+emulated here (``_tensor_core_flash``) and held to the card's bar (rtol
+2**-7, atol 1e-5) against the plain version and the Pallas kernel.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,3 +112,86 @@ def test_flash_and_chunked_agree():
             flash_attention(q, k, v, causal=causal, window=window),
             chunked_attention(q, k, v, causal=causal, window=window,
                               chunk=64), **F32_TOL)
+
+
+def _tensor_core_flash(q, k, v, causal, window, bq=64, bk=64):
+    """The bf16 tensor-core kernel's arithmetic in PyTorch, on the CPU.
+
+    Per 64-query block, over the 64-key tiles some query of the block can
+    see: S = (q * scale) . k with q * scale split into bf16 hi + lo (hi
+    alone when the scale is a power of two), summed in f32 over 16-deep
+    fragments; masks of -1e30; the online softmax in f32; P . V with
+    p_hi = bf16(p) and p_lo = bf16(p - p_hi), each an f32 sum over
+    16-key fragments; out = O / max(l, 1e-30) in bf16."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    a = q.float().permute(0, 2, 1, 3).reshape(b * h, sq, d) * scale
+    qh = a.to(torch.bfloat16).float()
+    ql = (a - qh).to(torch.bfloat16).float()
+    two_pass = math.frexp(d ** -0.5)[0] != 0.5
+    bh = torch.arange(b * h)
+    idx = (bh // h) * kh + (bh % h) // (h // kh)
+
+    def heads(t):
+        t = t.float().permute(0, 2, 1, 3).reshape(b * kh, skv, d)
+        return torch.nn.functional.pad(t, (0, 0, 0, bk))[idx]
+
+    kt, vt = heads(k), heads(v)
+    out = torch.empty(b * h, sq, d)
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        m = torch.full((b * h, len(rows)), -1e30)
+        den = torch.zeros(b * h, len(rows))
+        o = torch.zeros(b * h, len(rows), d)
+        k_hi = min(skv, q0 + bq) if causal else skv
+        k_lo = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
+        for k0 in range(k_lo, k_hi, bk):
+            kb, vb = kt[:, k0:k0 + bk], vt[:, k0:k0 + bk]
+            s = torch.zeros(b * h, len(rows), bk)
+            for c in range(0, d, 16):
+                kc = kb[..., c:c + 16].transpose(1, 2)
+                s = s + qh[:, rows, c:c + 16] @ kc
+                if two_pass:
+                    s = s + ql[:, rows, c:c + 16] @ kc
+            kpos = k0 + torch.arange(bk)
+            valid = (kpos < skv)[None, :].expand(len(rows), bk)
+            if causal:
+                valid = valid & (kpos[None, :] <= rows[:, None])
+            if window > 0:
+                valid = valid & (kpos[None, :] > rows[:, None] - window)
+            s = torch.where(valid[None], s, torch.full_like(s, -1e30))
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None])
+            den = den * corr + p.sum(-1)
+            ph = p.to(torch.bfloat16).float()
+            pl = (p - ph).to(torch.bfloat16).float()
+            o = o * corr[..., None]
+            for c in range(0, bk, 16):
+                o = o + ph[..., c:c + 16] @ vb[:, c:c + 16]
+                o = o + pl[..., c:c + 16] @ vb[:, c:c + 16]
+            m = mx
+        out[:, rows] = o / torch.clamp(den, min=1e-30)[..., None]
+    out = out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 0)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tensor_core_arithmetic_matches_plain_and_pallas(d, causal, window):
+    """The tensor-core route's rounding (q * scale hi/lo, the p hi/lo
+    split, f32 sums over 16-wide fragments) against the plain version and
+    the Pallas kernel in interpret mode, on bf16 inputs with GQA and a
+    query length that is not a whole 64-row block."""
+    arrays = _qkv(1, 200, 200, 4, 2, d, seed=d + window)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    tb = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+          for a in jb]
+    got = _tensor_core_flash(*tb, causal=causal, window=window).float()
+    want = flash_attention_ref(*tb, causal=causal, window=window).float()
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-5)
+    pallas = np.asarray(j_flash(*jb, causal=causal, window=window),
+                        np.float32)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2 ** -7, atol=1e-5)

@@ -8,11 +8,15 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Bars: kernels 1 and 2 equal their plain versions bit for bit in bf16,
 except at most one element in each started 1,000 that is one bf16 ULP off
-(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).  Kernel 4
-equals its plain version and kernel 1 on ``pack_abfp_weight(w)`` bit for
-bit (it runs kernel 1's launches on codes it quantized itself).  Kernel 5
-(flash attention) within rtol 1e-5 / atol 2e-5 in f32 (another sum order,
-f32 FMAs) and within one bf16 ULP (rtol 2**-7, atol 1e-5) in bf16.
+(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).  The ABFP
+core's fused route (M > 8, n a multiple of 32) and its two-launch route
+equal the plain version bit for bit (0 flips) at every row block.  Kernel
+4 equals its plain version and kernel 1 on ``pack_abfp_weight(w)`` bit for
+bit (it runs kernel 1's launches on codes it quantized itself, and its
+codes and scales are byte-equal to the pack's).  Kernel 5 (flash
+attention) within rtol 1e-5 / atol 2e-5 in f32 (another sum order, f32
+FMAs) and within one bf16 ULP (rtol 2**-7, atol 1e-5) in bf16, on the
+tensor-core route and on the FMA route alike.
 """
 
 import numpy as np
@@ -27,11 +31,16 @@ from repro_torch.kernels.abfp_decode_fused import (
     fused_quantized_decode_attention,
     quantized_decode_attention,
 )
+from repro_torch.kernels.abfp_decode_fused import concat_qkv
 from repro_torch.kernels.abfp_matmul import (
+    _abfp_matmul,
+    _abfp_matmul_packed,
     abfp_matmul,
     abfp_matmul_packed,
     abfp_matmul_packed_ref,
     abfp_matmul_ref,
+    fused_rows,
+    quantize_weight,
 )
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -52,6 +61,15 @@ def _bf16_match(got, want):
     diff = g != w
     assert np.all(np.abs(g[diff] - w[diff]) == 1)
     assert int(diff.sum()) <= -(-g.size // 1000)
+
+
+def _bits(t):
+    return t.cpu().view(torch.int16)
+
+
+def _assert_bits_equal(got, want):
+    n = int((_bits(got) != _bits(want)).sum())
+    assert n == 0, f"{n}/{got.numel()} bf16 elements differ"
 
 
 def _weight(rng, k, n):
@@ -214,9 +232,13 @@ def _flash_inputs(b, sq, skv, h, kh, d, dtype, seed):
 @pytest.mark.parametrize("shape", [(2, 256, 256, 4, 4, 64),
                                    (2, 300, 300, 8, 2, 32),
                                    (1, 384, 640, 5, 1, 128),
-                                   (4, 512, 512, 15, 5, 64)])
+                                   (4, 512, 512, 15, 5, 64),
+                                   (2, 100, 100, 4, 4, 128),
+                                   (1, 77, 200, 6, 3, 32)])
 def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
-    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/128."""
+    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/128;
+    query lengths that are not whole 64-row blocks.  bf16 runs on the
+    tensor cores, f32 on the FMA kernel."""
     _need_cuda()
     q, k, v = _flash_inputs(*shape, dtype=dtype, seed=sum(shape))
     ops.reset_launch_counts()
@@ -228,6 +250,164 @@ def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
     tol = (dict(rtol=1e-5, atol=2e-5) if dtype == torch.float32
            else dict(rtol=2 ** -7, atol=1e-5))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("shape", [(2, 300, 300, 8, 2, 32),
+                                   (4, 512, 512, 15, 5, 64),
+                                   (1, 384, 640, 5, 1, 128)])
+def test_cuda_flash_fma_route_on_bf16_matches_plain(shape, causal, window):
+    """The FMA kernel (the f32 route) on bf16 inputs cast to f32, the A/B
+    timing route against the tensor cores: within one bf16 ULP of the
+    plain version on the bf16 inputs, like the default."""
+    _need_cuda()
+    q, k, v = _flash_inputs(*shape, dtype=torch.bfloat16, seed=sum(shape))
+    got = flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                          window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gains,noise", [(False, 0.0), (False, 0.5),
+                                         (True, 0.0), (True, 0.5)])
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("m", [9, 40, 130, 512, 2048])
+def test_cuda_fused_core_bit_equal_to_plain(m, tile, gains, noise):
+    """Kernel 1 above decode size: the route the rule picks, the fused
+    route at every row block and the two-launch route all equal the plain
+    version bit for bit; ragged K (900) and N (1000)."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_fused" if gains else "abfp_packed",
+                      tile_width=tile, gain=8.0, noise_lsb=noise)
+    rng = np.random.default_rng(m + tile)
+    pw = pack_abfp_weight(_weight(rng, 900, 1000), cfg, adaptive_gain=gains)
+    x = torch.from_numpy(rng.normal(size=(m, 900)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16)
+    seed = -7 if noise else None
+    assert fused_rows(m, tile, pw.n_padded // 128, cfg, pw.num_tiles) == 16
+    want = abfp_matmul_packed_ref(x, pw, cfg, seed)
+    _assert_bits_equal(abfp_matmul_packed(x, pw, cfg, seed), want)
+    for rows in (0, 16, 32, 64):
+        _assert_bits_equal(_abfp_matmul_packed(x, pw, cfg, seed, rows), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unpacked", [False, True])
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("m", [17, 40])
+def test_cuda_lm_head_size_route_bit_equal_to_plain(m, tile, unpacked):
+    """A weight of LM-head size (960 x 49152) does not stay in L2: the rule
+    picks 32-row blocks, and the public wrappers (kernel 1 with gains,
+    kernel 4) and the 64-row block equal the plain versions bit for
+    bit."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel" if unpacked else "abfp_fused",
+                      tile_width=tile, gain=8.0, noise_lsb=0.5)
+    rng = np.random.default_rng(m + tile)
+    w = _weight(rng, 960, 49152).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    pw = pack_abfp_weight(w, cfg, adaptive_gain=not unpacked)
+    rows = fused_rows(m, tile, pw.n_padded // 128, cfg, pw.num_tiles)
+    assert rows == 32
+    if unpacked:
+        want = abfp_matmul_ref(x, w, cfg, 9)
+        _assert_bits_equal(abfp_matmul(x, w, cfg, 9), want)
+        _assert_bits_equal(_abfp_matmul(x, w, cfg, 9, 64), want)
+    else:
+        want = abfp_matmul_packed_ref(x, pw, cfg, 9)
+        _assert_bits_equal(abfp_matmul_packed(x, pw, cfg, 9), want)
+        _assert_bits_equal(_abfp_matmul_packed(x, pw, cfg, 9, 64), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.5])
+@pytest.mark.parametrize("m", [9, 40, 130])
+def test_cuda_tile8_two_launch_route_bit_equal_to_plain(m, noise):
+    """n = 8 (not a whole m16n8k32 step) takes the two-launch route at
+    every M."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_fused", tile_width=8, gain=8.0,
+                      noise_lsb=noise)
+    rng = np.random.default_rng(m)
+    pw = pack_abfp_weight(_weight(rng, 72, 200), cfg, adaptive_gain=True)
+    x = torch.from_numpy(rng.normal(size=(m, 72)).astype(np.float32)).cuda()
+    seed = 3 if noise else None
+    assert fused_rows(m, 8, pw.n_padded // 128, cfg, pw.num_tiles) == 0
+    _assert_bits_equal(abfp_matmul_packed(x, pw, cfg, seed),
+                       abfp_matmul_packed_ref(x, pw, cfg, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_cuda_decode_route_unchanged(m):
+    """M <= 8 keeps the two-launch route, equal to the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(m)
+    pw = pack_abfp_weight(_weight(rng, 960, 2560), CFG, adaptive_gain=True)
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32)).cuda()
+    assert fused_rows(m, 128, pw.n_padded // 128, CFG, pw.num_tiles) == 0
+    got = abfp_matmul_packed(x, pw, CFG, 5)
+    _assert_bits_equal(got, _abfp_matmul_packed(x, pw, CFG, 5, 0))
+    _assert_bits_equal(got, abfp_matmul_packed_ref(x, pw, CFG, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [40, 130])
+def test_cuda_fused_qkv_above_decode_size_bit_equal(m):
+    """Kernel 2's three segments on the fused route: each output equals
+    the plain version and a stand-alone kernel-1 call with its seed."""
+    _need_cuda()
+    rng = np.random.default_rng(m)
+    pws = [pack_abfp_weight(_weight(rng, 960, c), CFG, adaptive_gain=True)
+           for c in (960, 320, 320)]
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32)).cuda()
+    seeds = (1, -2, 3)
+    assert fused_rows(m, 128, sum(p.n_padded for p in pws) // 128, CFG,
+                      pws[0].num_tiles)
+    got = fused_qkv_packed(x, pws, CFG, seeds, qkv=concat_qkv(pws, CFG))
+    for g, w, pw, sd in zip(got, fused_qkv_packed_ref(x, pws, CFG, seeds),
+                            pws, seeds):
+        _assert_bits_equal(g, w)
+        _assert_bits_equal(g, abfp_matmul_packed(x, pw, CFG, sd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,tile", [(960, 960, 128), (200, 136, 32),
+                                      (2560, 960, 128), (72, 40, 8)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_cuda_weight_quantizer_byte_equal_to_pack(k, n, tile, wdtype):
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=tile, gain=8.0)
+    w = _weight(np.random.default_rng(k + n), k, n).to(wdtype)
+    w[:, 3] = 0.0                      # an all-zero column: scale 0
+    geo, kcodes, scales = quantize_weight(w, cfg)
+    pw = pack_abfp_weight(w, cfg)
+    assert (geo.k, geo.kp, geo.num_tiles) == (pw.k, pw.kp, pw.num_tiles)
+    assert torch.equal(kcodes, pw.kcodes)
+    assert torch.equal(_bits(scales), _bits(pw.scales))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 2048])
+def test_cuda_unpacked_matmul_routes_bit_equal(m):
+    """Kernel 4 at the evaluation shapes on every route equals kernel 1 on
+    the packed weight."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                      noise_lsb=0.5)
+    rng = np.random.default_rng(m)
+    w = _weight(rng, 960, 2560).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    want = abfp_matmul_packed(x, pack_abfp_weight(w, cfg), cfg, 11)
+    _assert_bits_equal(abfp_matmul(x, w, cfg, 11), want)
+    for rows in (0, 16, 32, 64):
+        _assert_bits_equal(_abfp_matmul(x, w, cfg, 11, rows), want)
 
 
 @pytest.mark.cuda

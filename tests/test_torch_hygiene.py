@@ -91,3 +91,19 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+# The kernels' A/B entries (a forced ABFP route): only their own module,
+# the card tests and the smoke script may name them, so no model path can
+# reach them.
+_AB_ENTRIES = ("_abfp_matmul(", "_abfp_matmul_packed(")
+
+
+def test_ab_entries_are_unreachable_from_the_model_paths():
+    own = {"abfp_matmul.py": ("_abfp_matmul(", "_abfp_matmul_packed(")}
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        text = path.read_text()
+        allowed = own.get(path.name, ()) if path.parent.name == "kernels" \
+            else ()
+        used = [e for e in _AB_ENTRIES if e in text and e not in allowed]
+        assert not used, f"{path.relative_to(ROOT)} names {used}"

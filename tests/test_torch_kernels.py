@@ -43,10 +43,14 @@ from repro_torch.kernels.abfp_decode_fused import (
     quantized_decode_attention,
 )
 from repro_torch.kernels.abfp_matmul import (
+    FUSED_L2_RESIDENT_BYTES,
+    FUSED_ROWS,
+    FUSED_MAX_TILES,
     abfp_matmul,
     abfp_matmul_packed,
     abfp_matmul_packed_ref,
     abfp_matmul_ref,
+    fused_rows,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -297,3 +301,30 @@ def test_cpu_calls_launch_no_kernel():
         "abfp_matmul_packed": 0, "fused_qkv_packed": 0,
         "fused_quantized_decode_attention": 0, "abfp_matmul": 0,
         "flash_attention": 0}
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32, 128])
+@pytest.mark.parametrize("n_blocks", [1, 3, 8, 20, 384])
+def test_route_rule(tile, n_blocks):
+    """Decode sizes, tiles that are not whole 32-deep MMA steps (n a power
+    of two from 32) and more than FUSED_MAX_TILES K-tiles take the
+    two-launch route; above M = 8 the fused route takes 16-row blocks for
+    a weight that stays in L2 and 32 rows for a larger one: only row
+    blocks the CUDA launch takes."""
+    cfg = QuantConfig(mode="abfp_packed", tile_width=tile, gain=8.0)
+    tiles = -(-960 // tile)
+    for m in (1, 4, 8, 9, 16, 17, 32, 33, 40, 48, 130, 512, 2048, 8192):
+        rows = fused_rows(m, tile, n_blocks, cfg, tiles)
+        if m <= 8 or tile % 32:
+            assert rows == 0
+            continue
+        assert rows in FUSED_ROWS
+        resident = tiles * tile * n_blocks * 128 <= FUSED_L2_RESIDENT_BYTES
+        assert rows == (16 if resident else 32)
+    assert fused_rows(2048, 128, 384, cfg, 8) == 32     # the LM head
+    assert fused_rows(2048, 128, 20, cfg, 8) == 16      # an MLP weight
+    wide = QuantConfig(mode="abfp_packed", tile_width=512, gain=8.0)
+    assert fused_rows(2048, 512, 8, wide, 2) == 0  # tile dot could reach 2**22
+    assert fused_rows(2048, 96, 8, cfg, 10) == 0   # not a power of two
+    assert fused_rows(2048, 128, 8, cfg, FUSED_MAX_TILES) > 0
+    assert fused_rows(2048, 128, 8, cfg, FUSED_MAX_TILES + 1) == 0
