@@ -11,13 +11,15 @@ Phases (any failure exits non-zero and prints no result line):
                and bf16 MMAs (HMMA) in every tensor-core flash kernel;
   3. kernels — each CUDA kernel against its plain PyTorch version: kernels
                1-3 at the serving path's full smollm-360m shapes (tile 128,
-               gain 8, noise 0.5): bf16 equal but for <= 1 one-ULP flip in
-               each started 1,000 elements (kernels 1-2), within one bf16
-               ULP (kernel 3); the ABFP core's routes (the fused launch at
-               each row block and the two-launch route) at M = 9 to 2,048
-               on three weight shapes, and the LM head (not L2-resident:
-               the wrapper's 32-row blocks and 64-row blocks) at M = 17
-               and 40, bit-equal to the plain version;
+               gain 8, noise 0.5): kernels 1-2 bit-equal (0 flips), kernel
+               3 within one bf16 ULP at lengths 0 / 1 / 512 / mixed; the
+               decode route (one launch) at M = 1 to 8 on every weight
+               shape of a layer, the QKV triple and the LM head, bit-equal
+               to the plain version; the ABFP core's routes (the fused
+               launch at each row block and the two-launch route) at M = 9
+               to 2,048 on three weight shapes, and the LM head (not
+               L2-resident: the wrapper's 32-row blocks and 64-row blocks)
+               at M = 17 and 40, bit-equal to the plain version;
                kernel 4 (unpacked ABFP matmul) at the evaluation forward's
                shapes (M = 4 x 512 and M = 4, every weight shape of a layer
                and the LM head) bit-equal to kernel 1 on the packed weight
@@ -36,13 +38,16 @@ Phases (any failure exits non-zero and prints no result line):
   5. compare — the first prefill pass and decode tick once through the
                kernels and once through the plain versions: every kernel
                call of the kernel run against its plain version on its own
-               inputs (phase 3's bars), the logits' max-abs difference
+               inputs (phase 3's bars: kernels 1, 2 and 4 with 0 flips),
+               the logits' max-abs difference
                (bar DECODE_LOGIT_BAR) and share of equal greedy tokens,
                and the tick rerun with kernel 3's plain version, which must
                then equal the plain run bit for bit;
   6. time    — each kernel's device time for one decode tick's worth of
                its launches (CUDA graph replay of the serving weights and
-               caches), its plain version's time and its bound; kernel 1's
+               caches), its plain version's time and its bound; kernels
+               1-2 on the decode route and on the two-launch route, in
+               turns; kernel 1's
                prefill pass on its route and on the two-launch route, and
                one layer's seven matmuls and the LM head at M = 16 to 2,048
                on every route, in turns;
@@ -67,9 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
                same inputs cast to f32); the whole forward's host
                time and its issue time (host clock to the last enqueue);
   9. profile — a profiler breakdown of one decode tick, one prefill pass and
-               one evaluation forward (the profiler's own set-up may fail
-               and is then skipped; an error in a profiled pass fails the
-               run).
+               one evaluation forward, with the pass's kernel launches (the
+               profiler's own set-up may fail and is then skipped; an error
+               in a profiled pass fails the run).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -315,6 +320,7 @@ def main() -> None:
     try:
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels.abfp_decode_fused import (
+            _fused_qkv_packed,
             fused_qkv_packed,
             fused_qkv_packed_ref,
             fused_quantized_decode_attention,
@@ -323,6 +329,7 @@ def main() -> None:
         from repro_torch.configs import get_config
         from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
         from repro_torch.kernels.abfp_matmul import (
+            DECODE_ROWS,
             _abfp_matmul,
             _abfp_matmul_packed,
             abfp_matmul,
@@ -437,6 +444,14 @@ def main() -> None:
     def act(m, k):
         return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
 
+    def bit_equal(got, want, what: str) -> float:
+        """Fail unless the bf16 tensors are equal bit for bit (the bar of
+        kernels 1, 2 and 4); return the max-abs difference (0)."""
+        n, size, ulp, err = bf16_diff(got, want)
+        if ulp:
+            fail(f"{what}: {n}/{size} one-ULP flips, largest {ulp} ULP")
+        return err
+
     e1 = []
     for m in (4, 512):
         for name, pw in (("attn.wo", lp0["attn"]["wo"]),
@@ -448,7 +463,38 @@ def main() -> None:
             x = act(m, pw.k)
             got = abfp_matmul_packed(x, pw, quant, 12345)
             want = abfp_matmul_packed_ref(x, pw, quant, 12345)
-            e1.append(bf16_flips(got, want, f"kernel 1 {name} M={m}")[2])
+            e1.append(bit_equal(got, want, f"kernel 1 {name} M={m}"))
+        log(f"kernel 1 at M={m} (attn.wo, mlp.wi, mlp.wo"
+            f"{', lm_head' if m == 4 else ''}): 0 flips against the plain "
+            f"version")
+    # The decode route (one launch, M <= 8) on every weight of a layer, the
+    # LM head and the QKV triple, against the plain versions and (kernel
+    # 2) stand-alone kernel-1 calls.
+    pws = tuple(lp0["attn"][w] for w in ("wq", "wk", "wv"))
+    shapes = [(f"attn.{w}", lp0["attn"][w])
+              for w in ("wq", "wk", "wv", "wo")] \
+        + [(f"mlp.{w}", lp0["mlp"][w]) for w in ("wi", "wg", "wo")] \
+        + [("lm_head", eng.params["lm_head"])]
+    e2 = []
+    for m in range(1, 9):
+        for name, pw in shapes:
+            if fused_rows(m, quant.tile_width, pw.n_padded // 128, quant,
+                          pw.num_tiles) != DECODE_ROWS:
+                fail(f"kernel 1 {name} M={m} does not take the decode route")
+            x = act(m, pw.k)
+            e1.append(bit_equal(abfp_matmul_packed(x, pw, quant, 77 + m),
+                                abfp_matmul_packed_ref(x, pw, quant, 77 + m),
+                                f"kernel 1 decode route {name} M={m}"))
+        x = act(m, mcfg.d_model)
+        sd = (m, -m, 3 * m)
+        got = fused_qkv_packed(x, pws, quant, sd, qkv=lp0["attn"]["qkv"])
+        want = fused_qkv_packed_ref(x, pws, quant, sd)
+        for g, w, pw, s_, n in zip(got, want, pws, sd, ("q", "k", "v")):
+            e2.append(bit_equal(g, w, f"kernel 2 decode route {n} M={m}"))
+            bit_equal(g, abfp_matmul_packed(x, pw, quant, s_),
+                      f"kernel 2 {n} M={m} against kernel 1")
+    log("decode route at M = 1..8 on attn.wq/wk/wv/wo, mlp.wi/wg/wo, the "
+        "lm_head and the QKV triple: 0 flips against the plain versions")
     errs["abfp_matmul_packed"] = max(e1)
     # The ABFP core's routes above decode size: the wrapper's own route,
     # the fused launch at every row block and the two-launch route, each
@@ -494,14 +540,13 @@ def main() -> None:
             f"wrapper's row block {rows}, and 64): 0 flips against the "
             f"plain version")
     torch.cuda.synchronize()
-    pws = tuple(lp0["attn"][w] for w in ("wq", "wk", "wv"))
     x = act(CAPACITY, mcfg.d_model)
     seeds = (11, -22, 33)
     got = fused_qkv_packed(x, pws, quant, seeds, qkv=lp0["attn"]["qkv"])
     want = fused_qkv_packed_ref(x, pws, quant, seeds)
     errs["fused_qkv_packed"] = max(
-        bf16_flips(g, w, f"kernel 2 {n} M={CAPACITY}")[2]
-        for g, w, n in zip(got, want, ("q", "k", "v")))
+        [bit_equal(g, w, f"kernel 2 {n} M={CAPACITY}")
+         for g, w, n in zip(got, want, ("q", "k", "v"))] + e2)
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
     q = torch.randn(CAPACITY, 1, h, hd, generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -513,12 +558,15 @@ def main() -> None:
           * 4).to(torch.bfloat16)
     vs = (torch.rand(CAPACITY, MAX_LEN, kh, generator=gen, device=dev)
           * 4).to(torch.bfloat16)
-    lengths = torch.tensor([1, MAX_LEN, 77, 300], dtype=torch.int32,
-                           device=dev)
-    got = fused_quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
-    want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
-    errs["fused_quantized_decode_attention"] = bf16_flips(
-        got, want, f"kernel 3 S_max={MAX_LEN}", per_mille=False)[2]
+    e3 = []
+    for lens3 in ([1, MAX_LEN, 77, 300], [0, 1, MAX_LEN, 300]):
+        lengths = torch.tensor(lens3, dtype=torch.int32, device=dev)
+        got = fused_quantized_decode_attention(q, kc, ks, vc, vs,
+                                               lengths=lengths)
+        want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+        e3.append(bf16_flips(got, want, f"kernel 3 S_max={MAX_LEN} lengths "
+                             f"{lens3}", per_mille=False)[2])
+    errs["fused_quantized_decode_attention"] = max(e3)
     torch.cuda.synchronize()
 
     # Kernels 4-5 at the evaluation forward's shapes, on the unpacked
@@ -705,6 +753,9 @@ def main() -> None:
                         f, z, e = bf16_flips(
                             g, w, f"{name} in the first {kind}",
                             per_mille=name not in loose, quiet=True)
+                    if f and name not in loose:
+                        fail(f"{name} in the first {kind}: {f}/{z} one-ULP "
+                             f"flips against its plain version")
                     n, size, err = n + f, size + z, max(err, e)
                 del want
             if name not in loose:
@@ -791,7 +842,16 @@ def main() -> None:
             if fn is None:
                 fused_qkv_packed(x_d, p3, quant, seeds, qkv=lp["attn"]["qkv"])
             else:
-                fn(x_d, p3, quant, seeds)
+                fn(x_d, p3, quant, seeds, lp["attn"]["qkv"])
+
+    # The two-launch route of kernels 1-2 (the earlier decode design), timed
+    # against the decode route in turns.
+    def k1_two_launch():
+        k1_tick(lambda x, pw, cfg, sd: _abfp_matmul_packed(x, pw, cfg, sd, 0))
+
+    def k2_two_launch():
+        k2_tick(lambda x, p3, cfg, sd, qkv: _fused_qkv_packed(
+            x, p3, cfg, sd, qkv, 0))
 
     c2 = np.sum([k1_cost(CAPACITY, lp["attn"][w], 2) for lp in layers
                  for w in ("wq", "wk", "wv")], axis=0)
@@ -812,24 +872,38 @@ def main() -> None:
     spec = [
         ("abfp_matmul_packed", "src/repro_torch/kernels/csrc/abfp_matmul.cu",
          "src/repro/kernels/abfp_matmul.py:437", "abfp_matmul_packed_pallas",
-         k1_tick, lambda: k1_tick(abfp_matmul_packed_ref), bound(*c1),
+         k1_tick, k1_two_launch, lambda: k1_tick(abfp_matmul_packed_ref),
+         bound(*c1),
          "one decode tick: 32 x (attn.wo, mlp.wi, mlp.wg, mlp.wo) + lm_head, "
          "M=4"),
         ("fused_qkv_packed", "src/repro_torch/kernels/csrc/abfp_matmul.cu",
          "src/repro/kernels/abfp_decode_fused.py:186", "fused_qkv_packed_pallas",
-         k2_tick, lambda: k2_tick(fused_qkv_packed_ref), bound(*c2),
+         k2_tick, k2_two_launch,
+         lambda: k2_tick(lambda x, p3, cfg, sd, qkv: fused_qkv_packed_ref(
+             x, p3, cfg, sd)), bound(*c2),
          "one decode tick: 32 x (wq|wk|wv), M=4"),
         ("fused_quantized_decode_attention",
          "src/repro_torch/kernels/csrc/decode_attention.cu",
          "src/repro/kernels/abfp_decode_fused.py:360",
          "fused_quantized_decode_attention",
-         k3_tick, lambda: k3_tick(quantized_decode_attention),
+         k3_tick, None, lambda: k3_tick(quantized_decode_attention),
          bound(b3, 0.0, f3),
          f"one decode tick: 32 layers, S_max={MAX_LEN}, lengths "
          f"{lens.tolist()}"),
     ]
-    for name, src, repl, repl_fn, fn, plain_fn, (bms, by), work in spec:
-        ms, how = graph_ms(fn, 20)
+    for name, src, repl, repl_fn, fn, two_fn, plain_fn, (bms, by), work \
+            in spec:
+        extra = {}
+        if two_fn is None:
+            ms, how = graph_ms(fn, 20)
+        else:
+            turns = in_turns({"route": fn, "two_launch": two_fn},
+                             lambda f: graph_ms(f, 20)[0])
+            ms = statistics.mean(turns["route"])
+            how = "graph, mean of two turns"
+            two = statistics.mean(turns["two_launch"])
+            extra = {"turns_ms": turns["route"], "decode_two_launch_ms": two,
+                     "decode_two_launch_turns_ms": turns["two_launch"]}
         eager = median_ms(fn, 5)
         pms = median_ms(plain_fn, 3)
         row = {"name": name, "route": "cuda", "source": src,
@@ -839,10 +913,16 @@ def main() -> None:
                "launches_per_prefill_pass": per_pass["prefill"][name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                "bound_ms": bms, "bound_by": by, "library_ms": None,
-               "work": work, "timing": how, "eager_ms": eager}
+               "work": work, "timing": how, "eager_ms": eager, **extra}
         rows.append(row)
-        log(f"{name}: {ms:.4f} ms ({how}), eager {eager:.3f} ms, plain "
-            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}) for {work}")
+        turn_txt = ""
+        if extra:
+            two = extra["decode_two_launch_ms"]
+            turn_txt = (f" {extra['turns_ms']}; two-launch route {two:.4f} ms "
+                        f"{extra['decode_two_launch_turns_ms']}, "
+                        f"{two / ms:.2f}x")
+        log(f"{name}: {ms:.4f} ms ({how}{turn_txt}), eager {eager:.3f} ms, "
+            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}) for {work}")
     def k1_prefill_two_launch():
         for pw, xx in pmats:
             _abfp_matmul_packed(xx, pw, quant, 7, 0)
@@ -1160,8 +1240,8 @@ def main() -> None:
         log(f"profile of one {kind} pass: host {host * 1e3:.2f} ms, "
             f"device busy {total / 1e3:.3f} ms "
             f"({total / 1e3 / (host * 1e3):.1%}) in "
-            f"{sum(cnt.values())} kernel launches; top by device ms: "
-            f"{json.dumps(top)}")
+            f"{sum(cnt.values())} kernel launches per {kind} pass; top by "
+            f"device ms: {json.dumps(top)}")
     del st
     ops.reset_launch_counts()
 

@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "decode_attention": {
         "decode_attention_launch": (
-            [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_F, _P]),
+            [_P, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_F, _P]),
     },
 }
 

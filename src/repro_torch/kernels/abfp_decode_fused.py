@@ -116,6 +116,16 @@ def fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight], cfg: QuantConfig,
     (built here when not given)."""
     if not x.is_cuda:
         return fused_qkv_packed_ref(x, pws, cfg, seeds)
+    return _fused_qkv_packed(x, pws, cfg, seeds, qkv, None)
+
+
+def _fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight],
+                      cfg: QuantConfig,
+                      seeds: Optional[Sequence[Optional[int]]],
+                      qkv: Optional[PackedQKV], rows: Optional[int]):
+    """The CUDA path of ``fused_qkv_packed``; ``rows`` forces a route of
+    ``launch_segments`` (an A/B entry for the card tests and
+    ``chip_smoke.py``'s timing; no model path passes it)."""
     pws = tuple(pws)
     if qkv is None:
         qkv = concat_qkv(pws, cfg)
@@ -124,7 +134,8 @@ def fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight], cfg: QuantConfig,
     if x.shape[-1] != k:
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {k}")
     out = launch_segments(x, qkv.kcodes, qkv.scales, qkv.gains, pws[0], cfg,
-                          qkv.njs, [_seed_or_zero(s, cfg) for s in seeds])
+                          qkv.njs, [_seed_or_zero(s, cfg) for s in seeds],
+                          rows)
     fused_qkv_packed.launches += 1
     outs, col = [], 0
     for pw, nj in zip(pws, qkv.njs):
@@ -167,13 +178,39 @@ def quantized_decode_attention(q: Tensor, k_codes: Tensor, k_scale: Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+# The CUDA kernel's head dims (16-byte chunks of a position's codes that a
+# warp's lanes divide), query heads per block, and its position split: one
+# block per (row, KV head, head group) up to SPLIT_POSITIONS cached
+# positions; beyond, enough splits to give the card about SPLIT_BLOCKS
+# blocks, each split at least SPLIT_POSITIONS long.
+DECODE_HEAD_DIMS = (32, 64, 128, 256)
+DECODE_MAX_HEADS = 4
+SPLIT_POSITIONS = 1024
+SPLIT_BLOCKS = 264
+
+
+def decode_attention_split(b: int, s_max: int, h: int, kh: int):
+    """(query heads per block, head groups, position splits) of the CUDA
+    kernel's grid for this call."""
+    rep = h // kh
+    heads = min(rep, DECODE_MAX_HEADS)
+    groups = -(-rep // heads)
+    blocks = b * kh * groups
+    splits = 1
+    if s_max > SPLIT_POSITIONS:
+        splits = max(1, min(-(-s_max // SPLIT_POSITIONS),
+                            SPLIT_BLOCKS // blocks))
+    return heads, groups, splits
+
+
 def fused_quantized_decode_attention(q: Tensor, k_codes: Tensor,
                                      k_scale: Tensor, v_codes: Tensor,
                                      v_scale: Tensor, *,
                                      lengths: Tensor) -> Tensor:
     """Decode attention over the int8 KV cache; same signature and
     semantics as ``quantized_decode_attention``.  CUDA tensors launch
-    ``csrc/decode_attention.cu`` or raise."""
+    ``csrc/decode_attention.cu`` (one launch, two past SPLIT_POSITIONS
+    cached positions; one count per call) or raise."""
     if not q.is_cuda:
         return quantized_decode_attention(q, k_codes, k_scale, v_codes,
                                           v_scale, lengths=lengths)
@@ -182,6 +219,9 @@ def fused_quantized_decode_attention(q: Tensor, k_codes: Tensor,
     if one != 1 or h % kh:
         raise ValueError(f"q must be (B, 1, H, D) with H % KH == 0, got "
                          f"{tuple(q.shape)} and KH={kh}")
+    if d not in DECODE_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims "
+                         f"{DECODE_HEAD_DIMS}, got {d}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     want = {"k_codes": (k_codes, torch.int8, (b, s_max, kh, d)),
@@ -194,13 +234,21 @@ def fused_quantized_decode_attention(q: Tensor, k_codes: Tensor,
                 or t.device != q.device:
             raise ValueError(f"{name}: need contiguous {dt} {shape} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    # The codes are read in 16-byte chunks: a view at an odd offset is copied.
+    k_codes, v_codes = (t.clone() if t.data_ptr() % 16 else t
+                        for t in (k_codes, v_codes))
     q = q.contiguous()
     out = torch.empty_like(q)
+    heads, groups, splits = decode_attention_split(b, s_max, h, kh)
+    part = None if splits == 1 else torch.empty(
+        b * kh * groups * splits * heads * (d + 2), dtype=torch.float32,
+        device=q.device)
     err = _build.lib("decode_attention").decode_attention_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
         k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, s_max, h, kh, d,
-        float(torch.tensor(d ** -0.5, dtype=torch.float32)),
+        lengths.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), b, s_max, h, kh, d,
+        splits, float(torch.tensor(d ** -0.5, dtype=torch.float32)),
         _build.stream_ptr(q.device))
     _build.check(err, "decode_attention_launch")
     fused_quantized_decode_attention.launches += 1

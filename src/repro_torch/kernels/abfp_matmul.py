@@ -22,11 +22,14 @@ coordinates, whatever their own tiling.
 On a CPU tensor the wrapper runs ``abfp_matmul_packed_ref``; on a CUDA
 tensor it launches ``csrc/abfp_matmul.cu`` (see its header for what bounds
 it and how it is built) or raises.  ``abfp_matmul_packed.launches`` counts
-kernel launches.  The CUDA source has two routes, chosen here by shape
-(``fused_rows``): above decode size (M > 8) with n a power of two from
-32, one fused launch with the tile dots on int8 tensor cores and the ADC
-in registers; at decode size, or for n = 8 or 16, a tile-terms launch and
-a reduce launch through an (T, M, N) f32 scratch array.
+kernel launches.  The CUDA source has three routes, chosen here by shape
+(``fused_rows``): at decode size (M <= 8), one weight-streaming launch
+that quantizes the activations itself and keeps every per-tile term on
+chip; above it with n a power of two from 32, one fused launch with the
+tile dots on int8 tensor cores and the ADC in registers; otherwise (n =
+8 or 16 above M = 8, more than 128 K-tiles, the 2**22 guard) an
+activation-quantizer launch, a tile-terms launch and a reduce launch
+through an (T, M, N) f32 scratch array (the two-launch route).
 
 ``abfp_matmul(x, w, cfg, seed)`` is the same function on a float weight
 (the ``abfp_kernel`` mode): it replaces the TPU kernel
@@ -85,6 +88,14 @@ REF_TERM_ELEMENTS = 1 << 25
 # (``chip_smoke.py``'s route sweep).
 FUSED_ROWS = (16, 32, 64)
 FUSED_L2_RESIDENT_BYTES = 12 << 20
+# The decode route's ``rows`` value (M <= 8 rows, one launch) and the
+# two-launch route's.
+DECODE_ROWS = 8
+TWO_LAUNCH = 0
+# The decode launch keeps the activation codes (M x Kp bytes), their scales
+# and two rounds of per-tile terms in shared memory: at most the H100's
+# 227 KB a block may take.
+DECODE_MAX_SMEM = 227 * 1024
 
 _M32 = 0xFFFFFFFF
 
@@ -248,20 +259,39 @@ def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
 FUSED_MAX_TILES = 128
 
 
+def decode_smem_bytes(m: int, n: int, num_tiles: int) -> int:
+    """Shared memory of one decode-route block (``DecodeSmem`` in
+    ``csrc/abfp_matmul.cu``)."""
+    kp = num_tiles * n
+    sx = ceil_to(m * kp, 16)
+    terms = ceil_to(sx + m * num_tiles * 4, 16)
+    # Two rounds of terms (8 tiles x m rows x 32 columns, f32), then two
+    # stages of each of 256 threads' code chunks (8 x 16 bytes), column
+    # scales (8 bytes) and gain (4 bytes).
+    return terms + 2 * 8 * m * 32 * 4 + 2 * 256 * (8 * 16 + 8 + 4)
+
+
 def fused_rows(m: int, n: int, n_blocks: int, cfg: QuantConfig,
                num_tiles: int) -> int:
     """The route of an (M, K) x (K, n_blocks * 128) call with ``num_tiles``
-    K-tiles of width n: the fused launch's row block (``FUSED_ROWS``), or 0
-    for the tile-terms + reduce route.  Decode sizes (M <= 8) stream the
-    weight and keep the split-K two-launch route; so do tiles that are not
-    whole 32-deep MMA steps (n must be a power of two from 32), more than
-    FUSED_MAX_TILES K-tiles, and configurations whose tile dot or ADC level
-    could reach 2**22 (the fused epilogue's exact conversions need less)."""
+    K-tiles of width n: ``DECODE_ROWS`` for the decode route, the fused
+    launch's row block (``FUSED_ROWS``), or ``TWO_LAUNCH`` (0) for the
+    tile-terms + reduce route.  Every call with M <= 8 (at every tile width)
+    takes the decode route: one launch that streams the weight once, unless
+    its activation codes overflow a block's shared memory (K above about
+    17,500 at M = 8, 36,000 at M = 4).  Above M = 8 the fused route takes tiles that are
+    whole 32-deep MMA steps (n a power of two from 32), at most
+    FUSED_MAX_TILES K-tiles, and configurations whose tile dot and ADC level
+    stay below 2**22 (the fused epilogue's exact conversions need that);
+    the rest take the two-launch route."""
+    if m <= DECODE_ROWS:
+        fits = decode_smem_bytes(m, n, num_tiles) <= DECODE_MAX_SMEM
+        return DECODE_ROWS if fits else TWO_LAUNCH
     lx = 2 ** (cfg.bits_x - 1) - 1
     ly = 2 ** (cfg.bits_y - 1) - 1
-    if m <= 8 or n < 32 or n & (n - 1) or num_tiles > FUSED_MAX_TILES \
+    if n < 32 or n & (n - 1) or num_tiles > FUSED_MAX_TILES \
             or n * lx * 127 >= 1 << 22 or ly >= 1 << 22:
-        return 0
+        return TWO_LAUNCH
     resident = num_tiles * n * n_blocks * DEFAULT_BN <= FUSED_L2_RESIDENT_BYTES
     rows = 16 if resident else 32
     assert rows in FUSED_ROWS
@@ -276,8 +306,8 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
     column blocks are concatenated (``njs`` blocks each); ``pw0`` (a
     ``PackedWeight`` or ``Geometry``) gives their shared K side.  Returns
     the (M, sum(njs) * 128) bf16 output.  ``rows`` overrides the route
-    (``fused_rows``): 0 for the two-launch route, 16/32/64 for the fused
-    one; only the A/B entries below pass it."""
+    (``fused_rows``): 0 for the two-launch route, 8 for the decode route
+    (M <= 8), 16/32/64 for the fused one; only the A/B entries pass it."""
     if not x.is_cuda:
         raise ValueError("the CUDA kernel takes CUDA tensors")
     if cfg.out_dtype != torch.bfloat16 or cfg.scale_dtype != torch.bfloat16:
@@ -302,14 +332,17 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
     if rows is None:
         rows = fused_rows(m, n, ntot // DEFAULT_BN, cfg, T)
     if rows and (kcodes.data_ptr() % 16 or scales.data_ptr() % 16):
-        raise ValueError("the fused route needs 16-byte aligned kcodes and "
-                         "scales")
-    # The fused route stages whole row blocks: rows past M are scratch.
-    xq = torch.empty((ceil_to(m, rows) if rows else m, pw0.kp),
-                     dtype=torch.int8, device=dev)
-    sx = torch.empty((m, T), dtype=torch.float32, device=dev)
-    terms = None if rows else torch.empty((T, m, ntot), dtype=torch.float32,
-                                          device=dev)
+        raise ValueError("the fused and decode routes need 16-byte aligned "
+                         "kcodes and scales")
+    # The decode route quantizes x on chip and keeps its terms there; the
+    # fused route stages whole row blocks: rows past M are scratch.
+    xq = sx = terms = None
+    if rows != DECODE_ROWS:
+        xq = torch.empty((ceil_to(m, rows) if rows else m, pw0.kp),
+                         dtype=torch.int8, device=dev)
+        sx = torch.empty((m, T), dtype=torch.float32, device=dev)
+    if rows == TWO_LAUNCH:
+        terms = torch.empty((T, m, ntot), dtype=torch.float32, device=dev)
     out = torch.empty((m, ntot), dtype=torch.bfloat16, device=dev)
     has_g = gains is not None
     err = _build.lib("abfp_matmul").abfp_matmul_packed_launch(
@@ -322,8 +355,8 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
         f32_const(2.0 * cfg.noise_lsb), int(cfg.noise_lsb > 0.0),
         float(2 ** (cfg.bits_y - 1) - 1), f32_const(cfg.bin_y),
         f32_const(cfg.gain), float(2 ** (cfg.bits_x - 1) - 1), rows,
-        xq.data_ptr(), sx.data_ptr(),
-        None if terms is None else terms.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (xq, sx, terms)),
+        out.data_ptr(),
         _build.stream_ptr(dev))
     _build.check(err, "abfp_matmul_packed_launch")
     return out

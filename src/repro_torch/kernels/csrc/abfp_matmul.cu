@@ -16,16 +16,31 @@
 //
 // What bounds it: at decode (M = 4 rows) the int8 codes are read once and
 // every code feeds 4 multiply-adds, so the weight stream from device memory
-// is the bound.  Above decode size (prefill, the evaluation forward) the
+// is the bound; below a few MB per call (every layer weight of the served
+// model) a call is bound by its latency instead: the launch and one
+// block's serial chain of quantizer, weight copy, dots, epilogue and sum.
+// Above decode size (prefill, the evaluation forward) the
 // f32 ADC epilogue, once per (row, K-tile, column), sets the pace: the
 // integer dots are exact and cheap on int8 tensor cores, and the epilogue's
 // murmur-style noise hash is integer work at half the f32 rate.
 //
 // Design, by route (the wrapper picks it from M, n and the tile count):
-//   1. abfp_quantize_x (every route): one warp per (row, K-tile) derives the
-//      bf16-rounded max-abs activation scale and the 8-bit DAC codes once
-//      per call (the TPU kernel re-derived them in every grid step).
-//   2. M > 8, n a power of two from 32, at most 128 K-tiles: abfp_fused,
+//   1. M <= 8 (decode), every tile width: abfp_decode, one launch.  Each
+//      block quantizes the activations itself (abfp_quantize_x's
+//      operations, with x / s_x through an exact reciprocal test, the
+//      division only where a code could differ) while its first two
+//      stages of code words stream into shared memory with cp.async; a
+//      block owns a 32-column slice for all K-tiles (walking several
+//      slices when the grid would pass two blocks per SM: the LM head),
+//      its warps take one K-tile each per round, and the per-tile terms
+//      stay in shared memory until a thread per (row, column) folds them
+//      in the reference's order.  No (T, M, N) term array, no second
+//      launch.  See abfp_decode below.
+//   2. Every other route starts with abfp_quantize_x: one warp per (row,
+//      K-tile) derives the bf16-rounded max-abs activation scale and the
+//      8-bit DAC codes once per call (the TPU kernel re-derived them in
+//      every grid step).
+//   3. M > 8, n a power of two from 32, at most 128 K-tiles: abfp_fused,
 //      one launch.  One block per (BM-row block, 128-column block); it
 //      walks the K-tiles in order, as the TPU grid's sequential K axis did,
 //      so nothing carries between blocks and no per-tile term reaches
@@ -45,12 +60,13 @@
 //      once at the end.  BM (16, 32 or 64 rows) is the wrapper's choice:
 //      16 for a weight that stays in L2 across row blocks, 32 for one that
 //      does not (the LM head), which halves its re-reads from device memory.
-//   3. Otherwise (M <= 8 at decode, n = 8 or 16: m16n8k32 needs whole
-//      32-deep k steps): abfp_tile_terms, one block per (128-column block,
-//      K-tile, row block) with a thread per column and __dp4a dots, writes
-//      the rescaled per-tile f32 terms; abfp_reduce sums them in the
-//      reference's order.  Splitting over K-tiles gives a weight streamed
-//      at decode enough blocks to fill the card.
+//   4. Otherwise (above M = 8: n = 8 or 16, since m16n8k32 needs whole
+//      32-deep k steps; more than 128 K-tiles; a tile dot or ADC level that
+//      could reach 2^22; and, for timing only, any call that asks for it):
+//      the two-launch route, abfp_tile_terms, one block per (128-column
+//      block, K-tile, row block) with a thread per column and __dp4a dots,
+//      writes the rescaled per-tile f32 terms; abfp_reduce sums them in
+//      the reference's order.
 // The noise depends on the reference grid (bm = auto_bm(M), bn = 128,
 // bk = default_bk(n, K)), not on this tiling: every coordinate of the
 // reference hash (salt, row, column) is recomputed here.
@@ -61,7 +77,8 @@
 // 1.5 * 2^23, so the dot (|p| < 2^22) becomes an exact f32 by one
 // subtraction; round half to even of the clamped ADC value is the add and
 // subtraction of 1.5 * 2^23; the hash's / 2^24 is * 2^-24; a division by a
-// power-of-two gain is a multiplication by its exact reciprocal.
+// power-of-two gain is a multiplication by its exact reciprocal (the last
+// two in the decode route as well).
 //
 // Kernel 4 (abfp_matmul_pallas) is the same function on a float W: the TPU
 // kernel re-derives the bf16 max-abs weight scales and the DAC codes of
@@ -88,8 +105,11 @@ namespace {
 
 constexpr int BN = 128;  // output columns per block (the reference bn)
 
-__device__ __forceinline__ float hash_uniform(uint32_t r, uint32_t c,
-                                              uint32_t seed, uint32_t salt) {
+// The reference's lattice hash minus 0.5: u = (x >> 8) / 2^24 is exact, so
+// one fma gives the reference's f32 u - 0.5 bit for bit (the fused route
+// computes the same inline).
+__device__ __forceinline__ float hash_u05(uint32_t r, uint32_t c,
+                                          uint32_t seed, uint32_t salt) {
   uint32_t x = r * 0x9E3779B9u + c * 0x85EBCA6Bu + seed * 0xC2B2AE35u +
                salt * 0x27D4EB2Fu;
   x ^= x >> 16;
@@ -97,7 +117,7 @@ __device__ __forceinline__ float hash_uniform(uint32_t r, uint32_t c,
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
-  return __fdiv_rn((float)(x >> 8), 16777216.0f);
+  return __fmaf_rn((float)(x >> 8), 0x1p-24f, -0.5f);
 }
 
 __device__ __forceinline__ float load_x(const void* x, int x_bf16, long i) {
@@ -110,6 +130,34 @@ __device__ __forceinline__ float load_x(const void* x, int x_bf16, long i) {
 __host__ __device__ __forceinline__ bool exact_reciprocal(uint32_t bits) {
   const uint32_t e = (bits >> 23) & 0xFFu;
   return (bits & 0x7FFFFFu) == 0 && e >= 1 && e <= 253;
+}
+
+// The activation quantizer's arithmetic, shared by every route: scale =
+// bf16(max |x|) over the tile (1 in place of 0 for the division), code =
+// clamp(rint(x / scale * lx)) (divide, then multiply, as the reference).
+__device__ __forceinline__ float x_scale(float mx) {
+  return __bfloat162float(__float2bfloat16_rn(mx));
+}
+
+__device__ __forceinline__ int8_t x_code(float e, float ss, float lx) {
+  float q = rintf(__fmul_rn(__fdiv_rn(e, ss), lx));
+  return (int8_t)fminf(fmaxf(q, -lx), lx);
+}
+
+// x_code without a division per element, bit for bit: rs = RN(1 / ss),
+// computed once per tile.  With |e / ss| <= 1.004 (ss is max |x| rounded
+// to bf16), RN(RN(e * rs) * lx) differs from the reference's RN(RN(e / ss)
+// * lx) by at most 5 * 2^-24 * lx * 1.004 < 4e-5 (lx <= 127), so both
+// round to the same integer unless the scaled value lies within 2^-13 of a
+// half-integer (or is not below 256, or the scale lies outside [2^-100,
+// 2^100], where the reciprocal may lose bits).  Returns false there: the
+// caller then redoes the code with x_code's division.
+__device__ __forceinline__ bool x_code_rcp(float e, float rs, bool rs_ok,
+                                           float lx, int8_t& code) {
+  const float ta = __fmul_rn(__fmul_rn(e, rs), lx);
+  const float tie = fabsf(__fsub_rn(__fsub_rn(ta, floorf(ta)), 0.5f));
+  code = (int8_t)fminf(fmaxf(rintf(ta), -lx), lx);
+  return rs_ok && fabsf(ta) < 256.0f && tie > 0x1p-13f;
 }
 
 // One warp per (row m, tile t): scale = bf16(max |x|), codes = clamp(
@@ -132,9 +180,7 @@ __global__ void abfp_quantize_x(const void* __restrict__ x, int x_bf16, int M,
     return i < n && k < K ? load_x(x, x_bf16, base + k) : 0.0f;
   };
   auto store = [&](int i, float e, float ss) {
-    float q = rintf(__fmul_rn(__fdiv_rn(e, ss), lx));
-    q = fminf(fmaxf(q, -lx), lx);
-    if (i < n) xq[(long)m * Kp + t * n + i] = (int8_t)q;
+    if (i < n) xq[(long)m * Kp + t * n + i] = x_code(e, ss, lx);
   };
   float v[QX_CACHE];
   float mx = 0.0f;
@@ -147,8 +193,8 @@ __global__ void abfp_quantize_x(const void* __restrict__ x, int x_bf16, int M,
     mx = fmaxf(mx, fabsf(elem(i)));
   for (int o = 16; o > 0; o >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  float s = __bfloat162float(__float2bfloat16_rn(mx));
-  float ss = s == 0.0f ? 1.0f : s;
+  const float s = x_scale(mx);
+  const float ss = s == 0.0f ? 1.0f : s;
 #pragma unroll
   for (int c = 0; c < QX_CACHE; ++c) store(lane + 32 * c, v[c], ss);
   for (int i = lane + 32 * QX_CACHE; i < n; i += 32) store(i, elem(i), ss);
@@ -303,9 +349,10 @@ abfp_tile_terms(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     if (adc.noisy) {
       int i = m / bm, rr = m % bm;
       uint32_t salt = (uint32_t)((i * seg.nj[s] + j_local) * nk + kb);
-      float u = hash_uniform((uint32_t)(tt * bm + rr), (uint32_t)cc,
-                             (uint32_t)seg.seed[s], salt);
-      v = __fadd_rn(v, __fmul_rn(__fsub_rn(u, 0.5f), adc.noise2));
+      v = __fadd_rn(v, __fmul_rn(hash_u05((uint32_t)(tt * bm + rr),
+                                          (uint32_t)cc,
+                                          (uint32_t)seg.seed[s], salt),
+                                 adc.noise2));
     }
     float yq = __fmul_rn(fminf(fmaxf(rintf(v), -adc.ly), adc.ly), adc.bin_y);
     float term = __fmul_rn(__fmul_rn(yq, sx[m * T + t]), sw);
@@ -337,13 +384,8 @@ __global__ void abfp_reduce(const float* __restrict__ terms, int M, int T,
 }
 
 // ---------------------------------------------------------------------------
-// The fused route (M > 8): int8 tensor-core tile dots, ADC in registers
+// The decode route (M <= 8): one weight-streaming launch
 // ---------------------------------------------------------------------------
-
-constexpr int MAGIC_BITS = 0x4B400000;   // 1.5 * 2^23 as f32 bits
-constexpr float MAGIC = 12582912.0f;     // 1.5 * 2^23
-constexpr int FUSED_STAGES = 2;          // K-tiles in flight
-constexpr int FUSED_BROW = BN * 4 + 32;  // padded code-word row (bytes)
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -360,6 +402,347 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// A 4- or 8-byte copy (cached in L1 on its way: scales and gains).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(BYTES)
+               : "memory");
+}
+
+constexpr int DEC_ROWS = 8;      // the route's `rows` value: M <= 8
+constexpr int DEC_COLS = 32;     // columns per slice: 128 bytes of code words
+constexpr int DEC_WARPS = 8;     // warp w takes K-tiles w, w + 8, w + 16, ...
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_LOADS = 8;     // 16-byte code chunks per lane per stage
+constexpr int DEC_QX_LANES = 8;  // lanes per (row, K-tile) in the quantizer
+constexpr int DEC_QX_CACHE = 16; // elements a quantizer lane keeps (n <= 128)
+constexpr int DEC_BLOCKS_PER_SM = 2;
+
+// Shared memory of one block: the activation codes (M x Kp bytes), the
+// scales s_x (M x T), two rounds of per-tile terms (DEC_WARPS tiles x M
+// rows x DEC_COLS columns, f32), and two stages of each thread's own code
+// chunks, column scales and tile gain.
+struct DecodeSmem {
+  int sx, terms, w, sc, g, total;
+  __host__ __device__ DecodeSmem(int M, int Kp, int T) {
+    sx = (M * Kp + 15) / 16 * 16;
+    terms = (sx + M * T * 4 + 15) / 16 * 16;
+    w = terms + 2 * DEC_WARPS * M * DEC_COLS * 4;
+    sc = w + 2 * DEC_LOADS * DEC_THREADS * 16;
+    g = sc + 2 * DEC_THREADS * 8;
+    total = g + 2 * DEC_THREADS * 4;
+  }
+};
+
+// The bf16 value in the low 16 bits of v.
+__device__ __forceinline__ float bf16_bits(uint32_t v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)v));
+}
+
+// A block walks 32-column slices blockIdx.x, blockIdx.x + gridDim.x, ...
+// of the (concatenated) weight, each for all K-tiles; MR = M live rows.
+// Lane (gq, ch) of warp w takes, for K-tile t = w, w + 8, ..., code-word
+// rows q = gq, gq + 4, ... as 16-byte chunks: the words of columns 4 ch ..
+// 4 ch + 3, so the eight lanes of a row group read one 128-byte line.  A
+// stage is DEC_LOADS such chunks (a whole tile for n <= 128) with the
+// tile's column scales and gain; each thread copies its own stages into
+// shared memory with cp.async, two stages ahead, and reads them back
+// itself, so the weight stream runs under the activation quantizer and
+// under the previous stage's arithmetic.  The exact dots (__dp4a, M rows x
+// 4 columns) are summed over the four row groups with shuffles; row group
+// gq then runs the ADC epilogue (abfp_tile_terms' f32 order) for rows gq
+// and gq + 4 and leaves the tile's terms in shared memory.  After each
+// round of DEC_WARPS tiles, a thread per (row, column) folds them into the
+// reference-order sums in tile order: block sums over the tk tiles of a
+// reference K block, / gain on the gain-free path, then the f32
+// accumulator; bf16 at the end of the slice.  A call is bound by this
+// serial chain, not by its bytes, so nothing is unrolled over rows but the
+// dots (code that runs once per block), and no integer division by a
+// runtime value (a serial chain of conversions and a reciprocal) runs
+// after the start.
+template <int MR>
+__global__ void __launch_bounds__(DEC_THREADS)
+abfp_decode(const void* __restrict__ x, int x_bf16, int K, int Kp, int T,
+            int n, float lx, const int32_t* __restrict__ kcodes,
+            const __nv_bfloat16* __restrict__ scales,
+            const float* __restrict__ gains, int Ntot, int bm, int tk, int nk,
+            Segments seg, Adc adc, __nv_bfloat16* __restrict__ out) {
+  constexpr int M = MR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DecodeSmem L(M, Kp, T);
+  int8_t* xs = (int8_t*)smem;                  // [M][Kp]
+  float* sxs = (float*)(smem + L.sx);          // [M][T]
+  float* terms = (float*)(smem + L.terms);     // [2][DEC_WARPS][M][DEC_COLS]
+  uint4* wb = (uint4*)(smem + L.w);            // [2][DEC_LOADS][DEC_THREADS]
+  uint2* sb = (uint2*)(smem + L.sc);           // [2][DEC_THREADS]
+  float* gb = (float*)(smem + L.g);            // [2][DEC_THREADS]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 3, ch = lane & 7;
+  const int nq = n >> 2;
+  const int kq = Kp >> 2;                      // code words per x row
+  const int nslices = Ntot / DEC_COLS;
+  // Stages of DEC_LOADS word rows per tile (one for n <= 128); a lane with
+  // no word row (n < 16) still copies the tile's scales and gain.
+  const int batches = nq > gq ? ((nq - 1 - gq) >> 2) / DEC_LOADS + 1 : 1;
+  const int my_tiles = warp < T ? (T - 1 - warp) / DEC_WARPS + 1 : 0;
+  const int my_slices =
+      (int)blockIdx.x < nslices
+          ? (nslices - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+          : 0;
+  const int per_slice = my_tiles * batches;
+  const int stages = per_slice * my_slices;
+
+  // The thread's next stage to copy, k, is batch ib of tile it of slice
+  // column ic (a cursor, so that no integer division runs between stages).
+  // Stage k goes into buffer k & 1; one commit group per stage, empty past
+  // the last.
+  int ik = 0, ib = 0, it = warp;
+  int ic = (int)blockIdx.x * DEC_COLS + 4 * ch;
+  auto issue = [&]() {
+    if (ik < stages) {
+      const int t = it, b = ib, c = ic;
+      const int buf = ik & 1;
+#pragma unroll
+      for (int i = 0; i < DEC_LOADS; ++i) {
+        const int q = gq + 4 * (b * DEC_LOADS + i);
+        if (q < nq)
+          cp_async16(wb + (buf * DEC_LOADS + i) * DEC_THREADS + tid,
+                     kcodes + (long)(t * nq + q) * Ntot + c);
+      }
+      if (b == 0) {
+        cp_async_small<8>(sb + buf * DEC_THREADS + tid,
+                          scales + (long)t * Ntot + c);
+        if (adc.has_gains) {
+          int sg, jl;
+          segment_of(seg, c / BN, sg, jl);
+          cp_async_small<4>(gb + buf * DEC_THREADS + tid,
+                            gains + t * seg.nseg + sg);
+        }
+      }
+      if (++ib == batches) {
+        ib = 0;
+        it += DEC_WARPS;
+        if (it >= T) {
+          it = warp;
+          ic += (int)gridDim.x * DEC_COLS;
+        }
+      }
+    }
+    ++ik;
+    cp_async_commit();
+  };
+  issue();
+  issue();
+
+  // The activation quantizer, abfp_quantize_x's operations: eight lanes per
+  // (row, K-tile), four of them per warp in one pass; a lane takes the
+  // tile's elements sub, sub + 8, ... (the first DEC_QX_CACHE kept in
+  // registers between the max and the codes).
+  {
+    const int sub = lane & (DEC_QX_LANES - 1), slot = lane / DEC_QX_LANES;
+    constexpr int PER_WARP = 32 / DEC_QX_LANES;
+    constexpr int STRIDE = DEC_WARPS * PER_WARP;
+    const int p_first = warp * PER_WARP + slot;
+    int m = p_first / T, t = p_first % T;      // this lane's (row, K-tile)
+#pragma unroll 1
+    for (int p0 = warp * PER_WARP; p0 < M * T; p0 += STRIDE) {
+      const bool live = m < M;
+      const long base = (long)m * K + t * n;
+      const int kmax = live ? min(n, K - t * n) : 0;   // elements in the tile
+      float v[DEC_QX_CACHE];
+      if (x_bf16) {
+        const __nv_bfloat16* xb = (const __nv_bfloat16*)x + base;
+#pragma unroll
+        for (int e = 0; e < DEC_QX_CACHE; ++e) {
+          const int i = sub + DEC_QX_LANES * e;
+          v[e] = i < kmax ? __bfloat162float(xb[i]) : 0.0f;
+        }
+      } else {
+        const float* xf = (const float*)x + base;
+#pragma unroll
+        for (int e = 0; e < DEC_QX_CACHE; ++e) {
+          const int i = sub + DEC_QX_LANES * e;
+          v[e] = i < kmax ? xf[i] : 0.0f;
+        }
+      }
+      float mx = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DEC_QX_CACHE; ++e) mx = fmaxf(mx, fabsf(v[e]));
+#pragma unroll 1
+      for (int i = sub + DEC_QX_LANES * DEC_QX_CACHE; i < kmax;
+           i += DEC_QX_LANES)
+        mx = fmaxf(mx, fabsf(load_x(x, x_bf16, base + i)));
+#pragma unroll
+      for (int o = 1; o < DEC_QX_LANES; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float sc = x_scale(mx);
+      const float ss = sc == 0.0f ? 1.0f : sc;
+      const float rs = __frcp_rn(ss);
+      const bool rs_ok = ss >= 0x1p-100f && ss <= 0x1p100f;
+      if (live) {
+        int8_t* row = xs + m * Kp + t * n;
+        uint32_t redo = 0;          // elements whose code needs the division
+#pragma unroll
+        for (int e = 0; e < DEC_QX_CACHE; ++e) {
+          const int i = sub + DEC_QX_LANES * e;
+          int8_t code;
+          if (!x_code_rcp(v[e], rs, rs_ok, lx, code)) redo |= 1u << e;
+          if (i < n) row[i] = code;
+        }
+#pragma unroll 1
+        for (; redo; redo &= redo - 1) {
+          const int i = sub + DEC_QX_LANES * (__ffs(redo) - 1);
+          if (i < n)
+            row[i] = x_code(i < kmax ? load_x(x, x_bf16, base + i) : 0.0f,
+                            ss, lx);
+        }
+#pragma unroll 1
+        for (int i = sub + DEC_QX_LANES * DEC_QX_CACHE; i < n;
+             i += DEC_QX_LANES)
+          row[i] = x_code(i < kmax ? load_x(x, x_bf16, base + i) : 0.0f, ss,
+                          lx);
+        if (sub == 0) sxs[m * T + t] = sc;
+      }
+      for (t += STRIDE; t >= T; t -= T) ++m;
+    }
+  }
+  __syncthreads();
+
+  const int32_t* xw = (const int32_t*)xs;
+  const int fm = tid / DEC_COLS, fc = tid % DEC_COLS;
+  const int kb0 = warp / tk, tt0 = warp % tk;  // K block of tile `warp`
+  const int rounds = (T + DEC_WARPS - 1) / DEC_WARPS;
+  int k = 0, parity = 0;
+#pragma unroll 1
+  for (int si = 0; si < my_slices; ++si) {
+    const int c0 = ((int)blockIdx.x + si * (int)gridDim.x) * DEC_COLS;
+    int s, j_local;
+    segment_of(seg, c0 / BN, s, j_local);
+    const uint32_t seed = (uint32_t)seg.seed[s];
+    // The salt of row block 0 and K block 0 (bm = 8 >= M: every row is in
+    // row block 0, hash row tt * 8 + m).
+    const uint32_t salt0 = (uint32_t)j_local * (uint32_t)nk;
+    const int cb = c0 % BN + 4 * ch;           // hash column of column 0
+    float bsum = -0.0f, acc = 0.0f;            // the fold thread's sums
+    int kb = kb0, tt = tt0;                    // warp's tile t = kb tk + tt
+    int f_tt = 0;                              // fold: tile within K block
+#pragma unroll 1
+    for (int r = 0; r < rounds; ++r, parity ^= 1) {
+      const int t = r * DEC_WARPS + warp;
+      float* tb = terms + parity * (DEC_WARPS * M * DEC_COLS);
+      if (t < T) {
+        int dot[M][4];
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dot[m][j] = 0;
+        uint2 sw = make_uint2(0, 0);
+        float g = 1.0f;
+#pragma unroll 1
+        for (int b = 0; b < batches; ++b, ++k) {
+          cp_async_wait<1>();                  // stage k has landed
+          const int buf = k & 1;
+          if (b == 0) {
+            sw = sb[buf * DEC_THREADS + tid];
+            if (adc.has_gains) g = gb[buf * DEC_THREADS + tid];
+          }
+#pragma unroll
+          for (int i = 0; i < DEC_LOADS; ++i) {
+            const int q = gq + 4 * (b * DEC_LOADS + i);
+            if (q < nq) {
+              const uint4 wv = wb[(buf * DEC_LOADS + i) * DEC_THREADS + tid];
+#pragma unroll
+              for (int m = 0; m < M; ++m) {
+                const int a = xw[m * kq + t * nq + q];
+                dot[m][0] = __dp4a(a, (int)wv.x, dot[m][0]);
+                dot[m][1] = __dp4a(a, (int)wv.y, dot[m][1]);
+                dot[m][2] = __dp4a(a, (int)wv.z, dot[m][2]);
+                dot[m][3] = __dp4a(a, (int)wv.w, dot[m][3]);
+              }
+            }
+          }
+          issue();            // stage k + 2, into the buffer just read
+        }
+        // Sum over the four row groups; row group gq keeps rows gq, gq + 4.
+        int mine[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            int d = dot[m][j];
+            d += __shfl_xor_sync(0xffffffffu, d, 8);
+            d += __shfl_xor_sync(0xffffffffu, d, 16);
+            if ((m & 3) == gq) mine[m >> 2][j] = d;
+          }
+
+        // The ADC epilogue of rows gq and gq + 4 (abfp_tile_terms' order;
+        // / g is * (1 / g) where that is exact).
+        const bool g_exact = exact_reciprocal(__float_as_uint(g));
+        const float g_inv = g_exact ? 1.0f / g : 1.0f;
+        const float swf[4] = {bf16_bits(sw.x), bf16_bits(sw.x >> 16),
+                              bf16_bits(sw.y), bf16_bits(sw.y >> 16)};
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+          const int m = gq + 4 * h;
+          if (m >= M) break;
+          const uint32_t salt = salt0 + (uint32_t)kb;
+          const uint32_t hr = (uint32_t)tt * (uint32_t)bm + (uint32_t)m;
+          const float sxm = sxs[m * T + t];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int dj = h ? mine[1][j] : mine[0][j];
+            float v = __fmul_rn((float)dj, adc.scale);
+            if (adc.has_gains) v = __fmul_rn(v, g);
+            if (adc.noisy)
+              v = __fadd_rn(v, __fmul_rn(hash_u05(hr, (uint32_t)(cb + j),
+                                                  seed, salt),
+                                         adc.noise2));
+            const float yq = __fmul_rn(fminf(fmaxf(rintf(v), -adc.ly), adc.ly),
+                                       adc.bin_y);
+            float term = __fmul_rn(__fmul_rn(yq, sxm), swf[j]);
+            if (adc.has_gains)
+              term = g_exact ? __fmul_rn(term, g_inv) : __fdiv_rn(term, g);
+            tb[(warp * M + m) * DEC_COLS + 4 * ch + j] = term;
+          }
+        }
+      }
+      for (tt += DEC_WARPS; tt >= tk; tt -= tk) ++kb;
+      __syncthreads();
+      // Fold this round's tiles into the sums, in tile order.
+      if (fm < M) {
+#pragma unroll 1
+        for (int wi = 0; wi < DEC_WARPS; ++wi) {
+          const int tf = r * DEC_WARPS + wi;
+          if (tf >= T) break;
+          bsum = __fadd_rn(bsum, tb[(wi * M + fm) * DEC_COLS + fc]);
+          if (++f_tt == tk || tf == T - 1) {
+            f_tt = 0;
+            if (!adc.has_gains)
+              bsum = adc.gain_pow2 ? __fmul_rn(bsum, adc.inv_gain)
+                                   : __fdiv_rn(bsum, adc.gain);
+            acc = __fadd_rn(acc, bsum);
+            bsum = -0.0f;
+          }
+        }
+      }
+    }
+    if (fm < M) out[(long)fm * Ntot + c0 + fc] = __float2bfloat16_rn(acc);
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// The fused route (M > 8): int8 tensor-core tile dots, ADC in registers
+// ---------------------------------------------------------------------------
+
+constexpr int MAGIC_BITS = 0x4B400000;   // 1.5 * 2^23 as f32 bits
+constexpr float MAGIC = 12582912.0f;     // 1.5 * 2^23
+constexpr int FUSED_STAGES = 2;          // K-tiles in flight
+constexpr int FUSED_BROW = BN * 4 + 32;  // padded code-word row (bytes)
 
 // d = a . b + c on one m16n8k32 tile, s8 x s8 -> s32 (exact).
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
@@ -683,6 +1066,32 @@ cudaError_t launch_fused_wr(const int8_t* xq, const float* sx,
                                         st);
 }
 
+template <int MR>
+cudaError_t launch_decode(const void* x, int x_bf16, int K, int Kp, int T,
+                          int n, float lx, const int32_t* kcodes,
+                          const __nv_bfloat16* scales, const float* gains,
+                          int Ntot, int bm, int tk, int nk,
+                          const Segments& seg, const Adc& adc,
+                          __nv_bfloat16* out, cudaStream_t st) {
+  const size_t smem = (size_t)DecodeSmem(MR, Kp, T).total;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> cap_set{0};
+  cudaError_t err = raise_smem_cap(abfp_decode<MR>, MAX_SMEM, cap_set);
+  if (err != cudaSuccess) return err;
+  int dev, sms;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int slices = Ntot / DEC_COLS;
+  const int blocks =
+      slices < DEC_BLOCKS_PER_SM * sms ? slices : DEC_BLOCKS_PER_SM * sms;
+  abfp_decode<MR><<<blocks, DEC_THREADS, smem, st>>>(
+      x, x_bf16, K, Kp, T, n, lx, kcodes, scales, gains, Ntot, bm, tk, nk,
+      seg, adc, out);
+  return cudaGetLastError();
+}
+
 bool host_pow2(float v) {
   uint32_t bits;
   memcpy(&bits, &v, sizeof bits);
@@ -691,9 +1100,9 @@ bool host_pow2(float v) {
 
 }  // namespace
 
-// rows: the fused route's row block (16, 32 or 64), or 0 for the
-// tile-terms + reduce route (terms: (T, M, Ntot) f32 scratch, unused on
-// the fused route).
+// rows: the route.  16, 32 or 64: the fused route's row block (M > 8);
+// 8: the decode route (M <= 8, one launch; xq, sx and terms unused); 0: the
+// tile-terms + reduce route (terms: (T, M, Ntot) f32 scratch).
 extern "C" int abfp_matmul_packed_launch(
     const void* x, int x_bf16, int M, int K, const void* kcodes,
     const void* scales, const void* gains, int Kp, int T, int n, int Ntot,
@@ -707,20 +1116,14 @@ extern "C" int abfp_matmul_packed_launch(
   // The fused route's conditions: whole 32-deep k steps (n a power of two
   // from 32), s_x and s_w of every K-tile in shared memory (T <= 128), and
   // a tile dot and an ADC level below 2^22 (the 1.5 * 2^23 conversions).
-  if (rows != 0 &&
-      (n < 32 || (n & (n - 1)) != 0 || T > 128 ||
-       (double)n * lx * 127.0 >= 4194304.0 || ly >= 4194304.0f ||
-       (rows != 16 && rows != 32 && rows != 64)))
+  const bool fused = rows == 16 || rows == 32 || rows == 64;
+  if (fused && (n < 32 || (n & (n - 1)) != 0 || T > 128 ||
+                (double)n * lx * 127.0 >= 4194304.0 || ly >= 4194304.0f))
     return (int)cudaErrorInvalidValue;
-  {
-    long warps = (long)M * T;
-    int threads = 128;
-    long blocks = (warps * 32 + threads - 1) / threads;
-    abfp_quantize_x<<<(unsigned)blocks, threads, 0, st>>>(
-        x, x_bf16, M, K, Kp, T, n, lx, (int8_t*)xq, (float*)sx);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // The decode route's noise keeps every row in row block 0 (bm >= M).
+  if ((rows == DEC_ROWS && (M > DEC_ROWS || bm < M)) ||
+      (rows != 0 && rows != DEC_ROWS && !fused))
+    return (int)cudaErrorInvalidValue;
 
   Segments seg;
   seg.start1 = start1;
@@ -738,14 +1141,36 @@ extern "C" int abfp_matmul_packed_launch(
   adc.inv_gain = adc.gain_pow2 ? 1.0f / gain : 0.0f;
   adc.noisy = noisy;
   adc.has_gains = gains != nullptr;
+  const int32_t* w = (const int32_t*)kcodes;
+  const __nv_bfloat16* sc = (const __nv_bfloat16*)scales;
+  const float* gn = (const float*)gains;
+  __nv_bfloat16* o = (__nv_bfloat16*)out;
 
-  if (rows != 0) {
+  if (rows == DEC_ROWS) {
+    switch (M) {
+#define DECODE_CASE(R)                                                     \
+  case R:                                                                  \
+    return (int)launch_decode<R>(x, x_bf16, K, Kp, T, n, lx, w, sc, gn,    \
+                                 Ntot, bm, tk, nk, seg, adc, o, st);
+      DECODE_CASE(1) DECODE_CASE(2) DECODE_CASE(3) DECODE_CASE(4)
+      DECODE_CASE(5) DECODE_CASE(6) DECODE_CASE(7) DECODE_CASE(8)
+#undef DECODE_CASE
+    }
+  }
+
+  {
+    long warps = (long)M * T;
+    int threads = 128;
+    long blocks = (warps * 32 + threads - 1) / threads;
+    abfp_quantize_x<<<(unsigned)blocks, threads, 0, st>>>(
+        x, x_bf16, M, K, Kp, T, n, lx, (int8_t*)xq, (float*)sx);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  if (fused) {
     const int8_t* a = (const int8_t*)xq;
     const float* s = (const float*)sx;
-    const int32_t* w = (const int32_t*)kcodes;
-    const __nv_bfloat16* sc = (const __nv_bfloat16*)scales;
-    const float* gn = (const float*)gains;
-    __nv_bfloat16* o = (__nv_bfloat16*)out;
     if (rows == 16)
       err = launch_fused_wr<1>(a, s, w, sc, gn, M, Kp, T, n, Ntot, bm, tk,
                                nk, seg, adc, o, st);
@@ -763,21 +1188,18 @@ extern "C" int abfp_matmul_packed_launch(
   size_t smem = (size_t)rb * n;
   if (rb == 8)
     abfp_tile_terms<8><<<grid, BN, smem, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int32_t*)kcodes,
-        (const __nv_bfloat16*)scales, (const float*)gains, M, Kp, T, n, Ntot,
+        (const int8_t*)xq, (const float*)sx, w, sc, gn, M, Kp, T, n, Ntot,
         bm, tk, nk, seg, adc, (float*)terms);
   else
     abfp_tile_terms<32><<<grid, BN, smem, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int32_t*)kcodes,
-        (const __nv_bfloat16*)scales, (const float*)gains, M, Kp, T, n, Ntot,
+        (const int8_t*)xq, (const float*)sx, w, sc, gn, M, Kp, T, n, Ntot,
         bm, tk, nk, seg, adc, (float*)terms);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   long outs = (long)M * Ntot;
   abfp_reduce<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
-      (const float*)terms, M, T, Ntot, tk, nk, gains != nullptr, gain,
-      (__nv_bfloat16*)out);
+      (const float*)terms, M, T, Ntot, tk, nk, gains != nullptr, gain, o);
   return (int)cudaGetLastError();
 }
 

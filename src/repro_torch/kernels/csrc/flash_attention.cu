@@ -42,6 +42,10 @@
 // so they skip every block the TPU kernel skips, at a finer grain.  The
 // sum order differs from the plain version's (bq = bk = 512 blocks), so
 // results agree to a tolerance, not bit for bit.
+// A query row that sees no key (a window, qpos >= Skv + window - 1; only
+// when Sq > Skv) gets the reference's result, not its own tiles': every
+// score of the TPU kernel's live blocks for that row is -1e30, so the row
+// is the mean of v over all bk entries of those blocks (no_key_blocks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,6 +62,43 @@ constexpr int THREADS = BQ * TPR;     // 256
 constexpr int TILE_ELEMS = 4096;      // BK x D floats of one staged tile
 constexpr int SUB = 16;               // keys per online-softmax update
 constexpr float NEG = -1e30f;
+
+// True when no key is visible to query row qpos: with a window, the keys
+// qpos - window + 1 .. qpos all lie past Skv.
+__device__ __forceinline__ bool sees_no_key(int qpos, int Skv, int window) {
+  return window > 0 && qpos >= Skv + window - 1;
+}
+
+// The reference's blocks (bq = min(512, ceil128(Sq)), bk = min(512,
+// ceil128(Skv))) that the TPU kernel does not skip for the query block of
+// qpos: every entry of them, the zero padding past Skv included, gets p =
+// exp(0) = 1 on a row that sees no key, so that row is the sum of v over
+// keys [lo, hi) divided by den = bk x their count (0 when none is live: the
+// guarded division then gives 0).
+struct NoKeyBlocks {
+  int lo, hi;
+  float den;
+};
+
+__device__ NoKeyBlocks no_key_blocks(int qpos, int Sq, int Skv, int causal,
+                                     int window) {
+  const int bq = min(512, (Sq + 127) / 128 * 128);
+  const int bk = min(512, (Skv + 127) / 128 * 128);
+  const int q_start = qpos / bq * bq;
+  const int nkb = (Skv + bk - 1) / bk;
+  int lo = nkb, hi = 0;              // the live blocks are contiguous
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k_start = kb * bk;
+    bool live = !causal || k_start <= q_start + bq - 1;
+    live = live && k_start + bk - 1 > q_start - window;
+    if (live) {
+      lo = min(lo, kb);
+      hi = kb + 1;
+    }
+  }
+  if (hi <= lo) return {0, 0, 0.0f};
+  return {lo * bk, min(hi * bk, Skv), (float)((hi - lo) * bk)};
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -147,7 +188,17 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!active) return;
-  const float den = fmaxf(l, 1e-30f);
+  float den = fmaxf(l, 1e-30f);
+  if (sees_no_key(qi, Skv, window)) {
+    const NoKeyBlocks nk = no_key_blocks(qi, Sq, Skv, causal, window);
+#pragma unroll
+    for (int t = 0; t < DP; ++t) acc[t] = 0.0f;
+    for (int kp = nk.lo; kp < nk.hi; ++kp)
+#pragma unroll
+      for (int t = 0; t < DP; ++t)
+        acc[t] = __fadd_rn(acc[t], v[kv_base + kp * kv_step + sub + TPR * t]);
+    den = fmaxf(nk.den, 1e-30f);
+  }
   float* o = out + q_off;
 #pragma unroll
   for (int t = 0; t < DP; ++t) o[TPR * t] = __fdiv_rn(acc[t], den);
@@ -399,6 +450,23 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const float den = fmaxf(l, 1e-30f);
     if (qrow[r] >= Sq) continue;
     __nv_bfloat16* op = out + (((long)b * Sq + qrow[r]) * H + h) * D + 2 * tig;
+    if (sees_no_key(qrow[r], Skv, window)) {
+      const NoKeyBlocks nk = no_key_blocks(qrow[r], Sq, Skv, causal, window);
+      const float dn = fmaxf(nk.den, 1e-30f);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        float sx = 0.0f, sy = 0.0f;
+        for (int kp = nk.lo; kp < nk.hi; ++kp) {
+          const float2 f = __bfloat1622float2(*(const __nv_bfloat162*)(
+              v + kv_base + kp * kv_step + d * 8 + 2 * tig));
+          sx = __fadd_rn(sx, f.x);
+          sy = __fadd_rn(sy, f.y);
+        }
+        *(__nv_bfloat162*)(op + d * 8) =
+            __floats2bfloat162_rn(__fdiv_rn(sx, dn), __fdiv_rn(sy, dn));
+      }
+      continue;
+    }
 #pragma unroll
     for (int d = 0; d < DT; ++d)
       *(__nv_bfloat162*)(op + d * 8) = __floats2bfloat162_rn(

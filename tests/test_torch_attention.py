@@ -54,6 +54,7 @@ def _both(fn_j, fn_t, arrays, **kw):
     (2, 256, 256, 8, 2, 64),       # GQA 4:1
     (1, 384, 640, 5, 1, 128),      # MQA, odd sizes, Sq != Skv
     (1, 200, 200, 6, 2, 32),       # ragged S (padding inside a block)
+    (1, 200, 77, 6, 3, 32),        # Sq > Skv + window: rows see no key
 ])
 def test_flash_ref_matches_pallas(shape, causal, window):
     arrays = _qkv(*shape, seed=sum(shape))

@@ -8,15 +8,16 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Bars: kernels 1 and 2 equal their plain versions bit for bit in bf16,
 except at most one element in each started 1,000 that is one bf16 ULP off
-(f32 sum order); kernel 3 within one bf16 ULP (rtol 2**-7).  The ABFP
-core's fused route (M > 8, n a multiple of 32) and its two-launch route
-equal the plain version bit for bit (0 flips) at every row block.  Kernel
-4 equals its plain version and kernel 1 on ``pack_abfp_weight(w)`` bit for
-bit (it runs kernel 1's launches on codes it quantized itself, and its
-codes and scales are byte-equal to the pack's).  Kernel 5 (flash
-attention) within rtol 1e-5 / atol 2e-5 in f32 (another sum order, f32
-FMAs) and within one bf16 ULP (rtol 2**-7, atol 1e-5) in bf16, on the
-tensor-core route and on the FMA route alike.
+(f32 sum order), where a test says so; kernel 3 within one bf16 ULP (rtol
+2**-7).  The ABFP core's three routes (the decode launch at M <= 8, the
+fused launch above it at every row block, the two-launch route) equal the
+plain version bit for bit (0 flips).  Kernel 4 equals its plain version
+and kernel 1 on ``pack_abfp_weight(w)`` bit for bit (it runs kernel 1's
+launches on codes it quantized itself, and its codes and scales are
+byte-equal to the pack's).  Kernel 5 (flash attention) within rtol 1e-5 /
+atol 2e-5 in f32 (another sum order, f32 FMAs) and within one bf16 ULP
+(rtol 2**-7, atol 1e-5) in bf16, on the tensor-core route and on the FMA
+route alike, query rows that see no key included.
 """
 
 import numpy as np
@@ -31,8 +32,13 @@ from repro_torch.kernels.abfp_decode_fused import (
     fused_quantized_decode_attention,
     quantized_decode_attention,
 )
-from repro_torch.kernels.abfp_decode_fused import concat_qkv
+from repro_torch.kernels.abfp_decode_fused import (
+    _fused_qkv_packed,
+    concat_qkv,
+    decode_attention_split,
+)
 from repro_torch.kernels.abfp_matmul import (
+    DECODE_ROWS,
     _abfp_matmul,
     _abfp_matmul_packed,
     abfp_matmul,
@@ -234,11 +240,14 @@ def _flash_inputs(b, sq, skv, h, kh, d, dtype, seed):
                                    (1, 384, 640, 5, 1, 128),
                                    (4, 512, 512, 15, 5, 64),
                                    (2, 100, 100, 4, 4, 128),
-                                   (1, 77, 200, 6, 3, 32)])
+                                   (1, 77, 200, 6, 3, 32),
+                                   (1, 200, 77, 6, 3, 32)])
 def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
     """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/128;
-    query lengths that are not whole 64-row blocks.  bf16 runs on the
-    tensor cores, f32 on the FMA kernel."""
+    query lengths that are not whole 64-row blocks; Sq > Skv + window,
+    where rows from Skv + window - 1 on see no key and take the plain
+    version's mean of v over its live blocks.  bf16 runs on the tensor
+    cores, f32 on the FMA kernel."""
     _need_cuda()
     q, k, v = _flash_inputs(*shape, dtype=dtype, seed=sum(shape))
     ops.reset_launch_counts()
@@ -345,15 +354,182 @@ def test_cuda_tile8_two_launch_route_bit_equal_to_plain(m, noise):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 4, 8])
 def test_cuda_decode_route_unchanged(m):
-    """M <= 8 keeps the two-launch route, equal to the plain version."""
+    """M <= 8 takes the one-launch decode route; its output is unchanged
+    from the two-launch route's and equal to the plain version."""
     _need_cuda()
     rng = np.random.default_rng(m)
     pw = pack_abfp_weight(_weight(rng, 960, 2560), CFG, adaptive_gain=True)
     x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32)).cuda()
-    assert fused_rows(m, 128, pw.n_padded // 128, CFG, pw.num_tiles) == 0
+    assert fused_rows(m, 128, pw.n_padded // 128, CFG, pw.num_tiles) \
+        == DECODE_ROWS
     got = abfp_matmul_packed(x, pw, CFG, 5)
     _assert_bits_equal(got, _abfp_matmul_packed(x, pw, CFG, 5, 0))
     _assert_bits_equal(got, abfp_matmul_packed_ref(x, pw, CFG, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gains,noise", [(False, 0.0), (False, 0.5),
+                                         (True, 0.0), (True, 0.5)])
+@pytest.mark.parametrize("k,n", [(1000, 1000), (2560, 960)])
+@pytest.mark.parametrize("tile", [8, 16, 32, 128])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8])
+def test_cuda_decode_route_bit_equal_to_plain(m, tile, k, n, gains, noise):
+    """Kernel 1 at decode size: the decode launch (one launch) equals the
+    plain version and the two-launch route bit for bit, at every tile
+    width, ragged K and N, per-tile gains (gain 8) or a scalar gain that is
+    not a power of two (3.0), noise on and off; f32 and bf16 x."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_fused" if gains else "abfp_packed",
+                      tile_width=tile, gain=8.0 if gains else 3.0,
+                      noise_lsb=noise)
+    rng = np.random.default_rng(m + tile + k)
+    pw = pack_abfp_weight(_weight(rng, k, n), cfg, adaptive_gain=gains)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    seed = -11 if noise else None
+    assert fused_rows(m, tile, pw.n_padded // 128, cfg, pw.num_tiles) \
+        == DECODE_ROWS
+    for xx in (x, x.to(torch.bfloat16)):
+        want = abfp_matmul_packed_ref(xx, pw, cfg, seed)
+        ops.reset_launch_counts()
+        got = abfp_matmul_packed(xx, pw, cfg, seed)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["abfp_matmul_packed"] == 1
+        _assert_bits_equal(got, want)
+        _assert_bits_equal(_abfp_matmul_packed(xx, pw, cfg, seed, 0), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_cuda_fused_qkv_decode_route_bit_equal(m, tile):
+    """Kernel 2 at decode size, three segments on the decode launch: each
+    output equals the plain version, a stand-alone kernel-1 call with its
+    seed and the two-launch route."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_fused", tile_width=tile, gain=8.0,
+                      noise_lsb=0.5)
+    rng = np.random.default_rng(m + tile)
+    pws = [pack_abfp_weight(_weight(rng, 960, c), cfg, adaptive_gain=True)
+           for c in (960, 320, 320)]
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16)
+    seeds = (1, -2, 3)
+    qkv = concat_qkv(pws, cfg)
+    assert fused_rows(m, tile, sum(p.n_padded for p in pws) // 128, cfg,
+                      pws[0].num_tiles) == DECODE_ROWS
+    ops.reset_launch_counts()
+    got = fused_qkv_packed(x, pws, cfg, seeds, qkv=qkv)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_qkv_packed"] == 1
+    two = _fused_qkv_packed(x, pws, cfg, seeds, qkv, 0)
+    for g, w, t, pw, sd in zip(got, fused_qkv_packed_ref(x, pws, cfg, seeds),
+                               two, pws, seeds):
+        _assert_bits_equal(g, w)
+        _assert_bits_equal(g, t)
+        _assert_bits_equal(g, abfp_matmul_packed(x, pw, cfg, sd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unpacked", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_cuda_decode_route_lm_head_bit_equal(m, unpacked):
+    """The LM head's shape (960 x 49152, 1,536 blocks of 32 columns) on the
+    decode route, through kernel 1 (gains) and kernel 4 (quantizer, then
+    the decode launch): equal to the plain versions."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel" if unpacked else "abfp_fused",
+                      tile_width=128, gain=8.0, noise_lsb=0.5)
+    rng = np.random.default_rng(m)
+    w = _weight(rng, 960, 49152).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(m, 960)).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    if unpacked:
+        _assert_bits_equal(abfp_matmul(x, w, cfg, 9),
+                           abfp_matmul_ref(x, w, cfg, 9))
+    else:
+        pw = pack_abfp_weight(w, cfg, adaptive_gain=True)
+        _assert_bits_equal(abfp_matmul_packed(x, pw, cfg, 9),
+                           abfp_matmul_packed_ref(x, pw, cfg, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [0.0, 0.5])
+def test_cuda_unpacked_matmul_decode_route_bit_equal(noise):
+    """Kernel 4 at M = 4: its weight quantizer, then the decode launch;
+    equal to its plain version, to kernel 1 on the pack and to its
+    two-launch route."""
+    _need_cuda()
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                      noise_lsb=noise)
+    rng = np.random.default_rng(4)
+    w = _weight(rng, 960, 2560).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(4, 960)).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    seed = 13 if noise else None
+    ops.reset_launch_counts()
+    got = abfp_matmul(x, w, cfg, seed)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["abfp_matmul"] == 1
+    _assert_bits_equal(got, abfp_matmul_ref(x, w, cfg, seed))
+    _assert_bits_equal(got, abfp_matmul_packed(x, pack_abfp_weight(w, cfg),
+                                               cfg, seed))
+    _assert_bits_equal(got, _abfp_matmul(x, w, cfg, seed, 0))
+
+
+def _kv_cache(b, s_max, kh, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = [torch.randint(-127, 128, (b, s_max, kh, d), dtype=torch.int8,
+                           device="cuda", generator=g) for _ in "kv"]
+    scales = [(torch.rand(b, s_max, kh, device="cuda", generator=g) * 4)
+              .to(torch.bfloat16) for _ in "kv"]
+    return codes[0], scales[0], codes[1], scales[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 3, 4])
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_cuda_decode_attention_split_kernel_matches_plain(b, rep, d, dtype):
+    """Kernel 3 at lengths 0 (the uniform softmax over all S), 1, S and
+    between, one launch per call (S = 512): within one bf16 ULP (rtol
+    2**-7, atol 1e-5) of its plain version."""
+    _need_cuda()
+    kh, s_max = 2, 512
+    kc, ks, vc, vs = _kv_cache(b, s_max, kh, d, seed=b * rep + d)
+    g = torch.Generator(device="cuda").manual_seed(rep)
+    q = torch.randn(b, 1, kh * rep, d, device="cuda", generator=g).to(dtype)
+    lengths = torch.tensor([0, 1, s_max, 173][:b] if b > 1 else [77],
+                           dtype=torch.int32, device="cuda")
+    assert decode_attention_split(b, s_max, kh * rep, kh)[2] == 1
+    ops.reset_launch_counts()
+    got = fused_quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_quantized_decode_attention"] == 1
+    want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lengths)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(32768, 0), (1, 20000), (4097, 32768)])
+def test_cuda_decode_attention_long_cache_matches_plain(lengths, dtype):
+    """S = 32,768 at rep 3 (past what an S-sized shared-memory design takes):
+    split positions and the combine launch, within one bf16 ULP of the
+    plain version."""
+    _need_cuda()
+    b, kh, rep, d, s_max = 2, 2, 3, 64, 32768
+    kc, ks, vc, vs = _kv_cache(b, s_max, kh, d, seed=sum(lengths))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(b, 1, kh * rep, d, device="cuda", generator=g).to(dtype)
+    assert decode_attention_split(b, s_max, kh * rep, kh)[2] > 1
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = fused_quantized_decode_attention(q, kc, ks, vc, vs, lengths=lens)
+    want = quantized_decode_attention(q, kc, ks, vc, vs, lengths=lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -96,11 +96,12 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
 # The kernels' A/B entries (a forced ABFP route): only their own module,
 # the card tests and the smoke script may name them, so no model path can
 # reach them.
-_AB_ENTRIES = ("_abfp_matmul(", "_abfp_matmul_packed(")
+_AB_ENTRIES = ("_abfp_matmul(", "_abfp_matmul_packed(", "_fused_qkv_packed(")
 
 
 def test_ab_entries_are_unreachable_from_the_model_paths():
-    own = {"abfp_matmul.py": ("_abfp_matmul(", "_abfp_matmul_packed(")}
+    own = {"abfp_matmul.py": ("_abfp_matmul(", "_abfp_matmul_packed("),
+           "abfp_decode_fused.py": ("_fused_qkv_packed(",)}
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         text = path.read_text()
         allowed = own.get(path.name, ()) if path.parent.name == "kernels" \

@@ -36,13 +36,16 @@ from repro.kernels.abfp_matmul import (
 from repro_torch.core.abfp import QuantConfig, pack_abfp_weight
 from repro_torch.kernels import ops
 from repro_torch.kernels.abfp_decode_fused import (
+    SPLIT_POSITIONS,
     concat_qkv,
+    decode_attention_split,
     fused_qkv_packed,
     fused_qkv_packed_ref,
     fused_quantized_decode_attention,
     quantized_decode_attention,
 )
 from repro_torch.kernels.abfp_matmul import (
+    DECODE_ROWS,
     FUSED_L2_RESIDENT_BYTES,
     FUSED_ROWS,
     FUSED_MAX_TILES,
@@ -270,6 +273,140 @@ def test_decode_attention_matches_pallas(rep):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dist", ["normal", "laplace", "uniform", "bf16"])
+def test_decode_route_reciprocal_codes_equal_division(dist):
+    """The decode launch's activation codes (``x_code_rcp`` in
+    ``csrc/abfp_matmul.cu``): rint(RN(RN(x * RN(1 / s)) * 127)) wherever
+    that value lies more than 2**-13 from a half-integer, else the IEEE
+    division.  In f32 on the CPU, over 2**22 elements in tiles of 128
+    with s = bf16(max |x|): every code equals the reference's rint(RN(RN(x
+    / s) * 127)), and the division runs on under 0.1 % of them (1 % on
+    bf16 inputs, whose quotients hit half-integers exactly more often)."""
+    rng = np.random.default_rng(len(dist))
+    shape = (1 << 15, 128)
+    x = {"normal": rng.normal(size=shape),
+         "laplace": rng.laplace(size=shape) * 3.0,
+         "uniform": rng.uniform(-1e-3, 1e-3, size=shape),
+         "bf16": rng.normal(size=shape) * 40.0}[dist]
+    x = torch.from_numpy(x.astype(np.float32))
+    if dist == "bf16":
+        x = x.to(torch.bfloat16).float()
+    s = x.abs().amax(-1, keepdim=True).to(torch.bfloat16).float()
+    lx = torch.tensor(127.0)
+    want = torch.clamp(torch.round((x / s) * lx), -127, 127)
+    ta = (x * (1.0 / s)) * lx
+    tie = ((ta - torch.floor(ta)) - 0.5).abs()
+    fast = tie > 2.0 ** -13
+    got = torch.where(fast, torch.round(ta), torch.round((x / s) * lx))
+    assert torch.equal(torch.clamp(got, -127, 127), want)
+    assert float((~fast).float().mean()) < (1e-2 if dist == "bf16" else 1e-3)
+
+
+def _split_decode_attention(q, kc, ks, vc, vs, lengths, splits, warps=8):
+    """Kernel 3's CUDA order in PyTorch, on the CPU, in f32.
+
+    Per (row, KV head) and position split (whole block steps of
+    ``warps * 512 / D`` positions over the first ``length``, or all S when
+    length is 0): warp w takes steps of 512 / D positions at p_lo + w * PPW,
+    p_lo + (w + warps) * PPW, ...; each step's scores (q * D^-0.5) . codes *
+    (k_scale / 127) (-1e30 on a length-0 row), the step max, an online
+    softmax (running max; denominator and PV accumulator rescaled by
+    exp(m_old - m_new)), PV weights p * (v_scale / 127); the warps merged
+    by exp(m_w - max m_w), then the splits the same way, and one division
+    at the end."""
+    b, _, h, d = q.shape
+    s_max, kh = kc.shape[1], kc.shape[2]
+    rep = h // kh
+    ppw = 512 // d
+    step = ppw * warps
+    qs = (q.float() * torch.tensor(d ** -0.5)).reshape(b, kh, rep, d)
+    kf, vf = kc.float(), vc.float()
+    ksc, vsc = ks.float() / 127.0, vs.float() / 127.0
+    out = torch.empty(b, kh, rep, d)
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        if bool(torch.isinf(m).all()):
+            return m, torch.zeros(rep), torch.zeros(rep, d)
+        e = [torch.exp(p[0] - m) for p in parts]
+        return (m, sum(p[1] * w for p, w in zip(parts, e)),
+                sum(p[2] * w[:, None] for p, w in zip(parts, e)))
+
+    for bi in range(b):
+        n = int(lengths[bi])
+        length = s_max if n <= 0 else min(n, s_max)
+        per = -(-(-(-length // splits)) // step) * step
+        for g in range(kh):
+            split_parts = []
+            for z in range(splits):
+                lo, hi = min(length, z * per), min(length, z * per + per)
+                warp_parts = []
+                for w in range(warps):
+                    m = torch.full((rep,), -torch.inf)
+                    den, acc = torch.zeros(rep), torch.zeros(rep, d)
+                    for p in range(lo + w * ppw, hi, step):
+                        pos = torch.arange(p, min(p + ppw, hi))
+                        sc = qs[bi, g] @ kf[bi, pos, g].T * ksc[bi, pos, g]
+                        if n <= 0:
+                            sc = torch.full_like(sc, -1e30)
+                        m_new = torch.maximum(m, sc.amax(1))
+                        corr = torch.exp(m - m_new)
+                        pr = torch.exp(sc - m_new[:, None])
+                        den = den * corr + pr.sum(1)
+                        acc = acc * corr[:, None] \
+                            + (pr * vsc[bi, pos, g]) @ vf[bi, pos, g]
+                        m = m_new
+                    warp_parts.append((m, den, acc))
+                split_parts.append(merge(warp_parts))
+            _, den, acc = merge(split_parts)
+            out[bi, g] = acc / den[:, None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 3, 4])
+def test_split_decode_attention_order_matches_plain_and_pallas(rep, d,
+                                                               splits):
+    """Kernel 3's position split, online softmax and merges against the
+    Pallas kernel in interpret mode and the plain version, lengths 0, 1, S
+    and one between, one split and three.  Bar: rtol 1e-5, atol 1e-6 in
+    f32 (the kernel-3 bar above; only the sum order differs)."""
+    rng = np.random.default_rng(100 * rep + d + splits)
+    b, s_max, kh = 4, 300, 2
+    h = kh * rep
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    kc = rng.integers(-127, 128, size=(b, s_max, kh, d), dtype=np.int8)
+    vc = rng.integers(-127, 128, size=(b, s_max, kh, d), dtype=np.int8)
+    ks = np.abs(rng.normal(size=(b, s_max, kh))).astype(np.float32)
+    vs = np.abs(rng.normal(size=(b, s_max, kh))).astype(np.float32)
+    lengths = np.array([0, 1, s_max, 173], np.int32)
+    want = np.asarray(j_attn(jnp.asarray(q), jnp.asarray(kc),
+                             jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vc),
+                             jnp.asarray(vs, jnp.bfloat16),
+                             lengths=jnp.asarray(lengths)))
+    t = torch.from_numpy
+    args = (t(q), t(kc), t(ks).to(torch.bfloat16), t(vc),
+            t(vs).to(torch.bfloat16))
+    got = _split_decode_attention(*args, t(lengths), splits)
+    plain = quantized_decode_attention(*args, lengths=t(lengths))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_decode_attention_split_rule():
+    """One block per (row, KV head, head group) up to SPLIT_POSITIONS
+    cached positions; past it, splits of at least SPLIT_POSITIONS that
+    give the card about SPLIT_BLOCKS blocks; at most four query heads per
+    block."""
+    assert decode_attention_split(4, 512, 15, 5) == (3, 1, 1)
+    assert decode_attention_split(4, SPLIT_POSITIONS, 32, 4) == (4, 2, 1)
+    assert decode_attention_split(1, 32768, 6, 2) == (3, 1, 32)
+    assert decode_attention_split(4, 32768, 15, 5) == (3, 1, 13)
+    assert decode_attention_split(64, 4096, 8, 8) == (1, 1, 1)
+
+
 # ---------------------------------------------------------------------------
 # On the CPU the wrappers run the plain versions and launch nothing
 # ---------------------------------------------------------------------------
@@ -306,16 +443,20 @@ def test_cpu_calls_launch_no_kernel():
 @pytest.mark.parametrize("tile", [8, 16, 32, 128])
 @pytest.mark.parametrize("n_blocks", [1, 3, 8, 20, 384])
 def test_route_rule(tile, n_blocks):
-    """Decode sizes, tiles that are not whole 32-deep MMA steps (n a power
+    """Decode sizes (M <= 8) take the one-launch decode route at every
+    tile; above them, tiles that are not whole 32-deep MMA steps (n a power
     of two from 32) and more than FUSED_MAX_TILES K-tiles take the
-    two-launch route; above M = 8 the fused route takes 16-row blocks for
-    a weight that stays in L2 and 32 rows for a larger one: only row
-    blocks the CUDA launch takes."""
+    two-launch route; the fused route takes 16-row blocks for a weight
+    that stays in L2 and 32 rows for a larger one: only row blocks the
+    CUDA launch takes."""
     cfg = QuantConfig(mode="abfp_packed", tile_width=tile, gain=8.0)
     tiles = -(-960 // tile)
     for m in (1, 4, 8, 9, 16, 17, 32, 33, 40, 48, 130, 512, 2048, 8192):
         rows = fused_rows(m, tile, n_blocks, cfg, tiles)
-        if m <= 8 or tile % 32:
+        if m <= 8:
+            assert rows == DECODE_ROWS
+            continue
+        if tile % 32:
             assert rows == 0
             continue
         assert rows in FUSED_ROWS
@@ -328,3 +469,10 @@ def test_route_rule(tile, n_blocks):
     assert fused_rows(2048, 96, 8, cfg, 10) == 0   # not a power of two
     assert fused_rows(2048, 128, 8, cfg, FUSED_MAX_TILES) > 0
     assert fused_rows(2048, 128, 8, cfg, FUSED_MAX_TILES + 1) == 0
+    # The decode route at every tile, tile dot or tile count: its only limit
+    # is a block's shared memory (M x Kp activation codes).
+    assert fused_rows(4, 512, 8, wide, 2) == DECODE_ROWS
+    assert fused_rows(8, 128, 8, cfg, FUSED_MAX_TILES + 1) == DECODE_ROWS
+    assert fused_rows(8, 128, 8, cfg, 136) == DECODE_ROWS  # K = 17,408
+    assert fused_rows(8, 128, 8, cfg, 140) == 0            # K = 17,920
+    assert fused_rows(1, 128, 8, cfg, 256) == DECODE_ROWS  # K = 32,768
