@@ -35,6 +35,19 @@ Phases (any failure exits non-zero and prints no result line):
                no logits may be NaN, and every kernel must have launched
                (launch counts zeroed just before, read just after; the
                launches of each pass are read around it, by pass kind);
+  4b. graphs — every pass shape (decode, prefill 16 / 64 / 128) captured
+               into a CUDA graph: two consecutive passes with two keys
+               from the served state, by replay and eagerly through the
+               kernels, must give bit-equal logits and sampled tokens, and
+               the two keys' logits must differ; then the phase-4 workload
+               served eagerly, with graphs (blocking, simulated clock) and
+               with graphs + overlap (wall clock), in turns (eager,
+               graphs, overlap, overlap, graphs, eager), each a fresh
+               engine with the launch counts zeroed just before and read
+               just after: 8 of 8 requests, phase 4's greedy streams,
+               kernels 1-3 launched (a replay counts the launches its
+               capture recorded); decode tick and prefill pass medians,
+               tokens/s and tick utilization of each run;
   5. compare — the first prefill pass and decode tick once through the
                kernels and once through the plain versions: every kernel
                call of the kernel run against its plain version on its own
@@ -71,8 +84,10 @@ Phases (any failure exits non-zero and prints no result line):
                tensor cores and on the FMA kernel (its f32 route, on the
                same inputs cast to f32); the whole forward's host
                time and its issue time (host clock to the last enqueue);
-  9. profile — a profiler breakdown of one decode tick, one prefill pass and
-               one evaluation forward, with the pass's kernel launches (the
+  9. profile — a profiler breakdown of one decode tick, one prefill pass,
+               one evaluation forward and one graph replay of a decode
+               tick and of a 128-token prefill pass, with the pass's
+               kernel launches (the
                profiler's own set-up may fail and is then skipped; an error
                in a profiled pass fails the run).
 
@@ -86,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -353,6 +369,7 @@ def main() -> None:
             prefill,
         )
         from repro_torch.training import capture_histograms, evaluate_abfp
+        from repro_torch.core import prng
     except ImportError as e:
         fail(f"the repro_torch sources are not beside this script ({e})")
     dev = torch.device("cuda")
@@ -422,15 +439,15 @@ def main() -> None:
         def _decode_tick(self):
             self._counted("decode", super()._decode_tick)
 
-        def _fetch_logits(self, kind, t0, logits):
-            lg = super()._fetch_logits(kind, t0, logits)
+        def _fetch_logits(self, kind, t0, logits, warm):
+            lg = super()._fetch_logits(kind, t0, logits, warm)
             if not np.isfinite(lg).all():
                 fail(f"non-finite logits in a {kind} pass")
             return lg
 
     t0 = time.perf_counter()
     eng = CheckedEngine(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
-                        quant=quant, seed=SEED, device=dev)
+                        quant=quant, seed=SEED, device=dev, _graphs=False)
     torch.cuda.synchronize()
     log(f"packed smollm-360m ({mcfg.num_layers} layers, d={mcfg.d_model}, "
         f"vocab {mcfg.vocab_size}) in {time.perf_counter() - t0:.1f}s")
@@ -671,6 +688,145 @@ def main() -> None:
     for r in done[:2]:
         log(f"req {r.uid}: prompt[{len(r.prompt)}] -> {r.generated}")
 
+    # 4b. graphs: every pass shape a CUDA graph; the overlapped runtime ---
+    # Replay against eager: for each captured shape, two consecutive passes
+    # with two keys from the served state (copied in place into both
+    # engines), once by replay and once eagerly through the kernels:
+    # logits and sampled tokens equal bit for bit, the two keys' logits
+    # differ (frozen seeds would repeat them).
+    from repro_torch.serving.runners import state_tensors
+    served = [t.clone() for t in state_tensors(eng.state)]
+    # The "draw" variants: the device sampler's Gumbel draw runs (rows at
+    # temperatures 0.8 and 1.3 below); the greedy variants serve below.
+    shapes4b = [("decode", "draw")] + [("prefill", c, "draw")
+                                       for c in (16, 64, 128)]
+
+    def shape_name(k):
+        return "".join(str(p_) for p_ in k if p_ != "draw")
+
+    def fresh_engine(**kw):
+        return ServingEngine(eng.params, mcfg, capacity=CAPACITY,
+                             max_len=MAX_LEN, quant=quant, seed=SEED,
+                             device=dev, **kw)
+
+    # Overlapped engines: their passes sample on the device.
+    ov = dict(clock=time.perf_counter, overlap=True)
+    geng, xeng = fresh_engine(**ov), fresh_engine(_graphs=False, **ov)
+    t0 = time.perf_counter()
+    geng.warmup()
+    torch.cuda.synchronize()
+    log(f"captured {len(geng._passes)} pass shapes into CUDA graphs in "
+        f"{time.perf_counter() - t0:.2f}s; kernel launches per replay: "
+        + json.dumps({shape_name(k):
+                      {n: v for n, v in wp.launches.items() if v}
+                      for k, wp in geng._passes.items()}))
+    rng4 = np.random.default_rng(SEED + 1)
+    for shape in shapes4b:
+        width = 1 if shape[0] == "decode" else shape[1]
+        for e in (geng, xeng):
+            for t, src in zip(state_tensors(e.state), served):
+                t.copy_(src)
+        fields = dict(
+            tokens=rng4.integers(1, mcfg.vocab_size, (CAPACITY, width)),
+            n_tokens=np.array([width, max(1, width // 2), 1, 0]),
+            prev_mask=np.zeros(CAPACITY, bool),
+            temps=np.array([0.0, 0.8, 0.0, 1.3], np.float32),
+            uids=np.arange(CAPACITY), idxs=np.arange(CAPACITY) + 3)
+        lgs = []
+        for t, key in enumerate(prng.split(prng.PRNGKey(SEED + 7), 2)):
+            outs = []
+            for e in (geng, xeng):
+                io, _ = e._call(shape, key, **fields)
+                outs.append((io.logits.clone(), io.sampled.clone()))
+            (lg, sg), (le, se) = outs
+            if not torch.isfinite(lg).all():
+                fail(f"non-finite logits in a replay of {shape}")
+            if not (torch.equal(lg, le) and torch.equal(sg, se)):
+                fail(f"{shape} pass {t}: replay differs from the eager pass "
+                     f"({int((lg != le).sum())} logits, "
+                     f"{int((sg != se).sum())} sampled tokens)")
+            lgs.append(lg)
+        if torch.equal(lgs[0], lgs[1]):
+            fail(f"{shape}: the two keys' logits are equal (frozen seeds?)")
+        if geng._passes[shape].graph is None:
+            fail(f"{shape} was not captured")
+    log(f"replay against eager for {[shape_name(s_) for s_ in shapes4b]} "
+        f"(the device draw's variants): two keys each, logits and sampled "
+        f"tokens bit-equal, the keys' logits differ")
+    xeng.close()
+    del xeng
+
+    # Serve with graphs, blocking on the simulated clock and overlapped on
+    # the wall clock, against phase 4's eager engine, in turns (eager,
+    # graphs, overlap, overlap, graphs, eager): each run a fresh engine
+    # (warmed before its timed window), the launch counts zeroed just
+    # before the run and read just after; every run must finish 8 of 8
+    # with phase 4's greedy streams.
+    want_streams = {r.uid: r.generated for r in done}
+
+    def serve_run(mode: str) -> dict:
+        kw = {"eager": dict(_graphs=False), "graphs": {},
+              "overlap": dict(clock=time.perf_counter, overlap=True)}[mode]
+        e = fresh_engine(**kw)
+        e.warmup()
+        torch.cuda.synchronize()
+        rs = [Request(uid=r.uid, prompt=list(r.prompt),
+                      max_new_tokens=MAX_NEW) for r in reqs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        counts_ = ops.launch_counts()
+        if len(fin) != N_REQUESTS or any(not r.done for r in fin):
+            fail(f"{mode} serve: {len(fin)} of {N_REQUESTS} requests "
+                 f"finished")
+        bad = [r.uid for r in fin if r.generated != want_streams[r.uid]]
+        if bad:
+            fail(f"{mode} serve: the streams of requests {bad} differ from "
+                 f"phase 4's eager streams")
+        for name in SERVE_KERNELS:
+            if counts_[name] <= 0:
+                fail(f"{mode} serve: kernel {name} was not launched")
+        med_, cnt_ = e.pass_stats()
+        toks_ = sum(len(r.generated) for r in fin)
+        util = e.metrics.tick_utilization()["value"]
+        per_replay = {shape_name(k):
+                      sum(wp.launches.values()) if wp.launches else None
+                      for k, wp in e._passes.items()}
+        out = {"wall_s": wall_, "tokens": toks_, "tokens_per_s": toks_ / wall_,
+               "wall_per_pass_ms": wall_ / e.ticks * 1e3,
+               "decode_ms": med_["decode"] * 1e3,
+               "prefill_ms": med_["prefill"] * 1e3, "passes": e.ticks,
+               "passes_by_kind": cnt_, "tick_utilization": util,
+               "launches": counts_, "wrapper_launches_per_replay": per_replay,
+               "straggler": e.metrics.summary()["straggler"]}
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    serve = {m: [] for m in ("eager", "graphs", "overlap")}
+    for mode in ("eager", "graphs", "overlap", "overlap", "graphs", "eager"):
+        serve[mode].append(serve_run(mode))
+        r_ = serve[mode][-1]
+        log(f"serve [{mode}] {r_['tokens']} tokens in {r_['wall_s']:.3f}s: "
+            f"{r_['tokens_per_s']:.1f} tokens/s, decode tick median "
+            f"{r_['decode_ms']:.3f} ms, prefill pass median "
+            f"{r_['prefill_ms']:.3f} ms ({r_['passes_by_kind']}), wall per "
+            f"pass {r_['wall_per_pass_ms']:.3f} ms, "
+            f"tick_utilization {r_['tick_utilization']:.4f}, 8/8 streams "
+            f"equal to phase 4's; launch counts {r_['launches']}")
+    graph_serve_launches = serve["graphs"][0]["launches"]
+    overlap_serve_launches = serve["overlap"][0]["launches"]
+    summary4b = {m: {k: [r_[k] for r_ in v] for k in (
+        "decode_ms", "prefill_ms", "tokens_per_s", "tick_utilization",
+        "wall_s", "wall_per_pass_ms")} for m, v in serve.items()}
+    log("serving in turns (eager, graphs, overlap, overlap, graphs, eager): "
+        + json.dumps(summary4b))
+    ops.reset_launch_counts()
+
     # 5. first pass: kernels against plain versions ----------------------
     # The first prefill pass and decode tick of the first four requests run
     # from one state through the kernels, then through the plain versions.
@@ -682,7 +838,6 @@ def main() -> None:
     # version: a difference left in the logits then comes from kernel 3's
     # one-ULP flips alone.  The tick's logits may differ from the plain
     # run's by at most DECODE_LOGIT_BAR.
-    from repro_torch.core import prng
     from repro_torch.models import layers as model_layers
     state0 = init_decode_state(mcfg, CAPACITY, MAX_LEN, device=dev)
     first = reqs[:CAPACITY]
@@ -811,6 +966,10 @@ def main() -> None:
     ops.reset_launch_counts()
 
     # 6. time: one decode tick's worth of each kernel --------------------
+    # The seeds of the timed calls live in device memory, as a pass's seed
+    # table does (int seeds cannot be captured into a graph).
+    s7 = torch.tensor([7], dtype=torch.int32, device=dev)
+    seeds_d = torch.tensor(seeds, dtype=torch.int32, device=dev)
     xb = torch.bfloat16
     x_d = act(CAPACITY, mcfg.d_model)
     x_f = act(CAPACITY, mcfg.d_ff)
@@ -822,7 +981,7 @@ def main() -> None:
 
     def k1_tick(fn=abfp_matmul_packed):
         for pw, xx in mats:
-            fn(xx, pw, quant, 7)
+            fn(xx, pw, quant, s7)
 
     pf = act(CAPACITY * 128, mcfg.d_model)
     pf_f = act(CAPACITY * 128, mcfg.d_ff)
@@ -834,15 +993,16 @@ def main() -> None:
 
     def k1_prefill():
         for pw, xx in pmats:
-            abfp_matmul_packed(xx, pw, quant, 7)
+            abfp_matmul_packed(xx, pw, quant, s7)
 
     def k2_tick(fn=None):
         for lp in layers:
             p3 = tuple(lp["attn"][w] for w in ("wq", "wk", "wv"))
             if fn is None:
-                fused_qkv_packed(x_d, p3, quant, seeds, qkv=lp["attn"]["qkv"])
+                fused_qkv_packed(x_d, p3, quant, seeds_d,
+                                 qkv=lp["attn"]["qkv"])
             else:
-                fn(x_d, p3, quant, seeds, lp["attn"]["qkv"])
+                fn(x_d, p3, quant, seeds_d, lp["attn"]["qkv"])
 
     # The two-launch route of kernels 1-2 (the earlier decode design), timed
     # against the decode route in turns.
@@ -909,6 +1069,8 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": repl, "replaces_function": repl_fn,
                "launches": launches[name],
+               "launches_graph_serve": graph_serve_launches[name],
+               "launches_overlap_serve": overlap_serve_launches[name],
                "launches_per_decode_tick": per_pass["decode"][name],
                "launches_per_prefill_pass": per_pass["prefill"][name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
@@ -925,7 +1087,7 @@ def main() -> None:
             f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}) for {work}")
     def k1_prefill_two_launch():
         for pw, xx in pmats:
-            _abfp_matmul_packed(xx, pw, quant, 7, 0)
+            _abfp_matmul_packed(xx, pw, quant, s7, 0)
 
     pt = in_turns({"route": k1_prefill, "two_launch": k1_prefill_two_launch},
                   lambda f: graph_ms(f, 5)[0])
@@ -950,7 +1112,7 @@ def main() -> None:
         xs = {pw.k: act(m, pw.k) for pw in layer7}
 
         def layer_at(rows, xs=xs):
-            return lambda: [_abfp_matmul_packed(xs[pw.k], pw, quant, 7, rows)
+            return lambda: [_abfp_matmul_packed(xs[pw.k], pw, quant, s7, rows)
                             for pw in layer7]
 
         t = in_turns({r: layer_at(r) for r in (0, 16, 32, 64)},
@@ -969,7 +1131,7 @@ def main() -> None:
     hsweep = {}
     for m in (16, 32, 48, 64, 512, 2048):
         x = act(m, head.k)
-        t = in_turns({r: (lambda r=r: _abfp_matmul_packed(x, head, quant, 7,
+        t = in_turns({r: (lambda r=r: _abfp_matmul_packed(x, head, quant, s7,
                                                           r))
                       for r in (0, 16, 32, 64)},
                      lambda f: graph_ms(f, 10)[0])
@@ -1077,7 +1239,7 @@ def main() -> None:
 
     def k4_forward(fn=abfp_matmul):
         for w, xx in emats:
-            fn(xx, w, equant, 7)
+            fn(xx, w, equant, s7)
 
     qkv5 = [(torch.randn(EVAL_BATCH, EVAL_SEQ, h, hd, generator=gen,
                          device=dev).to(torch.bfloat16),
@@ -1127,7 +1289,7 @@ def main() -> None:
 
     def k4_two_launch():
         for w, xx in emats:
-            _abfp_matmul(xx, w, equant, 7, 0)
+            _abfp_matmul(xx, w, equant, s7, 0)
 
     # The FMA kernel is kernel 5's f32 route: timed on the same inputs cast
     # to f32 (cast after the peak-memory reading, outside the timed calls).
@@ -1205,10 +1367,25 @@ def main() -> None:
     prefill(eng.params, st, toks_t, n_t, mcfg, Numerics(quant, key))
     tok = torch.zeros(CAPACITY, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
-    for kind in ("decode", "prefill", "evaluation forward"):
+    graph_fields = {
+        ("decode",): dict(tokens=np.zeros((CAPACITY, 1)),
+                          prev_mask=np.zeros(CAPACITY, bool),
+                          temps=np.zeros(CAPACITY), uids=np.arange(CAPACITY),
+                          idxs=np.zeros(CAPACITY)),
+        ("prefill", 128): dict(tokens=toks, n_tokens=n_tok,
+                               prev_mask=np.zeros(CAPACITY, bool),
+                               temps=np.zeros(CAPACITY),
+                               uids=np.arange(CAPACITY),
+                               idxs=np.zeros(CAPACITY))}
+    for kind in ("decode", "prefill", "evaluation forward",
+                 "decode (graph replay)", "prefill (graph replay)"):
         if profile is None:
             break
         stp = clone_state(st)
+        shape = ("decode",) if kind.startswith("decode") else ("prefill", 128)
+        if kind.endswith("(graph replay)"):
+            for t, src in zip(state_tensors(geng.state), served):
+                t.copy_(src)
         torch.cuda.synchronize()
         try:
             prof = profile(activities=[ProfilerActivity.CPU,
@@ -1224,8 +1401,10 @@ def main() -> None:
             elif kind == "prefill":
                 prefill(eng.params, stp, toks_t, n_t, mcfg,
                         Numerics(quant, key))
-            else:
+            elif kind == "evaluation forward":
                 forward(params, inputs, emcfg, Numerics(equant, k0))
+            else:
+                geng._call(shape, key, **graph_fields[shape])
             torch.cuda.synchronize()
             host = time.perf_counter() - t0
         finally:
@@ -1242,7 +1421,8 @@ def main() -> None:
             f"({total / 1e3 / (host * 1e3):.1%}) in "
             f"{sum(cnt.values())} kernel launches per {kind} pass; top by "
             f"device ms: {json.dumps(top)}")
-    del st
+    geng.close()
+    del st, geng, served
     ops.reset_launch_counts()
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,8 +12,14 @@ on (the default since JAX 0.5): ``split(key, n)[i]`` and ``fold_in(key,
 i)`` both hash the counter pair ``(0, i)`` under ``key``.
 
 Keys are numpy ``uint32`` arrays of shape (2,), the layout
-``jax.random.key_data`` returns.  The chain is scalar host work (a few
-hundred hashes a pass), so plain Python integers are the fastest form.
+``jax.random.key_data`` returns.  One key's chain is scalar host work, in
+plain Python integers; ``seed_table`` evaluates a whole pass's chain (every
+layer, every call) in one vectorised numpy pass.
+
+The tensor functions at the end (``random_bits``, ``uniform``, ``gumbel``,
+``row_keys``) run JAX's sampler on any device, inside a CUDA graph too:
+``models.lm.sample_tokens`` draws with them what ``jax.random.categorical``
+draws.  Their uint32 words are held in int64 tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,3 +86,101 @@ def key_to_seed(key) -> int:
         return None
     v = (int(key[0]) ^ int(key[-1])) & _M32
     return v - (1 << 32) if v >= (1 << 31) else v
+
+
+# ---------------------------------------------------------------------------
+# A pass's seed table, vectorised
+# ---------------------------------------------------------------------------
+
+
+def _threefry_np(k0, k1, x0, x1):
+    """``threefry2x32`` over broadcast numpy uint32 arrays."""
+    k0, k1, x0, x1 = (np.asarray(v, np.uint32) for v in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def seed_table(key: np.ndarray, num_layers: int, calls: int,
+               head_fold: int) -> np.ndarray:
+    """Every noise seed of one pass, in one vectorised evaluation: the
+    int32 ``key_to_seed(fold_in(fold_in(key, layer), call))`` for layers
+    0..num_layers-1 and calls 0..calls-1 (layer-major), then the LM head's
+    ``key_to_seed(fold_in(fold_in(key, head_fold), 0))``.  Shape
+    (num_layers * calls + 1,)."""
+    folds = np.append(np.arange(num_layers, dtype=np.uint32),
+                      np.uint32(head_fold))
+    zero = np.zeros((), np.uint32)
+    lk0, lk1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]), zero,
+                            folds)
+    c0, c1 = _threefry_np(lk0[:, None], lk1[:, None], zero,
+                          np.arange(calls, dtype=np.uint32)[None, :])
+    seeds = (c0 ^ c1).view(np.int32)
+    return np.concatenate([seeds[:num_layers].reshape(-1), seeds[-1, :1]])
+
+
+# ---------------------------------------------------------------------------
+# JAX's sampler as tensor functions (uint32 words in int64 tensors)
+# ---------------------------------------------------------------------------
+
+
+def _threefry_t(k0, k1, x0, x1):
+    """``threefry2x32`` over broadcast int64 tensors holding uint32 words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _words(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.int64) & _M32
+
+
+def row_keys(seed: int, uids: torch.Tensor, idxs: torch.Tensor):
+    """The (B,) key words of ``fold_in(fold_in(PRNGKey(seed), uid), idx)``
+    per row, computed where ``uids``/``idxs`` live.  Returns (k0, k1)."""
+    if not 0 <= int(seed) <= _M32:
+        raise ValueError(f"seed must be in [0, 2**32), got {seed}")
+    zero = torch.zeros_like(_words(uids))
+    k0, k1 = _threefry_t(zero, zero + int(seed), zero, _words(uids))
+    return _threefry_t(k0, k1, zero, _words(idxs))
+
+
+def random_bits(k0: torch.Tensor, k1: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's partitionable 32-bit ``random_bits(key, (n,))`` for each key of
+    the (B,) words k0, k1: the xor of the two output words of the counter
+    pair (0, i).  Returns (B, n) int64 holding uint32 values."""
+    i = torch.arange(n, dtype=torch.int64, device=k0.device)[None, :]
+    b0, b1 = _threefry_t(k0[:, None], k1[:, None], torch.zeros_like(i), i)
+    return b0 ^ b1
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def uniform(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's f32 ``uniform(minval=tiny, maxval=1)`` from 32 random bits:
+    the top 23 bits as the mantissa of [1, 2), minus 1, scaled, then the
+    max with minval."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=bits.device)
+    lo = torch.full((), _TINY, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, (f - one) * (one - lo) + lo)
+
+
+def gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's f32 ``gumbel`` (mode "low"): -log(-log(uniform))."""
+    return -torch.log(-torch.log(uniform(bits)))

@@ -112,8 +112,9 @@ def fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight], cfg: QuantConfig,
                      seeds: Optional[Sequence[Optional[int]]] = None,
                      qkv: Optional[PackedQKV] = None):
     """(x @ wq, x @ wk, x @ wv) in one launch; each output sliced to its
-    weight's logical columns.  ``qkv`` is the pack-time concatenation
-    (built here when not given)."""
+    weight's logical columns.  ``seeds``: three ints (or Nones), or a (3,)
+    int32 tensor on x's device that the kernel reads (a seed-table slice).
+    ``qkv`` is the pack-time concatenation (built here when not given)."""
     if not x.is_cuda:
         return fused_qkv_packed_ref(x, pws, cfg, seeds)
     return _fused_qkv_packed(x, pws, cfg, seeds, qkv, None)
@@ -133,9 +134,10 @@ def _fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight],
     k = pws[0].k
     if x.shape[-1] != k:
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {k}")
+    if not isinstance(seeds, Tensor):
+        seeds = [_seed_or_zero(s, cfg) for s in seeds]
     out = launch_segments(x, qkv.kcodes, qkv.scales, qkv.gains, pws[0], cfg,
-                          qkv.njs, [_seed_or_zero(s, cfg) for s in seeds],
-                          rows)
+                          qkv.njs, seeds, rows)
     fused_qkv_packed.launches += 1
     outs, col = [], 0
     for pw, nj in zip(pws, qkv.njs):

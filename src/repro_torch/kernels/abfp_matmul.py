@@ -19,6 +19,11 @@ auto_bm(M)``, ``bn = 128``, ``bk = default_bk(n, K)``; salt
 column within its 128-column block.  Both versions here recompute those
 coordinates, whatever their own tiling.
 
+``seed`` is an int or a one-element int32 tensor (a slot of a pass's
+seed table, ``models.layers.Numerics``); the CUDA kernel reads every
+segment's seed from device memory (``seed_buffer``), so a CUDA graph that
+captured a call draws the noise of the table's values at each replay.
+
 On a CPU tensor the wrapper runs ``abfp_matmul_packed_ref``; on a CUDA
 tensor it launches ``csrc/abfp_matmul.cu`` (see its header for what bounds
 it and how it is built) or raises.  ``abfp_matmul_packed.launches`` counts
@@ -163,12 +168,39 @@ class Grid:
         self.T = pw.num_tiles
 
 
-def _seed_or_zero(seed, cfg: QuantConfig) -> int:
+def _seed_or_zero(seed, cfg: QuantConfig):
+    """A call's seed for the plain versions: an int, or a one-element
+    tensor (a seed-table slot) as a 0-d tensor, read where it lies."""
     if seed is None:
         if cfg.noise_lsb > 0.0:
             raise ValueError("noise_lsb > 0 requires a seed")
         return 0
+    if isinstance(seed, Tensor):
+        return seed.reshape(())
     return int(seed)
+
+
+def seed_buffer(seeds, nseg: int, cfg: QuantConfig, dev) -> Optional[Tensor]:
+    """The segments' noise seeds as the int32 device array the CUDA kernel
+    reads (None without noise: the kernel then reads no seed).  ``seeds``
+    is a tensor (a slice of a pass's seed table, used in place) or a
+    sequence of ints, copied from pinned memory without a host sync; ints
+    cannot be captured into a CUDA graph (the copy would replay stale host
+    memory), so they raise there."""
+    if cfg.noise_lsb <= 0.0:
+        return None
+    if isinstance(seeds, Tensor):
+        t = seeds.reshape(-1)
+        if t.dtype != torch.int32 or t.device != dev or t.numel() < nseg:
+            raise ValueError(f"seeds: need {nseg} int32 values on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        return t
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("int seeds inside a CUDA graph capture: pass the "
+                           "seeds as a device tensor (a seed table)")
+    vals = torch.tensor([_seed_or_zero(v, cfg) for v in seeds],
+                        dtype=torch.int32)
+    return vals.pin_memory().to(dev, non_blocking=True)
 
 
 def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
@@ -298,6 +330,13 @@ def fused_rows(m: int, n: int, n_blocks: int, cfg: QuantConfig,
     return rows
 
 
+def _seeds(seed, cfg: QuantConfig):
+    """One call's seed as ``launch_segments`` takes it."""
+    if isinstance(seed, Tensor):
+        return seed
+    return [_seed_or_zero(seed, cfg)]
+
+
 def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
                     gains: Optional[Tensor], pw0, cfg: QuantConfig,
                     njs: Sequence[int], seeds: Sequence[int],
@@ -328,7 +367,7 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
     nseg = len(njs)
     starts = [0, njs[0], njs[0] + (njs[1] if nseg > 1 else 0)]
     nj = list(njs) + [0] * (3 - nseg)
-    sd = list(seeds) + [0] * (3 - nseg)
+    sd = seed_buffer(seeds, nseg, cfg, dev)
     if rows is None:
         rows = fused_rows(m, n, ntot // DEFAULT_BN, cfg, T)
     if rows and (kcodes.data_ptr() % 16 or scales.data_ptr() % 16):
@@ -349,8 +388,8 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
         x2.data_ptr(), int(x2.dtype == torch.bfloat16), m, pw0.k,
         kcodes.data_ptr(), scales.data_ptr(),
         gains.data_ptr() if has_g else None, pw0.kp, T, n, ntot,
-        nseg, starts[1], starts[2], nj[0], nj[1], nj[2], sd[0], sd[1], sd[2],
-        grid.bm, grid.tk, grid.nk,
+        nseg, starts[1], starts[2], nj[0], nj[1], nj[2],
+        None if sd is None else sd.data_ptr(), grid.bm, grid.tk, grid.nk,
         f32_const(cfg.adc_base_scale if has_g else cfg.adc_code_scale),
         f32_const(2.0 * cfg.noise_lsb), int(cfg.noise_lsb > 0.0),
         float(2 ** (cfg.bits_y - 1) - 1), f32_const(cfg.bin_y),
@@ -383,8 +422,7 @@ def _abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
     gains = None if pw.gains is None else pw.gains.float().contiguous()
     out = launch_segments(x, pw.kcodes, pw.scales, gains, pw, cfg,
-                          [pw.n_padded // DEFAULT_BN],
-                          [_seed_or_zero(seed, cfg)], rows)
+                          [pw.n_padded // DEFAULT_BN], _seeds(seed, cfg), rows)
     abfp_matmul_packed.launches += 1
     return out[:, :pw.n_cols].reshape(*x.shape[:-1], pw.n_cols)
 
@@ -472,8 +510,8 @@ def _abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     geo, kcodes, scales = quantize_weight(w, cfg)
     out = launch_segments(x, kcodes, scales, None, geo, cfg,
-                          [kcodes.shape[1] // DEFAULT_BN],
-                          [_seed_or_zero(seed, cfg)], rows)
+                          [kcodes.shape[1] // DEFAULT_BN], _seeds(seed, cfg),
+                          rows)
     abfp_matmul.launches += 1
     return out[:, :n_cols].reshape(*x.shape[:-1], n_cols)
 

@@ -13,6 +13,9 @@
 // run over up to three weights whose column blocks are concatenated; each
 // segment keeps its own noise seed, column-block count and local block
 // index, so it draws the noise a stand-alone call for that weight draws.
+// The seeds are read from device memory (a slice of the pass's seed
+// table), never passed by value: a CUDA graph that captured a launch then
+// draws the noise of whatever seeds the table holds at each replay.
 //
 // What bounds it: at decode (M = 4 rows) the int8 codes are read once and
 // every code feeds 4 multiply-adds, so the weight stream from device memory
@@ -279,7 +282,8 @@ abfp_quantize_w(const void* __restrict__ w, int w_bf16, int K, int N, int Np,
 struct Segments {
   int start1, start2;      // first column block of segments 1 and 2
   int nj[3];               // column-block count of each segment's own grid
-  int seed[3];             // noise seed of each segment
+  const int* seeds;        // noise seed of each segment, in device
+                           // memory (read only when adc.noisy)
   int nseg;
 };
 
@@ -294,6 +298,12 @@ struct Adc {
   int has_gains;
   int gain_pow2;  // gain is a power of two with a normal reciprocal
 };
+
+// Segment s's noise seed (0 without noise, where `seeds` may be null).
+__device__ __forceinline__ uint32_t seed_of(const Segments& seg,
+                                            const Adc& adc, int s) {
+  return adc.noisy ? (uint32_t)__ldg(seg.seeds + s) : 0u;
+}
 
 __device__ __forceinline__ void segment_of(const Segments& seg, int jj,
                                            int& s, int& j_local) {
@@ -338,6 +348,7 @@ abfp_tile_terms(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   int s, j_local;
   segment_of(seg, jj, s, j_local);
   const float g = adc.has_gains ? gains[t * seg.nseg + s] : 1.0f;
+  const uint32_t seed = seed_of(seg, adc, s);
   const float sw = __bfloat162float(scales[(long)t * Ntot + c]);
   const int kb = t / tk, tt = t % tk;
 #pragma unroll
@@ -350,8 +361,7 @@ abfp_tile_terms(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       int i = m / bm, rr = m % bm;
       uint32_t salt = (uint32_t)((i * seg.nj[s] + j_local) * nk + kb);
       v = __fadd_rn(v, __fmul_rn(hash_u05((uint32_t)(tt * bm + rr),
-                                          (uint32_t)cc,
-                                          (uint32_t)seg.seed[s], salt),
+                                          (uint32_t)cc, seed, salt),
                                  adc.noise2));
     }
     float yq = __fmul_rn(fminf(fmaxf(rintf(v), -adc.ly), adc.ly), adc.bin_y);
@@ -622,7 +632,7 @@ abfp_decode(const void* __restrict__ x, int x_bf16, int K, int Kp, int T,
     const int c0 = ((int)blockIdx.x + si * (int)gridDim.x) * DEC_COLS;
     int s, j_local;
     segment_of(seg, c0 / BN, s, j_local);
-    const uint32_t seed = (uint32_t)seg.seed[s];
+    const uint32_t seed = seed_of(seg, adc, s);
     // The salt of row block 0 and K block 0 (bm = 8 >= M: every row is in
     // row block 0, hash row tt * 8 + m).
     const uint32_t salt0 = (uint32_t)j_local * (uint32_t)nk;
@@ -887,12 +897,13 @@ abfp_fused(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   // not change with the K-tile: hash row tt * bm + rr, salt
   // (i * nj + j_local) * nk + kb.
   const int m_row[2] = {m0 + r0 + g, m0 + r0 + g + 8};
+  const uint32_t seed = seed_of(seg, adc, s);
   uint32_t hbase[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const uint32_t i = (uint32_t)(m_row[h] / bm);
     const uint32_t rr = (uint32_t)(m_row[h] % bm);
-    hbase[h] = rr * 0x9E3779B9u + (uint32_t)seg.seed[s] * 0xC2B2AE35u +
+    hbase[h] = rr * 0x9E3779B9u + seed * 0xC2B2AE35u +
                (i * (uint32_t)seg.nj[s] + (uint32_t)j_local) * (uint32_t)nk *
                    0x27D4EB2Fu;
   }
@@ -1100,18 +1111,20 @@ bool host_pow2(float v) {
 
 }  // namespace
 
+// seeds: device pointer to the nseg segment seeds (null without noise).
 // rows: the route.  16, 32 or 64: the fused route's row block (M > 8);
 // 8: the decode route (M <= 8, one launch; xq, sx and terms unused); 0: the
 // tile-terms + reduce route (terms: (T, M, Ntot) f32 scratch).
 extern "C" int abfp_matmul_packed_launch(
     const void* x, int x_bf16, int M, int K, const void* kcodes,
     const void* scales, const void* gains, int Kp, int T, int n, int Ntot,
-    int nseg, int start1, int start2, int nj0, int nj1, int nj2, int seed0,
-    int seed1, int seed2, int bm, int tk, int nk, float adc_scale,
+    int nseg, int start1, int start2, int nj0, int nj1, int nj2,
+    const void* seeds, int bm, int tk, int nk, float adc_scale,
     float noise2, int noisy, float ly, float bin_y, float gain, float lx,
     int rows, void* xq, void* sx, void* terms, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n % 4 != 0 || Ntot % BN != 0 || nseg < 1 || nseg > 3 || M < 1)
+  if (n % 4 != 0 || Ntot % BN != 0 || nseg < 1 || nseg > 3 || M < 1 ||
+      (noisy && seeds == nullptr))
     return (int)cudaErrorInvalidValue;
   // The fused route's conditions: whole 32-deep k steps (n a power of two
   // from 32), s_x and s_w of every K-tile in shared memory (T <= 128), and
@@ -1129,7 +1142,7 @@ extern "C" int abfp_matmul_packed_launch(
   seg.start1 = start1;
   seg.start2 = start2;
   seg.nj[0] = nj0; seg.nj[1] = nj1; seg.nj[2] = nj2;
-  seg.seed[0] = seed0; seg.seed[1] = seed1; seg.seed[2] = seed2;
+  seg.seeds = (const int*)seeds;
   seg.nseg = nseg;
   Adc adc;
   adc.scale = adc_scale;

@@ -9,14 +9,17 @@
 ``dense_packed(x, pw, cfg, key)`` takes an already packed weight: the
 quantize-once serving path.  Forward only.
 
-``key`` is a PRNG key (``core.prng``) or None; ``key_to_seed`` turns it
-into the kernel's int32 noise seed.  ``plain=True`` calls the kernel's
+``key`` is the call's noise seed: a PRNG key (``core.prng``;
+``key_to_seed`` turns it into the kernel's int32 seed), an int, a
+one-element int32 tensor (a slot of a pass's seed table, read by the
+kernel from device memory) or None.  ``plain=True`` calls the kernel's
 plain PyTorch version instead of the wrapper, on any device: it is how a
 whole model pass is compared against its kernels on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.abfp import PackedWeight, QuantConfig, pack_abfp_weight
@@ -36,11 +39,19 @@ from repro_torch.kernels.flash_attention import flash_attention
 Tensor = torch.Tensor
 
 
+def as_seed(key):
+    """A call's seed from ``key``: ints, tensors and None as they are, a
+    PRNG key through ``key_to_seed``."""
+    if key is None or isinstance(key, (int, np.integer, torch.Tensor)):
+        return key
+    return key_to_seed(key)
+
+
 def dense_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
                  key=None, plain: bool = False) -> Tensor:
     """x (..., K) @ packed weight (K, N) -> (..., N) via the packed kernel."""
     fn = abfp_matmul_packed_ref if plain else abfp_matmul_packed
-    return fn(x, pw, cfg, key_to_seed(key))
+    return fn(x, pw, cfg, as_seed(key))
 
 
 def dense(x: Tensor, w, cfg: QuantConfig, key=None,
@@ -52,7 +63,7 @@ def dense(x: Tensor, w, cfg: QuantConfig, key=None,
         return torch.matmul(x, w.to(x.dtype))
     if cfg.mode == "abfp_kernel":
         fn = abfp_matmul_ref if plain else abfp_matmul
-        return fn(x, w, cfg, key_to_seed(key))
+        return fn(x, w, cfg, as_seed(key))
     if cfg.mode in ("abfp_packed", "abfp_fused"):
         pw = pack_abfp_weight(w, cfg, adaptive_gain=cfg.mode == "abfp_fused")
         return dense_packed(x, pw, cfg, key, plain)
@@ -73,3 +84,10 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for f in WRAPPERS:
         f.launches = 0
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (by wrapper name) to the launch counts: a
+    CUDA graph replay launches the kernels its capture recorded."""
+    for f in WRAPPERS:
+        f.launches += times * delta.get(f.__name__, 0)

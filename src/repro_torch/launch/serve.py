@@ -10,6 +10,13 @@ abfp-packed`` serves through the packed ABFP kernel alone.  Weights are
 random, from ``--seed``.  ``--device cpu`` runs the kernels' plain
 PyTorch versions on the CPU (for small ``--reduced`` configs).
 
+``--wall-clock`` drives the engine on ``time.perf_counter`` (latencies in
+seconds, the tick utilization printed); ``--overlap`` (implies
+``--wall-clock``) serves through the overlapped runtime: sampling on the
+device, passes dispatched up to ``--inflight`` ahead of their delivery.
+On a GPU every pass shape is captured into a CUDA graph before the
+requests arrive (``ServingEngine.warmup``).
+
 Each request's greedy token ids are printed as
 ``req <uid>: prompt[<len>] -> [ids]``.
 """
@@ -68,6 +75,17 @@ def build_parser() -> argparse.ArgumentParser:
                     default="fcfs", help="admission scheduling policy")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain versions)")
+    ap.add_argument("--wall-clock", action="store_true",
+                    help="drive the engine on time.perf_counter instead of "
+                         "the simulated tick clock (latencies in SECONDS)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped dispatch: sample on the device, "
+                         "dispatch pass N+1 before pass N's tokens reach "
+                         "the host, deliver them from a background worker; "
+                         "implies --wall-clock")
+    ap.add_argument("--inflight", type=int, default=4,
+                    help="dispatch-ahead depth for --overlap (bound on "
+                         "submitted but undelivered passes)")
     return ap
 
 
@@ -101,6 +119,8 @@ def make_requests(mcfg, args) -> List[Request]:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    if args.overlap:
+        args.wall_clock = True
     mcfg, quant = model_and_quant(args)
     params = init_params(args.seed, mcfg, device=args.device)
     print(f"[serve] {args.arch}: {param_count(params) / 1e6:.1f}M params, "
@@ -110,7 +130,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                         chunked=not args.no_chunked, policy=args.policy,
                         prefill_chunks=tuple(
                             int(c) for c in args.prefill_chunks.split(",")),
-                        device=args.device)
+                        device=args.device,
+                        clock=time.perf_counter if args.wall_clock else None,
+                        overlap=args.overlap, inflight=args.inflight)
+    unit = "s" if args.wall_clock else "ticks"
+    if args.wall_clock:
+        print(f"[serve] wall clock: overlap="
+              f"{'on' if args.overlap else 'off (blocking)'}"
+              + (f", inflight={args.inflight}" if args.overlap else ""))
+        eng.warmup()        # capture every pass shape before the requests
     reqs = make_requests(mcfg, args)
     t0 = time.time()
     done = eng.run(reqs)
@@ -125,8 +153,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         return "-" if v is None else f"{v:.2f}"
 
     print(f"[serve] TTFT p50 {fmt(s['ttft'], 'p50')} / p99 "
-          f"{fmt(s['ttft'], 'p99')} ticks | TPOT p50 {fmt(s['tpot'], 'p50')}"
-          f" ticks | E2E p50 {fmt(s['e2e'], 'p50')} ticks")
+          f"{fmt(s['ttft'], 'p99')} {unit} | TPOT p50 "
+          f"{fmt(s['tpot'], 'p50')} {unit} | E2E p50 {fmt(s['e2e'], 'p50')} "
+          f"{unit}")
+    if args.wall_clock:
+        tu = eng.metrics.tick_utilization()
+        tv = tu["value"]
+        print(f"[serve] tick utilization "
+              f"{'-' if tv is None else f'{tv:.1%}'} "
+              f"(device busy {tu['device_busy_s']:.2f}s of "
+              f"{tu['active_s']:.2f}s active)")
+    eng.close()
     for r in done:
         print(f"  req {r.uid}: prompt[{len(r.prompt)}] -> {r.generated}")
 

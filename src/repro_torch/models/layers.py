@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.abfp import PackedWeight, QuantConfig
-from repro_torch.core.prng import fold_in, key_to_seed
+from repro_torch.core.prng import fold_in, key_to_seed, seed_table
 from repro_torch.kernels import ops
 from repro_torch.kernels.abfp_decode_fused import (
     fused_qkv_packed,
@@ -50,6 +50,10 @@ NEG = -1e30     # the mask constant of every attention core
 # ---------------------------------------------------------------------------
 
 
+# The fold of the LM head's noise key (the layers fold their index).
+LM_HEAD_FOLD = 999_983
+
+
 class Numerics:
     """Per-pass numerics state.
 
@@ -57,33 +61,79 @@ class Numerics:
     noise key; the caller folds the layer index into the base key first,
     so streams are unique per (layer, call) and match the JAX package's.
 
+    A pass hands its kernels the resulting seeds from a SEED TABLE: an
+    int32 tensor on the pass's device holding every call's seed
+    (``core.prng.seed_table``, layer-major, ``calls`` per layer, the LM
+    head's last).  ``Numerics(quant, seeds=table, calls=C)`` gives each
+    dense call a one-element slot of it, so no seed is a launch argument
+    and a captured pass reads fresh seeds from the table on every replay.
+    A key-mode ``Numerics(quant, key)`` turns into table mode at the top of
+    a model pass (``as_table``); below a key-mode ``Numerics`` that was not
+    turned (DNF's per-layer factories), each call's seed is a host int.
+
     ``plain=True`` runs every kernel's plain PyTorch version instead of its
     wrapper, on any device: the whole-model reference a kernel run on the
     card is compared with.
     """
 
-    def __init__(self, quant: QuantConfig, key=None, plain: bool = False):
+    def __init__(self, quant: QuantConfig, key=None, plain: bool = False, *,
+                 seeds: Optional[Tensor] = None, calls: int = 0,
+                 base: int = 0):
         self.quant = quant
         self._key = key
         self.plain = plain
+        self.seeds = seeds
+        self.calls = calls
+        self._base = base
         self._count = 0
 
+    @property
+    def noisy(self) -> bool:
+        return self.quant.noise_lsb > 0.0 and self.quant.mode != "float"
+
+    def as_table(self, num_layers: int, calls: int, device) -> "Numerics":
+        """This root key's whole pass as a seed table on ``device`` (one
+        host-to-device copy, pinned and non-blocking on a GPU); unchanged
+        without a key, without noise or already in table mode."""
+        if self.seeds is not None or self._key is None or not self.noisy:
+            return self
+        tbl = torch.from_numpy(seed_table(self._key, num_layers, calls,
+                                          LM_HEAD_FOLD))
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            tbl = tbl.pin_memory().to(dev, non_blocking=True)
+        return Numerics(self.quant, plain=self.plain, seeds=tbl, calls=calls)
+
     def fold(self, idx: int) -> "Numerics":
+        if self.seeds is not None:
+            base = (self.seeds.numel() - 1 if idx == LM_HEAD_FOLD
+                    else idx * self.calls)
+            return Numerics(self.quant, plain=self.plain, seeds=self.seeds,
+                            calls=self.calls, base=base)
         key = None if self._key is None else fold_in(self._key, idx)
         return Numerics(self.quant, key, self.plain)
 
-    def next_key(self):
-        """The noise key of the next dense call (None without noise), and
-        one step of the call counter."""
-        key = None
-        if self._key is not None and self.quant.noise_lsb > 0.0 \
-                and self.quant.mode != "float":
-            key = fold_in(self._key, self._count)
-        self._count += 1
-        return key
+    def next_seeds(self, n: int):
+        """The noise seeds of the next ``n`` dense calls, one counter step
+        each: an (n,) int32 slice of the seed table, n host ints, or n
+        Nones without noise."""
+        c = self._count
+        self._count += n
+        if not self.noisy:
+            return [None] * n
+        if self.seeds is not None:
+            if self._base + c + n > min(self.seeds.numel(),
+                                        self._base + max(self.calls, 1)):
+                raise ValueError(f"the seed table has no slot for call "
+                                 f"{c + n - 1} at {self._base}")
+            return self.seeds[self._base + c:self._base + c + n]
+        if self._key is None:
+            return [None] * n
+        return [key_to_seed(fold_in(self._key, c + i)) for i in range(n)]
 
     def dense(self, x: Tensor, w) -> Tensor:
-        return ops.dense(x, w, self.quant, self.next_key(), plain=self.plain)
+        return ops.dense(x, w, self.quant, self.next_seeds(1)[0],
+                         plain=self.plain)
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +177,8 @@ def rope(x: Tensor, positions: Tensor, theta: float,
     x_rot, x_pass = x[..., :rot_d], x[..., rot_d:]
     half = rot_d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=x.device), exps)
     ang = positions[..., None].float() * freq                 # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -292,7 +342,7 @@ def _append_attend_one(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict):
         kv_cache["v"][bidx, slot] = v[:, 0].to(kv_cache["v"].dtype)
         out = decode_attention(q, kv_cache["k"], kv_cache["v"],
                                lengths=length + 1)
-    kv_cache["length"] = length + 1
+    length.add_(1)
     return out, kv_cache
 
 
@@ -306,18 +356,27 @@ def chunk_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict, *,
     rows with n_tokens == 0 write nothing, so their cache slots stay
     bit-for-bit unchanged; this also covers the drop lane past the buffer
     when ``length + n_tokens == S_max``.  Returns (out (B, S, H, D),
-    kv_cache)."""
+    kv_cache).
+
+    No data-dependent shape and no host sync (the pass runs inside a CUDA
+    graph): each of a row's first min(S, S_max) lanes owns the cache slot
+    ``(length + lane) % S_max``, distinct within the row, and writes back
+    the value already there unless it is a real token inside the buffer.
+    Lanes past S_max are never real."""
     b, s = q.shape[:2]
     length = kv_cache["length"]
     s_max = kv_cache["k"].shape[1]
     offs = torch.arange(s, device=q.device)[None, :]
     q_pos = length[:, None] + offs                            # (B, S)
-    valid = (offs < n_tokens[:, None]) & (q_pos < s_max)
-    bi, ti = valid.nonzero(as_tuple=True)
-    pos = q_pos[bi, ti].long()
+    w = min(s, s_max)
+    valid = ((offs < n_tokens[:, None]) & (q_pos < s_max))[:, :w]
+    bi = torch.arange(b, device=q.device)[:, None]
+    pos = (q_pos[:, :w] % s_max).long()
 
     def scatter(buf, vals):
-        buf[bi, pos] = vals[bi, ti].to(buf.dtype)
+        sel = valid.reshape(valid.shape + (1,) * (buf.ndim - 2))
+        buf[bi, pos] = torch.where(sel, vals[:, :w].to(buf.dtype),
+                                   buf[bi, pos])
 
     if "k_scale" in kv_cache:
         kc, ks = _kv_encode(k)
@@ -334,7 +393,7 @@ def chunk_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict, *,
         scatter(kv_cache["v"], v)
         out = chunk_cache_attention(q, kv_cache["k"], kv_cache["v"],
                                     q_pos=q_pos)
-    kv_cache["length"] = length + n_tokens.to(length.dtype)
+    length.add_(n_tokens.to(length.dtype))
     return out, kv_cache
 
 
@@ -367,7 +426,7 @@ def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
     later layer see an unchanged stream."""
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
-    seeds = [key_to_seed(nx.next_key()) for _ in range(3)]
+    seeds = nx.next_seeds(3)
     pws = (params["wq"], params["wk"], params["wv"])
     if nx.plain:
         yq, yk, yv = fused_qkv_packed_ref(x, pws, nx.quant, seeds)
@@ -394,7 +453,7 @@ def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
               else fused_quantized_decode_attention)
     out = attend(q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
                  kv_cache["v_scale"], lengths=length + 1)
-    kv_cache["length"] = length + 1
+    length.add_(1)
     return nx.dense(out.reshape(b, s, h * hd), params["wo"]), kv_cache
 
 

@@ -19,13 +19,14 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.layers import (
+    LM_HEAD_FOLD,
     Numerics,
     attention_block,
     init_attention,
@@ -35,8 +36,6 @@ from repro_torch.models.layers import (
 )
 
 Tensor = torch.Tensor
-
-LM_HEAD_FOLD = 999_983
 
 
 def check_supported(mcfg: ModelConfig) -> None:
@@ -137,6 +136,21 @@ def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
     return nx.dense(x, w).float()
 
 
+def calls_per_layer(mcfg: ModelConfig) -> int:
+    """Noise-keyed dense calls of one layer (its call counters 0..n-1):
+    wq, wk, wv, wo, then the MLP's wi (and wg) and wo."""
+    if not mcfg.d_ff:
+        return 4
+    return 4 + (3 if mcfg.mlp_type in ("swiglu", "geglu") else 2)
+
+
+def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
+                   device) -> Numerics:
+    """A pass's root Numerics in seed-table mode (float without one)."""
+    nx = nx or Numerics(QuantConfig(mode="float"))
+    return nx.as_table(mcfg.num_layers, calls_per_layer(mcfg), device)
+
+
 def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         x, state["layers"][li] = _apply_layer(
@@ -167,7 +181,7 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     ``dnf``/``dnf_key`` and ``mesh`` belong to later slices (ROADMAP
     queue 1 items 11-13)."""
     check_supported(mcfg)
-    nx = nx or Numerics(QuantConfig(mode="float"))
+    nx = _pass_numerics(nx, mcfg, tokens.device)
     positions = _positions(tokens)
     x = _embed(params, tokens, mcfg)
     for li, lp in enumerate(params["layers"]):
@@ -260,12 +274,12 @@ def decode_step(params: dict, state: dict, token: Tensor, mcfg: ModelConfig,
 
     In ``abfp_fused`` numerics every layer runs the fused QKV and int8-KV
     attention kernels (``models.layers._fused_decode_attention_block``)."""
-    nx = nx or Numerics(QuantConfig(mode="float"))
+    nx = _pass_numerics(nx, mcfg, token.device)
     positions = state["position"][:, None]                      # (B, 1)
     x = _embed(params, token[:, None], mcfg)
     x = _run_layers(params, state, x, mcfg, nx, positions)
     logits = _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
-    state["position"] = state["position"] + 1
+    state["position"].add_(1)
     return logits, state
 
 
@@ -277,9 +291,9 @@ def prefill(params: dict, state: dict, tokens: Tensor, n_tokens: Tensor,
     tokens[b, :n_tokens[b]] are real.  A row with n_tokens == 0 is left
     unchanged.  Returns (logits (B, V) f32 at each row's LAST real token,
     state), the state updated in place."""
-    nx = nx or Numerics(QuantConfig(mode="float"))
     b, s = tokens.shape[:2]
     dev = tokens.device
+    nx = _pass_numerics(nx, mcfg, dev)
     positions = state["position"][:, None] \
         + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     n_tokens = n_tokens.to(device=dev, dtype=torch.int32)
@@ -288,7 +302,7 @@ def prefill(params: dict, state: dict, tokens: Tensor, n_tokens: Tensor,
     last = torch.clamp(n_tokens.long() - 1, 0, s - 1)
     x_last = x[torch.arange(b, device=dev), last][:, None]     # (B, 1, d)
     logits = _lm_head(params, x_last, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
-    state["position"] = state["position"] + n_tokens
+    state["position"].add_(n_tokens)
     return logits, state
 
 
@@ -299,20 +313,24 @@ def prefill(params: dict, state: dict, tokens: Tensor, n_tokens: Tensor,
 
 def sample_tokens(logits: Tensor, temperatures, uids, token_idxs,
                   seed: int) -> Tensor:
-    """One next token per row.  Rows with temperature 0 take the argmax
-    (first occurrence on ties, as ``np.argmax``); rows with temperature > 0
-    draw from the temperature-scaled softmax with a generator keyed by
-    ``(seed, uid, token_idx)``, so a draw does not depend on how requests
-    share a batch.  ``temperatures``/``uids``/``token_idxs`` are host
-    sequences of length B.  Returns (B,) int32 on logits' device."""
-    out = torch.argmax(logits, dim=-1).to(torch.int32)
-    for i, t in enumerate(np.asarray(temperatures, np.float32)):
-        if t <= 0:
-            continue
-        ss = np.random.SeedSequence(
-            (int(seed), int(uids[i]), int(token_idxs[i])))
-        gen = torch.Generator(device=logits.device).manual_seed(
-            int(ss.generate_state(1, np.uint64)[0] >> 1))
-        p = torch.softmax(logits[i].double() / float(t), dim=-1)
-        out[i] = torch.multinomial(p, 1, generator=gen)[0].to(torch.int32)
-    return out
+    """One next token per row, on the logits' device, as JAX's
+    ``sample_tokens`` draws it.  Rows with temperature 0 take the argmax
+    (first occurrence on ties, as ``np.argmax``); rows with temperature t >
+    0 take ``argmax(logits / t + gumbel)`` in f32 (``jax.random
+    .categorical``), the Gumbel noise from the key ``fold_in(fold_in(
+    PRNGKey(seed), uid), token_idx)`` of each row (``core.prng``), so a
+    draw does not depend on how requests share a batch.  ``temperatures``
+    (f32), ``uids`` and ``token_idxs`` (int32) are (B,) tensors or host
+    arrays; no value goes to the host, so the function runs inside a CUDA
+    graph.  Returns (B,) int32."""
+    dev = logits.device
+    temps = torch.as_tensor(temperatures, dtype=torch.float32).to(dev)
+    uids = torch.as_tensor(uids, dtype=torch.int32).to(dev)
+    idxs = torch.as_tensor(token_idxs, dtype=torch.int32).to(dev)
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1)
+    k0, k1 = prng.row_keys(seed, uids, idxs)
+    g = prng.gumbel(prng.random_bits(k0, k1, logits.shape[-1]))
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    drawn = torch.argmax(g + logits / safe_t[:, None], dim=-1)
+    return torch.where(temps > 0, drawn, greedy).to(torch.int32)

@@ -1,6 +1,7 @@
-"""repro_torch.serving — the continuous-batching engine on the simulated
-clock (chunked prefill, FCFS/SJF/priority admission, SLO metrics) over
-the dense decoder runner, with blocking device-to-host transfers."""
+"""repro_torch.serving — the continuous-batching engine (chunked prefill,
+FCFS/SJF/priority admission, SLO metrics) over the dense decoder runner:
+every pass shape warmed into a CUDA graph on a GPU, blocking transfers on
+the simulated clock or the overlapped runtime on a wall clock."""
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.metrics import (  # noqa: F401
     RequestMetrics,
@@ -16,4 +17,9 @@ from repro_torch.serving.scheduler import (  # noqa: F401
     ShortestPromptFirst,
     get_scheduler,
 )
-from repro_torch.serving.stream import DeviceStream  # noqa: F401
+from repro_torch.serving.stream import (  # noqa: F401
+    DeviceStream,
+    OverlappedStream,
+    Ticket,
+    TokenRec,
+)

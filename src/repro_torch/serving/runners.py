@@ -2,26 +2,121 @@
 ``repro_torch.models``.
 
 A runner owns what the engine must know about one model family: how to
-allocate the batched decode state (``init_state``), the decode-tick and
-chunk-pass functions the engine calls (``make_step`` / ``make_prefill``,
-in their sampled form) and the per-slot state reset (``make_reset``).
-Only the dense decoder-only family with unpaged KV caches is ported.  The
-functions update the decode state in place and return it.
+allocate the batched decode state (``init_state``), the pass of each
+shape the engine runs (``make_pass``: the decode tick ``("decode",)`` or a
+chunk pass ``("prefill", bucket)``; either with ``"draw"`` appended
+when a row samples at a temperature) and the
+per-slot state reset (``make_reset``).  Only the dense decoder-only family
+with unpaged KV caches is ported.  Passes update the decode state in
+place: every state tensor keeps its storage.
+
+Static buffers
+--------------
+Each pass shape owns its inputs and outputs (``PassIO``), allocated once
+on the engine's device: one int32 word array holds the tokens, the
+per-row token counts, the previous-sample mask, the sampling inputs and
+the pass's seed table, and the host fills it with ONE copy per pass from
+pinned memory (``Staging``); ``prev`` takes the previous pass's device
+sample by a device-to-device copy; ``logits`` (B, V) f32 and ``sampled``
+(B,) int32 are written by the pass.  The pass body reads nothing else
+that varies, so a CUDA graph captured from it replays with each pass's
+values (``serving.engine``).
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
 from repro_torch.models.layers import Numerics
 from repro_torch.models.lm import (
+    calls_per_layer,
     decode_step,
     init_decode_state,
     prefill,
     sample_tokens,
 )
+
+Tensor = torch.Tensor
+
+# The int32 words of a pass's inputs, in order; "tokens" holds B x width
+# words, "seeds" the seed table, every other field B.
+FIELDS = ("tokens", "n_tokens", "prev_mask", "temps", "uids", "idxs",
+          "seeds")
+
+
+class PassIO:
+    """The static inputs and outputs of one pass shape on ``device``:
+    ``capacity`` rows of ``width`` tokens (1 for the decode tick) and a
+    seed table of ``n_seeds`` entries.  ``words`` is the int32 array the
+    host fills; the named fields are views of it (``temps`` as f32)."""
+
+    def __init__(self, capacity: int, width: int, n_seeds: int, vocab: int,
+                 device):
+        b = capacity
+        sizes = {f: b for f in FIELDS}
+        sizes.update(tokens=b * width, seeds=n_seeds)
+        self.capacity, self.width = capacity, width
+        self.offsets: Dict[str, Tuple[int, int]] = {}
+        at = 0
+        for f in FIELDS:
+            self.offsets[f] = (at, at + sizes[f])
+            at += sizes[f]
+        self.words = torch.zeros(at, dtype=torch.int32, device=device)
+        view = {f: self.words[a:e] for f, (a, e) in self.offsets.items()}
+        self.tokens = view["tokens"].view(b, width)
+        self.n_tokens = view["n_tokens"]
+        self.prev_mask = view["prev_mask"]
+        self.temps = view["temps"].view(torch.float32)
+        self.uids = view["uids"]
+        self.idxs = view["idxs"]
+        self.seeds = view["seeds"]
+        self.prev = torch.zeros(b, dtype=torch.int32, device=device)
+        self.logits = torch.zeros((b, vocab), dtype=torch.float32,
+                                  device=device)
+        self.sampled = torch.zeros(b, dtype=torch.int32, device=device)
+
+    def pack(self, **fields) -> np.ndarray:
+        """The host word array of one pass from numpy fields (missing
+        fields are 0; ``temps`` is stored by its f32 bits)."""
+        out = np.zeros(self.words.numel(), np.int32)
+        for f, v in fields.items():
+            a, e = self.offsets[f]
+            v = np.asarray(v)
+            out[a:e] = (v.astype(np.float32).view(np.int32) if f == "temps"
+                        else v.astype(np.int32)).reshape(-1)
+        return out
+
+
+class Staging:
+    """A ring of ``depth`` host buffers (pinned on a GPU) for the one
+    host-to-device copy of each pass.  A buffer is rewritten only after
+    the copy that last read it has run (its CUDA event)."""
+
+    def __init__(self, words: int, depth: int, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.bufs = [torch.zeros(words, dtype=torch.int32,
+                                 pin_memory=self.cuda)
+                     for _ in range(max(2, depth))]
+        self.events = [None] * len(self.bufs)
+        self.i = 0
+
+    def copy(self, host: np.ndarray, dst: Tensor) -> None:
+        i = self.i
+        self.i = (i + 1) % len(self.bufs)
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        buf = self.bufs[i][:host.size]
+        buf.numpy()[:] = host
+        dst.copy_(buf, non_blocking=True)
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self.events[i] = ev
 
 
 class DecoderRunner:
@@ -34,46 +129,53 @@ class DecoderRunner:
                    device: DeviceLike = None) -> dict:
         return init_decode_state(self.mcfg, capacity, max_len, device)
 
-    def make_step(self, quant, seed: int):
-        """The decode-tick function ``(params, state, token, ov_vals,
-        ov_mask, key, temps, uids, idxs) -> (logits, sampled, state)``.
+    def n_seeds(self) -> int:
+        """Entries of a pass's seed table (``core.prng.seed_table``)."""
+        return self.mcfg.num_layers * calls_per_layer(self.mcfg) + 1
 
-        ``token``/``ov_vals``/``ov_mask`` are (B,) host arrays: rows with
-        ``ov_mask`` take ``ov_vals`` as input instead of ``token``.  The
-        next token is sampled on the device (``models.sample_tokens``)."""
-        def _step(params, state, token, ov_vals, ov_mask, key, temps, uids,
-                  idxs):
-            dev = state["position"].device
-            tok = torch.as_tensor(
-                [v if m else t for t, v, m in zip(token, ov_vals, ov_mask)],
-                dtype=torch.int32).to(dev)
-            logits, state = decode_step(params, state, tok, self.mcfg,
-                                        Numerics(quant, key))
-            nxt = sample_tokens(logits, temps, uids, idxs, seed)
-            return logits, nxt, state
+    def make_pass(self, shape_key: tuple, params, quant, seed: int,
+                  capacity: int, device, sample: bool = True
+                  ) -> Tuple[PassIO, Callable[[dict], None]]:
+        """The static buffers and the body of one pass shape: ``("decode",)``
+        or ``("prefill", bucket)``, with ``"draw"`` appended for a pass in
+        which some row samples at a temperature.
 
-        return _step
+        ``body(state)`` runs the pass on ``state`` (in place) reading only
+        the ``PassIO``: each row's input token is ``prev`` where
+        ``prev_mask`` is set (the previous pass's device sample) and its
+        host token otherwise; a prefill row takes ``n_tokens`` tokens of its
+        chunk.  Noise seeds come from ``seeds``.  The body writes the
+        logits at each row's last real token and, with ``sample``, the
+        next token sampled on the device (the overlapped engine's tokens;
+        the blocking engine samples on the host and skips it): the argmax,
+        or under ``"draw"`` ``models.sample_tokens`` (JAX's Gumbel-max
+        draw for temperature rows, the argmax for the others; its threefry
+        is about 550 small kernels, which a greedy pass skips)."""
+        decode = shape_key[0] == "decode"
+        draw = shape_key[-1] == "draw"
+        width = 1 if decode else int(shape_key[1])
+        io = PassIO(capacity, width, self.n_seeds(), self.mcfg.vocab_size,
+                    device)
+        calls = calls_per_layer(self.mcfg)
+        mcfg = self.mcfg
 
-    def make_prefill(self, quant, seed: int):
-        """The chunk-pass function ``(params, state, tokens, n_tokens,
-        riders, rider_mask, key, temps, uids, idxs) -> (logits, sampled,
-        state)``.  Rows with ``rider_mask`` take ``riders`` as their single
-        input token (a decode slot riding along)."""
-        def _prefill(params, state, tokens, n_tokens, riders, rider_mask,
-                     key, temps, uids, idxs):
-            dev = state["position"].device
-            toks = torch.tensor(tokens, dtype=torch.int32)
-            mask = torch.as_tensor(rider_mask, dtype=torch.bool)
-            toks[:, 0] = torch.where(
-                mask, torch.as_tensor(riders, dtype=torch.int32), toks[:, 0])
-            logits, state = prefill(
-                params, state, toks.to(dev),
-                torch.as_tensor(n_tokens, dtype=torch.int32).to(dev),
-                self.mcfg, Numerics(quant, key))
-            nxt = sample_tokens(logits, temps, uids, idxs, seed)
-            return logits, nxt, state
+        def body(state: dict) -> None:
+            first = torch.where(io.prev_mask != 0, io.prev, io.tokens[:, 0])
+            nx = Numerics(quant, seeds=io.seeds, calls=calls)
+            if decode:
+                logits, _ = decode_step(params, state, first, mcfg, nx)
+            else:
+                toks = torch.cat([first[:, None], io.tokens[:, 1:]], dim=1)
+                logits, _ = prefill(params, state, toks, io.n_tokens, mcfg,
+                                    nx)
+            io.logits.copy_(logits)
+            if sample and draw:
+                io.sampled.copy_(sample_tokens(logits, io.temps, io.uids,
+                                               io.idxs, seed))
+            elif sample:
+                io.sampled.copy_(torch.argmax(logits, dim=-1))
 
-        return _prefill
+        return io, body
 
     def make_reset(self):
         """The slot reset ``(state, i) -> state``: zero every per-slot
@@ -88,9 +190,19 @@ class DecoderRunner:
         return _reset
 
 
+def state_tensors(state) -> list:
+    """Every tensor of a decode state, in a fixed order."""
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in state_tensors(state[k])]
+    if isinstance(state, list):
+        return [t for v in state for t in state_tensors(v)]
+    return [state]
+
+
 def runner_for(mcfg: ModelConfig) -> DecoderRunner:
     """The runner of a config: ``DecoderRunner`` for the dense decoders
     this slice ports; anything else raises."""
     from repro_torch.models.lm import check_supported
     check_supported(mcfg)
     return DecoderRunner(mcfg)
+

@@ -629,3 +629,195 @@ def test_cuda_forward_through_the_kernels(mode):
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     assert err < (1e-4 if mode == "float" else 0.5), err
+
+
+# ---------------------------------------------------------------------------
+# Seeds in device memory; warmed passes (CUDA graphs) and the overlapped
+# engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8, 512])
+def test_cuda_device_seeds_equal_int_seeds_and_plain(m):
+    """Kernels 1 and 2 read their seeds from device memory: a seed-table
+    slice (at an offset) gives the output of the same seeds passed as ints
+    and of the plain version, bit for bit, at phase 3's weight shapes
+    (tile 128, gains, noise 0.5)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    table = torch.tensor([5, 11, -22, 33, 1234567, -7], dtype=torch.int32,
+                         device="cuda")
+    for k, n in ((960, 960), (960, 320), (960, 2560), (2560, 960)):
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        pw = pack_abfp_weight(w.to(torch.bfloat16), CFG, adaptive_gain=True)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        got = abfp_matmul_packed(x, pw, CFG, table[4:5])
+        _assert_bits_equal(got, abfp_matmul_packed(x, pw, CFG, 1234567))
+        _assert_bits_equal(got, abfp_matmul_packed_ref(x, pw, CFG, 1234567))
+    ws = [torch.randn(960, n, generator=gen, device="cuda") * 960 ** -0.5
+          for n in (960, 320, 320)]
+    pws = [pack_abfp_weight(w.to(torch.bfloat16), CFG, adaptive_gain=True)
+           for w in ws]
+    x = torch.randn(m, 960, generator=gen, device="cuda").to(torch.bfloat16)
+    got = fused_qkv_packed(x, pws, CFG, table[1:4], qkv=concat_qkv(pws, CFG))
+    for g, by_int, want in zip(got, fused_qkv_packed(x, pws, CFG,
+                                                     (11, -22, 33)),
+                               fused_qkv_packed_ref(x, pws, CFG,
+                                                    (11, -22, 33))):
+        _assert_bits_equal(g, by_int)
+        _assert_bits_equal(g, want)
+
+
+def _smoke_engines(**kw):
+    """A graph engine and an eager twin (``_graphs=False``) on the same
+    weights, both with ``kw``."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    mcfg = dataclasses.replace(smoke_config("smollm-360m"), kv_quant=True)
+    quant = QuantConfig(mode="abfp_fused", tile_width=32, gain=8.0,
+                        noise_lsb=0.5)
+    params = init_params(0, mcfg, device="cuda")
+    common = dict(capacity=4, max_len=64, quant=quant, seed=0,
+                  prefill_chunks=(4, 8), device="cuda", **kw)
+    graph = ServingEngine(params, mcfg, **common)
+    eager = ServingEngine(params, mcfg, _graphs=False, **common)
+    return graph, eager, mcfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_key", [("decode", "draw"),
+                                       ("prefill", 4, "draw"),
+                                       ("prefill", 8, "draw"),
+                                       ("decode",)],
+                         ids=["decode", "prefill4", "prefill8",
+                              "decode-greedy"])
+def test_cuda_graph_replay_equals_eager_over_two_keys(shape_key):
+    """Two consecutive passes of one shape with two keys, by replay and
+    eagerly through the kernels, from the same state: logits and sampled
+    tokens (the device draw at temperatures 0 / 0.7 / 1.3, or the greedy
+    variant's argmax) equal bit for bit, and the two keys' logits differ
+    (a graph that froze its first seeds would repeat them)."""
+    _need_cuda()
+    import time
+
+    from repro_torch.core import prng
+
+    # Overlapped engines: their passes sample on the device.
+    graph, eager, mcfg = _smoke_engines(clock=time.perf_counter,
+                                        overlap=True)
+    b = graph.capacity
+    width = 1 if shape_key[0] == "decode" else shape_key[1]
+    rng = np.random.default_rng(1)
+    fields = dict(tokens=rng.integers(1, mcfg.vocab_size, (b, width)),
+                  n_tokens=np.array([width, 1, 0, 2][:b]),
+                  prev_mask=np.zeros(b, bool),
+                  temps=np.array([0.0, 0.7, 1.3, 0.0], np.float32),
+                  uids=np.arange(b), idxs=np.arange(b))
+    outs = []
+    for t, key in enumerate((prng.PRNGKey(1), prng.PRNGKey(2))):
+        got = []
+        for eng in (graph, eager):
+            io, _ = eng._call(shape_key, key, **fields)
+            got.append((io.logits.clone(), io.sampled.clone()))
+        torch.cuda.synchronize()
+        assert graph._passes[shape_key].graph is not None
+        assert eager._passes[shape_key].graph is None
+        (lg, sg), (le, se) = got
+        assert torch.equal(lg, le), f"pass {t}: logits differ"
+        assert torch.equal(sg, se), f"pass {t}: sampled tokens differ"
+        assert torch.isfinite(lg).all()
+        outs.append(lg)
+    assert not torch.equal(outs[0], outs[1])
+    graph.close()
+    eager.close()
+
+
+@pytest.mark.cuda
+def test_cuda_overlapped_graph_engine_equals_blocking_eager():
+    """The overlapped engine on CUDA graphs serves the greedy streams of
+    the blocking eager engine, and counts its replays' launches."""
+    _need_cuda()
+    import time
+
+    from repro_torch.serving import Request
+
+    graph, _, mcfg = _smoke_engines(clock=time.perf_counter, overlap=True)
+    _, eager, _ = _smoke_engines()
+
+    def reqs():
+        return [Request(uid=i, prompt=list(range(1, 3 + 5 * i)),
+                        max_new_tokens=6) for i in range(6)]
+
+    ops.reset_launch_counts()
+    want = {r.uid: r.generated for r in eager.run(reqs())}
+    eager_counts = ops.launch_counts()
+    graph.warmup()
+    ops.reset_launch_counts()
+    done = graph.run(reqs())
+    graph.close()
+    assert {r.uid: r.generated for r in done} == want
+    counts = ops.launch_counts()
+    for name in ("abfp_matmul_packed", "fused_qkv_packed",
+                 "fused_quantized_decode_attention"):
+        assert counts[name] > 0, counts
+    # The same passes: each replay counts the launches its capture held.
+    assert counts == eager_counts
+    u = graph.metrics.tick_utilization()["value"]
+    assert u is not None and 0.0 < u <= 1.0 + 1e-9
+
+
+@pytest.mark.cuda
+def test_cuda_capture_leaves_the_state_untouched():
+    """Capturing every pass shape (``warmup``) runs each pass once, on a
+    scratch copy of the state, and records it: the served state keeps its
+    values and its storage."""
+    _need_cuda()
+    from repro_torch.serving.runners import state_tensors
+
+    graph, _, _ = _smoke_engines()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for t in state_tensors(graph.state):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device="cuda", dtype=torch.int8))
+        elif t.dtype == torch.int32:
+            t.copy_(torch.randint(0, 20, t.shape, generator=gen,
+                                  device="cuda", dtype=torch.int32))
+        else:
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+    before = [t.clone() for t in state_tensors(graph.state)]
+    ptrs = [t.data_ptr() for t in state_tensors(graph.state)]
+    graph.warmup()
+    torch.cuda.synchronize()
+    assert all(wp.graph is not None for wp in graph._passes.values())
+    assert [t.data_ptr() for t in state_tensors(graph.state)] == ptrs
+    for t, b in zip(state_tensors(graph.state), before):
+        assert torch.equal(t, b)
+
+
+@pytest.mark.cuda
+def test_cuda_failing_capture_raises(monkeypatch):
+    """A pass that cannot be captured (a host sync inside it) raises at
+    capture; the engine does not fall back to eager launches.  (Last in
+    this file: a refused capture may leave the process's CUDA state
+    unusable for later captures.)"""
+    _need_cuda()
+    from repro_torch.serving import runners
+
+    graph, _, _ = _smoke_engines()
+    real = runners.decode_step
+
+    def syncing(*a, **kw):
+        logits, state = real(*a, **kw)
+        float(logits.sum())                 # a host sync: not capturable
+        return logits, state
+
+    monkeypatch.setattr(runners, "decode_step", syncing)
+    with pytest.raises(Exception):
+        graph.warmup()
+    assert ("decode",) not in graph._passes

@@ -53,7 +53,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.serving.engine", "repro_torch.launch.serve",
                 "repro_torch.models.convert", "repro_torch.core.dnf",
-                "repro_torch.training.finetune"):
+                "repro_torch.training.finetune",
+                "repro_torch.distributed.fault",
+                "repro_torch.serving.stream"):
         assert mod in doc["modules"]
 
 
@@ -93,18 +95,21 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
     assert out.stdout == ""
 
 
-# The kernels' A/B entries (a forced ABFP route): only their own module,
-# the card tests and the smoke script may name them, so no model path can
-# reach them.
-_AB_ENTRIES = ("_abfp_matmul(", "_abfp_matmul_packed(", "_fused_qkv_packed(")
+# The kernels' A/B entries (a forced ABFP route) and the engine's private
+# graph switch (``_graphs=False``: eager passes on the card): only their
+# own module, the card tests and the smoke script may name them, so no
+# model path and no CLI flag can reach them.
+_AB_ENTRIES = ("_abfp_matmul(", "_abfp_matmul_packed(", "_fused_qkv_packed(",
+               "_graphs")
 
 
 def test_ab_entries_are_unreachable_from_the_model_paths():
-    own = {"abfp_matmul.py": ("_abfp_matmul(", "_abfp_matmul_packed("),
-           "abfp_decode_fused.py": ("_fused_qkv_packed(",)}
+    own = {("kernels", "abfp_matmul.py"): ("_abfp_matmul(",
+                                           "_abfp_matmul_packed("),
+           ("kernels", "abfp_decode_fused.py"): ("_fused_qkv_packed(",),
+           ("serving", "engine.py"): ("_graphs",)}
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         text = path.read_text()
-        allowed = own.get(path.name, ()) if path.parent.name == "kernels" \
-            else ()
+        allowed = own.get((path.parent.name, path.name), ())
         used = [e for e in _AB_ENTRIES if e in text and e not in allowed]
         assert not used, f"{path.relative_to(ROOT)} names {used}"

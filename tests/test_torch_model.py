@@ -362,3 +362,81 @@ def test_packed_param_bytes_match_jax():
     jp, tp = _params(jm, tm)
     assert packed_param_bytes(pack_model_params(tp, tq, tm)) == \
         j_bytes(j_pack_params(jp, jq, jm))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_chunk_append_boundary_padding_and_empty_row_match_jax(kv_quant):
+    """Three rows: one filling the buffer exactly (length + n == S_max,
+    with padding lanes past it), one with n_tokens == 0 and one with
+    padding lanes inside the buffer.  Cache, lengths and outputs equal
+    JAX's: padding lanes and the empty row write nothing."""
+    rng = np.random.default_rng(5)
+    b, s, s_max, kh, h, d = 3, 4, 8, 2, 4, 8
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, kh, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, kh, d)).astype(np.float32)
+    length = np.array([6, 3, 1], np.int32)
+    n = np.array([2, 0, 2], np.int32)       # 6 + 2 == S_max
+    if kv_quant:
+        cache = {"k": rng.integers(-127, 128, (b, s_max, kh, d), np.int8),
+                 "v": rng.integers(-127, 128, (b, s_max, kh, d), np.int8),
+                 "k_scale": np.abs(rng.normal(size=(b, s_max, kh))),
+                 "v_scale": np.abs(rng.normal(size=(b, s_max, kh)))}
+    else:
+        cache = {"k": rng.normal(size=(b, s_max, kh, d)).astype(np.float32),
+                 "v": rng.normal(size=(b, s_max, kh, d)).astype(np.float32)}
+    jcache = {key: (jnp.asarray(val, jnp.bfloat16) if "scale" in key
+                    else jnp.asarray(val)) for key, val in cache.items()}
+    jcache["length"] = jnp.asarray(length)
+    jo, jc = j_chunk_append(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jcache, n_tokens=jnp.asarray(n), window=0)
+    tcache = {key: (torch.from_numpy(np.asarray(val, np.float32))
+                    .to(torch.bfloat16) if "scale" in key
+                    else torch.from_numpy(val.copy()))
+              for key, val in cache.items()}
+    tcache["length"] = torch.from_numpy(length.copy())
+    before = {key: t.clone() for key, t in tcache.items()}
+    to, tc = chunk_append_attend(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), tcache,
+                                 n_tokens=torch.from_numpy(n))
+    # Row 1 (n_tokens == 0) and every slot no real token reached: unchanged.
+    for key in ("k", "v") + (("k_scale", "v_scale") if kv_quant else ()):
+        assert torch.equal(tc[key][1], before[key][1])
+        assert torch.equal(tc[key][2, 3:], before[key][2, 3:])
+        assert torch.equal(tc[key][:, :1], before[key][:, :1])
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-6)
+    for key in jc:
+        np.testing.assert_array_equal(
+            tc[key].float().numpy(), np.asarray(jc[key], np.float32))
+
+
+@pytest.mark.parametrize("vocab", [49_152, 256])
+def test_sample_tokens_equal_jax(vocab):
+    """The device sampler (``sample_tokens``) against JAX's: B = 4 rows,
+    temperatures 0 / 0.5 / 1.3 (one greedy row in each case), eight seeds.
+    The Gumbel noise is JAX's bit for bit up to the last bit of ``log``
+    (``tests/test_torch_prng.py``), which moved no token here: all 96
+    tokens of each vocabulary equal JAX's."""
+    from repro.models.lm import sample_tokens as j_sample_tokens
+    from repro_torch.models.lm import sample_tokens
+
+    differ = 0
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        logits = (rng.normal(size=(4, vocab)) * 3).astype(np.float32)
+        for t in (0.0, 0.5, 1.3):
+            temps = np.array([t, t, 0.0, t], np.float32)
+            uids = rng.integers(0, 2 ** 31, 4).astype(np.int32)
+            idxs = rng.integers(0, 100, 4).astype(np.int32)
+            want = np.asarray(j_sample_tokens(
+                jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(uids),
+                jnp.asarray(idxs), seed))
+            got = sample_tokens(torch.from_numpy(logits),
+                                torch.from_numpy(temps),
+                                torch.from_numpy(uids),
+                                torch.from_numpy(idxs), seed)
+            assert got.dtype == torch.int32
+            assert got[2] == int(np.argmax(logits[2]))      # greedy row
+            differ += int((got.numpy() != want).sum())
+    assert differ == 0

@@ -61,3 +61,112 @@ def test_engine_and_numerics_chain_matches_jax():
 def test_seed_out_of_range_raises():
     with pytest.raises(ValueError):
         prng.PRNGKey(-1)
+
+
+# ---------------------------------------------------------------------------
+# A pass's seed table, and JAX's sampler on tensors
+# ---------------------------------------------------------------------------
+
+
+def _scalar_chain(key, layers, calls):
+    """Every seed of a pass by the scalar chain ``Numerics`` followed
+    before the seed table: layer folds, then call counters; the LM head's
+    fold 999,983 last."""
+    return [prng.key_to_seed(prng.fold_in(prng.fold_in(key, li), c))
+            for li in range(layers) for c in range(calls)] + [
+        prng.key_to_seed(prng.fold_in(prng.fold_in(key, 999_983), 0))]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_seed_table_equals_scalar_chain_and_jax(seed):
+    key = prng.split(prng.PRNGKey(seed))[1]
+    tbl = prng.seed_table(key, 32, 7, 999_983)
+    assert tbl.dtype == np.int32 and tbl.shape == (32 * 7 + 1,)
+    assert tbl.tolist() == _scalar_chain(key, 32, 7)
+    jkey = jax.random.split(jax.random.PRNGKey(seed))[1]
+    for li, c, at in ((0, 0, 0), (31, 6, 32 * 7 - 1), (7, 3, 7 * 7 + 3)):
+        jk = jax.random.fold_in(jax.random.fold_in(jkey, li), c)
+        assert tbl[at] == int(j_key_to_seed(jk))
+    jk = jax.random.fold_in(jax.random.fold_in(jkey, 999_983), 0)
+    assert tbl[-1] == int(j_key_to_seed(jk))
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill16", "prefill64",
+                                  "prefill128"])
+def test_every_pass_call_reads_the_scalar_chains_seed(kind, monkeypatch):
+    """Run a pass on the smoke config (abfp_fused: the fused QKV call takes
+    three seeds at once) and record the seed every dense call is handed:
+    the table slots, in call order, hold exactly the scalar chain."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.models import (
+        Numerics,
+        decode_step,
+        init_decode_state,
+        init_params,
+        pack_model_params,
+        prefill,
+    )
+    from repro_torch.models.lm import calls_per_layer
+
+    mcfg = dataclasses.replace(smoke_config("smollm-360m"), kv_quant=True)
+    quant = QuantConfig(mode="abfp_fused", tile_width=32, gain=8.0,
+                        noise_lsb=0.5)
+    params = pack_model_params(init_params(0, mcfg, device="cpu"), quant,
+                               mcfg)
+    state = init_decode_state(mcfg, 2, 160, device="cpu")
+    got = []
+    orig = Numerics.next_seeds
+
+    def record(self, n):
+        out = orig(self, n)
+        assert isinstance(out, torch.Tensor) and out.dtype == torch.int32
+        got.extend(int(v) for v in out)
+        return out
+
+    monkeypatch.setattr(Numerics, "next_seeds", record)
+    key = prng.fold_in(prng.PRNGKey(3), 5)
+    nx = Numerics(quant, key)
+    if kind == "decode":
+        decode_step(params, state, torch.tensor([3, 4], dtype=torch.int32),
+                    mcfg, nx)
+    else:
+        s = int(kind[len("prefill"):])
+        prefill(params, state, torch.ones((2, s), dtype=torch.int32),
+                torch.tensor([s, 1], dtype=torch.int32), mcfg, nx)
+    assert got == _scalar_chain(key, mcfg.num_layers, calls_per_layer(mcfg))
+
+
+@pytest.mark.parametrize("n", [256, 49_152])
+def test_random_bits_and_uniform_equal_jax_bit_for_bit(n):
+    import jax.numpy as jnp
+    import torch
+
+    seed = 11
+    uids = np.array([0, 5, 2 ** 31 - 1, 3], np.int32)
+    idxs = np.array([0, 1, 7, 100], np.int32)
+    k0, k1 = prng.row_keys(seed, torch.from_numpy(uids),
+                           torch.from_numpy(idxs))
+    bits = prng.random_bits(k0, k1, n)
+    u = prng.uniform(bits).numpy()
+    g = prng.gumbel(bits).numpy()
+    tiny = np.finfo(np.float32).tiny
+    for b in range(len(uids)):
+        jk = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                   uids[b]), idxs[b])
+        np.testing.assert_array_equal(
+            bits[b].numpy(),
+            np.asarray(jax.random.bits(jk, (n,), jnp.uint32), np.int64))
+        ju = np.asarray(jax.random.uniform(jk, (n,), jnp.float32,
+                                           minval=tiny, maxval=1.0))
+        np.testing.assert_array_equal(u[b].view(np.int32), ju.view(np.int32))
+        # -log(-log(u)): XLA's and PyTorch's f32 log part in the last bit
+        # (about a quarter of the draws), never by more than 2**-22 of
+        # max(1, |g|).
+        jg = np.asarray(jax.random.gumbel(jk, (n,), jnp.float32))
+        d = np.abs(g[b] - jg) / np.maximum(np.abs(jg), 1.0)
+        assert d.max() <= 2.0 ** -22, d.max()

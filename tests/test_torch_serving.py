@@ -185,8 +185,12 @@ def test_unchunked_prefill_in_decode_matches_chunked_float(tiny):
     dict(paged=True), dict(mesh=object()), dict(overlap=True),
     dict(faults=object())])
 def test_unported_options_raise(tiny, option):
+    """The options the port does not take raise NotImplementedError;
+    ``overlap=True`` is ported and, as in the JAX engine, raises
+    ValueError without a wall clock."""
     params, mcfg = tiny
-    with pytest.raises(NotImplementedError):
+    err = ValueError if "overlap" in option else NotImplementedError
+    with pytest.raises(err):
         ServingEngine(params, mcfg, capacity=1, device="cpu", **option)
 
 
