@@ -89,7 +89,28 @@ Phases (any failure exits non-zero and prints no result line):
                tick and of a 128-token prefill pass, with the pass's
                kernel launches (the
                profiler's own set-up may fail and is then skipped; an error
-               in a profiled pass fails the run).
+               in a profiled pass fails the run);
+ 10. train  — the training path on full smollm-360m (bf16 weights from
+               seed 0, synthetic batches of 4 x 129 tokens): the train
+               driver (``repro_torch.launch.train``, in this process) in
+               float for 4 steps with a checkpoint every 2, then again to
+               6 steps, which must resume from step 4 (finite losses and
+               grad norms); the driver's QAT (``--quant qat``: abfp_ref,
+               tile 128, gain 8, noise 0.5) for 2 steps, every weight
+               moved; QAT in abfp_kernel mode through ``make_train_step``
+               for 2 steps, kernel 4 launched exactly 225 times per step
+               (counts zeroed before and read after each step), the loss
+               on one batch and key through the kernels equal to the plain
+               versions' and the train step's bit for bit, the gradients
+               within TRAIN_GRAD_RTOL; kernel 1 under the ``dense_packed``
+               straight-through Function at M = 512, output and dx
+               bit-equal to the plain version's; DNF (histograms from one
+               batch in abfp_kernel mode, the top half of the layers by
+               std, 3 steps); the median step time and peak device memory
+               of float, QAT abfp_ref, QAT abfp_kernel and DNF, and the
+               DNF-to-QAT step-time ratio (a measurement, no bar), and a
+               profiler breakdown of one float, QAT abfp_kernel and QAT
+               abfp_ref step.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -149,6 +170,15 @@ EVAL_BATCH = 4
 EVAL_SEQ = 512
 EVAL_BATCHES = 2
 EVAL_ROWS = EVAL_BATCH * EVAL_SEQ
+# The training phase: batches of TRAIN_BATCH x (TRAIN_SEQ + 1) synthetic
+# tokens (the port's ``DataConfig(49152, 128, 4, seed 0)``).
+TRAIN_BATCH = 4
+TRAIN_SEQ = 128
+# Phase 10's bar on the abfp_kernel QAT gradients, kernels against plain
+# versions (the forward and the loss are bit-equal): one bf16 ULP, since
+# the backward's f32 matmuls and the embedding's scatter-add need not
+# keep one order.
+TRAIN_GRAD_RTOL = 2 ** -7
 
 
 def fail(msg: str) -> None:
@@ -323,6 +353,330 @@ def in_turns(fns: dict, time_fn) -> dict:
     for name in list(fns) + list(fns)[::-1]:
         out[name].append(time_fn(fns[name]))
     return {name: tuple(v) for name, v in out.items()}
+
+
+def train_phase(dev, params, rows: list) -> dict:
+    """Phase 10: the training path on full smollm-360m (see the module
+    docstring).  ``params`` are full smollm-360m's bf16 parameters from
+    seed SEED; ``rows`` the kernel line's rows (kernel 4's gains its
+    launches per QAT step).  Returns the phase's measurements."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import (
+        QuantConfig,
+        dequantize_packed,
+        pack_abfp_weight,
+    )
+    from repro_torch.core.dnf import select_layers_by_std
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Numerics, forward, init_params
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.training import (
+        TrainConfig,
+        capture_histograms,
+        chunked_cross_entropy,
+        make_train_step,
+    )
+    from repro_torch.training.finetune import make_dnf_train_step
+    from repro_torch.training.train_lib import tokens_on, value_and_grad
+
+    tm = get_config("smollm-360m")
+    if (tm.num_layers, tm.d_model, tm.vocab_size, tm.param_dtype,
+            tm.remat) != (32, 960, 49152, torch.bfloat16, False):
+        fail(f"unexpected training config {tm}")
+    nl = tm.num_layers
+    dcfg = DataConfig(tm.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+    kq = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                     noise_lsb=0.5)
+    out = {"steps_s": {}, "peak_gib": {}}
+
+    def measured(mode, fn):
+        """Run ``fn`` with the peak-memory counter reset just before."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        out["peak_gib"][mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return res
+
+    def driver(argv):
+        """``python -m repro_torch.launch.train`` in this process, on the
+        card; its lines are logged, its losses must be finite."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = train_cli.main(argv + [
+                "--arch", "smollm-360m", "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--seed", str(SEED), "--device",
+                "cuda"])
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"  {line}")
+        if not np.isfinite(res["losses"] + res["grad_norms"]).all():
+            fail(f"non-finite loss or grad_norm in the driver run {argv}")
+        return res, text
+
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        """Log the seconds since the previous lap (the phase's own budget)."""
+        laps.append(time.perf_counter())
+        out.setdefault("laps_s", {})[what] = laps[-1] - laps[-2]
+        log(f"phase 10 {what}: {laps[-1] - laps[-2]:.1f}s")
+
+    def steady(times):
+        """Median step time past the first step (warm-up) of a run."""
+        return statistics.median(times[1:] if len(times) > 1 else times)
+
+    # 10a. The float driver, 4 steps with checkpoints every 2, then resumed
+    # to 6 steps: it must restore step 4.
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        f1, _ = measured("float", lambda: driver(
+            ["--steps", "4", "--ckpt-every", "2", "--ckpt-dir", ck]))
+        f2, text = driver(["--steps", "6", "--ckpt-every", "2",
+                           "--ckpt-dir", ck])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if "[train] resumed from step 4" not in text or f2["start_step"] != 4 \
+            or len(f2["losses"]) != 2:
+        fail("the float driver did not resume from step 4")
+    out["steps_s"]["float"] = f1["step_s"][1:] + f2["step_s"][1:]
+    del f1, f2
+    lap("float driver and resume")
+
+    # 10b. QAT through the abfp_ref tile scan: the driver's --quant qat, 2
+    # steps; every weight must have moved (a gradient reached it).
+    q, _ = measured("qat_abfp_ref", lambda: driver(
+        ["--steps", "2", "--quant", "qat"]))
+    fresh = init_params(SEED, tm, device=dev)
+    still = [i for i, (a, b) in enumerate(zip(leaves(q["state"].params),
+                                              leaves(fresh)))
+             if torch.equal(a, b)]
+    if still:
+        fail(f"QAT abfp_ref: {len(still)} weights did not move (leaves "
+             f"{still[:8]})")
+    out["steps_s"]["qat_abfp_ref"] = q["step_s"]
+    del q, fresh
+    lap("QAT abfp_ref driver")
+
+    # 10c. QAT through kernel 4 (abfp_kernel) with make_train_step, 2 steps,
+    # the launch counts zeroed just before each step and read just after.
+    per_step = {name: 0 for name in ops.launch_counts()}
+    per_step["abfp_matmul"] = 7 * nl + 1
+    init, step = make_train_step(tm, AdamW(constant(1e-4)),
+                                 TrainConfig(quant=kq), device=dev)
+    keys = [prng.fold_in(prng.PRNGKey(SEED + 1), i) for i in range(2)]
+
+    def qat_kernel_run():
+        st, times, losses, counts = init(params), [], [], []
+        for i in range(2):
+            batch = batch_at_step(dcfg, i)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, met = step(st, batch, keys[i])
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(ops.launch_counts())
+        return st, times, losses, counts
+
+    st, times, k_losses, counts = measured("qat_abfp_kernel", qat_kernel_run)
+    for c in counts:
+        if c != per_step:
+            fail(f"an abfp_kernel QAT step launched {c}, expected "
+                 f"{per_step}")
+    if not np.isfinite(k_losses).all():
+        fail(f"non-finite abfp_kernel QAT losses {k_losses}")
+    out["steps_s"]["qat_abfp_kernel"] = times
+    log(f"QAT abfp_kernel (make_train_step, tile 128, gain 8, noise 0.5): "
+        f"losses {k_losses}, step {[round(t, 4) for t in times]} s, kernel "
+        f"4 launched {[c['abfp_matmul'] for c in counts]} times per step")
+    del st
+
+    # The same loss and gradients on batch 0 / key 0, through the kernels
+    # and through the plain versions: the loss bit for bit (and equal to
+    # the train step's), the gradients within TRAIN_GRAD_RTOL.
+    tokens = tokens_on(batch_at_step(dcfg, 0), dev)
+
+    def loss_fn(plain):
+        def fn(tree, toks, key):
+            nx = Numerics(kq, key, plain=plain)
+            hidden, aux = forward(tree, toks[:, :-1], tm, nx,
+                                  return_hidden=True)
+            loss = chunked_cross_entropy(tree, hidden, toks[:, 1:], tm, nx)
+            return loss, loss, aux
+        return fn
+
+    ops.reset_launch_counts()
+    lk, _, gk = value_and_grad(loss_fn(False), params, tokens, keys[0])
+    if ops.launch_counts() != per_step:
+        fail(f"the kernels' loss and gradients launched "
+             f"{ops.launch_counts()}, expected {per_step}")
+    ops.reset_launch_counts()
+    lp, _, gp = value_and_grad(loss_fn(True), params, tokens, keys[0])
+    if sum(ops.launch_counts().values()):
+        fail("the plain versions' loss launched a kernel")
+    if not torch.equal(lk, lp) or float(lk) != k_losses[0]:
+        fail(f"QAT abfp_kernel loss through the kernels {float(lk)!r}, "
+             f"plain versions {float(lp)!r}, train step {k_losses[0]!r}")
+    exact, grad_err = 0, 0.0
+    for a, b in zip(leaves(gk), leaves(gp)):
+        exact += int(torch.equal(a, b))
+        grad_err = max(grad_err, allclose_bar(
+            a, b, "QAT abfp_kernel gradient, kernels vs plain versions",
+            rtol=TRAIN_GRAD_RTOL, atol=1e-6, quiet=True))
+    log(f"QAT abfp_kernel on batch 0: loss {float(lk)!r} through the kernels"
+        f" = plain versions = the train step's, bit for bit; gradients: "
+        f"{exact}/{len(leaves(gk))} leaves bit-equal, max-abs {grad_err:.3g}"
+        f" (bar rtol {TRAIN_GRAD_RTOL:g})")
+    out.update(qat_kernel_loss=float(lk), grad_leaves_equal=exact,
+               grad_leaves=len(leaves(gk)), grad_max_abs=grad_err)
+    del gk, gp
+    lap("QAT abfp_kernel steps and the plain comparison")
+
+    # 10d. Kernel 1 under the dense_packed straight-through Function, at
+    # one layer's MLP input weight and M = TRAIN_BATCH x TRAIN_SEQ.
+    pq = QuantConfig(mode="abfp_fused", tile_width=128, gain=8.0,
+                     noise_lsb=0.5)
+    pw = pack_abfp_weight(params["layers"][0]["mlp"]["wi"], pq,
+                          adaptive_gain=True)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    x0 = torch.randn(m, tm.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    g = torch.randn(m, tm.d_ff, generator=gen, device=dev).to(torch.bfloat16)
+    res = []
+    for plain in (False, True):
+        x = x0.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        y = ops.dense_packed(x, pw, pq, 4321, plain=plain)
+        y.backward(g)
+        torch.cuda.synchronize()
+        if ops.launch_counts()["abfp_matmul_packed"] != (0 if plain else 1):
+            fail(f"dense_packed STE launched {ops.launch_counts()}")
+        res.append((y.detach(), x.grad))
+    n, size, ulp, _ = bf16_diff(res[0][0], res[1][0])
+    want_dx = (g.float() @ dequantize_packed(pw).t()).to(torch.bfloat16)
+    if ulp or not torch.equal(res[0][1], res[1][1]) \
+            or not torch.equal(res[0][1], want_dx):
+        fail(f"kernel 1 under the dense_packed STE: output {n}/{size} "
+             f"differ, dx equal {torch.equal(res[0][1], res[1][1])}")
+    log(f"kernel 1 under the dense_packed STE Function, {tuple(pw.codes.shape)}"
+        f" at M={m}: output and dx bit-equal to the plain version's")
+    del res, x0, g, pw
+    lap("kernel 1 under the STE")
+
+    # 10e. DNF: histograms from one training batch in abfp_kernel mode, the
+    # top half of the layers by std, 3 DNF steps.
+    ops.reset_launch_counts()
+    hists, stds = capture_histograms(params, tokens[:, :-1], tm, kq,
+                                     key=prng.fold_in(prng.PRNGKey(SEED), 11))
+    cap = ops.launch_counts()["abfp_matmul"]
+    mask = select_layers_by_std([hists.layer(i) for i in range(nl)], 0.5)
+    if len(stds) != nl or not np.isfinite(stds).all() or sum(mask) < nl // 2:
+        fail(f"DNF capture: stds {stds}, mask {mask}")
+    dinit, dstep = make_dnf_train_step(tm, AdamW(constant(1e-4)), hists,
+                                       layer_mask=mask, device=dev)
+
+    def dnf_run():
+        st, times, losses = dinit(params), [], []
+        for i in range(3):
+            batch = batch_at_step(dcfg, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = dstep(st, batch, prng.fold_in(prng.PRNGKey(SEED + 2),
+                                                   i))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times, losses
+
+    times, d_losses = measured("dnf", dnf_run)
+    if not np.isfinite(d_losses).all():
+        fail(f"non-finite DNF losses {d_losses}")
+    out["steps_s"]["dnf"] = times
+    log(f"DNF: capture on one batch (kernel 4 x {cap}), noise on layers "
+        f"{[i for i, v in enumerate(mask) if v]}, 3 steps: losses "
+        f"{d_losses}, step {[round(t, 4) for t in times]} s")
+    lap("DNF capture and steps")
+
+    # 10f. Where a step's time goes: one profiled step of float, QAT
+    # abfp_kernel and QAT abfp_ref through make_train_step, each mode
+    # already warm from the runs above, device activity only (measurement
+    # only; the profiler's own set-up may fail and is then skipped).
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+    except ImportError as e:
+        profile = None
+        log(f"profiler unavailable: {e!r}")
+    batch = batch_at_step(dcfg, 0)
+    for mode in ("float", "abfp_kernel", "abfp_ref"):
+        if profile is None:
+            break
+        quant = kq.replace(mode=mode)
+        pinit, pstep = make_train_step(tm, AdamW(constant(1e-4)),
+                                       TrainConfig(quant=quant), device=dev)
+        st = pinit(params)
+        torch.cuda.synchronize()
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as e:   # the profiler's own set-up only
+            log(f"profiler unavailable: {e!r}")
+            break
+        try:
+            t0 = time.perf_counter()
+            pstep(st, batch, keys[0])
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        finally:
+            prof.__exit__(None, None, None)
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
+        cnt = {e.key: e.count for e in ev}
+        order = sorted(dt, key=lambda k: -dt[k])
+        total = sum(dt.values())
+        top = [(k[:60], round(dt[k] / 1e3, 3), cnt[k]) for k in order[:8]]
+        out.setdefault("profile", {})[mode] = {
+            "host_ms": host * 1e3, "device_busy_ms": total / 1e3,
+            "kernels": sum(cnt.values())}
+        log(f"profile of one {mode} train step: host {host * 1e3:.1f} ms, "
+            f"device busy {total / 1e3:.2f} ms "
+            f"({total / 1e3 / (host * 1e3):.1%}) in {sum(cnt.values())} "
+            f"kernel launches; top by device ms: {json.dumps(top)}")
+        del st
+    lap("profiles")
+
+    # 10g. Step times and peak memory of each mode.
+    med = {k: steady(v) for k, v in out["steps_s"].items()}
+    out["step_median_ms"] = {k: v * 1e3 for k, v in med.items()}
+    out["dnf_over_qat_abfp_ref"] = med["dnf"] / med["qat_abfp_ref"]
+    for k in med:
+        log(f"train step {k}: median {med[k] * 1e3:.2f} ms (steps "
+            f"{[round(t * 1e3, 2) for t in out['steps_s'][k]]} ms), peak "
+            f"device memory {out['peak_gib'][k]:.3f} GiB")
+    log(f"DNF step time / QAT abfp_ref step time: "
+        f"{out['dnf_over_qat_abfp_ref']:.4f} (QAT / DNF "
+        f"{1 / out['dnf_over_qat_abfp_ref']:.2f}x)")
+    for row in rows:
+        if row["name"] == "abfp_matmul":
+            row["launches_per_qat_step"] = per_step["abfp_matmul"]
+            row["qat_step_launches"] = [c["abfp_matmul"] for c in counts]
+    ops.reset_launch_counts()
+    return out
 
 
 def main() -> None:
@@ -1424,6 +1778,13 @@ def main() -> None:
     geng.close()
     del st, geng, served
     ops.reset_launch_counts()
+
+    # 10. train: the training path on full smollm-360m ------------------
+    del eng
+    t0 = time.perf_counter()
+    train = train_phase(dev, params, rows)
+    log(f"train phase in {time.perf_counter() - t0:.1f}s: "
+        f"{json.dumps(train)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

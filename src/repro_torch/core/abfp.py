@@ -1,14 +1,20 @@
-"""Adaptive Block Floating-Point (ABFP) numerics: the quantize-once subset.
+"""Adaptive Block Floating-Point (ABFP) numerics, the paper's core.
 
-The serving path of the port needs the paper's weight side only: the
-static ``QuantConfig`` of the simulated AMS device, the max-abs tile scales
-rounded to bf16, the round-half-even integer encoding (Eq. 1-2), and the
-per-tile adaptive ADC gains (Eq. 5-6).  ``pack_abfp_weight`` runs them once
-per weight; the kernels in ``repro_torch.kernels`` stream the result.
+  * the symmetric round-half-even quantizer Q(v; delta, tau)        (Eq. 1)
+  * per-tile adaptive scales s = max|v| (or a |v| percentile) stored in
+    bf16                                                           (Sec. III-A)
+  * the tiled ABFP matmul ``abfp_matmul`` (the ``abfp_ref`` mode): per
+    K-tile an exact integer tile dot, the ADC with gain and additive
+    uniform noise, and the f32 accumulation                        (Eq. 2-7)
+  * the straight-through estimator for QAT (``abfp_matmul_ste``,
+    ``quantize_ste``)                                              (Eq. 8)
+  * the quantize-once packing of the serving path
+    (``pack_abfp_weight``, per-tile adaptive ADC gains)
 
 Every step keeps the JAX package's float32 operation order, so packed
 codes, bf16 scale bits and gains are byte-equal to the reference for the
-same weight.
+same weight, and the ADC noise of ``abfp_matmul`` is JAX's
+``jax.random.uniform`` draw bit for bit (``core.prng``).
 """
 
 from __future__ import annotations
@@ -16,7 +22,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 Tensor = torch.Tensor
 
@@ -33,6 +42,8 @@ class QuantConfig:
     ``mode`` selects the execution path used by ``repro_torch.kernels.ops``:
 
       * ``"float"``       — plain matmul in the operand dtype (no ABFP)
+      * ``"abfp_ref"``    — the tile scan ``abfp_matmul`` (plain PyTorch,
+        noise drawn from the call's PRNG key): the QAT forward
       * ``"abfp_kernel"`` — the unpacked ABFP kernel: the weight is
         quantized inside every call (the cacheless evaluation forward)
       * ``"abfp_packed"`` — packed ABFP kernel over pre-quantized weights
@@ -47,11 +58,13 @@ class QuantConfig:
     bits_y: int = 8                # b_Y (ADC output bits)
     gain: float = 1.0              # G >= 1, powers of two in the paper
     noise_lsb: float = 0.0         # ADC noise half-width in output LSBs
-    mode: str = "abfp_packed"
+    mode: str = "abfp_ref"
     scale_dtype: Any = torch.bfloat16
     out_dtype: Any = torch.bfloat16
     accum_dtype: Any = torch.float32
     quantize_attention: bool = False
+    # A |v| percentile in place of max|v| for the adaptive scale (paper
+    # Sec. VI future work); the abfp_ref path only.  None: max-abs.
     scale_percentile: Optional[float] = None
 
     def replace(self, **kw) -> "QuantConfig":
@@ -96,6 +109,9 @@ class QuantConfig:
         return float(self.tile_width * self.delta_y)
 
 
+FLOAT = QuantConfig(mode="float")
+
+
 def quant_delta(bits: int) -> float:
     """delta_b = 1 / (2**(b-1) - 1): bin size of symmetric signed quantization."""
     return 1.0 / (2 ** (bits - 1) - 1)
@@ -106,9 +122,37 @@ def quant_levels(bits: int) -> int:
     return 2 ** (bits - 1) - 1
 
 
-def tile_scales(v_tiles: Tensor, scale_dtype=torch.bfloat16) -> Tensor:
-    """max|v| over the last axis, rounded to ``scale_dtype``, returned in f32."""
-    s = v_tiles.float().abs().amax(dim=-1)
+def quantize(v: Tensor, delta, tau) -> Tensor:
+    """Q(v; delta, tau) = clamp(round_half_even(v / delta) * delta; +-tau)."""
+    return torch.clamp(torch.round(v / delta) * delta, -tau, tau)
+
+
+def _percentile(a: Tensor, percentile: float) -> Tensor:
+    """``jnp.percentile(a, percentile, axis=-1)`` (linear interpolation)
+    in its f32 order: q = p / 100 * (n - 1), the values at floor(q) and
+    ceil(q) weighted by 1 - frac and frac."""
+    n = a.shape[-1]
+    srt = torch.sort(a, dim=-1).values
+    q = torch.tensor(percentile, dtype=torch.float32) / 100.0
+    q = q * float(n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    hw = q - low
+    lw = 1.0 - hw
+    lo_i = int(min(max(float(low), 0.0), n - 1))
+    hi_i = int(min(max(float(high), 0.0), n - 1))
+    return (srt[..., lo_i] * lw.to(a.device)
+            + srt[..., hi_i] * hw.to(a.device))
+
+
+def tile_scales(v_tiles: Tensor, scale_dtype=torch.bfloat16,
+                percentile: Optional[float] = None) -> Tensor:
+    """max|v| (or the ``percentile``-th percentile of |v|) over the last
+    axis, rounded to ``scale_dtype``, returned in f32."""
+    a = v_tiles.float().abs()
+    if percentile is None or percentile >= 100.0:
+        s = a.amax(dim=-1)
+    else:
+        s = _percentile(a, percentile)
     return s.to(scale_dtype).float()
 
 
@@ -285,3 +329,171 @@ def f32_const(v: float) -> float:
 def ceil_to(v: int, m: int) -> int:
     """Round ``v`` up to a multiple of ``m``."""
     return ((v + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Eq. 2-7: the tiled ABFP matmul (the abfp_ref mode)
+# ---------------------------------------------------------------------------
+
+
+def ams_noise(key, shape, cfg: QuantConfig, device=None) -> Tensor:
+    """Additive uniform ADC noise E ~ U(-w, +w), w = noise_lsb * (n *
+    delta_y), drawn as ``jax.random.uniform(key, shape)`` (Eq. 7)."""
+    half_width = cfg.noise_lsb * cfg.tile_width * cfg.delta_y
+    return prng.uniform(key, shape, -half_width, half_width, device)
+
+
+def quantize_weight_tiles(w: Tensor, cfg: QuantConfig):
+    """(K, N) weight -> (w_q (T, n, N) integer codes in f32, s_w (T, N)
+    per-(tile, output) scales, bf16-rounded, in f32)."""
+    n = cfg.tile_width
+    w = pad_to_tiles(w.float(), n, axis=0)
+    wt = w.reshape(w.shape[0] // n, n, w.shape[1])          # (T, n, N)
+    s_w = tile_scales(wt.transpose(1, 2), cfg.scale_dtype,
+                      cfg.scale_percentile)                 # (T, N)
+    return encode_codes(wt / safe_scale(s_w)[:, None, :], cfg.bits_w), s_w
+
+
+def quantize_input_tiles(x: Tensor, cfg: QuantConfig):
+    """(..., K) activations -> (x_q (..., T, n) integer codes in f32, s_x
+    (..., T) per-(sample, tile) scales)."""
+    n = cfg.tile_width
+    x = pad_to_tiles(x.float(), n, axis=-1)
+    xt = x.reshape(*x.shape[:-1], x.shape[-1] // n, n)     # (..., T, n)
+    s_x = tile_scales(xt, cfg.scale_dtype, cfg.scale_percentile)
+    return encode_codes(xt / safe_scale(s_x)[..., None], cfg.bits_x), s_x
+
+
+def adc(p_codes: Tensor, cfg: QuantConfig, noise_lsb_draw=None,
+        tile_gain=None) -> Tensor:
+    """Eq. 5/7 in code units: clamp(round(p * G d_X d_W / (n d_Y) + E),
+    +-L_y) for an exact integer partial product p.  ``tile_gain`` replaces
+    the scalar gain by a per-tile G_t: ``p * adc_base_scale * G_t``."""
+    if tile_gain is None:
+        v = p_codes * f32_const(cfg.adc_code_scale)
+    else:
+        v = p_codes * f32_const(cfg.adc_base_scale) * tile_gain
+    if noise_lsb_draw is not None:
+        v = v + noise_lsb_draw
+    lvl = float(quant_levels(cfg.bits_y))
+    return torch.clamp(torch.round(v), -lvl, lvl)
+
+
+# (tile, row, column) terms that ``abfp_matmul`` evaluates at once: the
+# scan's tiles go in groups of this many elements (the LM head's 512 x
+# 49,152 outputs take one tile per group).
+REF_GROUP_ELEMENTS = 1 << 25
+
+
+def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
+                tile_gains: Optional[Tensor] = None) -> Tensor:
+    """y = ABFP(x @ w), x: (..., K), w: (K, N) -> (..., N) in
+    ``cfg.out_dtype``: the ``abfp_ref`` mode, JAX's tile scan.
+
+    Per K-tile t, in order (Eq. 6-7):
+
+        y_q[t] = clamp(round(G (x_q[t] . w_q[t]) * scale + E_t)) * bin_y
+        acc   += y_q[t] * (s_x[t] * s_w[t]) / G
+
+    with the noise E_t = ``uniform(split(key, T)[t], (M, N), -noise_lsb,
+    noise_lsb)``, JAX's draw bit for bit.  ``tile_gains`` (T,) swaps G for
+    a per-tile G_t.  Tiles run in groups (one batched tile dot, one noise
+    draw and the ADC per group) and accumulate one at a time, which gives
+    the scan's values.  ``key`` is a host PRNG key; required when
+    ``noise_lsb > 0``."""
+    noisy = cfg.noise_lsb > 0.0
+    if key is None and noisy:
+        raise ValueError("noise_lsb > 0 requires a PRNG key")
+    if key is not None and (isinstance(key, (int, torch.Tensor))
+                            or np.shape(key) != (2,)):
+        raise ValueError(
+            "abfp_ref splits the call's PRNG key per tile: pass a key "
+            "(core.prng), not an int seed or a seed-table slot")
+    batch = x.shape[:-1]
+    n_out = w.shape[1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
+    x_q, s_x = quantize_input_tiles(x2, cfg)                # (M, T, n)
+    w_q, s_w = quantize_weight_tiles(w, cfg)                # (T, n, N)
+    t = w_q.shape[0]
+    keys = prng.split(key, t) if noisy else None
+    xq_t = x_q.transpose(0, 1)                              # (T, M, n)
+    sx_t = s_x.t()                                          # (T, M)
+    bin_y = f32_const(cfg.bin_y)
+    gain = f32_const(cfg.gain)
+    acc = torch.zeros((m, n_out), dtype=cfg.accum_dtype, device=x.device)
+    group = max(1, REF_GROUP_ELEMENTS // max(1, m * n_out))
+    for g0 in range(0, t, group):
+        sl = slice(g0, min(t, g0 + group))
+        p = torch.bmm(xq_t[sl], w_q[sl])            # exact integer dots
+        e = (prng.uniform(keys[sl], (m, n_out), -cfg.noise_lsb,
+                          cfg.noise_lsb, x.device) if noisy else None)
+        s = sx_t[sl][:, :, None] * s_w[sl][:, None, :]
+        if tile_gains is None:
+            term = adc(p, cfg, e) * bin_y * s / gain
+        else:
+            g_t = tile_gains[sl].float()[:, None, None]
+            term = adc(p, cfg, e, tile_gain=g_t) * bin_y * s / g_t
+        for i in range(term.shape[0]):
+            acc = acc + term[i]
+    return acc.reshape(*batch, n_out).to(cfg.out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sec. IV-A: QAT with the straight-through estimator (Eq. 8)
+# ---------------------------------------------------------------------------
+
+
+def ste_grads(g: Tensor, x: Tensor, w: Tensor, need_x: bool = True,
+              need_w: bool = True):
+    """The straight-through gradients of ``y = x @ w`` (Eq. 8), in f32:
+    dx = g w^T in x's dtype and dw = x^T g in w's dtype (w may be None
+    for dx alone)."""
+    g32 = g.float()
+    dx = dw = None
+    if need_x:
+        dx = torch.matmul(g32, w.float().t()).to(x.dtype)
+    if need_w:
+        g2 = g32.reshape(-1, g32.shape[-1])
+        x2 = x.float().reshape(-1, x.shape[-1])
+        dw = torch.matmul(x2.t(), g2).to(w.dtype)
+    return dx, dw
+
+
+class _AbfpMatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, cfg, key):
+        ctx.save_for_backward(x, w)
+        return abfp_matmul(x, w, cfg, key)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = ste_grads(g, x, w, *ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
+def abfp_matmul_ste(x: Tensor, w: Tensor, cfg: QuantConfig,
+                    key=None) -> Tensor:
+    """ABFP forward, straight-through backward: the gradients of the plain
+    matmul, accumulated in f32 (Eq. 8)."""
+    return _AbfpMatmulSTE.apply(x, w, cfg, key)
+
+
+def quantize_ste(v: Tensor, delta, tau) -> Tensor:
+    """Elementwise STE quantizer: forward Q(v), backward identity."""
+    q = quantize(v.detach(), delta, tau)
+    return v + (q - v).detach()
+
+
+def digital_bfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig) -> Tensor:
+    """The digital accelerator's order (the paper's aside under Eq. 4):
+    the exact tile products are summed across tiles before any output
+    quantization, so only the input and weight rounding remain."""
+    batch = x.shape[:-1]
+    x_q, s_x = quantize_input_tiles(x.reshape(-1, x.shape[-1]), cfg)
+    w_q, s_w = quantize_weight_tiles(w, cfg)
+    p = torch.einsum("mtn,tno->tmo", x_q, w_q)
+    dd = f32_const(cfg.delta_x * cfg.delta_w)
+    y = torch.einsum("tmo,mt,to->mo", p * dd, s_x, s_w)
+    return y.reshape(*batch, w.shape[1]).to(cfg.out_dtype)

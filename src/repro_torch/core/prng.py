@@ -19,12 +19,15 @@ layer, every call) in one vectorised numpy pass.
 The tensor functions at the end (``random_bits``, ``uniform``, ``gumbel``,
 ``row_keys``) run JAX's sampler on any device, inside a CUDA graph too:
 ``models.lm.sample_tokens`` draws with them what ``jax.random.categorical``
-draws.  Their uint32 words are held in int64 tensors.
+draws.  Their uint32 words are held in int64 tensors.  ``key_bits`` draws
+JAX's ``random_bits(key, shape)`` for host keys (one or a stack), and
+``uniform(key, shape, minval, maxval)``, ``randint`` and ``categorical``
+build JAX's samplers on it, bit for bit: the ABFP scan's ADC noise, DNF's
+histogram draws and the synthetic data.  A shape's bits are those of its
+flattened counter range, which holds below 2**32 elements.
 """
 
 from __future__ import annotations
-
-from typing import List
 
 import numpy as np
 import torch
@@ -65,14 +68,22 @@ def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (JAX's name)
 
 
 def fold_in(key: np.ndarray, data: int) -> np.ndarray:
-    """New key from ``key`` and a uint32 ``data`` (JAX ``fold_in``)."""
+    """New key from ``key`` and a uint32 ``data`` (JAX ``fold_in``).  A
+    stack of keys (..., 2) folds ``data`` into each."""
+    key = np.asarray(key, dtype=np.uint32)
+    if key.ndim > 1:
+        b0, b1 = _threefry_np(key[..., 0], key[..., 1], np.uint32(0),
+                              np.uint32(int(data) & _M32))
+        return np.stack([b0, b1], axis=-1)
     return _key(*threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _M32))
 
 
-def split(key: np.ndarray, num: int = 2) -> List[np.ndarray]:
-    """``num`` new keys (JAX ``split`` in the partitionable variant)."""
-    k0, k1 = int(key[0]), int(key[1])
-    return [_key(*threefry2x32(k0, k1, 0, i)) for i in range(num)]
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``num`` new keys as a (num, 2) array (JAX ``split`` in the
+    partitionable variant); row i hashes the counter pair (0, i)."""
+    b0, b1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]),
+                          np.uint32(0), np.arange(num, dtype=np.uint32))
+    return np.stack([b0, b1], axis=-1)
 
 
 def key_data(key: np.ndarray) -> np.ndarray:
@@ -171,16 +182,81 @@ def random_bits(k0: torch.Tensor, k1: torch.Tensor, n: int) -> torch.Tensor:
 _TINY = float(np.finfo(np.float32).tiny)
 
 
-def uniform(bits: torch.Tensor) -> torch.Tensor:
-    """JAX's f32 ``uniform(minval=tiny, maxval=1)`` from 32 random bits:
-    the top 23 bits as the mantissa of [1, 2), minus 1, scaled, then the
-    max with minval."""
+def key_bits(keys, shape, device=None) -> torch.Tensor:
+    """JAX's partitionable 32-bit ``random_bits(key, shape)`` for a host
+    key (2,), or for each key of a stack (G, 2) (then (G, *shape)): the xor
+    of the two threefry words of the counter pair (0, i) over the
+    flattened shape.  int64 tensor holding uint32 values, on ``device``
+    (the key words go there by one pinned, non-blocking copy on a GPU)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    shape = tuple(int(v) for v in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    if n >= 1 << 32:
+        raise ValueError(f"a draw of {n} elements needs 64-bit counters")
+    dev = torch.device("cpu" if device is None else device)
+    kw = torch.from_numpy(keys.reshape(-1, 2).astype(np.int64))
+    if dev.type == "cuda":
+        kw = kw.pin_memory().to(dev, non_blocking=True)
+    i = torch.arange(n, dtype=torch.int64, device=dev)[None]
+    b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], torch.zeros_like(i), i)
+    bits = (b0 ^ b1).reshape((-1,) + shape)
+    return bits[0] if keys.ndim == 1 else bits
+
+
+def bits_to_uniform(bits: torch.Tensor, minval: float,
+                    maxval: float) -> torch.Tensor:
+    """JAX's f32 ``uniform`` from 32 random bits: the top 23 bits as the
+    mantissa of [1, 2), minus 1, times the f32 ``maxval - minval``, plus
+    minval, then the max with minval.  XLA fuses the multiply and the add
+    into one rounding (a fused multiply-add); here both run exactly in f64
+    and round once to f32, which is the same whenever the exact sum fits
+    53 bits (bounds within a factor 2**6 of each other, as the ADC noise's
+    symmetric ones) or the product is exact in f32 (a power-of-two
+    range)."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    one = torch.ones((), dtype=torch.float32, device=bits.device)
-    lo = torch.full((), _TINY, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, (f - one) * (one - lo) + lo)
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    u = ((f - 1.0).double() * span + float(lo)).float()
+    return torch.clamp(u, min=float(lo))
+
+
+def uniform(key, shape=None, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """JAX's f32 ``jax.random.uniform(key, shape, minval=, maxval=)`` on
+    ``device``, bit for bit.  Called with a tensor of random bits and no
+    shape (the device sampler's form), it is ``uniform(minval=tiny,
+    maxval=1)`` of those bits, the draw ``gumbel`` takes."""
+    if shape is None:
+        return bits_to_uniform(key, _TINY, 1.0)
+    return bits_to_uniform(key_bits(key, shape, device), minval, maxval)
 
 
 def gumbel(bits: torch.Tensor) -> torch.Tensor:
     """JAX's f32 ``gumbel`` (mode "low"): -log(-log(uniform))."""
     return -torch.log(-torch.log(uniform(bits)))
+
+
+def randint(key, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """JAX's int32 ``jax.random.randint(key, shape, minval, maxval)``: two
+    32-bit draws (keys ``split(key)``) folded into [minval, maxval) with
+    JAX's uint32 remainder arithmetic.  Returns an int32 tensor."""
+    if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1):
+        raise ValueError("randint takes int32 bounds")
+    k1, k2 = split(key)
+    hi, lo = key_bits(k1, shape, device), key_bits(k2, shape, device)
+    span = 1 if maxval <= minval else (maxval - minval) & _M32
+    mult = (((1 << 16) % span) ** 2 & _M32) % span     # uint32 wrap
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    out = (minval + off % span) & _M32
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
+    """JAX's ``jax.random.categorical(key, logits, axis=-1, shape=)``: the
+    argmax over the last axis of ``gumbel`` noise of shape ``(*shape,
+    K)`` plus the logits (first index on ties).  Returns int64."""
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else tuple(shape)
+    g = gumbel(key_bits(key, shape + (logits.shape[-1],), logits.device))
+    return torch.argmax(g + logits.float(), dim=-1)

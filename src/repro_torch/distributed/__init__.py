@@ -1,4 +1,6 @@
-"""repro_torch.distributed — of the JAX package's fault-tolerance and
-straggler policies, the trailing-median ``StragglerMonitor`` the serving
-engine reads."""
-from repro_torch.distributed.fault import StragglerMonitor  # noqa: F401
+"""repro_torch.distributed — the fault-tolerance policies (restart policy,
+straggler monitor) and the single-process gradient compression."""
+from repro_torch.distributed.fault import (  # noqa: F401
+    RestartPolicy,
+    StragglerMonitor,
+)

@@ -6,7 +6,9 @@ engine, in float or ABFP numerics, on the GPU.
 ``--fused`` serves in ``abfp_fused`` mode: packed weights with per-tile
 ADC gains (capped by ``--gain``), an int8 KV cache, and decode ticks
 through the fused QKV and int8-KV attention kernels.  ``--quant
-abfp-packed`` serves through the packed ABFP kernel alone.  Weights are
+abfp-packed`` serves through the packed ABFP kernel alone; the JAX
+CLI's ``--quant abfp`` (the ``abfp_ref`` tile scan, a PRNG key per call)
+is not served: the engine's passes take seeds from a table.  Weights are
 random, from ``--seed``.  ``--device cpu`` runs the kernels' plain
 PyTorch versions on the CPU (for small ``--reduced`` configs).
 
@@ -54,7 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="abfp-kernel: the unpacked ABFP kernel, weights "
                          "quantized inside every call; abfp-packed: "
                          "weights quantized once at init, the packed ABFP "
-                         "kernel every pass")
+                         "kernel every pass (abfp, the abfp_ref scan, "
+                         "trains in repro_torch.launch.train but is not "
+                         "served)")
     ap.add_argument("--fused", action="store_true",
                     help="abfp_fused serving: per-tile ADC gains (capped "
                          "by --gain), int8 KV cache, fused QKV and "

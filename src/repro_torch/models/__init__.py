@@ -1,7 +1,7 @@
 """repro_torch.models — the dense decoder with ABFP-dispatched matmuls:
-layers, the LM (params, teacher-forced forward and DNF capture, decode
-tick, chunked prefill, sampling), packing and conversion of the JAX
-package's parameters."""
+layers, the LM (params, teacher-forced forward with DNF noise and
+remat, DNF capture, decode tick, chunked prefill, sampling), packing and
+conversion of the JAX package's parameters."""
 
 from repro_torch.models.layers import (  # noqa: F401
     Numerics,
@@ -11,6 +11,7 @@ from repro_torch.models.layers import (  # noqa: F401
     mlp_block,
     rmsnorm,
     rope,
+    train_attention,
 )
 from repro_torch.models.lm import (  # noqa: F401
     clone_state,

@@ -2,10 +2,11 @@
 the cacheless teacher-forced attention.
 
 Every weight-activation matmul goes through ``Numerics.dense``, so one
-switch runs the model in ``float``, ``abfp_kernel``, ``abfp_packed`` or
-``abfp_fused`` numerics.  Norms, softmax, rotary embedding and the
-nonlinearities run in float32 (range-sensitive ops stay digital, as in the
-paper).
+switch runs the model in ``float``, ``abfp_ref``, ``abfp_kernel``,
+``abfp_packed`` or ``abfp_fused`` numerics, with the straight-through
+gradients of ``kernels.ops`` under autograd.  Norms, softmax, rotary
+embedding and the nonlinearities run in float32 (range-sensitive ops stay
+digital, as in the paper).
 
 The KV cache is a dict of tensors per layer, ``{"k", "v", "length"}`` plus
 ``"k_scale"``/``"v_scale"`` for the int8 cache, and is UPDATED IN PLACE:
@@ -16,7 +17,9 @@ append-only caches (``window == 0``) are ported.
 
 Without a cache, attention runs over the whole sequence at once: the flash
 kernel (``kernels.flash_attention``) with ``mcfg.use_flash_attention``,
-else ``chunked_attention``, the JAX package's plain online-softmax scan.
+else ``chunked_attention``, the JAX package's plain online-softmax scan;
+in train mode (``mcfg.remat``) ``train_attention``, query chunks each
+under ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.abfp import PackedWeight, QuantConfig
 from repro_torch.core.prng import fold_in, key_to_seed, seed_table
@@ -71,6 +75,10 @@ class Numerics:
     a model pass (``as_table``); below a key-mode ``Numerics`` that was not
     turned (DNF's per-layer factories), each call's seed is a host int.
 
+    ``abfp_ref`` numerics stay in key mode: the tile scan splits each
+    call's own key, ``fold_in(layer key, counter)``, so every call gets
+    that key, as in the JAX package (a seed table holds no keys).
+
     ``plain=True`` runs every kernel's plain PyTorch version instead of its
     wrapper, on any device: the whole-model reference a kernel run on the
     card is compared with.
@@ -95,7 +103,8 @@ class Numerics:
         """This root key's whole pass as a seed table on ``device`` (one
         host-to-device copy, pinned and non-blocking on a GPU); unchanged
         without a key, without noise or already in table mode."""
-        if self.seeds is not None or self._key is None or not self.noisy:
+        if (self.seeds is not None or self._key is None or not self.noisy
+                or self.quant.mode == "abfp_ref"):
             return self
         tbl = torch.from_numpy(seed_table(self._key, num_layers, calls,
                                           LM_HEAD_FOLD))
@@ -115,8 +124,8 @@ class Numerics:
 
     def next_seeds(self, n: int):
         """The noise seeds of the next ``n`` dense calls, one counter step
-        each: an (n,) int32 slice of the seed table, n host ints, or n
-        Nones without noise."""
+        each: an (n,) int32 slice of the seed table, n host ints (n keys
+        in ``abfp_ref`` mode), or n Nones without noise."""
         c = self._count
         self._count += n
         if not self.noisy:
@@ -129,7 +138,10 @@ class Numerics:
             return self.seeds[self._base + c:self._base + c + n]
         if self._key is None:
             return [None] * n
-        return [key_to_seed(fold_in(self._key, c + i)) for i in range(n)]
+        keys = [fold_in(self._key, c + i) for i in range(n)]
+        if self.quant.mode == "abfp_ref":
+            return keys
+        return [key_to_seed(k) for k in keys]
 
     def dense(self, x: Tensor, w) -> Tensor:
         return ops.dense(x, w, self.quant, self.next_seeds(1)[0],
@@ -245,6 +257,50 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *,
         m = m_new
     out = acc / torch.clamp(den, min=1e-30)[..., None]      # (B, H, Sq, D)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _train_attention_chunk(qc: Tensor, k: Tensor, v: Tensor, q0: int,
+                           causal: bool, window: int) -> Tensor:
+    """One query chunk of ``train_attention``: (B, qc, H, D) f32 queries
+    (already scaled) against all keys."""
+    nq, skv = qc.shape[1], k.shape[1]
+    s_ = torch.einsum("bqhd,bkhd->bhqk", qc, k)               # (B, H, qc, S)
+    qpos = q0 + torch.arange(nq, device=qc.device)
+    kpos = torch.arange(skv, device=qc.device)
+    valid = torch.ones((nq, skv), dtype=torch.bool, device=qc.device)
+    if causal:
+        valid = valid & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        valid = valid & (kpos[None, :] > qpos[:, None] - window)
+    s_ = torch.where(valid[None, None], s_, torch.full_like(s_, NEG))
+    p = torch.softmax(s_, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def train_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0, q_chunk: int = 512) -> Tensor:
+    """Training-path attention: QUERY chunks, each under
+    ``torch.utils.checkpoint``, so the backward recomputes a chunk's
+    (q_chunk, Skv) scores instead of storing them all (the JAX package's
+    rematerialized scan).  ``q_chunk`` falls back to S when it does not
+    divide S.  q: (B, S, H, D); k, v: (B, Skv, KH, D) -> (B, S, H, D) in
+    q's dtype."""
+    b, s, h, d = q.shape
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk:
+        q_chunk = s
+    qf = q.float() * (d ** -0.5)
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        qc = qf[:, q0:q0 + q_chunk]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_train_attention_chunk, qc, k, v, q0,
+                                   causal, window, use_reentrant=False))
+        else:
+            outs.append(_train_attention_chunk(qc, k, v, q0, causal, window))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, *,
@@ -481,16 +537,13 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
     one pass.  Without a cache (the teacher-forced ``forward``), each of
     the S queries attends the keys up to its own position: the flash
     kernel with ``mcfg.use_flash_attention`` (its plain version under
-    ``nx.plain``), else ``chunked_attention``; the returned cache is
-    None."""
+    ``nx.plain``), else ``chunked_attention``; ``train_mode`` (the
+    training forward under ``mcfg.remat``) takes ``train_attention``
+    instead.  The returned cache is None."""
     if cross_kv is not None:
         raise NotImplementedError(
             "cross attention belongs to the encoder-decoder slice of the "
-            "port (ROADMAP queue 1 item 12)")
-    if train_mode and kv_cache is None:
-        raise NotImplementedError(
-            "train_attention (remat) belongs to the training slice of the "
-            "port (ROADMAP queue 1 item 13)")
+            "port (ROADMAP queue 1 item 6)")
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
     if kv_cache is not None and _use_fused_decode(params, nx, s, kv_cache,
@@ -505,7 +558,10 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
         q = rope(q, positions, mcfg.rope_theta, mcfg.rope_fraction)
         k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
     if kv_cache is None:
-        if mcfg.use_flash_attention:
+        if train_mode:
+            out = train_attention(q, k, v, causal=True,
+                                  q_chunk=mcfg.attn_chunk)
+        elif mcfg.use_flash_attention:
             flash = flash_attention_ref if nx.plain else flash_attention
             out = flash(q, k, v, causal=True)
         else:

@@ -8,8 +8,11 @@ the port loops).  The layer index folded into the noise key is the layer's
 position, ``g * len(pattern) + j`` in the JAX package, which for the dense
 pattern ``("attention",)`` is the same number.
 
-Forward only.  ``forward`` runs a whole teacher-forced sequence without a
-cache (the evaluation path, ``training.finetune.evaluate_abfp``);
+``forward`` runs a whole teacher-forced sequence without a cache: the
+evaluation path (``training.finetune.evaluate_abfp``) and, under autograd
+with the straight-through gradients of ``kernels.ops``, the training path
+(``training.train_lib``; DNF's noise with ``dnf``, per-layer
+rematerialization with ``mcfg.remat``);
 ``decode_step`` (one token per row) and ``prefill`` (a prompt chunk per
 row) update the decode state in place (see ``models.layers``) and return
 it; ``forward_capture`` is DNF's paired per-layer pass.
@@ -20,11 +23,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.dnf import inject
 from repro_torch.models.layers import (
     LM_HEAD_FOLD,
     Numerics,
@@ -41,7 +46,7 @@ Tensor = torch.Tensor
 def check_supported(mcfg: ModelConfig) -> None:
     """Raise unless ``mcfg`` is a dense decoder the port runs: full
     attention only, no experts, no recurrent blocks, no encoder (those
-    families are ROADMAP queue 1 item 12)."""
+    families are ROADMAP queue 1 item 6)."""
     if (mcfg.family != "dense" or mcfg.block_pattern or mcfg.num_experts
             or mcfg.is_encoder_decoder or mcfg.pos_type != "rope"
             or mcfg.window_size):
@@ -146,7 +151,8 @@ def calls_per_layer(mcfg: ModelConfig) -> int:
 
 def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
                    device) -> Numerics:
-    """A pass's root Numerics in seed-table mode (float without one)."""
+    """A pass's root Numerics in seed-table mode (float without one); an
+    ``abfp_ref`` Numerics stays in key mode (``Numerics.as_table``)."""
     nx = nx or Numerics(QuantConfig(mode="float"))
     return nx.as_table(mcfg.num_layers, calls_per_layer(mcfg), device)
 
@@ -169,23 +175,47 @@ def _positions(tokens: Tensor) -> Tensor:
     return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
 
 
+def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
+                   li: int, positions: Tensor, dnf, dnf_key) -> Tensor:
+    """Layer ``li`` of the teacher-forced forward under ``nx.fold(li)``,
+    then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``.
+    Each call folds afresh, so a rematerialized layer draws what its
+    first run drew."""
+    x, _ = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
+    if dnf is None:
+        return x
+    return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li))
+
+
 def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
-            nx: Optional[Numerics] = None, *, return_hidden: bool = False):
+            nx: Optional[Numerics] = None, *, dnf=None, dnf_key=None,
+            return_hidden: bool = False):
     """Teacher-forced forward over whole sequences, without a cache.
 
     tokens: (B, S) int ids.  Returns (logits (B, S, V) f32, aux), or
     (hidden (B, S, d), aux) with ``return_hidden``; ``aux`` is the f32
     auxiliary loss, 0 for the dense decoder.  Layer ``li`` runs under
     ``nx.fold(li)`` and the head under ``nx.fold(999_983)``, as the JAX
-    package's scan folds them.  The JAX signature's ``encoder_features``,
-    ``dnf``/``dnf_key`` and ``mesh`` belong to later slices (ROADMAP
-    queue 1 items 11-13)."""
+    package's scan folds them.
+
+    ``dnf`` (a stacked ``core.dnf.NoiseHistogram``) adds to layer ``li``'s
+    output noise drawn from its histogram with key ``fold_in(dnf_key,
+    li)`` (Eq. 9).  With ``mcfg.remat``, each layer (its DNF noise
+    included) runs under ``torch.utils.checkpoint`` when autograd records,
+    and its attention is ``train_attention``.  The JAX signature's
+    ``encoder_features`` and ``mesh`` belong to later slices (ROADMAP
+    queue 1 items 5-6)."""
     check_supported(mcfg)
+    if dnf is not None and dnf_key is None:
+        raise ValueError("dnf needs a dnf_key")
     nx = _pass_numerics(nx, mcfg, tokens.device)
     positions = _positions(tokens)
     x = _embed(params, tokens, mcfg)
+    remat = mcfg.remat and torch.is_grad_enabled()
     for li, lp in enumerate(params["layers"]):
-        x, _ = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
+        args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key)
+        x = (checkpoint(_forward_layer, *args, use_reentrant=False) if remat
+             else _forward_layer(*args))
     x = norm(x, params["final_norm"], mcfg.norm_type)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

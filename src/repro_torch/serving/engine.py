@@ -183,6 +183,12 @@ class ServingEngine:
                 f"repro_torch's ServingEngine does not port {asked}: paged "
                 f"KV, preemption, faults, meshes, fleets and deadlines stay "
                 f"with the JAX package for now")
+        if quant.mode == "abfp_ref":
+            raise ValueError(
+                "the serving engine does not take abfp_ref numerics: its "
+                "passes hand the kernels seeds from a table (CUDA graphs "
+                "have no per-call keys), and the abfp_ref scan splits a "
+                "key per call; serve abfp_kernel, abfp_packed or abfp_fused")
         self.overlap = bool(overlap)
         if self.overlap and clock is None:
             raise ValueError(

@@ -17,7 +17,9 @@ launches on codes it quantized itself, and its codes and scales are
 byte-equal to the pack's).  Kernel 5 (flash attention) within rtol 1e-5 /
 atol 2e-5 in f32 (another sum order, f32 FMAs) and within one bf16 ULP
 (rtol 2**-7, atol 1e-5) in bf16, on the tensor-core route and on the FMA
-route alike, query rows that see no key included.
+route alike, query rows that see no key included.  Under autograd
+(QAT), the straight-through Functions over kernels 1 and 4 keep those
+forward bars and give the plain versions' gradients bit for bit.
 """
 
 import numpy as np
@@ -798,6 +800,81 @@ def test_cuda_capture_leaves_the_state_untouched():
     assert [t.data_ptr() for t in state_tensors(graph.state)] == ptrs
     for t, b in zip(state_tensors(graph.state), before):
         assert torch.equal(t, b)
+
+
+# ---------------------------------------------------------------------------
+# The straight-through Functions over kernels 1 and 4 (QAT on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 960, 2560), (512, 2560, 960),
+                                   (40, 960, 320)])
+def test_cuda_dense_ste_over_kernel4(m, k, n):
+    """``ops.dense`` in abfp_kernel mode under autograd: the forward is
+    kernel 4 (one launch), bit-equal to its plain version; the backward
+    is the straight-through f32 matmuls (no launch), equal to the plain
+    run's gradients bit for bit and to ``x^T g`` / ``g w^T``."""
+    _need_cuda()
+    from repro_torch.core.abfp import ste_grads
+
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    cfg = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                      noise_lsb=0.5)
+    x0 = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w0 = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+          ).to(torch.bfloat16)
+    g = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    outs = []
+    for plain in (False, True):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        y = ops.dense(x, w, cfg, 1234, plain=plain)
+        fwd = ops.launch_counts()["abfp_matmul"]
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["abfp_matmul"] == fwd == (0 if plain
+                                                              else 1)
+        outs.append((y.detach(), x.grad, w.grad))
+    (yk, dxk, dwk), (yp, dxp, dwp) = outs
+    _assert_bits_equal(yk, yp)
+    assert torch.equal(dxk, dxp) and torch.equal(dwk, dwp)
+    assert dxk.dtype == dwk.dtype == torch.bfloat16
+    dx, dw = ste_grads(g, x0, w0)
+    assert torch.equal(dxk, dx) and torch.equal(dwk, dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512])
+def test_cuda_dense_packed_ste_over_kernel1(m):
+    """``ops.dense_packed`` under autograd: kernel 1's output and ``dx``
+    (against the dequantized lattice) equal the plain version's bit for
+    bit; the packed weight takes no gradient and the backward launches
+    nothing."""
+    _need_cuda()
+    from repro_torch.core.abfp import dequantize_packed
+
+    rng = np.random.default_rng(m)
+    w = _weight(rng, 960, 2560)
+    pw = pack_abfp_weight(w, CFG, adaptive_gain=True)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    x0 = torch.randn(m, 960, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(m, 2560, generator=gen, device="cuda").to(torch.bfloat16)
+    outs = []
+    for plain in (False, True):
+        x = x0.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        y = ops.dense_packed(x, pw, CFG, 99, plain=plain)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["abfp_matmul_packed"] == (0 if plain
+                                                             else 1)
+        outs.append((y.detach(), x.grad))
+    _assert_bits_equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    want = (g.float() @ dequantize_packed(pw).t()).to(torch.bfloat16)
+    assert torch.equal(outs[0][1], want)
 
 
 @pytest.mark.cuda

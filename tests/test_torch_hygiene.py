@@ -55,7 +55,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.models.convert", "repro_torch.core.dnf",
                 "repro_torch.training.finetune",
                 "repro_torch.distributed.fault",
-                "repro_torch.serving.stream"):
+                "repro_torch.serving.stream", "repro_torch.core.tree",
+                "repro_torch.kernels.ref", "repro_torch.optim.optimizers",
+                "repro_torch.distributed.collectives",
+                "repro_torch.training.train_lib",
+                "repro_torch.data.synthetic",
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.launch.train"):
         assert mod in doc["modules"]
 
 
@@ -85,6 +91,54 @@ def test_serve_cli_without_device_raises_on_a_cpu_machine():
          "1"], capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
+
+
+def test_training_entry_points_without_device_raise_on_a_cpu_machine():
+    _no_cuda()
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.training import (
+        TrainConfig,
+        make_serve_steps,
+        make_train_step,
+    )
+    from repro_torch.training.finetune import make_dnf_train_step
+
+    mcfg = smoke_config("smollm-360m")
+    opt = AdamW(constant(1e-3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(mcfg, opt, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_serve_steps(mcfg)
+    params = init_params(0, mcfg, device="cpu")
+    from repro_torch.training import capture_histograms
+    from repro_torch.core import prng
+    hists, _ = capture_histograms(
+        params, torch.ones((1, 8), dtype=torch.int64), mcfg,
+        QuantConfig(mode="abfp_kernel", tile_width=32, noise_lsb=0.5),
+        key=prng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_dnf_train_step(mcfg, opt, hists)
+
+
+def test_train_cli_without_device_raises_on_a_cpu_machine():
+    _no_cuda()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "1"], capture_output=True, text=True, timeout=120,
+        env=env)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+
+
+def test_engine_refuses_abfp_ref():
+    """A serving pass hands its kernels seeds from a table (a CUDA graph
+    has no per-call keys); the abfp_ref scan needs each call's key."""
+    mcfg = smoke_config("smollm-360m")
+    params = init_params(0, mcfg, device="cpu")
+    with pytest.raises(ValueError, match="abfp_ref"):
+        ServingEngine(params, mcfg, capacity=1, device="cpu",
+                      quant=QuantConfig(mode="abfp_ref", tile_width=32))
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
