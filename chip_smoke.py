@@ -179,6 +179,21 @@ TRAIN_SEQ = 128
 # the backward's f32 matmuls and the embedding's scatter-add need not
 # keep one order.
 TRAIN_GRAD_RTOL = 2 ** -7
+# Phase 11 (paged serving): the roomy pool of 11a (the unpaged footprint:
+# CAPACITY x MAX_LEN / 128-token pages); 11b's overload workload (a burst
+# of OVERLOAD_BURST requests at once, the rest OVERLOAD_GAP_S apart, a
+# deadline OVERLOAD_DEADLINE_S after arrival on every third); 11c's open
+# loop (Poisson arrivals at OPEN_RATE per second, prompts of 1 to 2 x
+# OPEN_PROMPT_LEN - 1 tokens, goodput against OPEN_SLO_TTFT_S).
+PAGED_POOL = 16
+OVERLOAD_REQUESTS = 12
+OVERLOAD_BURST = 8
+OVERLOAD_GAP_S = 0.03
+OVERLOAD_DEADLINE_S = 0.6
+OPEN_REQUESTS = 16
+OPEN_RATE = 40.0
+OPEN_PROMPT_LEN = 64
+OPEN_SLO_TTFT_S = 0.25
 
 
 def fail(msg: str) -> None:
@@ -353,6 +368,47 @@ def in_turns(fns: dict, time_fn) -> dict:
     for name in list(fns) + list(fns)[::-1]:
         out[name].append(time_fn(fns[name]))
     return {name: tuple(v) for name, v in out.items()}
+
+
+def profile_pass(dev, fn, what: str, cpu: bool = True):
+    """A profiler breakdown of one call of ``fn`` on the card (measurement
+    only): host time, device busy time, kernel launches and the top
+    kernels by device time; host activity is recorded too with ``cpu``.
+    None where the profiler's own import or set-up fails (an error in
+    ``fn`` fails the run)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA]
+                       + ([ProfilerActivity.CPU] if cpu else []))
+        prof.__enter__()
+    except Exception as e:   # the profiler's own set-up only
+        log(f"profiler unavailable: {e!r}")
+        return None
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    finally:
+        prof.__exit__(None, None, None)
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
+    cnt = {e.key: e.count for e in ev}
+    total = sum(dt.values())
+    top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k])
+           for k in sorted(dt, key=lambda k: -dt[k])[:8]]
+    res = {"host_ms": host * 1e3, "device_busy_ms": total / 1e3,
+           "kernels": sum(cnt.values()), "top": top}
+    log(f"profile of one {what}: host {host * 1e3:.2f} ms, device busy "
+        f"{total / 1e3:.3f} ms ({total / 1e3 / (host * 1e3):.1%}) in "
+        f"{res['kernels']} kernel launches; top by device ms: "
+        f"{json.dumps(top)}")
+    return res
 
 
 def train_phase(dev, params, rows: list) -> dict:
@@ -615,49 +671,20 @@ def train_phase(dev, params, rows: list) -> dict:
     # abfp_kernel and QAT abfp_ref through make_train_step, each mode
     # already warm from the runs above, device activity only (measurement
     # only; the profiler's own set-up may fail and is then skipped).
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-    except ImportError as e:
-        profile = None
-        log(f"profiler unavailable: {e!r}")
     batch = batch_at_step(dcfg, 0)
     for mode in ("float", "abfp_kernel", "abfp_ref"):
-        if profile is None:
-            break
         quant = kq.replace(mode=mode)
         pinit, pstep = make_train_step(tm, AdamW(constant(1e-4)),
                                        TrainConfig(quant=quant), device=dev)
         st = pinit(params)
         torch.cuda.synchronize()
-        try:
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.__enter__()
-        except Exception as e:   # the profiler's own set-up only
-            log(f"profiler unavailable: {e!r}")
-            break
-        try:
-            t0 = time.perf_counter()
-            pstep(st, batch, keys[0])
-            torch.cuda.synchronize()
-            host = time.perf_counter() - t0
-        finally:
-            prof.__exit__(None, None, None)
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
-        cnt = {e.key: e.count for e in ev}
-        order = sorted(dt, key=lambda k: -dt[k])
-        total = sum(dt.values())
-        top = [(k[:60], round(dt[k] / 1e3, 3), cnt[k]) for k in order[:8]]
-        out.setdefault("profile", {})[mode] = {
-            "host_ms": host * 1e3, "device_busy_ms": total / 1e3,
-            "kernels": sum(cnt.values())}
-        log(f"profile of one {mode} train step: host {host * 1e3:.1f} ms, "
-            f"device busy {total / 1e3:.2f} ms "
-            f"({total / 1e3 / (host * 1e3):.1%}) in {sum(cnt.values())} "
-            f"kernel launches; top by device ms: {json.dumps(top)}")
+        res = profile_pass(dev, lambda: pstep(st, batch, keys[0]),
+                           f"{mode} train step", cpu=False)
         del st
+        if res is None:
+            break
+        out.setdefault("profile", {})[mode] = {
+            k: res[k] for k in ("host_ms", "device_busy_ms", "kernels")}
     lap("profiles")
 
     # 10g. Step times and peak memory of each mode.
@@ -676,6 +703,342 @@ def train_phase(dev, params, rows: list) -> dict:
             row["launches_per_qat_step"] = per_step["abfp_matmul"]
             row["qat_step_launches"] = [c["abfp_matmul"] for c in counts]
     ops.reset_launch_counts()
+    return out
+
+
+def paged_phase(dev, engine_cls, params, mcfg, quant, reqs, want_streams,
+                rows: list) -> dict:
+    """Phase 11: the paged, overload-controlled serving path on the served
+    model (see the module docstring).  ``engine_cls`` is the NaN-checking
+    engine of phase 4, ``params`` its packed weights, ``reqs`` and
+    ``want_streams`` phase 4's workload and unpaged streams.  Annotates
+    kernel rows with this path's launches; returns the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        quantized_decode_attention,
+    )
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers as model_layers
+    from repro_torch.serving import Request
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def engine(**kw):
+        return engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                          quant=quant, seed=SEED, device=dev, paged=True,
+                          **kw)
+
+    def live_state(state):
+        """Every state tensor, the pools without their scratch page (it
+        takes the dropped writes, in no defined order)."""
+        return [t[:-1] if n.endswith("_pages") else t
+                for layer in state["layers"] for n, t in layer["kv"].items()
+                ] + [state["position"], state["page_table"]]
+
+    def launched(counts, what):
+        """The paged path runs kernel 1 only: its projections take the
+        packed chain and its attention the plain version on the page view,
+        as the JAX package's paged path does."""
+        if counts["abfp_matmul_packed"] <= 0:
+            fail(f"{what}: kernel 1 was not launched")
+        other = {k: v for k, v in counts.items()
+                 if k != "abfp_matmul_packed" and v}
+        if other:
+            fail(f"{what}: the paged path launched {other}")
+
+    out = {}
+    t_phase = time.perf_counter()
+    wall = dict(clock=time.perf_counter, overlap=True)
+
+    # 11a. Replay against eager: one prefill pass and one decode tick, by
+    # replay and eagerly, each under two keys and two page tables, from
+    # the same (fresh) state.
+    geng, xeng = engine(pool_pages=PAGED_POOL, **wall), engine(
+        pool_pages=PAGED_POOL, _graphs=False, **wall)
+    if geng.page_size != quant.tile_width or geng.max_pages != 4:
+        fail(f"paged engine: page size {geng.page_size}, "
+             f"{geng.max_pages} pages per slot")
+    s_ = PAGED_POOL
+    tables = (np.array([[3, 7, 12, s_], [0, s_, s_, s_], [1, 2, s_, s_],
+                        [s_, s_, s_, s_]], np.int32),
+              np.array([[3, 7, 12, s_], [0, 14, s_, s_], [1, 2, 9, s_],
+                        [5, s_, s_, s_]], np.int32))
+    rng11 = np.random.default_rng(SEED + 11)
+    for shape in (("prefill", 128), ("decode",)):
+        width = 1 if shape[0] == "decode" else shape[1]
+        fields = dict(
+            tokens=rng11.integers(1, mcfg.vocab_size, (CAPACITY, width)),
+            n_tokens=np.array([width, width // 2, 1, 0]),
+            prev_mask=np.zeros(CAPACITY, bool),
+            temps=np.zeros(CAPACITY, np.float32),
+            uids=np.arange(CAPACITY), idxs=np.zeros(CAPACITY))
+        lgs = []
+        for t, (key, table) in enumerate(zip(
+                prng.split(prng.PRNGKey(SEED + 11), 2), tables)):
+            got = []
+            for e in (geng, xeng):
+                e._table[:] = table
+                io, _ = e._call(shape, key, **fields)
+                got.append((io.logits.clone(), io.sampled.clone()))
+            sync()
+            (lg, sg), (le, se) = got
+            if not torch.isfinite(lg).all():
+                fail(f"non-finite logits in a paged {shape} replay")
+            if not (torch.equal(lg, le) and torch.equal(sg, se)):
+                fail(f"paged {shape} pass {t}: replay differs from the "
+                     f"eager pass ({int((lg != le).sum())} logits)")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    live_state(geng.state), live_state(xeng.state))):
+                fail(f"paged {shape} pass {t}: the replay's state "
+                     f"differs from the eager pass's")
+            lgs.append(lg)
+        if torch.equal(lgs[0], lgs[1]):
+            fail(f"paged {shape}: the two keys' logits are equal")
+        if dev.type == "cuda" and geng._passes[shape].graph is None:
+            fail(f"paged {shape} was not captured")
+    out["decode_replay_profile"] = profile_pass(
+        dev, lambda: geng._call(("decode",), prng.PRNGKey(SEED + 13),
+                                **fields), "paged decode tick (graph replay)")
+    geng.close()
+    xeng.close()
+    del geng, xeng
+    log("paged replay against eager for prefill128 and decode: two keys "
+        "and two page tables each, logits, sampled tokens and the state "
+        "(pools but their scratch page, lengths, table) bit-equal, the "
+        "keys' logits differ")
+
+    # The phase-4 workload on a roomy pool (the unpaged footprint), eager
+    # then with graphs twice; launch counts zeroed just before each run
+    # and read just after.
+    def closed(mode):
+        e = engine(pool_pages=PAGED_POOL,
+                   **({"_graphs": False} if mode == "eager" else {}))
+        e.warmup()
+        sync()
+        rs = [Request(uid=r.uid, prompt=list(r.prompt),
+                      max_new_tokens=MAX_NEW) for r in reqs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        sync()
+        wall_ = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launched(counts, f"paged {mode} serve")
+        cons = e.metrics.conservation()
+        if len(fin) != N_REQUESTS or not all(
+                r.done and len(r.generated) == MAX_NEW for r in fin):
+            fail(f"paged {mode} serve: {len(fin)} of {N_REQUESTS} finished")
+        if not cons["ok"] or e.pool.stats().held:
+            fail(f"paged {mode} serve: conservation {cons}, "
+                 f"{e.pool.stats().held} pages held after drain")
+        med, cnt = e.pass_stats()
+        res = {"streams": {r.uid: r.generated for r in fin},
+               "launches": counts, "wall_s": wall_,
+               "tokens_per_s": N_REQUESTS * MAX_NEW / wall_,
+               "decode_ms": med["decode"] * 1e3,
+               "prefill_ms": med["prefill"] * 1e3, "passes": cnt,
+               "per_pass": {k: sorted({r_["abfp_matmul_packed"]
+                                       for r_ in v})
+                            for k, v in e.per_pass.items()},
+               "cached_pages": e.pool.stats().cached}
+        log(f"paged serve [{mode}] {N_REQUESTS * MAX_NEW} tokens in "
+            f"{wall_:.3f}s: {res['tokens_per_s']:.1f} tokens/s, decode tick "
+            f"median {res['decode_ms']:.3f} ms, prefill pass median "
+            f"{res['prefill_ms']:.3f} ms ({cnt}), kernel 1 launches per "
+            f"pass {res['per_pass']}, launch counts {counts}, 0 pages held "
+            f"after drain ({res['cached_pages']} cached)")
+        del e
+        gc.collect()
+        return res
+
+    runs = [closed(m) for m in ("eager", "graphs", "graphs")]
+    for r_ in runs[1:]:
+        bad = [u for u, s in runs[0]["streams"].items()
+               if r_["streams"][u] != s]
+        if bad:
+            fail(f"paged graphs serve: the streams of requests {bad} differ "
+                 f"from the paged eager run's")
+    same = sum(runs[0]["streams"][u] == s for u, s in want_streams.items())
+    # The unpaged engine with kernel 3's plain version (the attention the
+    # paged path runs) must give the paged streams: the paging itself
+    # changes no number.
+    e = engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                   quant=quant, seed=SEED, device=dev, _graphs=False)
+    real = model_layers.fused_quantized_decode_attention
+    model_layers.fused_quantized_decode_attention = \
+        quantized_decode_attention
+    try:
+        fin = e.run([Request(uid=r.uid, prompt=list(r.prompt),
+                             max_new_tokens=MAX_NEW) for r in reqs])
+    finally:
+        model_layers.fused_quantized_decode_attention = real
+    bad = [r.uid for r in fin if r.generated != runs[0]["streams"][r.uid]]
+    if bad or len(fin) != N_REQUESTS:
+        fail(f"the unpaged engine with kernel 3's plain version differs "
+             f"from the paged streams in requests {bad}")
+    del e
+    log(f"paged graphs streams equal the paged eager streams 8/8, and the "
+        f"unpaged eager engine's with kernel 3's plain version 8/8; {same}/8"
+        f" equal phase 4's unpaged streams (kernel 3's one-ULP flips part "
+        f"a stream)")
+    out["closed"] = {"eager": {k: v for k, v in runs[0].items()
+                               if k != "streams"},
+                     "graphs": [{k: v for k, v in r_.items()
+                                 if k != "streams"} for r_ in runs[1:]],
+                     "streams_equal_unpaged": same}
+    serve_launches = runs[1]["launches"]
+
+    # 11b. Overload: a tight pool, priorities, two tenants with a quota, a
+    # queue watermark and deadlines, overlapped on the wall clock.  The
+    # client submits each request when it arrives (so the watermark
+    # applies); arrivals are OVERLOAD_GAP_S apart after the first burst.
+    rng = np.random.default_rng(SEED + 12)
+    plan = []
+    for i in range(OVERLOAD_REQUESTS):
+        plen = int(rng.integers(160, 381))
+        plan.append(dict(uid=i, prompt=rng.integers(
+            1, mcfg.vocab_size, plen).tolist(), max_new_tokens=24,
+            priority=int(rng.integers(0, 3)), tenant=f"t{i % 2}",
+            at=0.0 if i < OVERLOAD_BURST else
+            (i - OVERLOAD_BURST + 1) * OVERLOAD_GAP_S))
+    e = engine(pool_pages=8, policy="priority", tenant_quota=6,
+               queue_watermark=6, **wall)
+    e.warmup()
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pending, submitted, returned = list(plan), [], []
+    while pending or len(e.scheduler) or any(
+            s is not None for s in e.slots) or e._returned or \
+            e._stream.pending() or e._delivered:
+        now = time.perf_counter() - t0
+        while pending and pending[0]["at"] <= now:
+            p = pending.pop(0)
+            r = Request(uid=p["uid"], prompt=p["prompt"],
+                        max_new_tokens=p["max_new_tokens"],
+                        priority=p["priority"], tenant=p["tenant"])
+            if p["uid"] % 3 == 0:
+                r.deadline = time.perf_counter() + OVERLOAD_DEADLINE_S
+            e.submit(r)
+            submitted.append(r)
+        returned.extend(e.poll())
+        if pending and not any(s is not None for s in e.slots):
+            time.sleep(0.001)
+    e.close()
+    sync()
+    wall_b = time.perf_counter() - t0
+    counts_b = ops.launch_counts()
+    launched(counts_b, "overload serve")
+    cons = e.metrics.conservation()
+    s = e.metrics.summary()
+    fin = [r for r in submitted if r.done and not r.shed
+           and not r.timed_out]
+    shed = [r for r in submitted if r.shed]
+    tout = [r for r in submitted if r.timed_out]
+    if not (cons["ok"] and cons["preempt_ok"]):
+        fail(f"overload serve: conservation {cons}")
+    if cons["preempted"] <= 0:
+        fail("overload serve: nothing was preempted (the pool did not "
+             "saturate)")
+    if len(fin) + len(shed) + len(tout) != OVERLOAD_REQUESTS or any(
+            r.retry_after is None for r in shed):
+        fail(f"overload serve: {len(fin)} finished, {len(shed)} shed, "
+             f"{len(tout)} timed out of {OVERLOAD_REQUESTS}")
+    if any(not r.generated for r in fin):
+        fail("overload serve: a finished request has no tokens")
+    if sorted(r.uid for r in returned) != sorted(r.uid for r in submitted):
+        fail("overload serve: poll() did not return every request once")
+    pool = s["pool"]
+    med, cnt = e.pass_stats()
+    out["overload"] = {
+        "wall_s": wall_b, "finished": len(fin), "shed": len(shed),
+        "timed_out": len(tout), "preempted": cons["preempted"],
+        "resumed": cons["resumed"],
+        "pressure_mean": pool["pressure_mean"],
+        "pressure_max": pool["pressure_max"],
+        "prefix_hits": pool["prefix_hits"], "cow_copies": pool["cow_copies"],
+        "degraded_ticks": pool["degraded_ticks"], "passes": cnt,
+        "decode_ms": med["decode"] and med["decode"] * 1e3,
+        "prefill_ms": med["prefill"] and med["prefill"] * 1e3,
+        "launches": counts_b,
+        "retry_after_s": [r.retry_after - (r.arrival_time or 0.0)
+                          for r in shed]}
+    log(f"overload serve ({OVERLOAD_REQUESTS} requests, prompts "
+        f"{min(len(p['prompt']) for p in plan)}-"
+        f"{max(len(p['prompt']) for p in plan)} tokens, 24 new, pool 8 "
+        f"pages, priority policy, 2 tenants with quota 6, watermark 6, "
+        f"deadlines {OVERLOAD_DEADLINE_S}s on a third; overlapped, wall "
+        f"clock) in {wall_b:.3f}s: {len(fin)} finished, {len(shed)} shed "
+        f"(retry_after "
+        f"{[round(v, 4) for v in out['overload']['retry_after_s']]} s "
+        f"ahead), {len(tout)} timed out, {cons['preempted']} preemptions, "
+        f"{cons['resumed']} resumes, pool pressure mean "
+        f"{pool['pressure_mean']:.3f} / max {pool['pressure_max']:.3f}, "
+        f"degraded ticks {pool['degraded_ticks']}, passes {cnt}, launch "
+        f"counts {counts_b}; conservation ok, preempt_ok")
+    del e
+    gc.collect()
+
+    # 11c. Open loop: Poisson arrivals through the CLI's workload on the
+    # wall clock, paged and overlapped.
+    args = serve_cli.build_parser().parse_args(
+        ["--requests", str(OPEN_REQUESTS), "--arrival-rate",
+         str(OPEN_RATE), "--prompt-len", str(OPEN_PROMPT_LEN), "--max-new",
+         str(MAX_NEW), "--tenants", "2", "--seed", str(SEED)])
+    reqs_c = serve_cli.poisson_workload(mcfg, args,
+                                        np.random.default_rng(SEED))
+    e = engine(**wall)
+    e.warmup()
+    sync()
+    base = time.perf_counter()
+    for r in reqs_c:
+        r.arrival_time = base + r.arrival_time
+        e.submit(r)
+    ops.reset_launch_counts()
+    done_c = e.drain()
+    e.close()
+    sync()
+    wall_c = time.perf_counter() - base
+    counts_c = ops.launch_counts()
+    launched(counts_c, "open-loop serve")
+    s = e.metrics.summary()
+    if len(done_c) != OPEN_REQUESTS or not e.metrics.conservation()["ok"]:
+        fail(f"open-loop serve: {len(done_c)} of {OPEN_REQUESTS} returned")
+    tu = e.metrics.tick_utilization()
+    good = e.metrics.goodput(OPEN_SLO_TTFT_S)
+    out["open_loop"] = {
+        "rate_per_s": OPEN_RATE, "wall_s": wall_c,
+        "ttft_s": s["ttft"], "tpot_s": s["tpot"], "e2e_s": s["e2e"],
+        "goodput_per_s": good, "slo_ttft_s": OPEN_SLO_TTFT_S,
+        "tick_utilization": tu["value"],
+        "max_queue_depth": s["queue_depth"]["max"],
+        "preempted": s["requests"]["preempted"], "launches": counts_c}
+    log(f"open-loop serve ({OPEN_REQUESTS} Poisson arrivals at {OPEN_RATE} "
+        f"requests/s over "
+        f"{reqs_c[-1].arrival_time - reqs_c[0].arrival_time:.3f}s, prompts "
+        f"1-{2 * OPEN_PROMPT_LEN - 1} tokens, {MAX_NEW} new, paged, "
+        f"overlapped) in {wall_c:.3f}s: TTFT p50 {s['ttft']['p50']:.4f} / "
+        f"p99 {s['ttft']['p99']:.4f} s, TPOT p50 {s['tpot']['p50']:.4f} / "
+        f"p99 {s['tpot']['p99']:.4f} s, E2E p50 {s['e2e']['p50']:.4f} / p99 "
+        f"{s['e2e']['p99']:.4f} s, goodput {good:.3f} requests/s (TTFT <= "
+        f"{OPEN_SLO_TTFT_S} s), tick_utilization {tu['value']:.4f}, max "
+        f"queue depth {s['queue_depth']['max']}, {s['requests']['preempted']}"
+        f" preemptions, launch counts {counts_c}")
+    del e
+    gc.collect()
+
+    for row in rows:
+        name = row["name"]
+        row["launches_paged_serve"] = serve_launches.get(name, 0)
+        row["launches_overload_serve"] = counts_b.get(name, 0)
+        row["launches_open_loop_serve"] = counts_c.get(name, 0)
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1711,12 +2074,6 @@ def main() -> None:
     # 9. profile: where a pass's device time goes (measurement only) ------
     # Only the profiler's own import and set-up may fail (and are then
     # skipped); an error in a profiled pass fails the run.
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-    except ImportError as e:
-        profile = None
-        log(f"profiler unavailable: {e!r}")
     st = clone_state(state0)
     prefill(eng.params, st, toks_t, n_t, mcfg, Numerics(quant, key))
     tok = torch.zeros(CAPACITY, dtype=torch.int32, device=dev)
@@ -1733,58 +2090,40 @@ def main() -> None:
                                idxs=np.zeros(CAPACITY))}
     for kind in ("decode", "prefill", "evaluation forward",
                  "decode (graph replay)", "prefill (graph replay)"):
-        if profile is None:
-            break
         stp = clone_state(st)
         shape = ("decode",) if kind.startswith("decode") else ("prefill", 128)
         if kind.endswith("(graph replay)"):
             for t, src in zip(state_tensors(geng.state), served):
                 t.copy_(src)
         torch.cuda.synchronize()
-        try:
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.__enter__()
-        except Exception as e:   # the profiler's own set-up only
-            log(f"profiler unavailable: {e!r}")
+        run = {"decode": lambda: decode_step(eng.params, stp, tok, mcfg,
+                                             Numerics(quant, key)),
+               "prefill": lambda: prefill(eng.params, stp, toks_t, n_t, mcfg,
+                                          Numerics(quant, key)),
+               "evaluation forward": lambda: forward(
+                   params, inputs, emcfg, Numerics(equant, k0))}.get(
+            kind, lambda: geng._call(shape, key, **graph_fields[shape]))
+        if profile_pass(dev, run, f"{kind} pass") is None:
             break
-        try:
-            t0 = time.perf_counter()
-            if kind == "decode":
-                decode_step(eng.params, stp, tok, mcfg, Numerics(quant, key))
-            elif kind == "prefill":
-                prefill(eng.params, stp, toks_t, n_t, mcfg,
-                        Numerics(quant, key))
-            elif kind == "evaluation forward":
-                forward(params, inputs, emcfg, Numerics(equant, k0))
-            else:
-                geng._call(shape, key, **graph_fields[shape])
-            torch.cuda.synchronize()
-            host = time.perf_counter() - t0
-        finally:
-            prof.__exit__(None, None, None)
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
-        cnt = {e.key: e.count for e in ev}
-        order = sorted(dt, key=lambda k: -dt[k])
-        total = sum(dt.values())
-        top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k]) for k in order[:8]]
-        log(f"profile of one {kind} pass: host {host * 1e3:.2f} ms, "
-            f"device busy {total / 1e3:.3f} ms "
-            f"({total / 1e3 / (host * 1e3):.1%}) in "
-            f"{sum(cnt.values())} kernel launches per {kind} pass; top by "
-            f"device ms: {json.dumps(top)}")
     geng.close()
     del st, geng, served
     ops.reset_launch_counts()
 
     # 10. train: the training path on full smollm-360m ------------------
+    served_params = eng.params
     del eng
     t0 = time.perf_counter()
     train = train_phase(dev, params, rows)
     log(f"train phase in {time.perf_counter() - t0:.1f}s: "
         f"{json.dumps(train)}")
+
+    # 11. paged: the paged, overload-controlled serving path -------------
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = paged_phase(dev, CheckedEngine, served_params, mcfg, quant, reqs,
+                        want_streams, rows)
+    log(f"paged phase in {paged['seconds']:.1f}s: {json.dumps(paged)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

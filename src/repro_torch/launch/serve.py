@@ -1,16 +1,43 @@
-"""Serving entry point: a closed-loop batch through the continuous-batching
-engine, in float or ABFP numerics, on the GPU.
+"""Serving entry point: a closed-loop batch or arrival-driven open-loop
+serving through the continuous-batching engine, in float or ABFP
+numerics, on the GPU.
+
+Closed loop (admit everything, run to completion):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --fused
 
+Open loop (Poisson arrivals on the simulated clock, a scheduling policy,
+SLO metrics), here from a paged KV pool with deadlines:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --fused \\
+        --paged --arrival-rate 2 --tenants 2 --deadline 40 \\
+        --metrics-out out.json
+
+Trace replay: ``--trace FILE`` where FILE is a JSON list of requests,
+each ``{"arrival_time": float, "prompt": [ints]}`` or
+``{"arrival_time": float, "prompt_len": int}`` plus optional
+``max_new_tokens`` / ``priority`` / ``tenant`` / ``temperature``.
+``poisson_workload`` and ``trace_workload`` draw the JAX CLI's
+requests from the same ``--seed``.
+
 ``--fused`` serves in ``abfp_fused`` mode: packed weights with per-tile
-ADC gains (capped by ``--gain``), an int8 KV cache, and decode ticks
-through the fused QKV and int8-KV attention kernels.  ``--quant
-abfp-packed`` serves through the packed ABFP kernel alone; the JAX
-CLI's ``--quant abfp`` (the ``abfp_ref`` tile scan, a PRNG key per call)
-is not served: the engine's passes take seeds from a table.  Weights are
-random, from ``--seed``.  ``--device cpu`` runs the kernels' plain
-PyTorch versions on the CPU (for small ``--reduced`` configs).
+ADC gains (capped by ``--gain``), an int8 KV cache, and unpaged decode
+ticks through the fused QKV and int8-KV attention kernels (a paged tick
+runs the packed chain, as in the JAX package).  ``--quant abfp-packed``
+serves through the packed ABFP kernel alone; the JAX CLI's ``--quant
+abfp`` (the ``abfp_ref`` tile scan, a PRNG key per call) is not served:
+the engine's passes take seeds from a table.  Weights are random, from
+``--seed``.  ``--device cpu`` runs the kernels' plain PyTorch versions on
+the CPU (for small ``--reduced`` configs).
+
+``--paged`` serves from a shared KV page pool (``--page-size``,
+``--pool-pages``) with copy-on-write prefix sharing
+(``--no-prefix-cache``), preemption under page pressure
+(``--no-preemption``), queue-watermark shedding (``--queue-watermark``),
+a degraded mode between pool-pressure watermarks (``--page-watermarks``,
+``--degraded-max-new``) and per-tenant page quotas (``--tenant-quota``);
+``--deadline`` cancels a request that many ticks (seconds on a wall
+clock) after its arrival.
 
 ``--wall-clock`` drives the engine on ``time.perf_counter`` (latencies in
 seconds, the tick utilization printed); ``--overlap`` (implies
@@ -19,14 +46,18 @@ device, passes dispatched up to ``--inflight`` ahead of their delivery.
 On a GPU every pass shape is captured into a CUDA graph before the
 requests arrive (``ServingEngine.warmup``).
 
-Each request's greedy token ids are printed as
-``req <uid>: prompt[<len>] -> [ids]``.
+The run prints the JAX CLI's summary lines (p50/p99 TTFT, TPOT and
+E2E, goodput against ``--slo-ttft``, slot and tick utilization, and with
+``--paged`` the pool and overload counts), then the first requests'
+greedy token ids as ``req <uid>: prompt[<len>] -> [ids]``;
+``--metrics-out`` writes the percentile summary as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import List, Optional
 
@@ -62,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused", action="store_true",
                     help="abfp_fused serving: per-tile ADC gains (capped "
                          "by --gain), int8 KV cache, fused QKV and "
-                         "int8-KV attention kernels on decode ticks; "
-                         "overrides --quant")
+                         "int8-KV attention kernels on unpaged decode "
+                         "ticks; overrides --quant")
     ap.add_argument("--tile", type=int, default=128)
     ap.add_argument("--gain", type=float, default=8.0,
                     help="ADC gain G; with --fused the per-tile gain cap")
@@ -75,8 +106,58 @@ def build_parser() -> argparse.ArgumentParser:
                          "tick instead of bucketed prefill chunks")
     ap.add_argument("--prefill-chunks", default="16,64,128",
                     help="comma-separated chunk buckets for prefill passes")
+    # Open-loop serving (arrival-driven; omit both for the closed loop).
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="Poisson arrival rate in requests per simulated "
+                         "tick (per second on a wall clock); enables the "
+                         "open-loop submit/poll path")
+    ap.add_argument("--trace", default=None,
+                    help="JSON trace of requests to replay (see the module "
+                         "docstring for the schema)")
     ap.add_argument("--policy", choices=("fcfs", "sjf", "priority"),
                     default="fcfs", help="admission scheduling policy")
+    ap.add_argument("--tenants", type=int, default=2,
+                    help="number of synthetic tenants for Poisson workloads")
+    ap.add_argument("--slo-ttft", type=float, default=8.0,
+                    help="TTFT SLO in simulated ticks (seconds on a wall "
+                         "clock): the goodput threshold")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the percentile metrics summary JSON here")
+    # Paged KV pool + overload robustness (repro_torch.serving.pages).
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from a paged KV pool (fixed pages aligned "
+                         "to the ABFP tile, slot->page-table indirection, "
+                         "copy-on-write prefix sharing) instead of "
+                         "per-slot max_len strips")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV page (default: the quant tile "
+                         "width, or min(16, max_len) in float mode)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="total pages in the shared pool (default: "
+                         "capacity * ceil(max_len / page_size), the "
+                         "unpaged footprint)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request prefix page sharing")
+    ap.add_argument("--no-preemption", action="store_true",
+                    help="disable evict-to-pool preemption under page "
+                         "saturation (victims then wait instead)")
+    ap.add_argument("--queue-watermark", type=int, default=None,
+                    help="shed newly arrived requests once the arrived "
+                         "queue depth reaches this (backpressure; shed "
+                         "requests carry a retry_after hint)")
+    ap.add_argument("--page-watermarks", default="0.85,0.5",
+                    help="hi,lo pool-pressure fractions: degraded mode "
+                         "enters at hi and exits at lo (hysteresis)")
+    ap.add_argument("--degraded-max-new", type=int, default=None,
+                    help="cap max_new_tokens for admissions made while "
+                         "degraded")
+    ap.add_argument("--tenant-quota", type=int, default=None,
+                    help="max pool pages a single tenant may hold "
+                         "(projected footprint; noisy-neighbor isolation)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request deadline in ticks (seconds on a wall "
+                         "clock) after arrival; expired requests are "
+                         "cancelled and counted timed_out")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain versions)")
     ap.add_argument("--wall-clock", action="store_true",
@@ -111,14 +192,45 @@ def model_and_quant(args):
     return mcfg, quant
 
 
-def make_requests(mcfg, args) -> List[Request]:
-    rng = np.random.default_rng(args.seed)
-    return [Request(uid=i,
-                    prompt=rng.integers(1, mcfg.vocab_size,
-                                        args.prompt_len).tolist(),
-                    max_new_tokens=args.max_new,
-                    temperature=args.temperature)
-            for i in range(args.requests)]
+def poisson_workload(mcfg, args, rng: np.random.Generator) -> List[Request]:
+    """Mixed-tenant Poisson arrivals: exponential inter-arrival gaps at
+    ``--arrival-rate`` requests per tick, prompt lengths drawn uniformly
+    from [1, 2 * --prompt-len - 1] (the JAX CLI's draws, in order)."""
+    gaps = rng.exponential(1.0 / args.arrival_rate, args.requests)
+    arrivals = np.cumsum(gaps)
+    reqs = []
+    for i in range(args.requests):
+        plen = int(rng.integers(1, max(2, 2 * args.prompt_len)))
+        reqs.append(Request(
+            uid=i,
+            prompt=rng.integers(1, mcfg.vocab_size, plen).tolist(),
+            max_new_tokens=args.max_new,
+            temperature=args.temperature,
+            arrival_time=float(arrivals[i]),
+            priority=int(rng.integers(0, 3)),
+            tenant=f"t{int(rng.integers(args.tenants))}"))
+    return reqs
+
+
+def trace_workload(mcfg, args, rng: np.random.Generator) -> List[Request]:
+    """The requests of the ``--trace`` JSON file (prompts of entries with
+    only a ``prompt_len`` drawn from ``rng``)."""
+    with open(args.trace) as f:
+        entries = json.load(f)
+    reqs = []
+    for i, e in enumerate(entries):
+        prompt = e.get("prompt")
+        if prompt is None:
+            plen = int(e.get("prompt_len", args.prompt_len))
+            prompt = rng.integers(1, mcfg.vocab_size, plen).tolist()
+        reqs.append(Request(
+            uid=i, prompt=list(prompt),
+            max_new_tokens=int(e.get("max_new_tokens", args.max_new)),
+            temperature=float(e.get("temperature", args.temperature)),
+            arrival_time=float(e.get("arrival_time", 0.0)),
+            priority=int(e.get("priority", 0)),
+            tenant=str(e.get("tenant", "default"))))
+    return reqs
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -126,15 +238,34 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.overlap:
         args.wall_clock = True
     mcfg, quant = model_and_quant(args)
+    try:
+        wm_hi, wm_lo = (float(v) for v in args.page_watermarks.split(","))
+    except ValueError:
+        raise SystemExit(f"--page-watermarks expects 'hi,lo' "
+                         f"(got {args.page_watermarks!r})")
     params = init_params(args.seed, mcfg, device=args.device)
     print(f"[serve] {args.arch}: {param_count(params) / 1e6:.1f}M params, "
           f"quant={quant.mode}, policy={args.policy}, device={args.device}")
+    if args.paged:
+        print(f"[serve] paged KV pool: page_size="
+              f"{args.page_size or 'auto'}, pool_pages="
+              f"{args.pool_pages or 'auto'}, prefix_cache="
+              f"{not args.no_prefix_cache}, preemption="
+              f"{not args.no_preemption}, watermarks=({wm_hi}, {wm_lo})")
     eng = ServingEngine(params, mcfg, capacity=args.capacity,
                         max_len=args.max_len, quant=quant, seed=args.seed,
                         chunked=not args.no_chunked, policy=args.policy,
                         prefill_chunks=tuple(
                             int(c) for c in args.prefill_chunks.split(",")),
                         device=args.device,
+                        paged=args.paged, page_size=args.page_size,
+                        pool_pages=args.pool_pages,
+                        prefix_cache=not args.no_prefix_cache,
+                        preemption=False if args.no_preemption else None,
+                        queue_watermark=args.queue_watermark,
+                        page_watermarks=(wm_hi, wm_lo),
+                        degraded_max_new=args.degraded_max_new,
+                        tenant_quota=args.tenant_quota,
                         clock=time.perf_counter if args.wall_clock else None,
                         overlap=args.overlap, inflight=args.inflight)
     unit = "s" if args.wall_clock else "ticks"
@@ -143,32 +274,91 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{'on' if args.overlap else 'off (blocking)'}"
               + (f", inflight={args.inflight}" if args.overlap else ""))
         eng.warmup()        # capture every pass shape before the requests
-    reqs = make_requests(mcfg, args)
-    t0 = time.time()
-    done = eng.run(reqs)
+    rng = np.random.default_rng(args.seed)
+
+    if args.arrival_rate is not None or args.trace is not None:
+        reqs = (trace_workload(mcfg, args, rng) if args.trace
+                else poisson_workload(mcfg, args, rng))
+        if args.wall_clock:
+            # Arrivals are offsets; the wall clock reads an arbitrary
+            # epoch, so rebase them onto now.
+            base = time.perf_counter()
+            for r in reqs:
+                r.arrival_time = base + (r.arrival_time or 0.0)
+        if args.deadline is not None:
+            for r in reqs:
+                r.deadline = (r.arrival_time or 0.0) + args.deadline
+        for r in reqs:
+            eng.submit(r)
+        span = (max(r.arrival_time for r in reqs)
+                - min(r.arrival_time for r in reqs)) if reqs else 0.0
+        print(f"[serve] open-loop: {len(reqs)} requests arriving over "
+              f"{span:.1f} {unit}, {args.tenants} tenants")
+        t0 = time.time()
+        done = eng.drain()
+    else:
+        reqs = [Request(uid=i,
+                        prompt=rng.integers(1, mcfg.vocab_size,
+                                            args.prompt_len).tolist(),
+                        max_new_tokens=args.max_new,
+                        temperature=args.temperature)
+                for i in range(args.requests)]
+        t0 = time.time()
+        done = eng.run(reqs)
     dt = time.time() - t0
+    eng.close()
+
     tokens = sum(len(r.generated) for r in done)
     print(f"[serve] {len(done)} requests, {tokens} tokens in {dt:.1f}s "
           f"({tokens / dt:.1f} tok/s, {eng.ticks} ticks)")
     s = eng.metrics.summary()
+    ttft, tpot, e2e = s["ttft"], s["tpot"], s["e2e"]
 
     def fmt(d, key):
         v = d[key]
         return "-" if v is None else f"{v:.2f}"
 
-    print(f"[serve] TTFT p50 {fmt(s['ttft'], 'p50')} / p99 "
-          f"{fmt(s['ttft'], 'p99')} {unit} | TPOT p50 "
-          f"{fmt(s['tpot'], 'p50')} {unit} | E2E p50 {fmt(s['e2e'], 'p50')} "
+    print(f"[serve] TTFT p50 {fmt(ttft, 'p50')} / p99 {fmt(ttft, 'p99')} "
+          f"{unit} | TPOT p50 {fmt(tpot, 'p50')} / p99 {fmt(tpot, 'p99')} "
+          f"{unit} | E2E p50 {fmt(e2e, 'p50')} / p99 {fmt(e2e, 'p99')} "
           f"{unit}")
+    good = eng.metrics.goodput(args.slo_ttft)
+    util = s["utilization"]["mean"]
+    print(f"[serve] goodput {good if good is None else round(good, 3)} "
+          f"req/{unit.rstrip('s') or 's'} (TTFT<={args.slo_ttft}), "
+          f"slot utilization "
+          f"{'-' if util is None else f'{util:.0%}'}, max queue depth "
+          f"{s['queue_depth']['max']}")
     if args.wall_clock:
-        tu = eng.metrics.tick_utilization()
+        tu = s["tick_utilization"]
         tv = tu["value"]
         print(f"[serve] tick utilization "
               f"{'-' if tv is None else f'{tv:.1%}'} "
               f"(device busy {tu['device_busy_s']:.2f}s of "
               f"{tu['active_s']:.2f}s active)")
-    eng.close()
-    for r in done:
+    req_s = s["requests"]
+    cons = eng.metrics.conservation()
+    if args.deadline is not None:
+        print(f"[serve] timed_out {req_s['timed_out']}, requeued "
+              f"{req_s['requeued']}, corrupted {req_s['corrupted']}, "
+              f"conservation_ok {cons['ok']}")
+    if args.paged:
+        pool = s["pool"]
+        print(f"[serve] pool: pressure mean {pool['pressure_mean']:.2f} / "
+              f"max {pool['pressure_max']:.2f}, prefix hits "
+              f"{pool['prefix_hits']}, cow copies {pool['cow_copies']}, "
+              f"degraded ticks {pool['degraded_ticks']}")
+        print(f"[serve] overload: shed {req_s['shed']}, preempted "
+              f"{req_s['preempted']}, resumed {req_s['resumed']}, "
+              f"preempt_ok {cons['preempt_ok']}")
+    if args.metrics_out:
+        eng.metrics.to_json(args.metrics_out, policy=args.policy,
+                            quant=args.quant if not args.fused
+                            else "abfp-fused",
+                            slo_ttft=args.slo_ttft,
+                            goodput_per_tick=good)
+        print(f"[serve] wrote {args.metrics_out}")
+    for r in done[:3]:
         print(f"  req {r.uid}: prompt[{len(r.prompt)}] -> {r.generated}")
 
 

@@ -13,7 +13,10 @@ The KV cache is a dict of tensors per layer, ``{"k", "v", "length"}`` plus
 a decode tick writes one slot per row instead of copying the whole cache
 (about 84 MB per tick for smollm-360m at capacity 4, max_len 512 in bf16).
 Rows whose ``n_tokens`` is 0 and padding lanes are never written.  Only
-append-only caches (``window == 0``) are ported.
+append-only caches (``window == 0``) are ported.  A PAGED cache holds
+per-layer page pools ``{"k_pages", "v_pages"}`` (plus the scale pools)
+shared by all rows, addressed through a (B, MP) page table
+(``paged_append_attend``).
 
 Without a cache, attention runs over the whole sequence at once: the flash
 kernel (``kernels.flash_attention``) with ``mcfg.use_flash_attention``,
@@ -454,6 +457,109 @@ def chunk_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict, *,
 
 
 # ---------------------------------------------------------------------------
+# Paged KV cache: pool + page-table indirection (``serving.pages`` owns the
+# host-side allocator; these are the device-side scatter and gather).
+# ---------------------------------------------------------------------------
+
+
+def _paged_view(pools, table: Tensor) -> list:
+    """Gather dense per-slot cache views out of page pools.
+
+    pools: tensors (NP + 1, PS, ...) of one page geometry, the last page
+    the scratch page; table: (B, MP) int32 physical page per logical page
+    (the sentinel NP for unallocated entries).  The gather clamps to
+    [0, NP - 1] as the JAX package's does; what it reads there sits at
+    positions >= the slot's length, masked to -1e30 by the attention cores
+    like unpaged out-of-range slots (pools start at zero, so nothing read
+    is NaN).  Returns one (B, MP * PS, ...) view per pool; the index is
+    computed once for all of them."""
+    index = torch.clamp(table, 0, pools[0].shape[0] - 2).long()
+    b, mp = table.shape
+    return [p[index].reshape((b, mp * p.shape[1]) + tuple(p.shape[2:]))
+            for p in pools]
+
+
+def _paged_scatter(pools, table: Tensor, pos: Tensor, vals,
+                   valid: Optional[Tensor] = None) -> None:
+    """Scatter per-lane values into page pools at global cache positions,
+    in place: ``vals[i]`` (B, S, ...) into ``pools[i]`` (NP + 1, PS, ...).
+
+    table: (B, MP); pos: (B, S) global positions.  Lanes routed to a
+    sentinel entry, past the table, or with ``valid`` False are DROPPED:
+    they write the scratch page NP, which no gather reads, so the scatter
+    keeps a fixed shape (a CUDA graph captures it) and no index is out of
+    range.  Every other lane owns a distinct (page, offset): a slot writes
+    only pages it holds exclusively (copy-on-write), so no two live lanes
+    collide.  The lanes are computed once for all pools."""
+    np_, ps = pools[0].shape[0] - 1, pools[0].shape[1]
+    mp = table.shape[1]
+    page_idx = torch.div(pos, ps, rounding_mode="floor")
+    page = torch.gather(table, 1, torch.clamp(page_idx, 0, mp - 1).long())
+    drop = page_idx >= mp
+    if valid is not None:
+        drop = drop | ~valid
+    lanes = (torch.where(drop, torch.full_like(page, np_),
+                         torch.clamp(page, 0, np_)).long(), (pos % ps).long())
+    for pool, v in zip(pools, vals):
+        pool[lanes] = v.to(pool.dtype)
+
+
+def paged_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict,
+                        table: Tensor, *, n_tokens: Optional[Tensor] = None):
+    """Decode / chunked-prefill attention against a PAGED cache.
+
+    kv_cache: {"k_pages": (NP + 1, PS, KH, D), "v_pages": ..., "length":
+    (B,)} plus ``k_scale_pages``/``v_scale_pages`` (NP + 1, PS, KH) for the
+    int8 cache; ``table``: (B, MP) slot -> page map.  New K/V are scattered
+    at each slot's next positions (in place), then the pools are gathered
+    through the table into dense (B, MP * PS, ...) views feeding the SAME
+    attention cores as the unpaged cache; with MP * PS equal to the
+    unpaged ``max_len`` a decode tick or chunk computes what the unpaged
+    path computes, bit for bit.
+
+    q: (B, S, H, D); S == 1 with ``n_tokens`` None is the decode tick,
+    else the chunked-prefill append (tokens 0..n-1 of row b are real).
+    Returns (out (B, S, H, D), kv_cache)."""
+    b, s = q.shape[:2]
+    dev = q.device
+    length = kv_cache["length"]
+    decode = s == 1 and n_tokens is None
+    if decode:
+        pos = length[:, None]
+        valid = None
+        n_add = torch.ones_like(length)
+    else:
+        n = n_tokens if n_tokens is not None else torch.full(
+            (b,), s, dtype=torch.int32, device=dev)
+        offs = torch.arange(s, device=dev)[None, :]
+        valid = offs < n[:, None]
+        pos = length[:, None] + torch.minimum(offs, n[:, None])
+        n_add = n.to(length.dtype)
+    q_pos = length[:, None] + torch.arange(s, device=dev)[None, :]
+    if "k_scale_pages" in kv_cache:
+        kc, ks = _kv_encode(k)
+        vc, vs = _kv_encode(v)
+        names = ("k_pages", "k_scale_pages", "v_pages", "v_scale_pages")
+        pools = [kv_cache[n] for n in names]
+        _paged_scatter(pools, table, pos, (kc, ks, vc, vs), valid)
+        views = _paged_view(pools, table)
+        if decode:
+            out = quantized_decode_attention(q, *views, lengths=length + 1)
+        else:
+            out = quantized_chunk_attention(q, *views, q_pos=q_pos)
+    else:
+        pools = [kv_cache["k_pages"], kv_cache["v_pages"]]
+        _paged_scatter(pools, table, pos, (k, v), valid)
+        kv, vv = _paged_view(pools, table)
+        if decode:
+            out = decode_attention(q, kv, vv, lengths=length + 1)
+        else:
+            out = chunk_cache_attention(q, kv, vv, q_pos=q_pos)
+    length.add_(n_add)
+    return out, kv_cache
+
+
+# ---------------------------------------------------------------------------
 # Attention block (projections through Numerics)
 # ---------------------------------------------------------------------------
 
@@ -515,11 +621,12 @@ def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
 
 def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens) -> bool:
     """Does this call take the fused decode path?  ``abfp_fused`` mode, a
-    single-token decode tick, an int8 KV cache and all three projection
-    weights packed; anything else runs the packed chain."""
+    single-token decode tick, an unpaged int8 KV cache and all three
+    projection weights packed; anything else (a paged cache included, as
+    in the JAX package) runs the packed chain."""
     return (nx.quant.mode == "abfp_fused"
             and s == 1 and n_tokens is None
-            and "k_scale" in kv_cache
+            and "k_pages" not in kv_cache and "k_scale" in kv_cache
             and all(isinstance(params[w], PackedWeight)
                     for w in ("wq", "wk", "wv")))
 
@@ -527,7 +634,8 @@ def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens) -> bool:
 def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
                     positions: Tensor, kv_cache: Optional[dict] = None,
                     n_tokens: Optional[Tensor] = None, cross_kv=None,
-                    train_mode: bool = False):
+                    train_mode: bool = False,
+                    page_table: Optional[Tensor] = None):
     """Causal self-attention, over a KV cache or over the whole sequence.
     Returns (output, kv_cache).
 
@@ -539,7 +647,10 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
     kernel with ``mcfg.use_flash_attention`` (its plain version under
     ``nx.plain``), else ``chunked_attention``; ``train_mode`` (the
     training forward under ``mcfg.remat``) takes ``train_attention``
-    instead.  The returned cache is None."""
+    instead.  The returned cache is None.
+
+    A PAGED cache ({"k_pages", ...}, see ``serving.pages``) needs
+    ``page_table`` (B, MP) and goes through ``paged_append_attend``."""
     if cross_kv is not None:
         raise NotImplementedError(
             "cross attention belongs to the encoder-decoder slice of the "
@@ -567,6 +678,11 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
         else:
             out = chunked_attention(q, k, v, causal=True,
                                     chunk=mcfg.attn_chunk)
+    elif "k_pages" in kv_cache:
+        if page_table is None:
+            raise ValueError("a paged kv_cache needs a page_table")
+        out, kv_cache = paged_append_attend(q, k, v, kv_cache, page_table,
+                                            n_tokens=n_tokens)
     elif s == 1 and n_tokens is None:
         out, kv_cache = _append_attend_one(q, k, v, kv_cache)
     else:

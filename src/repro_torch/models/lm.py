@@ -111,15 +111,16 @@ def param_count(params) -> int:
 
 def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
                  positions: Tensor, state: Optional[dict] = None,
-                 n_tokens: Optional[Tensor] = None):
+                 n_tokens: Optional[Tensor] = None,
+                 page_table: Optional[Tensor] = None):
     """One pre-norm residual layer; returns (x, state).  Without a state
     (the teacher-forced forward) attention is cacheless and the returned
-    state is None."""
+    state is None.  ``page_table`` (B, MP) routes a paged KV cache."""
     h = norm(x, lp["norm1"], mcfg.norm_type)
     attn_out, kv = attention_block(
         lp["attn"], h, mcfg, nx, positions=positions,
         kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
-        train_mode=mcfg.remat)
+        train_mode=mcfg.remat, page_table=page_table)
     x = x + attn_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
     if mcfg.d_ff:
@@ -158,10 +159,11 @@ def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
 
 
 def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
+    pt = state.get("page_table")
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         x, state["layers"][li] = _apply_layer(
             lp, x, mcfg, nx.fold(li), positions=positions, state=ls,
-            n_tokens=n_tokens)
+            n_tokens=n_tokens, page_table=pt)
     return norm(x, params["final_norm"], mcfg.norm_type)
 
 
@@ -259,33 +261,52 @@ def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
 
 
 def init_decode_state(mcfg: ModelConfig, batch: int, max_len: int,
-                      device: DeviceLike = None) -> dict:
+                      device: DeviceLike = None, *,
+                      page_size: Optional[int] = None,
+                      pool_pages: Optional[int] = None) -> dict:
     """Per-layer KV caches of ``max_len`` slots for ``batch`` rows: int8
     codes plus bf16 per-(token, head) scales with ``mcfg.kv_quant``, else
-    the activation dtype.  Unpaged."""
+    the activation dtype.
+
+    With ``page_size``/``pool_pages`` the caches are PAGED: each layer
+    holds pools ``k_pages``/``v_pages`` (pool_pages + 1, page_size, KH, D)
+    (and ``k_scale_pages``/``v_scale_pages`` (pool_pages + 1, page_size,
+    KH) bf16 under ``kv_quant``) shared by all rows, the last page the
+    scratch page that takes dropped writes; the state gains ``page_table``
+    (batch, ceil(max_len / page_size)) int32, filled with the sentinel
+    ``pool_pages``.  Every tensor starts at zero, so no gathered page holds
+    a NaN."""
     check_supported(mcfg)
     dev = resolve_device(device)
     kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
+    paged = page_size is not None
+    if paged and (pool_pages is None or pool_pages < 1):
+        raise ValueError("a paged decode state needs pool_pages >= 1")
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     def one():
-        shape = (batch, max_len, kh, hd)
-        kv = {"length": torch.zeros(batch, dtype=torch.int32, device=dev)}
-        if mcfg.kv_quant:
-            kv["k"] = torch.zeros(shape, dtype=torch.int8, device=dev)
-            kv["v"] = torch.zeros(shape, dtype=torch.int8, device=dev)
-            kv["k_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
-                                        device=dev)
-            kv["v_scale"] = torch.zeros(shape[:3], dtype=torch.bfloat16,
-                                        device=dev)
+        kv = {"length": zeros(batch, torch.int32)}
+        if paged:
+            shape, sfx = (pool_pages + 1, page_size, kh, hd), "_pages"
         else:
-            kv["k"] = torch.zeros(shape, dtype=mcfg.activation_dtype,
-                                  device=dev)
-            kv["v"] = torch.zeros(shape, dtype=mcfg.activation_dtype,
-                                  device=dev)
+            shape, sfx = (batch, max_len, kh, hd), ""
+        dtype = torch.int8 if mcfg.kv_quant else mcfg.activation_dtype
+        kv["k" + sfx] = zeros(shape, dtype)
+        kv["v" + sfx] = zeros(shape, dtype)
+        if mcfg.kv_quant:
+            kv["k_scale" + sfx] = zeros(shape[:3], torch.bfloat16)
+            kv["v_scale" + sfx] = zeros(shape[:3], torch.bfloat16)
         return {"kv": kv}
 
-    return {"layers": [one() for _ in range(mcfg.num_layers)],
-            "position": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    state = {"layers": [one() for _ in range(mcfg.num_layers)],
+             "position": zeros(batch, torch.int32)}
+    if paged:
+        state["page_table"] = torch.full(
+            (batch, -(-max_len // page_size)), pool_pages, dtype=torch.int32,
+            device=dev)
+    return state
 
 
 def clone_state(state):

@@ -1,12 +1,20 @@
 """repro_torch.serving — the continuous-batching engine (chunked prefill,
 FCFS/SJF/priority admission, SLO metrics) over the dense decoder runner:
 every pass shape warmed into a CUDA graph on a GPU, blocking transfers on
-the simulated clock or the overlapped runtime on a wall clock."""
+the simulated clock or the overlapped runtime on a wall clock, per-slot KV
+strips or a paged KV pool with prefix sharing, preemption, backpressure,
+degraded mode, tenant quotas and deadlines."""
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.metrics import (  # noqa: F401
     RequestMetrics,
     ServingMetrics,
     percentile_summary,
+)
+from repro_torch.serving.pages import (  # noqa: F401
+    PagePool,
+    pages_needed,
+    plan_chunk,
+    prefix_key,
 )
 from repro_torch.serving.runners import DecoderRunner  # noqa: F401
 from repro_torch.serving.scheduler import (  # noqa: F401

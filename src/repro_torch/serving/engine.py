@@ -78,8 +78,34 @@ Gauges: every delivered pass's [dispatch, delivery] span feeds
 ``metrics.tick_utilization()``, and every one but a shape's first feeds
 the ``straggler`` monitor (``distributed.fault.StragglerMonitor``).
 
-Not ported (each raises when asked for): paged KV and preemption, fault
-injection, meshes, fleets and deadlines.
+Paged KV + overload robustness
+------------------------------
+``paged=True`` swaps the per-slot ``max_len`` KV strips for a shared
+``serving.pages.PagePool``: fixed-size pages (the quant tile width by
+default, so an int8 KV page never straddles a tile) that each slot
+addresses through a (capacity, max_pages) page table.  The host table
+(``self._table``) is the source of truth; every pass copies it to the
+device with its other inputs (``PassIO.table``) and reads it there, so a
+captured pass replays under any table.  Unallocated entries hold the
+sentinel ``pool.num_pages``, the pool's scratch page: writes routed there
+are never read, so a dead slot cannot corrupt a live page.  Prompt
+prefixes are shared copy-on-write across requests (chained-hash keys over
+full pages; a write to a shared page splits it first).
+
+Under page saturation the engine PREEMPTS the lowest-priority, youngest
+slot: its pages return to the pool and the request requeues with a
+replay of ``prompt + generated``, re-prefilled on re-admission (recompute
+is restore).  Backpressure sheds newly ARRIVED requests past
+``queue_watermark`` (``shed`` with a ``retry_after`` hint, surfaced through
+``poll()``); ``tenant_quota`` caps one tenant's pages at projected
+footprint; pool pressure above ``page_watermarks[0]`` enters a hysteretic
+DEGRADED mode (admissions capped at ``degraded_max_new`` tokens, prefill
+at the smallest bucket) until pressure falls to ``page_watermarks[1]``.
+A request's ``deadline`` (engine clock) cancels it, queued or in flight,
+as ``timed_out``.  Every decision is the JAX engine's.
+
+Not ported (each raises when asked for): fault injection, meshes and
+fleets.
 """
 
 from __future__ import annotations
@@ -101,8 +127,14 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import LM_HEAD_FOLD
 from repro_torch.models.lm import calls_per_layer, clone_state
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.pages import (
+    PagePool,
+    page_table_array,
+    pages_needed,
+    plan_chunk,
+    prefix_key,
+)
 from repro_torch.serving.runners import (
-    FIELDS,
     DecoderRunner,
     PassIO,
     Staging,
@@ -126,7 +158,9 @@ class Request:
     arrival_time: Optional[float] = None    # engine clock; None = at submit
     priority: int = 0                       # larger = served first
     tenant: str = "default"                 # fairness domain for `priority`
-    deadline: Optional[float] = None        # not ported: must stay None
+    deadline: Optional[float] = None    # absolute engine-clock time; past it
+                                        # the request is cancelled (queued or
+                                        # in flight) and marked timed_out
     on_token: Optional[Callable[["Request", int], None]] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     prompt_pos: int = 0                 # prompt tokens consumed so far
@@ -134,9 +168,16 @@ class Request:
                                         # of len(generated) while overlapped
                                         # deliveries are in flight
     done: bool = False
+    timed_out: bool = False             # cancelled by deadline expiry
+    replay: Optional[List[int]] = None  # recompute stream after preemption:
+                                        # prompt + tokens already streamed,
+                                        # re-prefilled verbatim on resume
+    preempted: int = 0                  # times evicted under page pressure
+    shed: bool = False                  # rejected by admission backpressure
+    retry_after: Optional[float] = None  # backoff hint stamped when shed
 
 
-_UNPORTED = ("paged", "faults", "mesh", "models", "deadlines")
+_UNPORTED = ("faults", "mesh", "models")
 
 
 @dataclasses.dataclass
@@ -169,6 +210,15 @@ class ServingEngine:
                  tick_time: float = 1.0,
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None,
+                 paged: bool = False,
+                 page_size: Optional[int] = None,
+                 pool_pages: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 preemption: Optional[bool] = None,
+                 queue_watermark: Optional[int] = None,
+                 page_watermarks: Tuple[float, float] = (0.85, 0.5),
+                 degraded_max_new: Optional[int] = None,
+                 tenant_quota: Optional[int] = None,
                  overlap: bool = False,
                  inflight: int = 4,
                  stream: Optional[DeviceStream] = None,
@@ -180,9 +230,9 @@ class ServingEngine:
             raise TypeError(f"unknown ServingEngine arguments: {bad}")
         if asked:
             raise NotImplementedError(
-                f"repro_torch's ServingEngine does not port {asked}: paged "
-                f"KV, preemption, faults, meshes, fleets and deadlines stay "
-                f"with the JAX package for now")
+                f"repro_torch's ServingEngine does not port {asked}: "
+                f"faults, meshes and fleets stay with the JAX package for "
+                f"now")
         if quant.mode == "abfp_ref":
             raise ValueError(
                 "the serving engine does not take abfp_ref numerics: its "
@@ -217,10 +267,56 @@ class ServingEngine:
         self.prefill_chunks = tuple(sorted({int(c) for c in prefill_chunks}))
         self.chunked = chunked and bool(self.prefill_chunks)
 
-        self.state = self.runner.init_state(capacity, max_len, self.device)
+        # -- paged KV pool (serving.pages) ---------------------------------
+        # With ``paged=False`` the engine allocates per-slot max_len caches
+        # and nothing below exists on the hot path.
+        self.paged = bool(paged)
+        self.pool: Optional[PagePool] = None
+        self.page_size = 0
+        self.max_pages = 0
+        if self.paged:
+            if not self.runner.paged_ok:
+                raise ValueError(
+                    "paged serving needs append-only full-attention KV "
+                    f"caches; got attention_type={mcfg.attention_type!r}")
+            # The ABFP tile width is the natural page quantum.
+            self.page_size = int(page_size) if page_size else (
+                quant.tile_width if quant.mode != "float"
+                else min(16, max_len))
+            self.max_pages = pages_needed(max_len, self.page_size)
+            self.pool = PagePool(
+                int(pool_pages) if pool_pages else capacity * self.max_pages,
+                self.page_size)
+            self._table = page_table_array(capacity, self.max_pages,
+                                           self.pool.sentinel)
+            self._slot_pages: List[List[int]] = [[] for _ in range(capacity)]
+            self._slot_len = [0] * capacity     # tokens appended per slot
+            self._slot_keys: List[List[int]] = [[] for _ in range(capacity)]
+            self._slot_cap: List[Optional[int]] = [None] * capacity
+        self.prefix_enabled = (self.paged and bool(prefix_cache)
+                               and self.chunked
+                               and self.runner.prefix_cache_ok)
+        self.preemption = (self.paged if preemption is None
+                           else bool(preemption))
+        self.queue_watermark = queue_watermark
+        hi, lo = page_watermarks
+        if not 0.0 < lo <= hi <= 1.0:
+            raise ValueError("page_watermarks must be (hi, lo) in (0, 1] "
+                             "with lo <= hi")
+        self.page_watermarks = (float(hi), float(lo))
+        self.degraded_max_new = degraded_max_new
+        self.tenant_quota = tenant_quota
+        self._degraded = False
+
+        self.state = self.runner.init_state(
+            capacity, max_len, self.device,
+            page_size=self.page_size if self.paged else None,
+            pool_pages=self.pool.num_pages if self.paged else None)
         self.slots: List[Optional[Request]] = [None] * capacity
         self._next_input = np.zeros((capacity,), np.int32)
         self._reset_fn = self.runner.make_reset()
+        self._attach_fn = self.runner.make_attach()
+        self._copy_page_fn = self.runner.make_copy_page()
         self._perf = time.perf_counter
 
         # -- overlapped runtime (serving.stream) ---------------------------
@@ -251,8 +347,8 @@ class ServingEngine:
         self._noisy = quant.mode != "float" and quant.noise_lsb > 0.0
         widest = max((1,) + self.prefill_chunks)
         self._staging = Staging(
-            capacity * (widest + len(FIELDS) - 2) + self.runner.n_seeds(),
-            depth, self.device)
+            PassIO.n_words(capacity, widest, self.runner.n_seeds(),
+                           self.max_pages), depth, self.device)
 
         self.ticks = 0
         self.scheduler = get_scheduler(policy)
@@ -261,6 +357,9 @@ class ServingEngine:
         self._clock = clock             # None => simulated (tick_time/pass)
         self.now = clock() if clock is not None else 0.0
         self._just_finished: List[Request] = []
+        self._returned: List[Request] = []  # finalized outside step():
+                                            # shed + admission-pass expiries
+        self._has_deadlines = False     # set on the first deadline'd request
         #: Host seconds of every delivered pass, by kind ("decode" /
         #: "prefill"), from dispatch to its logits (blocking) or sampled
         #: tokens (overlapped) on the host.
@@ -307,7 +406,8 @@ class ServingEngine:
             io, body = self.runner.make_pass(shape_key, self.params,
                                              self.quant, self.seed,
                                              self.capacity, self.device,
-                                             sample=self.overlap)
+                                             sample=self.overlap,
+                                             max_pages=self.max_pages)
             wp = WarmPass(io, body)
             if self._graphs:
                 wp.graph, wp.launches = self._capture(body)
@@ -329,11 +429,14 @@ class ServingEngine:
 
     def _call(self, shape_key: Tuple, key, **fields) -> Tuple[PassIO, bool]:
         """Run one pass: fill its inputs (one host-to-device copy of the
-        host fields and the pass's seed table from ``key``; rows in
-        ``prev_mask`` take the previous pass's device sample), then replay
-        (or run) it.  Returns (its buffers, warmup)."""
+        host fields, the pass's seed table from ``key`` and, paged, the
+        host page table; rows in ``prev_mask`` take the previous pass's
+        device sample), then replay (or run) it.  Returns (its buffers,
+        warmup)."""
         wp, warm = self._executable(shape_key)
         io = wp.io
+        if self.paged:
+            fields["table"] = self._table
         if self._noisy:
             fields["seeds"] = prng.seed_table(
                 key, self.mcfg.num_layers, self._calls, LM_HEAD_FOLD)
@@ -373,6 +476,10 @@ class ServingEngine:
             self._ov_vals[i] = int(val)
             self._ov_mask[i] = True
 
+    def _clear_ov(self, i: int):
+        self._ov_vals[i] = 0
+        self._ov_mask[i] = False
+
     # -- delivery (the stream's consumer side) ----------------------------
     def _account_dispatch(self, i: int, req: Request) -> TokenRec:
         """Host bookkeeping for one device-sampled token the overlapped
@@ -380,9 +487,12 @@ class ServingEngine:
         the limit, free the slot at once (completion is a count, so the
         next admission can reuse the slot while the token is in flight)."""
         req.dispatched += 1
-        finishing = req.dispatched >= req.max_new_tokens
+        finishing = req.dispatched >= self._limit(i, req)
         if finishing:
+            # Device passes run in dispatch order, so pages released here
+            # cannot be overwritten before this pass's writes land.
             self.slots[i] = None
+            self._release_slot(i, req.tenant)
         return TokenRec(slot=i, req=req, finishing=finishing)
 
     def _submit(self, kind: str, t0: float, warm: bool, io: PassIO,
@@ -433,7 +543,9 @@ class ServingEngine:
 
     def sync(self):
         """Wait until every in-flight pass has delivered its tokens (a
-        no-op on the blocking path)."""
+        no-op on the blocking path).  Called before anything that must see
+        COMPLETE token streams: preemption replay snapshots and deadline
+        expiry."""
         self._stream.sync()
 
     def close(self):
@@ -455,26 +567,75 @@ class ServingEngine:
     def _reset_slot(self, i: int):
         self.state = self._reset_fn(self.state, i)
 
+    def _feed(self, req: Request) -> List[int]:
+        """The token stream this request prefills from: the preemption
+        replay (prompt + tokens already streamed) when resuming, else the
+        prompt."""
+        return req.replay if req.replay is not None else req.prompt
+
+    def _limit(self, i: int, req: Request) -> int:
+        """Tokens slot i's request may generate: its max_new_tokens, or
+        less when it was admitted in degraded mode."""
+        if self.paged and self._slot_cap[i] is not None:
+            return min(req.max_new_tokens, self._slot_cap[i])
+        return req.max_new_tokens
+
     def fits(self, req: Request) -> bool:
         """A request needs a non-empty prompt and must leave room for at
-        least one generated token: prompt + max(1, max_new) <= max_len."""
+        least one generated token: prompt + max(1, max_new) <= max_len.
+        Under paging the bound is the page budget instead: the page table
+        must address the request and the pool (at full eviction) grow it."""
         if len(req.prompt) < 1:
             return False
         total = len(req.prompt) + max(1, req.max_new_tokens)
-        return total <= self.max_len
+        if not self.paged:
+            return total <= self.max_len
+        need = self.runner.capacity_cost(total, self.page_size)
+        return need <= self.max_pages and need <= self.pool.num_pages
+
+    def _should_shed(self, at: float) -> bool:
+        """Admission backpressure for a request arriving NOW: shed when the
+        queue is past its watermark, or when the pool is past the high
+        pressure watermark and the queue already covers the batch."""
+        if (self.queue_watermark is not None
+                and self.scheduler.pending(at) >= self.queue_watermark):
+            return True
+        return (self.paged and self.pool.pressure() >= self.page_watermarks[0]
+                and self.scheduler.pending(at) >= self.capacity)
+
+    def _retry_after(self, at: float) -> float:
+        """The engine-clock time a shed client should retry at: backlog /
+        capacity service rounds at the observed mean E2E (8 ticks before
+        any request has finished)."""
+        fin = [r.e2e for r in self.metrics.finished() if r.e2e is not None]
+        est = float(np.mean(fin)) if fin else self.tick_time * 8
+        backlog = self.scheduler.pending(at) + sum(
+            1 for s in self.slots if s is not None)
+        return at + est * max(1.0, backlog / max(1, self.capacity))
 
     def submit(self, req: Request) -> bool:
         """Enqueue a request for arrival-driven admission (``arrival_time``
         defaults to now).  Oversized requests are rejected (marked done,
-        recorded in metrics): returns False."""
-        if req.deadline is not None:
-            raise NotImplementedError("deadlines are not ported")
+        recorded in metrics); under the backpressure watermarks an arriving
+        request is SHED (``shed`` with a ``retry_after`` hint, returned by
+        the next ``poll()``).  Returns False for both."""
         if not self.fits(req):
             req.done = True
             self.metrics.on_reject(req.uid)
             return False
         if req.arrival_time is None:
             req.arrival_time = self.now
+        if req.arrival_time <= self.now and self._should_shed(
+                req.arrival_time):
+            req.done = True
+            req.shed = True
+            req.retry_after = self._retry_after(req.arrival_time)
+            self.metrics.on_shed(req.uid, tenant=req.tenant,
+                                 retry_after=req.retry_after)
+            self._returned.append(req)
+            return False
+        if req.deadline is not None:
+            self._has_deadlines = True
         self.metrics.on_submit(req.uid, arrival_time=req.arrival_time,
                                tenant=req.tenant,
                                prompt_len=len(req.prompt))
@@ -490,34 +651,104 @@ class ServingEngine:
         for i, slot in enumerate(self.slots):
             if slot is None:
                 self._reset_slot(i)
+                self._clear_ov(i)   # stale override from a past occupant
                 self.slots[i] = req
                 if req.arrival_time is None:
                     req.arrival_time = self.now
+                if req.deadline is not None:
+                    self._has_deadlines = True
                 self.metrics.on_admit(req.uid, self.now, tenant=req.tenant,
                                       prompt_len=len(req.prompt),
                                       arrival_time=req.arrival_time)
+                if self.paged:
+                    self._table[i, :] = self.pool.sentinel
+                    self._slot_pages[i] = []
+                    self._slot_len[i] = 0
+                    self._slot_keys[i] = []
+                    # Degraded mode caps generation for admissions made
+                    # under pressure (never below what a resumed request
+                    # already streamed).
+                    self._slot_cap[i] = None
+                    if self._degraded and self.degraded_max_new is not None:
+                        self._slot_cap[i] = max(self.degraded_max_new,
+                                                len(req.generated) + 1)
                 if self.chunked:
                     req.prompt_pos = 0      # consumed by prefill passes
+                    if self.prefix_enabled:
+                        self._attach_prefix(i, req)
                 else:
                     # Prefill-in-decode: one prompt token per tick.
-                    self._set_next(i, req.prompt[0])
+                    self._set_next(i, self._feed(req)[0])
                     req.prompt_pos = 1
                 return True
         return False
 
+    def _admissible(self, req: Request) -> bool:
+        """Pop-time admission filter: the tenant's page quota and some
+        pool room.  Requests failing it are SKIPPED, not dequeued, so one
+        greedy tenant never blocks the rest of the queue."""
+        return self._quota_ok(req) and self.pool.available() >= 1
+
+    def _quota_ok(self, req: Request) -> bool:
+        """Per-tenant page quota against PROJECTED footprints: each live
+        slot of the tenant is charged its full eventual pages (pages grow
+        lazily, so current holdings would let a tenant admit several
+        requests "under quota" in one pass).  A tenant with nothing in
+        flight always passes: a quota throttles, it never starves."""
+        if self.tenant_quota is None or self.pool is None:
+            return True
+        live = [r for r in self.slots
+                if r is not None and r.tenant == req.tenant]
+        if not live and self.pool.tenant_held(req.tenant) == 0:
+            return True
+        charged = sum(
+            self.runner.capacity_cost(
+                len(r.prompt) + max(1, r.max_new_tokens), self.page_size)
+            for r in live)
+        remaining = max(1, req.max_new_tokens - len(req.generated))
+        need = self.runner.capacity_cost(
+            len(self._feed(req)) + remaining, self.page_size)
+        return charged + need <= self.tenant_quota
+
     def _admit_arrived(self) -> List[Request]:
         """Fill free slots from the queue (policy order) with requests that
-        have arrived by the current clock."""
+        have arrived by the current clock.  Queue expiry runs first: a
+        requeued request whose deadline has passed is timed out, never
+        re-admitted."""
+        if self._has_deadlines:
+            self._returned.extend(self._expire_queue())
         admitted: List[Request] = []
         free = self.slots.count(None)
         while free > 0:
-            req = self.scheduler.pop(self.now)
+            req = self.scheduler.pop(
+                self.now, self._admissible if self.paged else None)
             if req is None:
                 break
             self.try_admit(req)     # a slot is free; fits() held at submit
             admitted.append(req)
             free -= 1
+        if self.paged and self.preemption:
+            self._priority_claim(admitted)
         return admitted
+
+    def _priority_claim(self, admitted: List[Request]):
+        """Under saturation a strictly-higher-priority arrival claims a
+        slot (and its pages) by preempting the lowest-priority live
+        request; ties and lower priorities wait their turn."""
+        while True:
+            top = self.scheduler.peek(self.now, self._quota_ok)
+            if top is None:
+                return
+            if self.slots.count(None) and self.pool.available() >= 1:
+                return              # normal admission will take it
+            victims = [i for i, s in enumerate(self.slots)
+                       if s is not None and s.priority < top.priority]
+            if not victims:
+                return
+            self._preempt_slot(min(victims, key=self._victim_key))
+            self.scheduler.remove(top)
+            self.try_admit(top)
+            admitted.append(top)
 
     # -- sampling -------------------------------------------------------------
     def _record(self, i: int, req: Request, logits_row: np.ndarray):
@@ -539,31 +770,233 @@ class ServingEngine:
         self.metrics.on_token(req.uid, self.now)
         if req.on_token is not None:
             req.on_token(req, nxt)
-        if len(req.generated) >= req.max_new_tokens:
+        if len(req.generated) >= self._limit(i, req):
             req.done = True
             self.slots[i] = None            # free for the next request
+            self._release_slot(i, req.tenant)
             self.metrics.on_finish(req.uid, self.now)
             self._just_finished.append(req)
+
+    # -- paged pool management --------------------------------------------
+    def _release_slot(self, i: int, tenant: str):
+        """Return slot i's pages to the pool and clear its host mirrors
+        (pages the prefix cache also holds stay allocated for reuse)."""
+        if not self.paged:
+            return
+        if self._slot_pages[i]:
+            self.pool.release(self._slot_pages[i], tenant)
+        self._slot_pages[i] = []
+        self._slot_len[i] = 0
+        self._slot_keys[i] = []
+        self._slot_cap[i] = None
+        self._table[i, :] = self.pool.sentinel
+
+    def _victim_key(self, i: int) -> Tuple:
+        """Preemption order: lowest priority, then youngest arrival, then
+        largest uid."""
+        s = self.slots[i]
+        return (s.priority, -(s.arrival_time or 0.0), -s.uid)
+
+    def _preempt_slot(self, i: int):
+        """Evict slot i to the queue with a recompute plan: its pages go
+        back to the pool now, and ``req.replay`` snapshots prompt + every
+        token already streamed, so the resume prefills the same stream."""
+        self.sync()     # the replay snapshot needs every in-flight token
+        req = self.slots[i]
+        self.slots[i] = None
+        self._next_input[i] = 0
+        self._clear_ov(i)
+        self._release_slot(i, req.tenant)
+        req.replay = list(req.prompt) + list(req.generated)
+        req.prompt_pos = 0
+        req.preempted += 1
+        self.metrics.on_preempt(req.uid, self.now)
+        self.scheduler.requeue(req)
+
+    def _preempt_for(self, req: Request) -> bool:
+        """Free pages for ``req`` by preempting a live victim that does not
+        outrank it (strictly lower priority, or the same priority and not
+        older).  False when there is none."""
+        cand = [i for i, s in enumerate(self.slots)
+                if s is not None and s is not req
+                and (s.priority < req.priority
+                     or (s.priority == req.priority
+                         and (s.arrival_time or 0.0)
+                         >= (req.arrival_time or 0.0)))]
+        if not cand:
+            return False
+        self._preempt_slot(min(cand, key=self._victim_key))
+        return True
+
+    def _chunk_cap(self) -> int:
+        """Largest prefill chunk this pass: degraded mode drops to the
+        smallest bucket so admission bursts stay small under pressure."""
+        if self.paged and self._degraded:
+            return self.prefill_chunks[0]
+        return self.prefill_chunks[-1] if self.prefill_chunks else 1
+
+    def _update_degraded(self):
+        """Hysteretic degraded mode: enter at the high pool-pressure
+        watermark, leave only at the low one."""
+        hi, lo = self.page_watermarks
+        p = self.pool.pressure()
+        if not self._degraded and p >= hi:
+            self._degraded = True
+            self.metrics.on_degraded(True, self.now)
+        elif self._degraded and p <= lo:
+            self._degraded = False
+            self.metrics.on_degraded(False, self.now)
+
+    def _grow_slot(self, i: int, req: Request, need: int) -> bool:
+        """Make slot i's next ``need`` positions writable: split shared
+        pages in the write range (copy-on-write), allocate missing pages,
+        and when the pool is dry preempt non-outranking victims (slot i
+        itself last, returning False)."""
+        extra, writes = plan_chunk(self._slot_len[i], need,
+                                   self._slot_pages[i], self.page_size)
+        for j in writes:
+            p = self._slot_pages[i][j]
+            newp = self.pool.cow(p, req.tenant)
+            while newp is None:
+                if not self._preempt_for(req):
+                    self._preempt_slot(i)
+                    return False
+                newp = self.pool.cow(p, req.tenant)
+            if newp != p:
+                self.state = self._copy_page_fn(self.state, p, newp)
+                self._slot_pages[i][j] = newp
+                self._table[i, j] = newp
+                self.metrics.on_cow()
+        while extra > 0:
+            got = self.pool.alloc(extra, req.tenant)
+            if got is not None:
+                base = len(self._slot_pages[i])
+                self._table[i, base:base + len(got)] = got
+                self._slot_pages[i].extend(got)
+                break
+            if not self._preempt_for(req):
+                self._preempt_slot(i)
+                return False
+        return True
+
+    def _ensure_pages(self, live: List[int]) -> List[int]:
+        """Before a pass, give every live slot writable pages for the
+        tokens it is about to append; higher-priority, older slots claim
+        first, so exhaustion preempts the requests that should yield.
+        Returns the surviving live slots."""
+        cap = self._chunk_cap()
+        order = sorted(live, key=lambda i: (-self.slots[i].priority,
+                                            self.slots[i].arrival_time or 0.0,
+                                            self.slots[i].uid))
+        for i in order:
+            req = self.slots[i]
+            if req is None:
+                continue            # preempted by an earlier claimant
+            rem = len(self._feed(req)) - req.prompt_pos
+            self._grow_slot(i, req, min(rem, cap) if rem > 0 else 1)
+        return [i for i in live if self.slots[i] is not None]
+
+    def _attach_prefix(self, i: int, req: Request):
+        """Prefix-cache attach at admission: walk the prompt's full-page
+        chain keys through the pool's cache; every hit is SHARED, never
+        re-prefilled.  A whole-prompt hit backs off one token, which is
+        re-fed to produce the first logits (its write splits the shared
+        last page)."""
+        toks = self._feed(req)
+        key = None
+        matched: List[Tuple[int, int]] = []
+        pos = 0
+        while pos + self.page_size <= len(toks):
+            key = prefix_key(key, toks[pos:pos + self.page_size])
+            p = self.pool.lookup(key)
+            if p is None:
+                break
+            matched.append((key, p))
+            pos += self.page_size
+        if not matched:
+            return
+        pages = [p for _, p in matched]
+        self.pool.share(pages, req.tenant)
+        self._slot_pages[i] = pages
+        self._slot_keys[i] = [k for k, _ in matched]
+        self._table[i, :len(pages)] = pages
+        attached = min(pos, len(toks) - 1)
+        self._slot_len[i] = attached
+        req.prompt_pos = attached
+        self.state = self._attach_fn(self.state, i, attached)
+        self.metrics.on_prefix(len(matched))
+
+    def _register_prefix(self, i: int, req: Request):
+        """Publish slot i's fully prefilled PROMPT pages under their chain
+        keys (fresh requests only: a replay would put generated tokens in
+        the cache)."""
+        if req.replay is not None:
+            return
+        full = min(req.prompt_pos, len(req.prompt)) // self.page_size
+        while len(self._slot_keys[i]) < full:
+            j = len(self._slot_keys[i])
+            block = req.prompt[j * self.page_size:(j + 1) * self.page_size]
+            prev = self._slot_keys[i][-1] if self._slot_keys[i] else None
+            key = prefix_key(prev, block)
+            self._slot_keys[i].append(key)
+            if j < len(self._slot_pages[i]):
+                self.pool.register(key, self._slot_pages[i][j])
+
+    # -- deadlines --------------------------------------------------------
+    def _expire_slots(self):
+        """Cancel in-flight requests past their deadline and free their
+        slots at once (the next admission resets the state)."""
+        for i, req in enumerate(self.slots):
+            if (req is not None and req.deadline is not None
+                    and req.deadline <= self.now):
+                self.slots[i] = None
+                self._release_slot(i, req.tenant)
+                req.done = True
+                req.timed_out = True
+                self.metrics.on_timeout(req.uid, self.now)
+                self._just_finished.append(req)
+
+    def _expire_queue(self) -> List[Request]:
+        """Time out queued requests whose deadline already passed."""
+        expired = self.scheduler.expire(self.now)
+        for req in expired:
+            req.done = True
+            req.timed_out = True
+            self.metrics.on_timeout(req.uid, self.now)
+        return expired
 
     # -- one engine tick ------------------------------------------------------
     def step(self):
         self._just_finished = []
+        if self._has_deadlines:
+            if self.overlap:
+                self.sync()     # cancel only COMPLETE streams
+            self._expire_slots()
+            self._just_finished.extend(self._expire_queue())
         live = [i for i, s in enumerate(self.slots) if s is not None]
+        if self.paged:
+            self._update_degraded()
+            if live:
+                # Claim, split and grow pages for every token this pass
+                # appends; pool exhaustion preempts here, before the pass.
+                live = self._ensure_pages(live)
         if not live:
             return
         self.metrics.on_tick(self.now, len(live), self.capacity,
-                             self.scheduler.pending(self.now))
+                             self.scheduler.pending(self.now),
+                             pool=self.pool.stats() if self.paged else None,
+                             degraded=self._degraded)
         prefilling = [i for i in live
                       if self.slots[i].prompt_pos
-                      < len(self.slots[i].prompt)]
+                      < len(self._feed(self.slots[i]))]
         if self.chunked and prefilling:
-            if all(len(self.slots[i].prompt) - self.slots[i].prompt_pos
+            if all(len(self._feed(self.slots[i])) - self.slots[i].prompt_pos
                    == 1 for i in prefilling):
                 # Every prefilling slot has exactly ONE prompt token left:
                 # feed it as the decode input instead of a padded chunk.
                 for i in prefilling:
                     req = self.slots[i]
-                    self._set_next(i, req.prompt[req.prompt_pos])
+                    self._set_next(i, self._feed(req)[req.prompt_pos])
                     req.prompt_pos += 1
                 self._decode_tick()
             else:
@@ -590,11 +1023,11 @@ class ServingEngine:
         on the blocking path, or from the previous pass's device sample
         (``prev_mask``) on the overlapped path, unless a host override is
         pending."""
-        cap = self.prefill_chunks[-1]
+        cap = self._chunk_cap()
         need = np.zeros((self.capacity,), np.int32)
         for i in live:
             req = self.slots[i]
-            rem = len(req.prompt) - req.prompt_pos
+            rem = len(self._feed(req)) - req.prompt_pos
             need[i] = min(rem, cap) if rem > 0 else 1
         bucket = next(c for c in self.prefill_chunks if c >= need.max())
 
@@ -602,9 +1035,10 @@ class ServingEngine:
         riders = np.zeros((self.capacity,), bool)
         for i in live:
             req = self.slots[i]
-            if req.prompt_pos < len(req.prompt):
+            toks = self._feed(req)
+            if req.prompt_pos < len(toks):
                 n = int(need[i])
-                tokens[i, :n] = req.prompt[req.prompt_pos:req.prompt_pos + n]
+                tokens[i, :n] = toks[req.prompt_pos:req.prompt_pos + n]
             elif (self.overlap and self._dev_next is not None
                     and not self._ov_mask[i]):
                 riders[i] = True    # input = previous device sample
@@ -624,33 +1058,33 @@ class ServingEngine:
 
         # Recipients: slots whose prompt completes this pass, or riders.
         recipients = [i for i in live
-                      if (len(self.slots[i].prompt) - self.slots[i].prompt_pos
-                          <= int(need[i]))]
+                      if (len(self._feed(self.slots[i]))
+                          - self.slots[i].prompt_pos <= int(need[i]))]
         if not self.overlap:
             lg = (self._fetch_logits("prefill", t0, io.logits, warm)
                   if recipients else None)
-            self._tick_clock()
-            for i in live:
-                req = self.slots[i]
-                if req.prompt_pos < len(req.prompt):
-                    req.prompt_pos += int(need[i])
-                    if req.prompt_pos < len(req.prompt):
-                        continue        # still prefilling; logits unused
-                # Prompt just completed (logits are at its last prompt
-                # token) or the slot was decoding: sample either way.
-                self._record(i, req, lg[i])
-            return
-
         self._tick_clock()
+        if self.paged:
+            for i in live:
+                self._slot_len[i] += int(need[i])
         recs: List[TokenRec] = []
         for i in live:
             req = self.slots[i]
-            if req.prompt_pos < len(req.prompt):
+            toks = self._feed(req)
+            if req.prompt_pos < len(toks):
                 req.prompt_pos += int(need[i])
-                if req.prompt_pos < len(req.prompt):
-                    continue
-            recs.append(self._account_dispatch(i, req))
-        self._submit("prefill", t0, warm, io, recs)
+                if self.prefix_enabled:
+                    self._register_prefix(i, req)
+                if req.prompt_pos < len(toks):
+                    continue        # still prefilling; logits unused
+            # Prompt just completed (logits are at its last prompt token)
+            # or the slot was decoding: sample either way.
+            if self.overlap:
+                recs.append(self._account_dispatch(i, req))
+            else:
+                self._record(i, req, lg[i])
+        if self.overlap:
+            self._submit("prefill", t0, warm, io, recs)
 
     def _decode_tick(self):
         fed = [i for i, s in enumerate(self.slots) if s is not None]
@@ -674,44 +1108,44 @@ class ServingEngine:
 
         recipients = [i for i in fed
                       if self.slots[i].prompt_pos
-                      >= len(self.slots[i].prompt)]
+                      >= len(self._feed(self.slots[i]))]
         if not self.overlap:
             lg = (self._fetch_logits("decode", t0, io.logits, warm)
                   if recipients else None)
-            self._tick_clock()
-            for i, req in enumerate(self.slots):
-                if req is None:
-                    continue
-                if req.prompt_pos < len(req.prompt):
-                    # prefill-in-decode: feed the next prompt token
-                    self._set_next(i, req.prompt[req.prompt_pos])
-                    req.prompt_pos += 1
-                    continue
-                self._record(i, req, lg[i])
-            return
-
         self._tick_clock()
+        if self.paged:
+            for i in fed:
+                self._slot_len[i] += 1
         recs: List[TokenRec] = []
         for i in fed:
             req = self.slots[i]
-            if req.prompt_pos < len(req.prompt):
-                self._set_next(i, req.prompt[req.prompt_pos])
+            toks = self._feed(req)
+            if req.prompt_pos < len(toks):
+                # prefill-in-decode: feed the next prompt token
+                self._set_next(i, toks[req.prompt_pos])
                 req.prompt_pos += 1
-                continue
-            recs.append(self._account_dispatch(i, req))
-        self._submit("decode", t0, warm, io, recs)
+            elif self.overlap:
+                recs.append(self._account_dispatch(i, req))
+            else:
+                self._record(i, req, lg[i])
+        if self.overlap:
+            self._submit("decode", t0, warm, io, recs)
 
     # -- open-loop API ----------------------------------------------------
     def poll(self) -> List[Request]:
         """One arrival-driven round: sync the clock, admit every arrived
         request the policy picks, run one ``step()``.  Returns the requests
         that finished during this poll (on the overlapped path: whose last
-        token was delivered).  With the simulated clock an idle engine
-        jumps to the next arrival; with a wall clock it naps (capped) and
+        token was delivered), plus those finalized outside a step since the
+        last poll: shed submissions and queued requests that timed out in
+        an admission pass.  With the simulated clock an idle engine jumps
+        to the next arrival; with a wall clock it naps (capped) and
         re-reads the clock."""
         if self._clock is not None:
             self.now = self._clock()
-        out = self._drain_delivered()
+        out = self._returned
+        self._returned = []
+        out.extend(self._drain_delivered())
         self._admit_arrived()
         if all(s is None for s in self.slots):
             if self._stream.pending():
@@ -733,11 +1167,13 @@ class ServingEngine:
         return out + list(self._just_finished)
 
     def drain(self) -> List[Request]:
-        """Poll until the queue, every slot and the in-flight stream are
-        empty; returns finished requests in completion order."""
+        """Poll until the queue, every slot, the in-flight stream and the
+        returned buffer are empty; returns finished requests in completion
+        order."""
         finished: List[Request] = []
         while (len(self.scheduler)
                or any(s is not None for s in self.slots)
+               or self._returned
                or self._stream.pending()
                or self._delivered):
             finished.extend(self.poll())
@@ -746,10 +1182,11 @@ class ServingEngine:
     def run(self, requests: List[Request]) -> List[Request]:
         """Serve a static workload to completion under the engine's policy.
         Oversized requests are rejected up front (marked done, nothing
-        generated) and returned first."""
+        generated) and returned first; shed requests come back through
+        ``drain()``'s polls, so nothing is returned twice."""
         finished: List[Request] = []
         for r in requests:
-            if not self.submit(r):
+            if not self.submit(r) and not r.shed:
                 finished.append(r)
         finished.extend(self.drain())
         return finished

@@ -2,13 +2,15 @@
 ``repro_torch.models``.
 
 A runner owns what the engine must know about one model family: how to
-allocate the batched decode state (``init_state``), the pass of each
-shape the engine runs (``make_pass``: the decode tick ``("decode",)`` or a
-chunk pass ``("prefill", bucket)``; either with ``"draw"`` appended
-when a row samples at a temperature) and the
-per-slot state reset (``make_reset``).  Only the dense decoder-only family
-with unpaged KV caches is ported.  Passes update the decode state in
-place: every state tensor keeps its storage.
+allocate the batched decode state (``init_state``, unpaged or PAGED), the
+pass of each shape the engine runs (``make_pass``: the decode tick
+``("decode",)`` or a chunk pass ``("prefill", bucket)``; either with
+``"draw"`` appended when a row samples at a temperature), the slot-state
+edits run between passes (``make_reset`` at admission, ``make_attach``
+for a prefix-cache hit, ``make_copy_page`` for a copy-on-write split) and
+what a request costs in pages (``capacity_cost``).  Only the dense
+decoder-only family is ported.  Passes and the edits update the decode
+state in place: every state tensor keeps its storage.
 
 Static buffers
 --------------
@@ -16,8 +18,11 @@ Each pass shape owns its inputs and outputs (``PassIO``), allocated once
 on the engine's device: one int32 word array holds the tokens, the
 per-row token counts, the previous-sample mask, the sampling inputs and
 the pass's seed table, and the host fills it with ONE copy per pass from
-pinned memory (``Staging``); ``prev`` takes the previous pass's device
-sample by a device-to-device copy; ``logits`` (B, V) f32 and ``sampled``
+pinned memory (``Staging``); under paging it also holds the (B, MP)
+page table, which the pass body copies into ``state["page_table"]``
+before the layers read it, so a replay runs under each pass's table;
+``prev`` takes the previous pass's device sample by a device-to-device
+copy; ``logits`` (B, V) f32 and ``sampled``
 (B,) int32 are written by the pass.  The pass body reads nothing else
 that varies, so a CUDA graph captured from it replays with each pass's
 values (``serving.engine``).
@@ -25,7 +30,7 @@ values (``serving.engine``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,26 +45,36 @@ from repro_torch.models.lm import (
     prefill,
     sample_tokens,
 )
+from repro_torch.serving.pages import pages_needed
 
 Tensor = torch.Tensor
 
 # The int32 words of a pass's inputs, in order; "tokens" holds B x width
-# words, "seeds" the seed table, every other field B.
+# words, "seeds" the seed table, "table" the B x MP page table (none
+# unpaged), every other field B.
 FIELDS = ("tokens", "n_tokens", "prev_mask", "temps", "uids", "idxs",
-          "seeds")
+          "seeds", "table")
+
+
+def _field_sizes(capacity: int, width: int, n_seeds: int,
+                 max_pages: int) -> Dict[str, int]:
+    sizes = {f: capacity for f in FIELDS}
+    sizes.update(tokens=capacity * width, seeds=n_seeds,
+                 table=capacity * max_pages)
+    return sizes
 
 
 class PassIO:
     """The static inputs and outputs of one pass shape on ``device``:
-    ``capacity`` rows of ``width`` tokens (1 for the decode tick) and a
-    seed table of ``n_seeds`` entries.  ``words`` is the int32 array the
-    host fills; the named fields are views of it (``temps`` as f32)."""
+    ``capacity`` rows of ``width`` tokens (1 for the decode tick), a seed
+    table of ``n_seeds`` entries and, under paging, a (capacity,
+    ``max_pages``) page table.  ``words`` is the int32 array the host
+    fills; the named fields are views of it (``temps`` as f32)."""
 
     def __init__(self, capacity: int, width: int, n_seeds: int, vocab: int,
-                 device):
+                 device, max_pages: int = 0):
         b = capacity
-        sizes = {f: b for f in FIELDS}
-        sizes.update(tokens=b * width, seeds=n_seeds)
+        sizes = _field_sizes(capacity, width, n_seeds, max_pages)
         self.capacity, self.width = capacity, width
         self.offsets: Dict[str, Tuple[int, int]] = {}
         at = 0
@@ -75,10 +90,18 @@ class PassIO:
         self.uids = view["uids"]
         self.idxs = view["idxs"]
         self.seeds = view["seeds"]
+        self.table = view["table"].view(b, max_pages) if max_pages else None
         self.prev = torch.zeros(b, dtype=torch.int32, device=device)
         self.logits = torch.zeros((b, vocab), dtype=torch.float32,
                                   device=device)
         self.sampled = torch.zeros(b, dtype=torch.int32, device=device)
+
+    @staticmethod
+    def n_words(capacity: int, width: int, n_seeds: int,
+                max_pages: int = 0) -> int:
+        """The int32 words of a pass shape's inputs."""
+        return sum(_field_sizes(capacity, width, n_seeds,
+                                max_pages).values())
 
     def pack(self, **fields) -> np.ndarray:
         """The host word array of one pass from numpy fields (missing
@@ -120,21 +143,36 @@ class Staging:
 
 
 class DecoderRunner:
-    """Decoder-only full-attention LM with unpaged per-slot KV caches."""
+    """Decoder-only full-attention LM: KV caches grow per token and may
+    live in the shared page pool."""
+
+    #: The port's decoders are full attention (``check_supported``): their
+    #: KV may page, and prefix pages may be shared across requests.
+    paged_ok = True
+    prefix_cache_ok = True
 
     def __init__(self, mcfg: ModelConfig):
         self.mcfg = mcfg
 
     def init_state(self, capacity: int, max_len: int,
-                   device: DeviceLike = None) -> dict:
-        return init_decode_state(self.mcfg, capacity, max_len, device)
+                   device: DeviceLike = None, *,
+                   page_size: Optional[int] = None,
+                   pool_pages: Optional[int] = None) -> dict:
+        return init_decode_state(self.mcfg, capacity, max_len, device,
+                                 page_size=page_size, pool_pages=pool_pages)
 
     def n_seeds(self) -> int:
         """Entries of a pass's seed table (``core.prng.seed_table``)."""
         return self.mcfg.num_layers * calls_per_layer(self.mcfg) + 1
 
+    def capacity_cost(self, total_tokens: int, page_size: int) -> int:
+        """Pages a request of ``total_tokens`` (prompt + max_new) occupies
+        at full length."""
+        return pages_needed(total_tokens, page_size)
+
     def make_pass(self, shape_key: tuple, params, quant, seed: int,
-                  capacity: int, device, sample: bool = True
+                  capacity: int, device, sample: bool = True,
+                  max_pages: int = 0
                   ) -> Tuple[PassIO, Callable[[dict], None]]:
         """The static buffers and the body of one pass shape: ``("decode",)``
         or ``("prefill", bucket)``, with ``"draw"`` appended for a pass in
@@ -144,7 +182,9 @@ class DecoderRunner:
         the ``PassIO``: each row's input token is ``prev`` where
         ``prev_mask`` is set (the previous pass's device sample) and its
         host token otherwise; a prefill row takes ``n_tokens`` tokens of its
-        chunk.  Noise seeds come from ``seeds``.  The body writes the
+        chunk.  Noise seeds come from ``seeds``; with ``max_pages`` (a paged
+        state) the body first copies ``table`` into ``state["page_table"]``.
+        The body writes the
         logits at each row's last real token and, with ``sample``, the
         next token sampled on the device (the overlapped engine's tokens;
         the blocking engine samples on the host and skips it): the argmax,
@@ -155,11 +195,13 @@ class DecoderRunner:
         draw = shape_key[-1] == "draw"
         width = 1 if decode else int(shape_key[1])
         io = PassIO(capacity, width, self.n_seeds(), self.mcfg.vocab_size,
-                    device)
+                    device, max_pages)
         calls = calls_per_layer(self.mcfg)
         mcfg = self.mcfg
 
         def body(state: dict) -> None:
+            if io.table is not None:
+                state["page_table"].copy_(io.table)
             first = torch.where(io.prev_mask != 0, io.prev, io.tokens[:, 0])
             nx = Numerics(quant, seeds=io.seeds, calls=calls)
             if decode:
@@ -179,15 +221,42 @@ class DecoderRunner:
 
     def make_reset(self):
         """The slot reset ``(state, i) -> state``: zero every per-slot
-        entry of row i (caches, lengths, position), in place."""
+        entry of row i (caches, lengths, position), in place.  The page
+        pools are global (other slots hold their pages) and the page table
+        is the engine's (filled by every pass), so both stay."""
         def _reset(state, i):
             for layer in state["layers"]:
-                for t in layer["kv"].values():
-                    t[i] = 0
+                for name, t in layer["kv"].items():
+                    if not name.endswith("_pages"):
+                        t[i] = 0
             state["position"][i] = 0
             return state
 
         return _reset
+
+    def make_attach(self):
+        """The prefix-cache attach ``(state, i, length) -> state``: slot i
+        starts mid-sequence, its cache lengths and rope position at
+        ``length`` (the shared prefix), in place."""
+        def _attach(state, i, length):
+            for layer in state["layers"]:
+                layer["kv"]["length"][i] = length
+            state["position"][i] = length
+            return state
+
+        return _attach
+
+    def make_copy_page(self):
+        """The copy-on-write page copy ``(state, src, dst) -> state``: page
+        ``src`` duplicated into ``dst`` in every layer's pools, in place."""
+        def _copy_page(state, src, dst):
+            for layer in state["layers"]:
+                for name, t in layer["kv"].items():
+                    if name.endswith("_pages"):
+                        t[dst].copy_(t[src])
+            return state
+
+        return _copy_page
 
 
 def state_tensors(state) -> list:

@@ -19,9 +19,10 @@ re-read after an idle nap), the bounded stream, the utilization gauge,
 and that a pass keeps every state tensor's storage (a captured graph
 reads its state at fixed addresses).
 
-No analogue yet: the mesh (ROADMAP queue 1 item 11), preemption-resume
-(item 9) and fault-recovery (item 10) overlap cases of the JAX suite wait
-for those slices of the port.
+The preemption-resume overlap case is in ``tests/test_torch_overload.py``.
+No analogue yet: the mesh (ROADMAP queue 1 item 5) and fault-recovery
+(item 4) overlap cases of the JAX suite wait for those slices of the
+port.
 """
 
 import dataclasses

@@ -802,6 +802,98 @@ def test_cuda_capture_leaves_the_state_untouched():
         assert torch.equal(t, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_key", [("decode",), ("prefill", 8)],
+                         ids=["decode", "prefill8"])
+def test_cuda_paged_replay_equals_eager_under_two_tables(shape_key):
+    """A paged pass reads its page table from device memory: two passes
+    with two keys AND two different page tables, by replay and eagerly
+    through the kernels, from the same state, give bit-equal logits,
+    sampled tokens and page pools; the keys' logits differ (neither the
+    seeds nor the first capture's pages are frozen)."""
+    _need_cuda()
+    import time
+
+    from repro_torch.core import prng
+
+    graph, eager, mcfg = _smoke_engines(clock=time.perf_counter,
+                                        overlap=True, paged=True,
+                                        page_size=16, pool_pages=12)
+    b, mp = graph.capacity, graph.max_pages
+    assert mp == 4 and graph.pool.num_pages == 12
+    width = 1 if shape_key[0] == "decode" else shape_key[1]
+    rng = np.random.default_rng(2)
+    fields = dict(tokens=rng.integers(1, mcfg.vocab_size, (b, width)),
+                  n_tokens=np.array([width, 1, 0, 2][:b]),
+                  prev_mask=np.zeros(b, bool), temps=np.zeros(b, np.float32),
+                  uids=np.arange(b), idxs=np.arange(b))
+    # Two layouts of the 12 pages over the 4 rows (sentinel 12 elsewhere);
+    # row 2 is dead in the first and live in the second.
+    tables = (np.array([[3, 7, 12, 12], [0, 12, 12, 12],
+                        [12, 12, 12, 12], [5, 9, 1, 12]], np.int32),
+              np.array([[11, 2, 12, 12], [4, 6, 12, 12],
+                        [8, 12, 12, 12], [10, 12, 12, 12]], np.int32))
+    outs = []
+    for t, (key, table) in enumerate(zip((prng.PRNGKey(1), prng.PRNGKey(2)),
+                                         tables)):
+        got = []
+        for eng in (graph, eager):
+            eng._table[:] = table
+            io, _ = eng._call(shape_key, key, **fields)
+            got.append((io.logits.clone(), io.sampled.clone()))
+        torch.cuda.synchronize()
+        assert graph._passes[shape_key].graph is not None
+        (lg, sg), (le, se) = got
+        assert torch.equal(lg, le), f"pass {t}: logits differ"
+        assert torch.equal(sg, se), f"pass {t}: sampled tokens differ"
+        assert torch.isfinite(lg).all()
+        for la, le_ in zip(graph.state["layers"], eager.state["layers"]):
+            for n, a in la["kv"].items():
+                # The scratch page takes the dropped writes in no order.
+                e = le_["kv"][n]
+                if n.endswith("_pages"):
+                    a, e = a[:-1], e[:-1]
+                assert torch.equal(a, e), f"pass {t}: {n} differs"
+        assert torch.equal(graph.state["page_table"].cpu(),
+                           torch.from_numpy(table))
+        outs.append(lg)
+    assert not torch.equal(outs[0], outs[1])
+    graph.close()
+    eager.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_cuda_paged_scatter_drops_without_a_device_assert(dtype):
+    """Sentinel entries, positions past the table and padding lanes go to
+    the scratch page: on the card the scatter raises no device assert and
+    writes what the plain CPU run writes."""
+    _need_cuda()
+    from repro_torch.models.layers import _paged_scatter
+
+    np_, ps, kh, d = 6, 4, 2, 8
+    table = torch.tensor([[2, 5, np_], [np_, np_, np_], [0, 1, 3]],
+                         dtype=torch.int32)
+    pos = torch.tensor([[5, 6, 7, 8, 9], [0, 1, 2, 3, 4],
+                        [11, 12, 13, 40, 1000]], dtype=torch.int32)
+    valid = torch.tensor([[True, True, False, True, False]] * 3)
+    gen = torch.Generator().manual_seed(0)
+    if dtype == torch.int8:
+        vals = torch.randint(-127, 128, (3, 5, kh, d), generator=gen,
+                             dtype=torch.int8)
+    else:
+        vals = torch.randn((3, 5, kh, d), generator=gen).to(dtype)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        pool = torch.zeros((np_ + 1, ps, kh, d), dtype=dtype, device=dev)
+        _paged_scatter([pool], table.to(dev), pos.to(dev), [vals.to(dev)],
+                       valid.to(dev))
+        outs.append(pool[:np_].cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert outs[0].abs().sum() > 0          # the live lanes wrote
+
+
 # ---------------------------------------------------------------------------
 # The straight-through Functions over kernels 1 and 4 (QAT on the card)
 # ---------------------------------------------------------------------------

@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.models.convert", "repro_torch.core.dnf",
                 "repro_torch.training.finetune",
                 "repro_torch.distributed.fault",
-                "repro_torch.serving.stream", "repro_torch.core.tree",
+                "repro_torch.serving.stream", "repro_torch.serving.pages",
+                "repro_torch.core.tree",
                 "repro_torch.kernels.ref", "repro_torch.optim.optimizers",
                 "repro_torch.distributed.collectives",
                 "repro_torch.training.train_lib",

@@ -1,6 +1,6 @@
 """The port's serving engine: token streams against the JAX engine, the
-scheduler policies, conservation and latency on the simulated clock, and
-the options the port does not take.
+scheduler policies, conservation, deadlines and latency on the simulated
+clock, and the options the port does not take.
 
 Stream parity: the same 6 requests (prompts of 3-40 tokens) go through
 ``repro.serving.ServingEngine.run`` and ``repro_torch.serving
@@ -182,7 +182,7 @@ def test_unchunked_prefill_in_decode_matches_chunked_float(tiny):
 
 
 @pytest.mark.parametrize("option", [
-    dict(paged=True), dict(mesh=object()), dict(overlap=True),
+    dict(models=object()), dict(mesh=object()), dict(overlap=True),
     dict(faults=object())])
 def test_unported_options_raise(tiny, option):
     """The options the port does not take raise NotImplementedError;
@@ -194,11 +194,24 @@ def test_unported_options_raise(tiny, option):
         ServingEngine(params, mcfg, capacity=1, device="cpu", **option)
 
 
-def test_deadlines_raise(tiny):
+def test_deadlines_expire_queued_and_in_flight(tiny):
+    """capacity 1 on the simulated clock: r0 (deadline 3) is cancelled in
+    flight after its first tokens, r1 (deadline 2) times out in the queue
+    behind it, r2 (no deadline) finishes; conservation holds."""
     params, mcfg = tiny
-    eng = ServingEngine(params, mcfg, capacity=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit(_req(0, deadline=5.0))
+    eng = ServingEngine(params, mcfg, capacity=1, max_len=32,
+                        prefill_chunks=(8,), device="cpu")
+    reqs = [_req(0, plen=4, max_new=8, deadline=3.0),
+            _req(1, plen=4, max_new=2, deadline=2.0),
+            _req(2, plen=4, max_new=2)]
+    done = eng.run(reqs)
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    r0, r1, r2 = reqs
+    assert r0.timed_out and r0.done and 0 < len(r0.generated) < 8
+    assert r1.timed_out and r1.generated == []
+    assert not r2.timed_out and len(r2.generated) == 2
+    cons = eng.metrics.conservation()
+    assert cons["ok"] and cons["timed_out"] == 2
 
 
 def test_unported_arch_raises():
