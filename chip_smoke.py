@@ -110,7 +110,32 @@ Phases (any failure exits non-zero and prints no result line):
                of float, QAT abfp_ref, QAT abfp_kernel and DNF, and the
                DNF-to-QAT step-time ratio (a measurement, no bar), and a
                profiler breakdown of one float, QAT abfp_kernel and QAT
-               abfp_ref step.
+               abfp_ref step;
+ 11. paged  — phase 4's model served from a paged KV pool: replay
+               against eager under two keys and two page tables, phase 4's
+               workload eager and with graphs, an overload run and an
+               open-loop Poisson run (see ``paged_phase``);
+ 12. faults — fault injection, detection and recovery on phase 4's served
+               weights (see ``fault_phase``): (a) a stuck wq column pair
+               and a drifted wv tile pair injected in place, kernel 2
+               (decode route) and kernel 1 (M = 512) on them bit-equal to
+               their plain versions (which read the canonical codes), the
+               stuck columns exactly 0.0, then a detection round and a
+               repair from the clean copy, every copy byte-equal to it and
+               the outputs bit-equal to the pre-fault ones; (b) phase 4's
+               workload under an explicit plan (a stuck LM-head column
+               pair, a drifted MLP tile pair, a stuck wk column, a shard
+               drop) eagerly, with graphs and with graphs + overlap, the
+               launch counts zeroed just before each run and read just
+               after: 8 of 8, conservation, every event injected, faults
+               detected, repaired and requests requeued, the three runs'
+               streams and counters equal; (c) ``FaultConfig(rate=0.05,
+               seed=3)`` with graphs, recovery on against off: goodput on
+               >= off, corrupted requests without recovery; (d) a rate-0
+               plan with graphs: phase 4's streams and phase 4b's launch
+               counts, in turns with no plan; (e) a detection round's host
+               and device time, the reshard's time, and the rate-0 and
+               no-plan decode-tick medians against phase 4b's.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -194,6 +219,20 @@ OPEN_REQUESTS = 16
 OPEN_RATE = 40.0
 OPEN_PROMPT_LEN = 64
 OPEN_SLO_TTFT_S = 0.25
+# Phase 12 (faults): 12b's explicit plan (tick, kind, site, what), spread
+# over phase 4's run (32 passes without faults), the detection cadence of
+# every fault run, 12c's seeded plan and the TTFT SLO its goodput counts
+# against (in ticks: the graph runs are on the simulated clock; every
+# request's TTFT fits it, so the goodput counts uncorrupted completions).
+FAULT_EVENTS = (
+    (3, "stuck_col", "lm_head", {"cols": (17, 40000)}),
+    (9, "scale_drift", "groups/0/mlp/wi",
+     {"tiles": ((1, 100), (6, 2000)), "factors": (1.2, 0.8)}),
+    (15, "stuck_col", "groups/0/attn/wk", {"cols": (5,)}),
+    (22, "shard_drop", "", {"shard": 0}))
+FAULT_DETECT_EVERY = 2
+FAULT_RATE, FAULT_SEED = 0.05, 3
+FAULT_SLO_TTFT = 64.0
 
 
 def fail(msg: str) -> None:
@@ -1038,6 +1077,348 @@ def paged_phase(dev, engine_cls, params, mcfg, quant, reqs, want_streams,
         row["launches_paged_serve"] = serve_launches.get(name, 0)
         row["launches_overload_serve"] = counts_b.get(name, 0)
         row["launches_open_loop_serve"] = counts_c.get(name, 0)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def fault_phase(dev, engine_cls, params, mcfg, quant, reqs, want_streams,
+                graph_launches, graph_decode_ms, card, rows: list) -> dict:
+    """Phase 12: fault injection, detection and recovery on the served
+    model (see the module docstring).  ``engine_cls`` is the NaN-checking
+    engine of phase 4, ``params`` its packed weights (shared, tensor for
+    tensor, by every engine built from them: each fault run restores them
+    from a clean copy and checks them byte for byte), ``reqs`` and
+    ``want_streams`` phase 4's workload and streams, ``graph_launches``
+    and ``graph_decode_ms`` phase 4b's graph run's launch counts and
+    decode-tick medians.  Annotates kernel rows with this path's launches;
+    returns the measurements."""
+    import torch
+
+    from repro_torch.core.abfp import kernel_layout
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        concat_qkv,
+        fused_qkv_packed,
+        fused_qkv_packed_ref,
+    )
+    from repro_torch.kernels.abfp_matmul import (
+        DECODE_ROWS,
+        abfp_matmul_packed,
+        abfp_matmul_packed_ref,
+        fused_rows,
+    )
+    from repro_torch.serving import FaultConfig, FaultPlan, Request
+    from repro_torch.serving import faults as faultlib
+    from repro_torch.serving.faults import FaultEvent
+
+    out = {}
+    t_phase = time.perf_counter()
+    sites = faultlib.fault_sites(params)
+    if [s_.path for s_ in sites] != [
+            "groups/0/attn/wk", "groups/0/attn/wo", "groups/0/attn/wq",
+            "groups/0/attn/wv", "groups/0/mlp/wg", "groups/0/mlp/wi",
+            "groups/0/mlp/wo", "lm_head"]:
+        fail(f"fault sites {[s_.path for s_ in sites]}")
+    golden = faultlib.clone_sites(params)
+    torch.cuda.synchronize()
+
+    def i16(t):
+        return t.view(torch.int16)
+
+    def check_copies(p, what, against_golden=True):
+        """All three copies of every packed weight agree (``kcodes ==
+        kernel_layout(codes)``, each ``PackedQKV`` a fresh ``concat_qkv``
+        of its pieces) and, with ``against_golden``, equal the clean copy
+        byte for byte."""
+        for site in sites:
+            for a, b in zip(faultlib.site_leaves(p, site.path),
+                            faultlib.site_leaves(golden, site.path)):
+                if not torch.equal(a.kcodes, kernel_layout(a.codes)):
+                    fail(f"{what}: {site.path} kcodes differ from the "
+                         f"kernel layout of its codes")
+                if against_golden and not (
+                        torch.equal(a.codes, b.codes)
+                        and torch.equal(a.kcodes, b.kcodes)
+                        and torch.equal(i16(a.scales), i16(b.scales))):
+                    fail(f"{what}: {site.path} differs from the clean copy")
+        for la, lb in zip(p["layers"], golden["layers"]):
+            at = la["attn"]
+            qa, qb = at["qkv"], lb["attn"]["qkv"]
+            fresh = concat_qkv((at["wq"], at["wk"], at["wv"]), quant)
+            if not (torch.equal(qa.kcodes, fresh.kcodes)
+                    and torch.equal(i16(qa.scales), i16(fresh.scales))):
+                fail(f"{what}: a PackedQKV differs from its pieces")
+            if against_golden and not (
+                    torch.equal(qa.kcodes, qb.kcodes)
+                    and torch.equal(i16(qa.scales), i16(qb.scales))):
+                fail(f"{what}: a PackedQKV differs from the clean copy")
+
+    # 12a. The faulted operands at the kernels: kernel 2 at decode size
+    # and kernel 1 at M = 512 on layer 0's faulted projections.
+    lp0 = params["layers"][0]
+    pws = tuple(lp0["attn"][w] for w in ("wq", "wk", "wv"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x4 = torch.randn(CAPACITY, mcfg.d_model, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    x512 = torch.randn(512, mcfg.d_model, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    nj, nt = pws[0].n_padded // 128, pws[0].num_tiles
+    if fused_rows(CAPACITY, quant.tile_width, nj, quant, nt) != DECODE_ROWS \
+            or fused_rows(512, quant.tile_width, nj, quant,
+                          nt) == DECODE_ROWS:
+        fail("phase 12a: kernel 2 at M=4 or kernel 1 at M=512 takes "
+             "another route")
+
+    def exact(got, want, what):
+        n, size, ulp, _ = bf16_diff(got, want)
+        if n or ulp or not torch.equal(got, want):
+            fail(f"{what}: {n}/{size} flips against its plain version")
+
+    def kernels(what):
+        q = fused_qkv_packed(x4, pws, quant, (12, -13, 14),
+                             qkv=lp0["attn"]["qkv"])
+        for g, w, n in zip(q, fused_qkv_packed_ref(x4, pws, quant,
+                                                   (12, -13, 14)), "qkv"):
+            exact(g, w, f"kernel 2 ({n}, M={CAPACITY}) {what}")
+        k1 = {}
+        for n in ("wq", "wv"):
+            k1[n] = abfp_matmul_packed(x512, lp0["attn"][n], quant, 21)
+            exact(k1[n], abfp_matmul_packed_ref(x512, lp0["attn"][n], quant,
+                                                21),
+                  f"kernel 1 (attn.{n}, M=512) {what}")
+        torch.cuda.synchronize()
+        return q, k1
+
+    pre_q, pre_k1 = kernels("before the faults")
+    base = faultlib.fingerprint_round(params, sites)
+    stuck = FaultEvent(0, "stuck_col", "groups/0/attn/wq", cols=(7, 700))
+    drift = FaultEvent(0, "scale_drift", "groups/0/attn/wv",
+                       tiles=((0, 11), (5, 300)), factors=(1.2, 0.8))
+    for ev in (stuck, drift):
+        faultlib.apply_event(params, ev)
+    torch.cuda.synchronize()
+    check_copies(params, "after the injections", against_golden=False)
+    q, k1 = kernels("on the faulted weights")
+    cols, dcols = list(stuck.cols), [j for _, j in drift.tiles]
+    if q[0][:, cols].float().abs().max() != 0 or \
+            k1["wq"][:, cols].float().abs().max() != 0:
+        fail("phase 12a: a stuck column does not read 0.0 at the kernels")
+    if not (pre_q[0][:, cols].float().abs().max() > 0
+            and pre_k1["wq"][:, cols].float().abs().max() > 0):
+        fail("phase 12a: the stuck columns read 0.0 before the fault")
+    if torch.equal(q[2][:, dcols], pre_q[2][:, dcols]) or any(
+            torch.equal(k1["wv"][:, j], pre_k1["wv"][:, j]) for j in dcols):
+        fail("phase 12a: the drifted tiles did not reach the kernels")
+    t0 = time.perf_counter()
+    cur = faultlib.fingerprint_round(params, sites)
+    dets = {s_.path: faultlib.detect_site(base[s_.path], cur[s_.path])
+            for s_ in sites}
+    t_first = time.perf_counter() - t0
+    hits = {k: (d.stuck_cols, d.drifted) for k, d in dets.items()
+            if not d.clean}
+    if set(hits) != {stuck.path, drift.path} or \
+            hits[stuck.path] != (stuck.cols, ()) or \
+            not set(drift.tiles) <= set(hits[drift.path][1]):
+        fail(f"phase 12a: detection found {hits}")
+    faultlib.repair_stuck(params, golden, stuck.path, hits[stuck.path][0])
+    faultlib.repair_drift(params, golden, drift.path, hits[drift.path][1])
+    torch.cuda.synchronize()
+    check_copies(params, "after the repair")
+    q, k1 = kernels("after the repair")
+    for g, w in list(zip(q, pre_q)) + [(k1[n], pre_k1[n]) for n in k1]:
+        if not torch.equal(g, w):
+            fail("phase 12a: the kernels' outputs after the repair differ "
+                 "from the pre-fault outputs")
+    log(f"phase 12a: stuck attn.wq columns {cols} and drifted attn.wv tiles "
+        f"{list(drift.tiles)} injected in place into codes, kcodes, scales "
+        f"and every layer's PackedQKV; kernel 2 (M={CAPACITY}, decode "
+        f"route) and kernel 1 (M=512) on them 0 flips against their plain "
+        f"versions, stuck columns 0.0; detection found {hits} "
+        f"({t_first * 1e3:.2f} ms host, first round); after the repair "
+        f"every copy byte-equal to the clean copy and the outputs bit-equal "
+        f"to the pre-fault ones")
+
+    # 12e, first half: one detection round on the clean array, its host
+    # time (every leaf's fingerprint on the device, one copy, the verdicts
+    # on the host) and the profiler's device time.
+    def detect_round():
+        c = faultlib.fingerprint_round(params, sites)
+        return [faultlib.detect_site(base[s_.path], c[s_.path])
+                for s_ in sites]
+
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not all(d.clean for d in detect_round()):
+            fail("phase 12: the clean array reads as faulted")
+        host.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_pass(dev, detect_round, "fault detection round")
+    busy = "not measured" if prof is None else \
+        f"{prof['device_busy_ms']:.3f} ms"
+    out["detect_round"] = {"host_ms": host,
+                           "host_ms_median": statistics.median(host),
+                           "profile": prof}
+    n_leaves = sum(len(faultlib.site_leaves(params, s_.path))
+                   for s_ in sites)
+    log(f"phase 12e: one detection round ({len(sites)} sites, {n_leaves} "
+        f"leaves, one device-to-host copy): {statistics.median(host):.3f} "
+        f"ms host "
+        f"(median of {[round(v, 3) for v in host]}), device busy {busy}; "
+        f"{card}")
+
+    # 12b-d. Served runs of phase 4's workload under fault plans.
+    class FaultEngine(engine_cls):
+        """Times each detection round and each reshard to a synchronized
+        device."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.round_ms, self.reshard_ms = [], []
+
+        def _detect_and_recover(self):
+            t0 = time.perf_counter()
+            n = len(self.reshard_ms)
+            super()._detect_and_recover()
+            torch.cuda.synchronize()
+            if len(self.reshard_ms) == n:
+                self.round_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def _reshard_and_requeue(self):
+            t0 = time.perf_counter()
+            super()._reshard_and_requeue()
+            torch.cuda.synchronize()
+            self.reshard_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def fault_run(mode, faults, recovery=True):
+        kw = {"eager": dict(_graphs=False), "graphs": {},
+              "overlap": dict(clock=time.perf_counter, overlap=True)}[mode]
+        e = FaultEngine(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                        quant=quant, seed=SEED, device=dev, faults=faults,
+                        recovery=recovery, detect_every=FAULT_DETECT_EVERY,
+                        **kw)
+        e.warmup()
+        torch.cuda.synchronize()
+        rs = [Request(uid=r.uid, prompt=list(r.prompt),
+                      max_new_tokens=MAX_NEW) for r in reqs]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        what = (f"fault serve [{mode}, "
+                f"{'no plan' if faults is None else 'a plan'}, recovery "
+                f"{'on' if recovery else 'off'}]")
+        cons = e.metrics.conservation()
+        if len(fin) != N_REQUESTS or not all(
+                r.done and len(r.generated) == MAX_NEW for r in fin):
+            fail(f"{what}: {len(fin)} of {N_REQUESTS} finished")
+        if not cons["ok"]:
+            fail(f"{what}: conservation {cons}")
+        for name, n in counts.items():
+            if (n <= 0) == (name in SERVE_KERNELS):
+                fail(f"{what}: kernel {name} was launched {n} times")
+        med, cnt = e.pass_stats()
+        s = e.metrics.summary()
+        res = {"streams": {r.uid: r.generated for r in fin},
+               "faults": dict(e.metrics.faults), "requests": s["requests"],
+               "launches": counts, "wall_s": wall_, "ticks": e.ticks,
+               "passes": cnt, "decode_ms": med["decode"] * 1e3,
+               "prefill_ms": med["prefill"] * 1e3,
+               "goodput": e.metrics.goodput(FAULT_SLO_TTFT),
+               "goodput_with_corrupted": e.metrics.goodput(
+                   FAULT_SLO_TTFT, include_corrupted=True),
+               "round_ms": e.round_ms, "reshard_ms": e.reshard_ms}
+        log(f"{what} in {wall_:.3f}s: {e.ticks} passes ({cnt}), decode "
+            f"tick median {res['decode_ms']:.3f} ms, prefill pass median "
+            f"{res['prefill_ms']:.3f} ms, faults {res['faults']}, requests "
+            f"{s['requests']}, detection rounds (to a synchronized device) "
+            f"{[round(v, 3) for v in e.round_ms]} ms, reshards "
+            f"{[round(v, 3) for v in e.reshard_ms]} ms, launch counts "
+            f"{counts}; {card}")
+        # A run may end with a fault no round repaired (recovery off, or
+        # an event after the last round): re-program the shared weights
+        # from the clean copy before the next run, and check them.
+        faultlib.restore_sites(e.params, golden)
+        torch.cuda.synchronize()
+        check_copies(e.params, f"after the {what}")
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    plan = FaultPlan([FaultEvent(t, k, p_, **x)
+                      for t, k, p_, x in FAULT_EVENTS],
+                     FaultConfig(rate=0.01))
+    runs = {m: fault_run(m, plan) for m in ("eager", "graphs", "overlap")}
+    for m, r_ in runs.items():
+        f = r_["faults"]
+        if f["injected"] != len(FAULT_EVENTS) or f["detected"] < 1 or min(
+                f["cols_remapped"], f["tiles_requantized"],
+                f["reshards"]) < 1 or r_["requests"]["requeued"] < 1:
+            fail(f"fault serve [{m}]: counters {f}, requests "
+                 f"{r_['requests']}")
+        if m != "eager" and (r_["streams"] != runs["eager"]["streams"]
+                             or f != runs["eager"]["faults"]):
+            bad = [u for u, v in r_["streams"].items()
+                   if v != runs["eager"]["streams"][u]]
+            fail(f"fault serve [{m}]: streams of {bad} or counters {f} "
+                 f"differ from the eager run's")
+    out["plan"] = {m: {k: v for k, v in r_.items() if k != "streams"}
+                   for m, r_ in runs.items()}
+    log("phase 12b: the explicit plan eagerly, with graphs and with graphs "
+        "+ overlap: 8/8, conservation, every event injected, faults "
+        "detected, repaired and requests requeued; streams and counters "
+        "equal across the three")
+
+    cfg_c = FaultConfig(rate=FAULT_RATE, seed=FAULT_SEED)
+    on = fault_run("graphs", cfg_c, recovery=True)
+    off = fault_run("graphs", cfg_c, recovery=False)
+    if not on["goodput"] >= off["goodput"]:
+        fail(f"phase 12c: goodput with recovery {on['goodput']} < without "
+             f"{off['goodput']}")
+    if off["requests"]["corrupted"] <= 0:
+        fail("phase 12c: no request corrupted without recovery")
+    out["recovery"] = {k: {kk: vv for kk, vv in r_.items()
+                           if kk != "streams"}
+                       for k, r_ in (("on", on), ("off", off))}
+    log(f"phase 12c: FaultConfig(rate={FAULT_RATE}, seed={FAULT_SEED}) with "
+        f"graphs: goodput (TTFT <= {FAULT_SLO_TTFT} ticks, corrupted "
+        f"excluded) {on['goodput']:.4f} requests/tick with recovery against "
+        f"{off['goodput']:.4f} without; corrupted requests "
+        f"{on['requests']['corrupted']} / {off['requests']['corrupted']}")
+
+    # 12d. Zero overhead: a rate-0 plan against no plan, with graphs, in
+    # turns (none, rate 0, rate 0, none): the same engine class at the same
+    # point of the script, so the decode-tick medians compare the plan's
+    # cost alone; phase 4b's graph medians are logged beside them.
+    zero = {"none": [], "rate0": []}
+    for k in ("none", "rate0", "rate0", "none"):
+        zero[k].append(fault_run(
+            "graphs", FaultConfig(rate=0.0) if k == "rate0" else None))
+    for k, rs_ in zero.items():
+        for r_ in rs_:
+            if r_["streams"] != want_streams:
+                fail(f"phase 12d: the {k} run changed phase 4's streams")
+            if r_["launches"] != graph_launches:
+                fail(f"phase 12d: the {k} run launched {r_['launches']} "
+                     f"against phase 4b's {graph_launches}")
+    dec = {k: [r_["decode_ms"] for r_ in rs_] for k, rs_ in zero.items()}
+    out["zero"] = {k: [{kk: vv for kk, vv in r_.items() if kk != "streams"}
+                       for r_ in rs_] for k, rs_ in zero.items()}
+    out["decode_ms_phase4b_graphs"] = list(graph_decode_ms)
+    out["reshard_ms"] = [v for r_ in runs.values() for v in r_["reshard_ms"]]
+    log(f"phase 12d/e: with graphs, a rate-0 plan and no plan (in turns) "
+        f"give phase 4's streams and phase 4b's launch counts; decode tick "
+        f"medians: rate 0 {[round(v, 3) for v in dec['rate0']]} ms, no plan "
+        f"{[round(v, 3) for v in dec['none']]} ms, phase 4b's graphs "
+        f"{[round(v, 3) for v in graph_decode_ms]} ms; reshards (12b runs) "
+        f"{[round(v, 3) for v in out['reshard_ms']]} ms; {card}")
+    for row in rows:
+        row["launches_fault_serve"] = runs["graphs"]["launches"].get(
+            row["name"], 0)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2124,6 +2505,12 @@ def main() -> None:
     paged = paged_phase(dev, CheckedEngine, served_params, mcfg, quant, reqs,
                         want_streams, rows)
     log(f"paged phase in {paged['seconds']:.1f}s: {json.dumps(paged)}")
+
+    # 12. faults: injection, detection and recovery on the served model ---
+    faults = fault_phase(dev, CheckedEngine, served_params, mcfg, quant, reqs,
+                         want_streams, graph_serve_launches,
+                         summary4b["graphs"]["decode_ms"], card, rows)
+    log(f"fault phase in {faults['seconds']:.1f}s: {json.dumps(faults)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -321,6 +321,58 @@ def dequantize_packed(pw: PackedWeight) -> Tensor:
     return w[:pw.k, :pw.n_cols]
 
 
+def scale_storage_eps(scale_dtype=torch.bfloat16) -> float:
+    """Relative quantum of the scale storage dtype (bf16: 2^-8, about
+    0.39 %): a smaller relative change of a stored tile scale is storage
+    noise, a few multiples of it a real change of the programmed array.
+    Fault detection (``serving.faults``) derives its drift tolerance from
+    it."""
+    return float(torch.finfo(scale_dtype).eps) / 2.0
+
+
+def packed_tile_fingerprint(pw: PackedWeight) -> Tensor:
+    """Per-(tile, col) probe response ``R[t, j] = (sum_i |codes[t, i, j]|)
+    * delta_w * scales[t, j]`` — (T, Np) f32.
+
+    The digital analogue of a calibration-ramp readout: drive every row of
+    tile ``t`` with a full-scale input and read column ``j``'s magnitude.
+    The |code| sum is exact (int32, |sum| <= n * L_w < 2^24, so exact in
+    f32 too); the two products keep the JAX package's f32 order.  A healthy
+    array reads the same fingerprint every time, a drifted scale moves R by
+    the drift factor and a dead column reads 0.  The reduction runs on the
+    int8 codes, so no f32 copy of the weight is made."""
+    n = pw.tile_width
+    code_sum = torch.sum(
+        pw.codes.view(pw.num_tiles, n, pw.n_padded).abs(), dim=1,
+        dtype=torch.int32).float()                          # (T, Np)
+    d = torch.tensor(quant_delta(pw.bits_w), dtype=torch.float32,
+                     device=code_sum.device)
+    return code_sum * d * pw.scales.float()
+
+
+def packed_output_error_bound(pw: PackedWeight, cfg: QuantConfig) -> Tensor:
+    """Worst-case |y[j]| bound per output column for unit-scale inputs,
+    (Np,) f32.
+
+    Per tile the exact partial product obeys ``|p| * d_X * d_W <= d_W *
+    sum_i |codes[t, i, j]|`` when every ``|x_hat_i| <= 1``: the fingerprint
+    is the largest response an admissible input can draw; ADC rounding and
+    LSB noise add at most ``(0.5 + noise_lsb) * bin_y / G`` per tile (the
+    per-tile gain where the pack has gains).  Summed over tiles this is a
+    sound envelope: a reading above it is corruption (a dead column, the
+    converse, is caught by the fingerprint's zero test)."""
+    fp = packed_tile_fingerprint(pw)                        # (T, Np)
+    s = pw.scales.float()
+    f32 = dict(dtype=torch.float32, device=fp.device)
+    c = torch.tensor((0.5 + cfg.noise_lsb) * cfg.bin_y, **f32)
+    if pw.gains is not None:
+        adc_err = (c / pw.gains.float())[:, None]
+    else:
+        adc_err = torch.tensor(
+            (0.5 + cfg.noise_lsb) * cfg.bin_y / cfg.gain, **f32)
+    return (fp + s * adc_err).sum(dim=-2)
+
+
 def f32_const(v: float) -> float:
     """``v`` rounded to the nearest float32, as a Python float."""
     return float(torch.tensor(v, dtype=torch.float32))

@@ -11,10 +11,11 @@
     first execution (warm-up and capture are not straggling), and
     ``ServingMetrics.summary()["straggler"]`` reports it; the train driver
     feeds it every step.
-
-Of the JAX package's fault module, elastic re-meshing (``ElasticPlan``,
-``plan_elastic_mesh``, ``plan_recovery_mesh``) belongs to the
-fault-tolerance slice.
+  * ``ElasticPlan``     — given the surviving chips, the largest valid
+    (data, model) mesh (``plan_elastic_mesh``), or one that narrows the
+    model axis when it must (``plan_recovery_mesh``, the serving engine's
+    shard-drop recovery).  The port serves one card, so its engine takes
+    the single-array branch: re-program the array from the clean spare.
 """
 
 from __future__ import annotations
@@ -74,3 +75,41 @@ class StragglerMonitor:
         if self.flagged <= 5:
             return "reslice"
         return "remesh"
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    old_shape: tuple
+    new_shape: tuple
+    lost_hosts: int
+
+    @property
+    def changed(self) -> bool:
+        return self.old_shape != self.new_shape
+
+
+def plan_elastic_mesh(chips_available: int, model_parallel: int,
+                      old_shape: tuple) -> ElasticPlan:
+    """Largest (data, model) mesh under the surviving chip count, holding
+    the model axis fixed (the weights' TP layout is the expensive one to
+    move)."""
+    data = chips_available // model_parallel
+    if data < 1:
+        raise RuntimeError(
+            f"{chips_available} chips cannot hold model_parallel="
+            f"{model_parallel}")
+    new_shape = (data, model_parallel)
+    lost = int((old_shape[0] * old_shape[1] - chips_available))
+    return ElasticPlan(tuple(old_shape), new_shape, max(lost, 0))
+
+
+def plan_recovery_mesh(chips_available: int, model_parallel: int,
+                       old_shape: tuple) -> ElasticPlan:
+    """``plan_elastic_mesh`` for fault recovery: narrow the model axis
+    when the surviving chips cannot hold it (after a shard-drop recovery
+    the weights are re-programmed from the clean spare anyway).  Raises
+    only when no chip survives."""
+    if chips_available < 1:
+        raise RuntimeError("no surviving chips to re-mesh onto")
+    mp = max(1, min(model_parallel, chips_available))
+    return plan_elastic_mesh(chips_available, mp, old_shape)

@@ -39,6 +39,13 @@ a degraded mode between pool-pressure watermarks (``--page-watermarks``,
 ``--deadline`` cancels a request that many ticks (seconds on a wall
 clock) after its arrival.
 
+``--fault-rate`` injects seeded faults into the served weights (a
+per-tick probability; ``--fault-kinds`` of stuck_col / scale_drift /
+shard_drop, ``--fault-seed``); every ``--detect-every`` ticks while a
+fault is live the engine fingerprints the array and repairs it, unless
+``--no-recovery`` (the degraded-mode baseline for the goodput
+comparison).
+
 ``--wall-clock`` drives the engine on ``time.perf_counter`` (latencies in
 seconds, the tick utilization printed); ``--overlap`` (implies
 ``--wall-clock``) serves through the overlapped runtime: sampling on the
@@ -47,7 +54,8 @@ On a GPU every pass shape is captured into a CUDA graph before the
 requests arrive (``ServingEngine.warmup``).
 
 The run prints the JAX CLI's summary lines (p50/p99 TTFT, TPOT and
-E2E, goodput against ``--slo-ttft``, slot and tick utilization, and with
+E2E, goodput against ``--slo-ttft``, slot and tick utilization, the
+fault counters with ``--fault-rate`` or ``--deadline``, and with
 ``--paged`` the pool and overload counts), then the first requests'
 greedy token ids as ``req <uid>: prompt[<len>] -> [ids]``;
 ``--metrics-out`` writes the percentile summary as JSON.
@@ -66,7 +74,7 @@ import numpy as np
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.models import init_params, param_count
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import FaultConfig, Request, ServingEngine
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,6 +131,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "clock): the goodput threshold")
     ap.add_argument("--metrics-out", default=None,
                     help="write the percentile metrics summary JSON here")
+    # Fault injection / SLO-aware recovery (repro_torch.serving.faults).
+    ap.add_argument("--fault-rate", type=float, default=None,
+                    help="per-tick fault probability; enables seeded "
+                         "injection into the served weights")
+    ap.add_argument("--fault-kinds", default="stuck_col,scale_drift,"
+                                             "shard_drop",
+                    help="comma-separated subset of "
+                         "stuck_col/scale_drift/shard_drop")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the deterministic fault trace")
+    ap.add_argument("--no-recovery", action="store_true",
+                    help="inject but do not detect/repair (degraded-mode "
+                         "baseline for the goodput comparison)")
+    ap.add_argument("--detect-every", type=int, default=4,
+                    help="fingerprint-probe cadence in engine ticks")
     # Paged KV pool + overload robustness (repro_torch.serving.pages).
     ap.add_argument("--paged", action="store_true",
                     help="serve from a paged KV pool (fixed pages aligned "
@@ -246,6 +269,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = init_params(args.seed, mcfg, device=args.device)
     print(f"[serve] {args.arch}: {param_count(params) / 1e6:.1f}M params, "
           f"quant={quant.mode}, policy={args.policy}, device={args.device}")
+    faults = None
+    if args.fault_rate is not None:
+        faults = FaultConfig(
+            rate=args.fault_rate,
+            kinds=tuple(k for k in args.fault_kinds.split(",") if k),
+            seed=args.fault_seed)
+        print(f"[serve] fault injection: rate={args.fault_rate}/tick, "
+              f"kinds={args.fault_kinds}, seed={args.fault_seed}, "
+              f"recovery={'off' if args.no_recovery else 'on'}")
     if args.paged:
         print(f"[serve] paged KV pool: page_size="
               f"{args.page_size or 'auto'}, pool_pages="
@@ -258,6 +290,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                         prefill_chunks=tuple(
                             int(c) for c in args.prefill_chunks.split(",")),
                         device=args.device,
+                        faults=faults, recovery=not args.no_recovery,
+                        detect_every=args.detect_every,
                         paged=args.paged, page_size=args.page_size,
                         pool_pages=args.pool_pages,
                         prefix_cache=not args.no_prefix_cache,
@@ -338,7 +372,15 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{tu['active_s']:.2f}s active)")
     req_s = s["requests"]
     cons = eng.metrics.conservation()
-    if args.deadline is not None:
+    if args.fault_rate is not None or args.deadline is not None:
+        f = s["faults"]
+        print(f"[serve] faults: {f['injected']} injected "
+              f"({f['injected_stuck_col']} stuck_col, "
+              f"{f['injected_scale_drift']} scale_drift, "
+              f"{f['injected_shard_drop']} shard_drop), "
+              f"{f['detected']} detected, {f['cols_remapped']} cols "
+              f"remapped, {f['tiles_requantized']} tiles requantized, "
+              f"{f['reshards']} reshards")
         print(f"[serve] timed_out {req_s['timed_out']}, requeued "
               f"{req_s['requeued']}, corrupted {req_s['corrupted']}, "
               f"conservation_ok {cons['ok']}")

@@ -3,8 +3,18 @@ FCFS/SJF/priority admission, SLO metrics) over the dense decoder runner:
 every pass shape warmed into a CUDA graph on a GPU, blocking transfers on
 the simulated clock or the overlapped runtime on a wall clock, per-slot KV
 strips or a paged KV pool with prefix sharing, preemption, backpressure,
-degraded mode, tenant quotas and deadlines."""
+degraded mode, tenant quotas and deadlines; seeded fault injection,
+fingerprint detection and recovery (``serving.faults``)."""
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
+from repro_torch.serving.faults import (  # noqa: F401
+    FAULT_KINDS,
+    Detection,
+    FaultConfig,
+    FaultEvent,
+    FaultPlan,
+    drift_detect_rtol,
+    make_fault_plan,
+)
 from repro_torch.serving.metrics import (  # noqa: F401
     RequestMetrics,
     ServingMetrics,

@@ -104,8 +104,24 @@ at the smallest bucket) until pressure falls to ``page_watermarks[1]``.
 A request's ``deadline`` (engine clock) cancels it, queued or in flight,
 as ``timed_out``.  Every decision is the JAX engine's.
 
-Not ported (each raises when asked for): fault injection, meshes and
-fleets.
+Fault tolerance
+---------------
+``faults=FaultConfig(...)`` (or a ``FaultPlan``) injects the plan's
+seeded events into the served weights at their ticks
+(``serving.faults``: in place, into the codes, the kernel-layout codes
+and the fused QKV concatenation alike, so the faults flow through the
+kernels and the captured graphs).  Every ``detect_every`` ticks while a
+fault is live, a detection round compares every site's fingerprint with
+its healthy baseline; with ``recovery`` it repairs what it found from a
+clean spare (a device clone of every site, made at init), requeues the
+requests that produced tokens under the fault, and on a shard drop
+re-programs the whole array and restarts every request in flight.
+Detection runs before the tick's injections, so every fault is live for
+at least one pass.  Tokens produced under a live fault mark their request
+``corrupted``.  With ``faults=None`` nothing of this exists on the hot
+path: the same graphs, the same launches, no spare.
+
+Not ported (each raises when asked for): meshes and fleets.
 """
 
 from __future__ import annotations
@@ -126,6 +142,8 @@ from repro_torch.distributed.fault import StragglerMonitor
 from repro_torch.kernels import ops
 from repro_torch.models.layers import LM_HEAD_FOLD
 from repro_torch.models.lm import calls_per_layer, clone_state
+from repro_torch.serving import faults as faultlib
+from repro_torch.serving.faults import FaultConfig, FaultPlan
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.pages import (
     PagePool,
@@ -139,6 +157,7 @@ from repro_torch.serving.runners import (
     PassIO,
     Staging,
     runner_for,
+    state_tensors,
 )
 from repro_torch.serving.scheduler import Scheduler, get_scheduler
 from repro_torch.serving.stream import (
@@ -177,7 +196,7 @@ class Request:
     retry_after: Optional[float] = None  # backoff hint stamped when shed
 
 
-_UNPORTED = ("faults", "mesh", "models")
+_UNPORTED = ("mesh", "models")
 
 
 @dataclasses.dataclass
@@ -210,6 +229,9 @@ class ServingEngine:
                  tick_time: float = 1.0,
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None,
+                 faults: Optional[Union[FaultConfig, FaultPlan]] = None,
+                 recovery: bool = True,
+                 detect_every: int = 4,
                  paged: bool = False,
                  page_size: Optional[int] = None,
                  pool_pages: Optional[int] = None,
@@ -231,8 +253,11 @@ class ServingEngine:
         if asked:
             raise NotImplementedError(
                 f"repro_torch's ServingEngine does not port {asked}: "
-                f"faults, meshes and fleets stay with the JAX package for "
-                f"now")
+                f"meshes and fleets stay with the JAX package for now")
+        if faults is not None and not isinstance(faults,
+                                                 (FaultConfig, FaultPlan)):
+            raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
+                            f"got {type(faults).__name__}")
         if quant.mode == "abfp_ref":
             raise ValueError(
                 "the serving engine does not take abfp_ref numerics: its "
@@ -369,6 +394,24 @@ class ServingEngine:
         self.straggler = StragglerMonitor()
         self.metrics.straggler = self.straggler
 
+        # -- fault tolerance (serving.faults) ------------------------------
+        # With ``faults=None`` nothing below exists on the hot path.
+        self.recovery = bool(recovery)
+        self.detect_every = max(1, int(detect_every))
+        self._fault_cursor = 0
+        self._lost_shard: Optional[int] = None
+        self._fault_dirty = False       # unrepaired injected faults live
+        if isinstance(faults, FaultConfig):
+            faults = faultlib.make_fault_plan(self.params, faults)
+        self.fault_plan: Optional[FaultPlan] = faults
+        if self.fault_plan is not None:
+            # The hot spare the repairs re-program from: a device clone
+            # (injection writes the served tensors in place).
+            self._params_clean = faultlib.clone_sites(self.params)
+            self._fault_sites = faultlib.fault_sites(self.params)
+            self._baselines = faultlib.fingerprint_round(self.params,
+                                                         self._fault_sites)
+
     # -- warmed passes ------------------------------------------------------
     def _capture(self, body: Callable[[dict], None]):
         """Capture ``body`` on the served state into a CUDA graph: a
@@ -493,7 +536,8 @@ class ServingEngine:
             # cannot be overwritten before this pass's writes land.
             self.slots[i] = None
             self._release_slot(i, req.tenant)
-        return TokenRec(slot=i, req=req, finishing=finishing)
+        return TokenRec(slot=i, req=req, finishing=finishing,
+                        corrupted=self._fault_dirty)
 
     def _submit(self, kind: str, t0: float, warm: bool, io: PassIO,
                 recs: List[TokenRec]):
@@ -528,6 +572,8 @@ class ServingEngine:
             nxt = int(vals[rec.slot])
             req.generated.append(nxt)
             self.metrics.on_token(req.uid, ticket.now)
+            if rec.corrupted:
+                self.metrics.on_corrupted(req.uid)
             if req.on_token is not None:
                 req.on_token(req, nxt)
             if rec.finishing:
@@ -544,8 +590,8 @@ class ServingEngine:
     def sync(self):
         """Wait until every in-flight pass has delivered its tokens (a
         no-op on the blocking path).  Called before anything that must see
-        COMPLETE token streams: preemption replay snapshots and deadline
-        expiry."""
+        COMPLETE token streams: preemption replay snapshots, deadline
+        expiry, fault requeues and reshards."""
         self._stream.sync()
 
     def close(self):
@@ -768,6 +814,11 @@ class ServingEngine:
         req.dispatched = len(req.generated)
         self._next_input[i] = nxt
         self.metrics.on_token(req.uid, self.now)
+        if self._fault_dirty:
+            # Computed against faulted weights no detection round has
+            # repaired yet: the output cannot be trusted (cleared if
+            # recovery later requeues the request).
+            self.metrics.on_corrupted(req.uid)
         if req.on_token is not None:
             req.on_token(req, nxt)
         if len(req.generated) >= self._limit(i, req):
@@ -965,6 +1016,124 @@ class ServingEngine:
             self.metrics.on_timeout(req.uid, self.now)
         return expired
 
+    # -- fault tolerance --------------------------------------------------
+    def _inject_due_faults(self):
+        """Apply every fault event scheduled at or before the current tick,
+        in place into the served operands (``serving.faults``)."""
+        due, self._fault_cursor = self.fault_plan.due(
+            self.ticks, self._fault_cursor)
+        for ev in due:
+            if ev.kind == "shard_drop":
+                # The injectable host-failure signal: recovery reads it as
+                # a health-check verdict.
+                self._lost_shard = ev.shard
+            faultlib.apply_event(self.params, ev)
+            self.metrics.on_fault(ev.kind)
+            self._fault_dirty = True
+
+    def _detect_and_recover(self):
+        """One detection round: fingerprint every fault site against its
+        healthy baseline (one device-to-host copy); with recovery on,
+        repair what was found (re-quantize drifted tiles, remap stuck
+        columns) and requeue the requests it corrupted, or on a lost-shard
+        signal re-program the array and requeue everything in flight."""
+        self.sync()     # requeues read complete streams + corruption marks
+        if self._lost_shard is not None and self.recovery:
+            self._reshard_and_requeue()
+            return
+        cur = faultlib.fingerprint_round(self.params, self._fault_sites)
+        hits = []
+        for site in self._fault_sites:
+            det = faultlib.detect_site(self._baselines[site.path],
+                                       cur[site.path])
+            if not det.clean:
+                hits.append((site, det))
+        if hits:
+            self.metrics.on_detected(sum(
+                len(d.stuck_cols) + len(d.drifted) for _, d in hits))
+        if not self.recovery:
+            return
+        for site, det in hits:
+            if det.stuck_cols:
+                faultlib.repair_stuck(self.params, self._params_clean,
+                                      site.path, det.stuck_cols)
+                self.metrics.on_repair("cols_remapped", len(det.stuck_cols))
+            if det.drifted:
+                faultlib.repair_drift(self.params, self._params_clean,
+                                      site.path, det.drifted)
+                self.metrics.on_repair("tiles_requantized", len(det.drifted))
+        if hits:
+            # Tokens of the dirty window came from faulted weights: with
+            # recovery on they are discarded and the request re-decoded
+            # from the repaired array (a shipped token is gone, so only
+            # requests in flight can be salvaged).
+            self._requeue_corrupted()
+        self._fault_dirty = False
+
+    def _requeue_corrupted(self):
+        """Restart the requests in flight whose output (and KV cache) was
+        produced under a live fault: free the slot, clear the generated
+        tokens, requeue (arrival order is kept, so they re-admit ahead of
+        younger traffic)."""
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            rec = self.metrics.requests.get(req.uid)
+            if rec is None or not rec.corrupted:
+                continue
+            self.slots[i] = None
+            self._next_input[i] = 0
+            self._clear_ov(i)
+            self._release_slot(i, req.tenant)
+            self._restart(req)
+
+    def _restart(self, req: Request):
+        """Requeue ``req`` to run again from its prompt."""
+        req.prompt_pos = 0
+        req.generated.clear()
+        req.dispatched = 0
+        req.replay = None
+        self.metrics.on_requeue(req.uid)
+        self.scheduler.requeue(req)
+
+    def _reshard_and_requeue(self):
+        """Shard-drop recovery on one card (the JAX engine's single-array
+        branch): re-program every site from the clean spare, reset the
+        decode state, rebuild the page pool when paged, and requeue every
+        request in flight (conservation holds over the whole trace).
+
+        The spare and a fresh state are copied INTO the served tensors in
+        place: every captured graph keeps reading valid buffers, so no
+        pass is dropped or captured again."""
+        self._lost_shard = None
+        faultlib.restore_sites(self.params, self._params_clean)
+        fresh = self.runner.init_state(
+            self.capacity, self.max_len, self.device,
+            page_size=self.page_size if self.paged else None,
+            pool_pages=self.pool.num_pages if self.paged else None)
+        for t, src in zip(state_tensors(self.state), state_tensors(fresh)):
+            t.copy_(src)
+        del fresh
+        if self.paged:
+            # The lost state's pages died with it: rebuild the allocator
+            # (prefix cache included) from scratch.
+            self.pool = PagePool(self.pool.num_pages, self.page_size)
+            self._table = page_table_array(self.capacity, self.max_pages,
+                                           self.pool.sentinel)
+            self._slot_pages = [[] for _ in range(self.capacity)]
+            self._slot_len = [0] * self.capacity
+            self._slot_keys = [[] for _ in range(self.capacity)]
+            self._slot_cap = [None] * self.capacity
+        inflight = [r for r in self.slots if r is not None]
+        self.slots = [None] * self.capacity
+        self._next_input[:] = 0
+        self._ov_vals[:] = 0
+        self._ov_mask[:] = False
+        for req in inflight:
+            self._restart(req)
+        self.metrics.on_repair("reshards", 1)
+        self._fault_dirty = False
+
     # -- one engine tick ------------------------------------------------------
     def step(self):
         self._just_finished = []
@@ -973,6 +1142,14 @@ class ServingEngine:
                 self.sync()     # cancel only COMPLETE streams
             self._expire_slots()
             self._just_finished.extend(self._expire_queue())
+        if self.fault_plan is not None:
+            # Detect (and repair) faults of earlier ticks BEFORE this
+            # tick's injections land, so every fault is live for at least
+            # one pass; then inject what the plan schedules now.
+            if self.ticks % self.detect_every == 0 and (
+                    self._fault_dirty or self._lost_shard is not None):
+                self._detect_and_recover()
+            self._inject_due_faults()
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if self.paged:
             self._update_degraded()

@@ -1,0 +1,556 @@
+"""Fault injection, detection and repair for the analog serving stack.
+
+The paper's premise is that analog hardware drifts and breaks, and analog
+faults are STRUCTURED: a dead column driver kills one output column,
+conductance drift scales one tile's effective weights.  Structured faults
+are detectable and recoverable.  This is the port's copy of the JAX
+package's ``serving/faults.py``.
+
+Fault model (``FAULT_KINDS``)
+-----------------------------
+  * ``stuck_col``   — stuck-at-zero output columns: the column's codes AND
+    scales are zeroed (a dead column driver contributes nothing).
+  * ``scale_drift`` — per-(tile, col) multiplicative drift on the
+    ``PackedWeight`` scales, drawn outside the bf16 scale-storage
+    tolerance so every drift is detectable.
+  * ``shard_drop``  — the array dies: the port serves one card, so every
+    site loses all its columns (the JAX package's single-array branch).
+
+Sites
+-----
+A site is one dense weight of the JAX package's param tree, addressed by
+its path: ``groups/0/attn/wq`` ... ``lm_head``.  JAX stacks the layers of
+``groups/0`` on a leading axis; the port keeps a per-layer list, so a
+``groups/0/<block>/<name>`` site is the leaf ``params["layers"][i]
+[<block>][<name>]`` of EVERY layer ``i``, and a fault on it lands in all
+of them, as JAX's ``.at[..., idx]`` does on the stacked leaf.  With the
+JAX package's site list, ``make_fault_plan`` draws JAX's events from the
+same seed.  The ``qkv`` entry (``models.packing``) is not a site.
+
+Injection and repair are in place
+---------------------------------
+The port keeps three copies of every packed weight that a fault must
+reach: ``PackedWeight.codes`` (the plain versions read it), its
+kernel-layout ``kcodes`` (kernel 1 reads it) and, for wq/wk/wv in
+``abfp_fused`` mode, the layer's ``PackedQKV`` concatenation (kernel 2
+reads it, the three pieces at column offsets 0, ``n_padded(wq)`` and
+``n_padded(wq) + n_padded(wk)``).  Every write goes to all three, with
+in-place ops (``index_fill_``, ``index_put_``, ``index_copy_``,
+``copy_``) on the served tensors: a captured CUDA graph holds the
+tensors' addresses, so a rebound tensor would leave its replays on the
+old weights.  The writes are enqueued on the current (serving) stream, so
+passes already in flight read the old values, as JAX's immutable arrays
+give them.  Gains stay, as in JAX.  A float site rewrites its weight.
+
+Plans are deterministic: ``make_fault_plan(params, cfg)`` draws every
+event (tick, kind, site, columns, tiles, drift factors) from one seeded
+numpy generator, so a trace replays exactly across runs and recovery
+settings.
+
+Detection
+---------
+``site_fingerprint`` reduces each site to the per-(tile, col) probe
+response ``R[t, j] = sum_i |codes[t, i, j]| * delta_w * scales[t, j]``
+(``core.abfp.packed_tile_fingerprint``), per layer on the device, summed
+over the layers in layer order; ``fingerprint_round`` fetches a round of
+sites in ONE device-to-host copy.  ``detect_site`` compares a fingerprint
+with the healthy baseline taken at engine init: a relative deviation
+beyond ``drift_detect_rtol`` flags a drifted tile; a column whose every
+tile reads exactly zero against a nonzero baseline is stuck.
+
+Repair (the engine drives it, ``serving.engine``)
+-------------------------------------------------
+  * ``repair_drift``  — restore ONLY the drifted (tile, col) scales from
+    the clean spare (weights packed once at init: the spare IS the
+    re-quantization);
+  * ``repair_stuck``  — re-program the stuck columns' codes and scales
+    from the spare;
+  * ``restore_sites`` — re-program every site from the spare (shard-drop
+    recovery).
+The spare (``clone_sites``) is a device clone of every site's codes,
+kcodes and scales and of each ``PackedQKV``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.abfp import (
+    PackedWeight,
+    packed_tile_fingerprint,
+    scale_storage_eps,
+)
+from repro_torch.kernels.abfp_decode_fused import PackedQKV
+from repro_torch.models.packing import DENSE_WEIGHT_NAMES
+
+Tensor = torch.Tensor
+
+FAULT_KINDS = ("stuck_col", "scale_drift", "shard_drop")
+
+# Drift factors are drawn from [0.75, 0.95] and [1.05, 1.25]: far outside
+# the bf16 scale-storage quantum (about 0.4 % relative), so every injected
+# drift is detectable by the fingerprint probe at the default tolerance.
+_DRIFT_LO, _DRIFT_HI = 0.05, 0.25
+
+# A layer site's path prefix: the JAX package's stacked dense group.
+_LAYERS = "groups/0"
+_QKV = ("wq", "wk", "wv")
+
+
+def drift_detect_rtol() -> float:
+    """Default detection tolerance: 4x the bf16 scale-storage quantum, far
+    below the smallest injected drift (5 %), far above storage noise."""
+    return 4.0 * scale_storage_eps()
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Seeded fault-injection spec the engine turns into a concrete plan.
+
+    ``rate`` is the PER-TICK fault probability: each engine tick, one
+    fault event lands somewhere in the array (site uniform over the dense
+    weights, kind uniform over the enabled kinds) with probability
+    ``rate``.  When ``rate > 0`` the plan always holds at least one event
+    inside ``horizon`` (the schedule's length in ticks).
+    ``max_shard_drops`` caps whole-array events per plan.
+    """
+
+    rate: float = 0.01
+    kinds: Tuple[str, ...] = FAULT_KINDS
+    seed: int = 0
+    horizon: int = 512
+    max_cols_per_event: int = 2
+    max_tiles_per_event: int = 4
+    max_shard_drops: int = 1
+
+    def __post_init__(self):
+        unknown = set(self.kinds) - set(FAULT_KINDS)
+        if unknown:
+            raise ValueError(
+                f"unknown fault kinds {sorted(unknown)}; "
+                f"expected a subset of {FAULT_KINDS}")
+        if not 0.0 <= self.rate <= 1.0:
+            raise ValueError(f"rate must be in [0, 1] (got {self.rate})")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    tick: int                       # engine tick at which the fault lands
+    kind: str                       # one of FAULT_KINDS
+    path: str                       # site path ('' = shard_drop)
+    cols: Tuple[int, ...] = ()      # stuck_col: logical output columns
+    tiles: Tuple[Tuple[int, int], ...] = ()  # scale_drift: (tile, col)
+    factors: Tuple[float, ...] = ()          # scale_drift: multipliers
+    shard: int = -1                 # shard_drop: model-axis shard index
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """A concrete, seeded fault trace: events sorted by tick."""
+
+    events: List[FaultEvent]
+    cfg: FaultConfig
+
+    def due(self, tick: int, cursor: int) -> Tuple[List[FaultEvent], int]:
+        """Events with ``event.tick <= tick`` starting at ``cursor``;
+        returns (events, new cursor): the engine keeps the cursor so each
+        event is applied exactly once."""
+        out = []
+        while cursor < len(self.events) and self.events[cursor].tick <= tick:
+            out.append(self.events[cursor])
+            cursor += 1
+        return out, cursor
+
+
+# ---------------------------------------------------------------------------
+# Fault sites: the JAX package's paths over the port's per-layer leaves
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSite:
+    path: str
+    packed: bool
+    n_cols: int         # logical (un-padded) output columns
+    n_padded: int       # storage columns (lane-aligned for packed)
+    n_tiles: int        # ABFP K-tiles (1 for float sites)
+
+
+def fault_sites(params: Any) -> List[FaultSite]:
+    """The faultable dense weights, sorted by path: every packed leaf, and
+    every float leaf of >= 2 dims named as a dense-matmul weight
+    (``models.packing.DENSE_WEIGHT_NAMES``).  A layer site is enumerated
+    once, from layer 0, under the JAX package's ``groups/0`` path."""
+    sites: List[FaultSite] = []
+
+    def visit(path: str, node, name: str):
+        if isinstance(node, PackedWeight):
+            sites.append(FaultSite(path, True, node.n_cols, node.n_padded,
+                                   node.num_tiles))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                visit(f"{path}/{k}", v, k)
+        elif (isinstance(node, Tensor) and name in DENSE_WEIGHT_NAMES
+                and node.ndim >= 2):
+            n = int(node.shape[-1])
+            sites.append(FaultSite(path, False, n, n, 1))
+
+    for k, v in params.items():
+        if k == "layers":
+            if v:
+                for name, leaf in v[0].items():
+                    visit(f"{_LAYERS}/{name}", leaf, name)
+        else:
+            visit(k, v, k)
+    return sorted(sites, key=lambda s: s.path)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One served leaf of a site, with its layer's ``PackedQKV`` and the
+    leaf's column offset in it (wq/wk/wv in ``abfp_fused`` mode)."""
+    leaf: Any                       # PackedWeight or float Tensor
+    qkv: Optional[PackedQKV] = None
+    off: int = 0
+
+
+def _leaves(params: Any, path: str) -> List[_Leaf]:
+    """Every leaf of the site at ``path``: one per layer for a
+    ``groups/0/...`` path, else the one leaf.  KeyError if none."""
+    parts = path.split("/")
+    if path.startswith(_LAYERS + "/"):
+        roots, parts = params.get("layers") or [], parts[2:]
+    else:
+        roots = [params]
+    out = []
+    for node in roots:
+        parent = node
+        try:
+            for p in parts[:-1]:
+                parent = parent[p]
+            leaf = parent[parts[-1]]
+        except (KeyError, TypeError):
+            raise KeyError(f"no param leaf at {path!r}") from None
+        qkv, off = parent.get("qkv"), 0
+        if isinstance(qkv, PackedQKV) and parts[-1] in _QKV:
+            i = _QKV.index(parts[-1])
+            off = sum(pw.n_padded for pw in qkv.pws[:i])
+        else:
+            qkv = None
+        out.append(_Leaf(leaf, qkv, off))
+    if not out:
+        raise KeyError(f"no param leaf at {path!r}")
+    return out
+
+
+def site_leaves(params: Any, path: str) -> List[Any]:
+    """The served leaves of the site at ``path`` (one per layer for a
+    layer site), in layer order."""
+    return [e.leaf for e in _leaves(params, path)]
+
+
+# ---------------------------------------------------------------------------
+# Plan generation: one seeded generator draws the whole trace
+# ---------------------------------------------------------------------------
+
+
+def make_fault_plan(params: Any, cfg: FaultConfig) -> FaultPlan:
+    """Draw a deterministic fault trace for ``params``: the JAX package's
+    ``make_fault_plan`` at one model-axis shard, draw for draw.
+
+    Each tick faults with probability ``cfg.rate`` (site uniform over the
+    dense weights, kind uniform over the available kinds); when ``rate >
+    0`` at least one event lands within the horizon.  ``scale_drift``
+    applies to packed sites only; ``shard_drop`` fires at most
+    ``max_shard_drops`` times (shard 0: one card).
+    """
+    rng = np.random.default_rng(cfg.seed)
+    sites = fault_sites(params)
+    events: List[FaultEvent] = []
+    if not sites or cfg.rate <= 0.0:
+        return FaultPlan([], cfg)
+
+    shard_drops = 0
+    fault_ticks = list(np.flatnonzero(rng.random(cfg.horizon) < cfg.rate))
+    if not fault_ticks:
+        # rate > 0 must inject something: one early event, so a short
+        # trace at a tiny rate still measures fault handling.
+        fault_ticks = [min(8, cfg.horizon - 1)]
+    for tick in fault_ticks:
+        tick = int(tick)
+        site = sites[int(rng.integers(len(sites)))]
+        kinds = [k for k in cfg.kinds
+                 if not (k == "scale_drift" and not site.packed)]
+        if shard_drops >= cfg.max_shard_drops:
+            kinds = [k for k in kinds if k != "shard_drop"]
+        if not kinds:
+            continue
+        kind = kinds[int(rng.integers(len(kinds)))]
+        if kind == "stuck_col":
+            n = int(rng.integers(1, cfg.max_cols_per_event + 1))
+            cols = rng.choice(site.n_cols, size=min(n, site.n_cols),
+                              replace=False)
+            events.append(FaultEvent(tick, kind, site.path,
+                                     cols=tuple(int(c) for c in cols)))
+        elif kind == "scale_drift":
+            n = int(rng.integers(1, cfg.max_tiles_per_event + 1))
+            ts = rng.integers(0, site.n_tiles, size=n)
+            js = rng.integers(0, site.n_cols, size=n)
+            mag = rng.uniform(_DRIFT_LO, _DRIFT_HI, size=n)
+            sgn = rng.choice([-1.0, 1.0], size=n)
+            f = 1.0 + sgn * mag
+            pairs = tuple(sorted({(int(t), int(j))
+                                  for t, j in zip(ts, js)}))
+            events.append(FaultEvent(
+                tick, kind, site.path, tiles=pairs,
+                factors=tuple(float(v) for v in f[:len(pairs)])))
+        else:   # shard_drop
+            shard_drops += 1
+            events.append(FaultEvent(tick, kind, "",
+                                     shard=int(rng.integers(1))))
+    events.sort(key=lambda e: (e.tick, e.path, e.kind))
+    return FaultPlan(events, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Injection: in-place rewrites of the served operands (all three copies)
+# ---------------------------------------------------------------------------
+
+
+def _index(values: Sequence[int], device) -> Tensor:
+    return torch.as_tensor(list(values), dtype=torch.long, device=device)
+
+
+def _device(e: _Leaf):
+    return (e.leaf.codes if isinstance(e.leaf, PackedWeight)
+            else e.leaf).device
+
+
+def _zero_cols(e: _Leaf, cols: Sequence[int]) -> None:
+    idx = _index(cols, _device(e))
+    if not isinstance(e.leaf, PackedWeight):
+        e.leaf.index_fill_(-1, idx, 0)
+        return
+    for t in (e.leaf.codes, e.leaf.scales, e.leaf.kcodes):
+        if t is not None:
+            t.index_fill_(1, idx, 0)
+    if e.qkv is not None:
+        e.qkv.kcodes.index_fill_(1, idx + e.off, 0)
+        e.qkv.scales.index_fill_(1, idx + e.off, 0)
+
+
+def inject_stuck_cols(params: Any, path: str, cols: Sequence[int]) -> None:
+    """Stuck-at-zero output columns in every layer of the site: codes,
+    kcodes and scales zeroed (packed), or the weight columns (float)."""
+    for e in _leaves(params, path):
+        _zero_cols(e, cols)
+
+
+def inject_scale_drift(params: Any, path: str,
+                       tiles: Sequence[Tuple[int, int]],
+                       factors: Sequence[float]) -> None:
+    """Multiply the (tile, col) scales of every layer of the site by their
+    drift factors: an f32 product rounded to the bf16 storage (conductance
+    drift re-read through the same DACs)."""
+    for e in _leaves(params, path):
+        if not isinstance(e.leaf, PackedWeight):
+            raise ValueError(f"scale_drift targets PackedWeight (got {path})")
+        s = e.leaf.scales
+        t, j = _index([p[0] for p in tiles], s.device), _index(
+            [p[1] for p in tiles], s.device)
+        f = torch.as_tensor(list(factors), dtype=torch.float32,
+                            device=s.device)
+        new = (s[t, j].float() * f).to(s.dtype)
+        s.index_put_((t, j), new)
+        if e.qkv is not None:
+            e.qkv.scales.index_put_((t, j + e.off), new)
+
+
+def inject_shard_drop(params: Any) -> None:
+    """The array dies: the port serves one card (no mesh), so every site
+    loses all its columns, whatever the event's shard (the JAX package's
+    single-array branch)."""
+    for site in fault_sites(params):
+        for e in _leaves(params, site.path):
+            _zero_cols(e, range(site.n_padded))
+
+
+def apply_event(params: Any, ev: FaultEvent) -> None:
+    """Inject one event into ``params``, in place."""
+    if ev.kind == "stuck_col":
+        inject_stuck_cols(params, ev.path, ev.cols)
+    elif ev.kind == "scale_drift":
+        inject_scale_drift(params, ev.path, ev.tiles, ev.factors)
+    elif ev.kind == "shard_drop":
+        inject_shard_drop(params)
+    else:
+        raise ValueError(f"unknown fault kind {ev.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Detection: fingerprint probes against the healthy baseline
+# ---------------------------------------------------------------------------
+
+
+def _site_fingerprint_dev(params: Any, site: FaultSite) -> Tensor:
+    """A site's (T, Np) f32 fingerprint on the device: each layer's, summed
+    over the layers in layer order.  Float sites: the column L1 norm,
+    shaped (1, N)."""
+    acc = None
+    for e in _leaves(params, site.path):
+        if isinstance(e.leaf, PackedWeight):
+            fp = packed_tile_fingerprint(e.leaf)
+        else:
+            fp = torch.sum(e.leaf.abs(), dim=tuple(range(e.leaf.ndim - 1)),
+                           dtype=torch.float32)[None, :]
+        acc = fp if acc is None else acc + fp
+    return acc
+
+
+def fingerprint_round(params: Any,
+                      sites: Sequence[FaultSite]) -> Dict[str, np.ndarray]:
+    """Every site's fingerprint as host f32, fetched in one device-to-host
+    copy."""
+    fps = [_site_fingerprint_dev(params, s) for s in sites]
+    if not fps:
+        return {}
+    host = torch.cat([f.reshape(-1) for f in fps]).cpu().numpy()
+    out, at = {}, 0
+    for s, f in zip(sites, fps):
+        out[s.path] = host[at:at + f.numel()].reshape(f.shape)
+        at += f.numel()
+    return out
+
+
+def site_fingerprint(params: Any, site: FaultSite) -> np.ndarray:
+    """Per-(tile, col) probe response of one site, as host f32 (T, Np)
+    (float sites (1, N))."""
+    return fingerprint_round(params, [site])[site.path]
+
+
+@dataclasses.dataclass
+class Detection:
+    """One detection round's verdict for one site."""
+
+    path: str
+    stuck_cols: Tuple[int, ...]                 # dead columns
+    drifted: Tuple[Tuple[int, int], ...]        # drifted (tile, col)
+
+    @property
+    def clean(self) -> bool:
+        return not self.stuck_cols and not self.drifted
+
+
+def detect_site(baseline: np.ndarray, current: np.ndarray,
+                rtol: Optional[float] = None) -> Detection:
+    """Compare fingerprints: exact-zero columns against a nonzero baseline
+    are stuck; other relative deviations beyond ``rtol`` are drift."""
+    rtol = drift_detect_rtol() if rtol is None else rtol
+    base = np.maximum(baseline, 1e-30)
+    rel = np.abs(current - baseline) / base
+    # Stuck = every tile that HAD signal now reads exactly zero (tiles
+    # whose baseline was already zero carry no information either way).
+    dead_or_silent = (current == 0.0) | (baseline == 0.0)
+    col_alive_base = (baseline > 0.0).any(axis=0)
+    stuck = np.flatnonzero(dead_or_silent.all(axis=0) & col_alive_base)
+    stuck_set = set(int(c) for c in stuck)
+    drifted = [(int(t), int(j)) for t, j in zip(*np.nonzero(rel > rtol))
+               if j not in stuck_set]
+    return Detection("", tuple(sorted(stuck_set)), tuple(sorted(drifted)))
+
+
+# ---------------------------------------------------------------------------
+# Repair: restore from the clean spare, in place
+# ---------------------------------------------------------------------------
+
+
+def clone_sites(params: Any) -> Any:
+    """The clean spare: a device clone of every fault site (codes, kcodes
+    and scales; float weights) and of each layer's ``PackedQKV``, in the
+    params' nesting, so ``site_leaves`` addresses it as it does the
+    params.  Gains are shared: no fault touches them."""
+    def walk(node, name):
+        if isinstance(node, PackedWeight):
+            return dataclasses.replace(
+                node, codes=node.codes.clone(), scales=node.scales.clone(),
+                kcodes=None if node.kcodes is None else node.kcodes.clone())
+        if isinstance(node, dict):
+            out = {k: walk(v, k) for k, v in node.items()}
+            out = {k: v for k, v in out.items() if v is not None}
+            qkv = node.get("qkv")
+            if isinstance(qkv, PackedQKV):
+                out["qkv"] = PackedQKV(
+                    kcodes=qkv.kcodes.clone(), scales=qkv.scales.clone(),
+                    gains=qkv.gains, pws=tuple(out[w] for w in _QKV))
+            return out
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if (isinstance(node, Tensor) and name in DENSE_WEIGHT_NAMES
+                and node.ndim >= 2):
+            return node.clone()
+        return None
+
+    return walk(params, None)
+
+
+def _pairs(params: Any, clean: Any, path: str):
+    return zip(_leaves(params, path), _leaves(clean, path))
+
+
+def repair_stuck(params: Any, clean: Any, path: str,
+                 cols: Sequence[int]) -> None:
+    """Remap stuck columns onto the spare: re-program codes, kcodes and
+    scales (or float columns) of exactly those columns, in every layer."""
+    for e, c in _pairs(params, clean, path):
+        idx = _index(cols, _device(e))
+        if not isinstance(e.leaf, PackedWeight):
+            e.leaf.index_copy_(-1, idx, c.leaf.index_select(-1, idx))
+            continue
+        for dst, src in ((e.leaf.codes, c.leaf.codes),
+                         (e.leaf.scales, c.leaf.scales),
+                         (e.leaf.kcodes, c.leaf.kcodes)):
+            if dst is not None:
+                dst.index_copy_(1, idx, src.index_select(1, idx))
+        if e.qkv is not None:
+            q = idx + e.off
+            e.qkv.kcodes.index_copy_(1, q, c.qkv.kcodes.index_select(1, q))
+            e.qkv.scales.index_copy_(1, q, c.qkv.scales.index_select(1, q))
+
+
+def repair_drift(params: Any, clean: Any, path: str,
+                 tiles: Sequence[Tuple[int, int]]) -> None:
+    """Re-quantize on drift: restore ONLY the drifted (tile, col) scales
+    from the spare, in every layer; codes and healthy tiles stay."""
+    for e, c in _pairs(params, clean, path):
+        if not isinstance(e.leaf, PackedWeight):
+            raise ValueError(f"repair_drift targets PackedWeight (got {path})")
+        s = e.leaf.scales
+        t, j = _index([p[0] for p in tiles], s.device), _index(
+            [p[1] for p in tiles], s.device)
+        s.index_put_((t, j), c.leaf.scales[t, j])
+        if e.qkv is not None:
+            e.qkv.scales.index_put_((t, j + e.off),
+                                    c.qkv.scales[t, j + e.off])
+
+
+def restore_sites(params: Any, clean: Any) -> None:
+    """Re-program every fault site from the spare, in place: all three
+    copies of every packed leaf, and every float site."""
+    for site in fault_sites(params):
+        for e, c in _pairs(params, clean, site.path):
+            if not isinstance(e.leaf, PackedWeight):
+                e.leaf.copy_(c.leaf)
+                continue
+            for dst, src in ((e.leaf.codes, c.leaf.codes),
+                             (e.leaf.scales, c.leaf.scales),
+                             (e.leaf.kcodes, c.leaf.kcodes)):
+                if dst is not None:
+                    dst.copy_(src)
+            if e.qkv is not None:
+                cols = slice(e.off, e.off + site.n_padded)
+                e.qkv.kcodes[:, cols].copy_(c.qkv.kcodes[:, cols])
+                e.qkv.scales[:, cols].copy_(c.qkv.scales[:, cols])

@@ -42,6 +42,8 @@ class TokenRec:
     slot: int
     req: Any                    # serving.engine.Request
     finishing: bool             # this token hits the request's limit
+    corrupted: bool = False     # dispatched while an injected fault was
+                                # active and unrepaired
 
 
 @dataclasses.dataclass

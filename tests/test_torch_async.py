@@ -20,9 +20,10 @@ and that a pass keeps every state tensor's storage (a captured graph
 reads its state at fixed addresses).
 
 The preemption-resume overlap case is in ``tests/test_torch_overload.py``.
-No analogue yet: the mesh (ROADMAP queue 1 item 5) and fault-recovery
-(item 4) overlap cases of the JAX suite wait for those slices of the
-port.
+The fault-recovery case runs a workload long enough for the plan's events
+to land (the JAX suite's four short requests end before its first).  No
+analogue yet: the mesh overlap cases of the JAX suite (ROADMAP queue 1
+item 5).
 """
 
 import dataclasses
@@ -44,6 +45,7 @@ from repro_torch.models import init_params
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import (
     DeviceStream,
+    FaultConfig,
     OverlappedStream,
     Request,
     ServingEngine,
@@ -112,6 +114,36 @@ def test_overlap_parity_single_device(tinyllama, quant):
     assert eng.metrics.conservation()["ok"]
     assert set(eng._passes) == {("decode",), ("prefill", 4), ("prefill", 8)}
     assert eng._warmed_shapes <= set(eng._passes)
+
+
+@pytest.mark.parametrize("quant", [PACKED, FUSED],
+                         ids=["abfp_packed", "abfp_fused"])
+def test_overlap_parity_fault_recovery(tiny, quant):
+    """A fault plan injecting and recovering mid-trace: detection rounds
+    run on the tick cadence (clock-independent), recovery syncs the
+    pipeline, and the requeued re-executions land on the blocking
+    engine's streams."""
+    params, mcfg = tiny
+    mcfg = (dataclasses.replace(mcfg, kv_quant=True)
+            if quant.mode == "abfp_fused" else mcfg)
+    kw = dict(quant=quant, faults=FaultConfig(rate=0.05, seed=3, horizon=64),
+              recovery=True, detect_every=2)
+
+    def reqs():
+        return _reqs(prompts=PROMPTS * 2, max_new=12)
+
+    ref_eng = _engine(params, mcfg, **kw)
+    ref = _outs(ref_eng.run(reqs()))
+    eng = _engine(params, mcfg, clock=time.perf_counter, overlap=True, **kw)
+    eng.warmup()
+    got = _outs(eng.run(reqs()))
+    eng.close()
+    assert got == ref
+    assert eng.metrics.faults == ref_eng.metrics.faults
+    assert eng.metrics.faults["injected"] >= 1
+    assert eng.metrics.summary()["requests"]["requeued"] >= 1
+    assert eng.metrics.conservation()["ok"]
+    assert all(len(v) == 12 for v in got.values())
 
 
 def test_overlap_temperature_reproducible_and_equal_to_jax():

@@ -969,6 +969,175 @@ def test_cuda_dense_packed_ste_over_kernel1(m):
     assert torch.equal(outs[0][1], want)
 
 
+def _fault_model():
+    """The smoke model packed as the fused engine serves it, on the card."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.packing import pack_model_params
+
+    mcfg = dataclasses.replace(smoke_config("smollm-360m"), kv_quant=True)
+    quant = QuantConfig(mode="abfp_fused", tile_width=32, gain=8.0,
+                        noise_lsb=0.5)
+    return pack_model_params(init_params(0, mcfg, device="cuda"), quant,
+                             mcfg), quant
+
+
+@pytest.mark.cuda
+def test_cuda_faults_reach_all_three_copies_in_place():
+    """Every inject and repair on the card writes the codes, the kernel
+    layout and the fused QKV concatenation in place: ``kcodes ==
+    kernel_layout(codes)``, each ``PackedQKV`` equal to a fresh
+    ``concat_qkv``, no tensor moved; kernels 1 and 2 on the faulted
+    operands equal their plain versions (which read ``codes``) bit for
+    bit, stuck columns read exactly 0.0, and after repair the outputs
+    equal the pre-fault ones."""
+    _need_cuda()
+    from repro_torch.core.abfp import kernel_layout
+    from repro_torch.serving import faults as faultlib
+    from repro_torch.serving.faults import FaultEvent
+
+    params, quant = _fault_model()
+    spare = faultlib.clone_sites(params)
+    sites = faultlib.fault_sites(params)
+    lp0 = params["layers"][0]
+
+    def ptrs():
+        out = []
+        for site in sites:
+            for leaf in faultlib.site_leaves(params, site.path):
+                out += [leaf.codes.data_ptr(), leaf.scales.data_ptr(),
+                        leaf.kcodes.data_ptr()]
+        for lp in params["layers"]:
+            out += [lp["attn"]["qkv"].kcodes.data_ptr(),
+                    lp["attn"]["qkv"].scales.data_ptr()]
+        return out
+
+    want_ptrs = ptrs()
+
+    def check_copies():
+        for site in sites:
+            for leaf in faultlib.site_leaves(params, site.path):
+                assert torch.equal(leaf.kcodes, kernel_layout(leaf.codes))
+        for lp in params["layers"]:
+            a = lp["attn"]
+            fresh = concat_qkv((a["wq"], a["wk"], a["wv"]), quant)
+            assert torch.equal(a["qkv"].kcodes, fresh.kcodes)
+            assert torch.equal(_bits(a["qkv"].scales), _bits(fresh.scales))
+        assert ptrs() == want_ptrs
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x4 = torch.randn(4, lp0["attn"]["wq"].k, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    x512 = torch.randn(512, lp0["mlp"]["wi"].k, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    pws = (lp0["attn"]["wq"], lp0["attn"]["wk"], lp0["attn"]["wv"])
+
+    def outputs():
+        got = fused_qkv_packed(x4, pws, quant, (3, 4, 5),
+                               qkv=lp0["attn"]["qkv"])
+        for g, w in zip(got, fused_qkv_packed_ref(x4, pws, quant,
+                                                  (3, 4, 5))):
+            _assert_bits_equal(g, w)
+        k1 = {}
+        for name, pw, x in (("wi", lp0["mlp"]["wi"], x512),
+                            ("lm_head", params["lm_head"], x4)):
+            k1[name] = abfp_matmul_packed(x, pw, quant, 9)
+            _assert_bits_equal(k1[name],
+                               abfp_matmul_packed_ref(x, pw, quant, 9))
+        return got, k1
+
+    clean_qkv, clean_k1 = outputs()
+    base = faultlib.fingerprint_round(params, sites)
+    events = [FaultEvent(0, "stuck_col", "groups/0/attn/wq", cols=(3, 100)),
+              FaultEvent(0, "scale_drift", "groups/0/attn/wv",
+                         tiles=((0, 5), (3, 60)), factors=(1.2, 0.8)),
+              FaultEvent(0, "scale_drift", "groups/0/mlp/wi",
+                         tiles=((1, 7),), factors=(0.9,)),
+              FaultEvent(0, "stuck_col", "lm_head", cols=(11, 200))]
+    for ev in events:
+        faultlib.apply_event(params, ev)
+        check_copies()
+        qkv_out, k1 = outputs()
+        if ev.path == "groups/0/attn/wq":
+            assert not qkv_out[0][:, [3, 100]].float().any()
+        if ev.path == "lm_head":
+            assert not k1["lm_head"][:, [11, 200]].float().any()
+        site = next(s_ for s_ in sites if s_.path == ev.path)
+        det = faultlib.detect_site(base[ev.path],
+                                   faultlib.site_fingerprint(params, site))
+        assert not det.clean
+        if det.stuck_cols:
+            faultlib.repair_stuck(params, spare, ev.path, det.stuck_cols)
+        if det.drifted:
+            faultlib.repair_drift(params, spare, ev.path, det.drifted)
+        check_copies()
+        qkv_out, k1 = outputs()
+        for g, w in zip(qkv_out, clean_qkv):
+            _assert_bits_equal(g, w)
+        for name in k1:
+            _assert_bits_equal(k1[name], clean_k1[name])
+    faultlib.apply_event(params, FaultEvent(0, "shard_drop", "", shard=0))
+    check_copies()
+    faultlib.restore_sites(params, spare)
+    check_copies()
+    qkv_out, k1 = outputs()
+    for g, w in zip(qkv_out, clean_qkv):
+        _assert_bits_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_after_reshard_equals_eager():
+    """A graph engine and its eager twin serve one fault plan (a stuck
+    LM-head column, a drifted MLP tile, a shard drop): equal streams and
+    counters, the graphs captured before the reshard are the ones that
+    replay after it (nothing captured again), and a replay after the
+    reshard equals the eager pass bit for bit."""
+    _need_cuda()
+    from repro_torch.core import prng
+    from repro_torch.serving import FaultConfig, FaultPlan, Request
+    from repro_torch.serving.faults import FaultEvent
+
+    plan = FaultPlan([FaultEvent(3, "stuck_col", "lm_head", cols=(5, 30)),
+                      FaultEvent(5, "scale_drift", "groups/0/mlp/wi",
+                                 tiles=((0, 3),), factors=(1.2,)),
+                      FaultEvent(9, "shard_drop", "", shard=0)],
+                     FaultConfig(rate=0.01))
+    graph, eager, mcfg = _smoke_engines(faults=plan, detect_every=2)
+    graph.warmup()
+    captured = {k: wp.graph for k, wp in graph._passes.items()}
+
+    def reqs():
+        return [Request(uid=i, prompt=list(range(1, 3 + 5 * i)),
+                        max_new_tokens=6) for i in range(6)]
+
+    done = {}
+    for eng in (graph, eager):
+        done[eng is graph] = {r.uid: r.generated for r in eng.run(reqs())}
+    assert done[True] == done[False]
+    assert graph.metrics.faults == eager.metrics.faults
+    assert graph.metrics.faults["reshards"] == 1
+    assert graph.metrics.conservation()["ok"]
+    for k, g in captured.items():
+        assert graph._passes[k].graph is g
+    b, rng = graph.capacity, np.random.default_rng(2)
+    for shape_key in (("decode",), ("prefill", 8)):
+        width = 1 if shape_key[0] == "decode" else 8
+        fields = dict(tokens=rng.integers(1, mcfg.vocab_size, (b, width)),
+                      n_tokens=np.array([width, 1, 0, 2][:b]),
+                      prev_mask=np.zeros(b, bool),
+                      temps=np.zeros(b, np.float32), uids=np.arange(b),
+                      idxs=np.arange(b))
+        got = []
+        for eng in (graph, eager):
+            io, _ = eng._call(shape_key, prng.PRNGKey(4), **fields)
+            got.append(io.logits.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1]), shape_key
+        assert torch.isfinite(got[0]).all()
+
+
 @pytest.mark.cuda
 def test_cuda_failing_capture_raises(monkeypatch):
     """A pass that cannot be captured (a host sync inside it) raises at

@@ -56,6 +56,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.training.finetune",
                 "repro_torch.distributed.fault",
                 "repro_torch.serving.stream", "repro_torch.serving.pages",
+                "repro_torch.serving.faults",
                 "repro_torch.core.tree",
                 "repro_torch.kernels.ref", "repro_torch.optim.optimizers",
                 "repro_torch.distributed.collectives",

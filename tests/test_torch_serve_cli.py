@@ -133,3 +133,52 @@ def test_overlapped_paged_cli_on_the_wall_clock(tmp_path, capsys):
     assert "[serve] tick utilization" in text
     doc = json.loads(out.read_text())
     assert doc["requests"]["finished"] + doc["requests"]["shed"] == 6
+
+
+FAULTS = ["--reduced", "--quant", "abfp-packed", "--tile", "32",
+          "--requests", "8", "--max-new", "8", "--fault-rate", "0.1",
+          "--fault-seed", "1", "--fault-kinds", "stuck_col,scale_drift",
+          "--detect-every", "2"]
+
+
+@pytest.mark.parametrize("recovery", [True, False], ids=["on", "off"])
+def test_fault_flags_reach_the_engine_and_the_metrics(tmp_path, capsys,
+                                                      monkeypatch, recovery):
+    """The ``--fault-*`` flags build the engine's plan, cadence and
+    recovery; the summary prints the fault counters and ``--metrics-out``
+    carries them, equal to the JAX CLI's (the plan depends on the weight
+    shapes only, and the simulated clock on the token counts)."""
+    built = []
+
+    class Spy(serve.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(serve, "ServingEngine", Spy)
+    argv = FAULTS + ([] if recovery else ["--no-recovery"])
+    out = tmp_path / "torch.json"
+    serve.main(["--device", "cpu", *argv, "--metrics-out", str(out)])
+    eng, = built
+    assert eng.fault_plan.cfg == serve.FaultConfig(
+        rate=0.1, seed=1, kinds=("stuck_col", "scale_drift"))
+    assert eng.detect_every == 2 and eng.recovery == recovery
+    text = capsys.readouterr().out
+    assert (f"[serve] fault injection: rate=0.1/tick, kinds=stuck_col,"
+            f"scale_drift, seed=1, recovery={'on' if recovery else 'off'}"
+            in text)
+    assert "[serve] faults: " in text and "[serve] timed_out 0" in text
+    jout = tmp_path / "jax.json"
+    monkeypatch.setattr(sys, "argv", ["serve", *argv, "--metrics-out",
+                                      str(jout)])
+    j_serve.main()
+    capsys.readouterr()
+    got, want = json.loads(out.read_text()), json.loads(jout.read_text())
+    assert _keys(got) == _keys(want)
+    assert got["faults"] == want["faults"]
+    assert got["requests"] == want["requests"]
+    assert got["faults"]["injected"] >= 1 and got["faults"]["detected"] >= 1
+    repaired = got["faults"]["cols_remapped"] + got["faults"][
+        "tiles_requantized"]
+    assert (repaired > 0) == recovery
+    assert got["requests"]["conservation_ok"]
