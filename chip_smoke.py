@@ -137,6 +137,36 @@ Phases (any failure exits non-zero and prints no result line):
                and device time, the reshard's time, and the rate-0 and
                no-plan decode-tick medians against phase 4b's.
 
+ 13. recurrent — the recurrent and hybrid families served at full width
+               through ``repro_torch.launch.serve``'s configuration
+               (``--arch ... --full --fused``: bf16 weights from seed 0,
+               abfp_fused, tile 128, gain 8, noise 0.5, int8 KV, capacity
+               4, max_len 512; see ``recurrent_phase``): (a)
+               recurrentgemma-2b (18 RG-LRU + 8 local-attention layers,
+               window 2,048) on phase 4's six prompt lengths and two
+               prompts of 2,100 and 2,300 tokens (past max_len and past
+               the window: fixed-state admission, the ring buffers wrap),
+               16 greedy tokens each, served eagerly, with graphs and with
+               graphs + overlap in turns (RG_TURNS), each run a fresh
+               engine with the launch counts zeroed just before and read
+               just after: 8 of 8, streams equal, no NaN logits, kernel 1
+               201 times per decode tick and kernels 2 and 3 never (the
+               windowed ticks take the packed chain and the plain int8
+               attention, as the JAX package's do); every pass shape's
+               replay against the eager pass under two keys (logits,
+               sampled tokens and the whole state bit-equal, the keys'
+               logits differ); the first prefill pass and decode tick
+               through the kernels and the plain versions (every kernel-1
+               call 0 flips on its own inputs, and then the logits
+               bit-equal); decode and prefill medians, tokens/s, tick
+               utilization, each graph capture's seconds, a profiler
+               breakdown of a decode replay and a 128-token prefill replay,
+               kernel 1's device time for one tick's 201 launches (and per
+               weight shape) beside its bound, and the peak device memory;
+               (b) xlstm-350m (12 mLSTM + 12 sLSTM) the same on the six
+               short prompts, eager and with graphs (121 kernel-1 launches
+               per tick).
+
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
 Without CUDA, or without the ``repro_torch`` sources beside this file, it
@@ -233,6 +263,15 @@ FAULT_EVENTS = (
 FAULT_DETECT_EVERY = 2
 FAULT_RATE, FAULT_SEED = 0.05, 3
 FAULT_SLO_TTFT = 64.0
+# Phase 13 (recurrent families): 13a's two prompts past MAX_LEN and past
+# recurrentgemma-2b's 2,048-token window (their ring buffers wrap inside
+# and across 128-token chunks), 13a's served runs in turns, and kernel 1's
+# launches per decode tick: 18 RG-LRU layers x 8 + 8 attention layers x 7
+# + the LM head, and 12 mLSTM x 7 + 12 sLSTM x 3 + the head.
+RG_LONG_PROMPTS = (2100, 2300)
+RG_TURNS = ("eager", "graphs", "overlap", "overlap", "graphs", "eager")
+RG_DECODE_K1 = 201
+XL_DECODE_K1 = 121
 
 
 def fail(msg: str) -> None:
@@ -1423,6 +1462,364 @@ def fault_phase(dev, engine_cls, params, mcfg, quant, reqs, want_streams,
     return out
 
 
+def recurrent_phase(dev, engine_cls, short_lens, rows: list) -> dict:
+    """Phase 13: the recurrent and hybrid families served at full width
+    (see the module docstring): (a) recurrentgemma-2b on phase 4's six
+    prompt lengths (``short_lens``) and RG_LONG_PROMPTS, (b) xlstm-350m on
+    the six.  ``engine_cls`` is phase 4's NaN-checking engine.  Annotates
+    kernel rows with this path's launches and kernel 1's row with its
+    time per recurrentgemma decode tick; returns the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_matmul import abfp_matmul_packed_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import (
+        Numerics,
+        clone_state,
+        decode_step,
+        init_decode_state,
+        init_params,
+        prefill,
+    )
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.runners import state_tensors
+
+    k1 = "abfp_matmul_packed"
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+
+    def shape_name(k):
+        return "".join(str(p_) for p_ in k)
+
+    def family(arch, lens, k1_per_tick, turns) -> dict:
+        res = {"arch": arch}
+        torch.cuda.reset_peak_memory_stats()
+        args = serve_cli.build_parser().parse_args(
+            ["--arch", arch, "--full", "--fused", "--capacity",
+             str(CAPACITY), "--max-len", str(MAX_LEN), "--max-new",
+             str(MAX_NEW), "--seed", str(SEED)])
+        mcfg, quant = serve_cli.model_and_quant(args)
+        if quant.mode != "abfp_fused" or not mcfg.kv_quant:
+            fail(f"phase 13 {arch}: unexpected serving config {quant}")
+        t0 = time.perf_counter()
+        params = init_params(SEED, mcfg, device=dev)
+        eng = engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                         quant=quant, seed=SEED, device=dev, _graphs=False)
+        torch.cuda.synchronize()
+        res["init_and_pack_s"] = time.perf_counter() - t0
+        del params
+        packed = eng.params
+        log(f"phase 13 {arch}: {mcfg.num_layers} layers "
+            f"{mcfg.block_pattern}, d={mcfg.d_model}, vocab "
+            f"{mcfg.vocab_size}, window {mcfg.window_size}, built and "
+            f"packed in {res['init_and_pack_s']:.1f}s")
+        rng = np.random.default_rng(SEED + 13)
+        reqs = [Request(uid=i, prompt=rng.integers(1, mcfg.vocab_size,
+                                                   n).tolist(),
+                        max_new_tokens=MAX_NEW) for i, n in enumerate(lens)]
+        if any(not eng.fits(r) for r in reqs):
+            fail(f"phase 13 {arch}: a request does not fit")
+
+        def fresh(**kw):
+            return ServingEngine(packed, mcfg, capacity=CAPACITY,
+                                 max_len=MAX_LEN, quant=quant, seed=SEED,
+                                 device=dev, **kw)
+
+        # The served runs, in turns: each a fresh engine (graphs captured
+        # before its timed window, each shape timed), the launch counts
+        # zeroed just before the run and read just after.
+        want = None
+        runs = {m: [] for m in ("eager", "graphs", "overlap")}
+        for mode in turns:
+            if mode == "eager" and want is None:
+                e = eng
+            else:
+                e = fresh(**{"eager": dict(_graphs=False), "graphs": {},
+                             "overlap": dict(clock=time.perf_counter,
+                                             overlap=True)}[mode])
+            capture = {}
+            if mode != "eager":
+                for k in shapes:
+                    t1 = time.perf_counter()
+                    e._executable(k)
+                    torch.cuda.synchronize()
+                    capture[shape_name(k)] = time.perf_counter() - t1
+                e._warmed_shapes.clear()
+            rs = [Request(uid=r.uid, prompt=list(r.prompt),
+                          max_new_tokens=MAX_NEW) for r in reqs]
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            fin = e.run(rs)
+            e.close()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = ops.launch_counts()
+            if len(fin) != len(reqs) or any(
+                    not r.done or len(r.generated) != MAX_NEW for r in fin):
+                fail(f"phase 13 {arch} {mode}: {len(fin)} of {len(reqs)} "
+                     f"requests finished")
+            streams = {r.uid: r.generated for r in fin}
+            if want is None:
+                want = streams
+                per_tick = sorted({p[k1] for p in e.per_pass["decode"]})
+                other = {n: v for n, v in counts.items() if n != k1 and v}
+                if per_tick != [k1_per_tick] or other:
+                    fail(f"phase 13 {arch}: kernel 1 launched {per_tick} "
+                         f"times per decode tick (want {k1_per_tick}), "
+                         f"other kernels {other}")
+            elif streams != want:
+                bad = [u for u in want if streams[u] != want[u]]
+                fail(f"phase 13 {arch} {mode}: the streams of requests "
+                     f"{bad} differ from the eager run's")
+            if counts[k1] <= 0:
+                fail(f"phase 13 {arch} {mode}: kernel 1 was not launched")
+            if mode != "eager":
+                dec = e._passes[("decode",)].launches
+                if dec.get(k1) != k1_per_tick or any(
+                        v for n, v in dec.items() if n != k1):
+                    fail(f"phase 13 {arch} {mode}: a decode replay holds "
+                         f"{dec}, want {k1_per_tick} of kernel 1 only")
+            med, cnt = e.pass_stats()
+            toks = sum(len(r.generated) for r in fin)
+            r_ = {"wall_s": wall, "tokens": toks, "tokens_per_s": toks / wall,
+                  "decode_ms": med["decode"] * 1e3,
+                  "prefill_ms": med["prefill"] * 1e3, "passes": e.ticks,
+                  "passes_by_kind": cnt,
+                  "tick_utilization": e.metrics.tick_utilization()["value"],
+                  "launches": counts, "capture_s": capture}
+            runs[mode].append(r_)
+            log(f"phase 13 {arch} serve [{mode}]: {len(fin)}/{len(reqs)} "
+                f"requests, {toks} tokens in {wall:.3f}s "
+                f"({r_['tokens_per_s']:.1f} tokens/s), decode tick median "
+                f"{r_['decode_ms']:.3f} ms, prefill pass median "
+                f"{r_['prefill_ms']:.3f} ms ({cnt}), tick_utilization "
+                f"{r_['tick_utilization']}, capture s {capture}, launches "
+                f"{counts}")
+            if e is not eng:
+                del e
+                gc.collect()
+        res["runs"] = runs
+        res["prompt_lens"] = [len(r.prompt) for r in reqs]
+
+        # Replay against eager: every pass shape from the eager run's final
+        # state, two keys each, by replay and eagerly.
+        served = [t.clone() for t in state_tensors(eng.state)]
+        geng, xeng = fresh(clock=time.perf_counter, overlap=True), fresh(
+            clock=time.perf_counter, overlap=True, _graphs=False)
+        geng.warmup()
+        rng13 = np.random.default_rng(SEED + 14)
+        fields_of = {}
+        for shape in shapes:
+            width = 1 if shape[0] == "decode" else shape[1]
+            fields_of[shape] = fields = dict(
+                tokens=rng13.integers(1, mcfg.vocab_size, (CAPACITY, width)),
+                n_tokens=np.array([width, max(1, width // 2), 1, 0]),
+                prev_mask=np.zeros(CAPACITY, bool),
+                temps=np.zeros(CAPACITY, np.float32),
+                uids=np.arange(CAPACITY), idxs=np.arange(CAPACITY) + 3)
+            lgs = []
+            for t, key in enumerate(prng.split(prng.PRNGKey(SEED + 7), 2)):
+                outs = []
+                for e in (geng, xeng):
+                    for dst, src in zip(state_tensors(e.state), served):
+                        dst.copy_(src)
+                    io, _ = e._call(shape, key, **fields)
+                    outs.append((io.logits.clone(), io.sampled.clone(),
+                                 [x.clone() for x in state_tensors(e.state)]))
+                (lg, sg, stg), (le, se, ste) = outs
+                if not torch.isfinite(lg).all():
+                    fail(f"phase 13 {arch}: non-finite logits in a replay "
+                         f"of {shape}")
+                if not (torch.equal(lg, le) and torch.equal(sg, se) and all(
+                        torch.equal(a, b) for a, b in zip(stg, ste))):
+                    fail(f"phase 13 {arch} {shape} pass {t}: the replay "
+                         f"differs from the eager pass")
+                lgs.append(lg)
+            if torch.equal(lgs[0], lgs[1]):
+                fail(f"phase 13 {arch} {shape}: the two keys' logits are "
+                     f"equal (frozen seeds?)")
+        log(f"phase 13 {arch}: replay against eager for "
+            f"{[shape_name(s_) for s_ in shapes]}: two keys each, logits, "
+            f"sampled tokens and the whole state bit-equal, the keys' "
+            f"logits differ")
+        xeng.close()
+        del xeng
+
+        # Where a replay's device time goes (measurement only).
+        key = prng.PRNGKey(SEED + 9)
+        res["profile"] = {}
+        for shape in (("decode",), ("prefill", 128)):
+            for dst, src in zip(state_tensors(geng.state), served):
+                dst.copy_(src)
+            p_ = profile_pass(dev, lambda: geng._call(
+                shape, key, **fields_of[shape]), f"{arch} "
+                f"{shape_name(shape)} pass (graph replay)")
+            res["profile"][shape_name(shape)] = p_
+        geng.close()
+        del geng, served
+
+        # The first prefill pass and decode tick through the kernels and
+        # through the plain versions; every kernel-1 call against its plain
+        # version on its own inputs (0 flips).
+        first = reqs[:CAPACITY]
+        n_tok = np.array([min(len(r.prompt), 128) for r in first], np.int32)
+        toks = np.zeros((CAPACITY, 128), np.int32)
+        for i, r in enumerate(first):
+            toks[i, :n_tok[i]] = r.prompt[:n_tok[i]]
+        toks_t = torch.from_numpy(toks).to(dev)
+        n_t = torch.from_numpy(n_tok).to(dev)
+        key = prng.split(prng.PRNGKey(SEED))[1]
+        key_d = prng.fold_in(key, 1)
+        wrapper = ops.abfp_matmul_packed
+        calls = []
+
+        def recorded(x, pw, cfg, seed=None):
+            y = wrapper(x, pw, cfg, seed)
+            calls.append((x, pw, cfg, seed, y))
+            return y
+
+        def checked(kind):
+            torch.cuda.synchronize()
+            flips = err = 0.0
+            for x, pw, cfg, seed, y in calls:
+                f_, z_, ulp, e_ = bf16_diff(
+                    y, abfp_matmul_packed_ref(x, pw, cfg, seed))
+                if f_ or ulp:
+                    fail(f"phase 13 {arch} first {kind}: kernel 1 differs "
+                         f"from its plain version ({f_}/{z_} flips) at "
+                         f"M={x.numel() // x.shape[-1]}, K={pw.k}, "
+                         f"N={pw.n_cols}")
+                err = max(err, e_)
+            log(f"phase 13 {arch} first {kind}: {len(calls)} kernel-1 calls "
+                f"on their own inputs, 0 flips against the plain version")
+            return err
+
+        def compare(kind, a, b):
+            same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            err = float((a - b).abs().max())
+            log(f"phase 13 {arch} first {kind}: logits max-abs difference "
+                f"{err:.4g}, greedy tokens equal {same:.0%}")
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                fail(f"phase 13 {arch}: non-finite logits in the first "
+                     f"{kind}")
+            if not torch.equal(a, b):
+                fail(f"phase 13 {arch} first {kind}: every kernel-1 call "
+                     f"was bit-equal, yet the logits differ from the plain "
+                     f"run's")
+            return {"logits_max_abs": err, "greedy_equal": same}
+
+        state0 = init_decode_state(mcfg, CAPACITY, MAX_LEN, device=dev)
+        st_k, st_p = clone_state(state0), clone_state(state0)
+        ops.abfp_matmul_packed = recorded
+        try:
+            lg_k, _ = prefill(packed, st_k, toks_t, n_t, mcfg,
+                              Numerics(quant, key))
+        finally:
+            ops.abfp_matmul_packed = wrapper
+        err = checked("prefill pass")
+        calls.clear()
+        lg_p, _ = prefill(packed, st_p, toks_t, n_t, mcfg,
+                          Numerics(quant, key, plain=True))
+        res["first_prefill"] = compare("prefill pass", lg_k, lg_p)
+        tok = lg_k.argmax(-1).to(torch.int32)
+        ops.abfp_matmul_packed = recorded
+        try:
+            lg_k, _ = decode_step(packed, st_k, tok, mcfg,
+                                  Numerics(quant, key_d))
+        finally:
+            ops.abfp_matmul_packed = wrapper
+        err = max(err, checked("decode tick"))
+        if len(calls) != k1_per_tick:
+            fail(f"phase 13 {arch}: the first decode tick made "
+                 f"{len(calls)} kernel-1 calls, want {k1_per_tick}")
+        lg_p, _ = decode_step(packed, st_p, tok, mcfg,
+                              Numerics(quant, key_d, plain=True))
+        res["first_decode"] = compare("decode tick", lg_k, lg_p)
+        res["k1_max_abs_err"] = err
+
+        # Kernel 1's device time for one decode tick's worth of its launches
+        # (a graph replay of the tick's recorded calls), the plain version's
+        # time, and the bound from the bytes and operations of these calls.
+        tick = [(x, pw, cfg, seed) for x, pw, cfg, seed, _ in calls]
+        calls.clear()
+        nb = i8 = f32 = 0
+        for x, pw, _, _ in tick:
+            b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw,
+                                 x.element_size())
+            nb, i8, f32 = nb + b_, i8 + i_, f32 + f_
+        bms, by = bound(nb, i8, f32)
+        ms, how = graph_ms(lambda: [wrapper(*c) for c in tick], 20)
+        plain_ms = median_ms(lambda: [abfp_matmul_packed_ref(*c)
+                                      for c in tick], 3)
+        # Each weight shape of the tick alone (one call, graph replay),
+        # against its own bound: where the tick's time over its bound goes.
+        by_shape = {}
+        for c in tick:
+            x, pw = c[0], c[1]
+            key_ = f"{pw.k}x{pw.n_cols}"
+            if key_ in by_shape:
+                by_shape[key_]["calls"] += 1
+                continue
+            b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw,
+                                 x.element_size())
+            one_ms = graph_ms(lambda c=c: wrapper(*c), 20)[0]
+            by_shape[key_] = {"calls": 1, "ms": one_ms,
+                              "bound_ms": bound(b_, i_, f_)[0],
+                              "gb_per_s": b_ / one_ms / 1e6}
+        log(f"phase 13 {arch}: kernel 1 per weight shape (K x N: calls, ms "
+            f"per call, bound ms, GB/s): " + json.dumps(
+                {k_: [v["calls"], round(v["ms"], 4), round(v["bound_ms"], 4),
+                      round(v["gb_per_s"], 1)] for k_, v in
+                 by_shape.items()}))
+        res["k1_tick"] = {"launches": len(tick), "ms": ms, "timing": how,
+                          "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": by, "bytes": nb,
+                          "code_bytes": sum(pw.k * pw.n_cols
+                                            for _, pw, _, _ in tick),
+                          "by_shape": by_shape}
+        log(f"phase 13 {arch}: kernel 1's {len(tick)} launches of one "
+            f"decode tick take {ms:.4f} ms ({how}; plain version "
+            f"{plain_ms:.3f} ms), bound {bms:.4f} ms by {by} "
+            f"({nb / 1e9:.3f} GB)")
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del tick, st_k, st_p, state0, eng, packed
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    t_phase = time.perf_counter()
+    out = {"recurrentgemma": family(
+        "recurrentgemma-2b", list(short_lens) + list(RG_LONG_PROMPTS),
+        RG_DECODE_K1, RG_TURNS)}
+    log(f"phase 13a in {time.perf_counter() - t_phase:.1f}s")
+    t_b = time.perf_counter()
+    out["xlstm"] = family("xlstm-350m", short_lens, XL_DECODE_K1,
+                          ("eager", "graphs"))
+    log(f"phase 13b in {time.perf_counter() - t_b:.1f}s")
+    rg = out["recurrentgemma"]
+    for row in rows:
+        name = row["name"]
+        row["launches_recurrentgemma_serve"] = rg["runs"]["graphs"][0][
+            "launches"].get(name, 0)
+        row["launches_xlstm_serve"] = out["xlstm"]["runs"]["graphs"][0][
+            "launches"].get(name, 0)
+        if name == "abfp_matmul_packed":
+            t_ = rg["k1_tick"]
+            row.update({"recurrentgemma_tick_ms": t_["ms"],
+                        "recurrentgemma_tick_plain_ms": t_["plain_ms"],
+                        "recurrentgemma_tick_bound_ms": t_["bound_ms"],
+                        "recurrentgemma_tick_bound_by": t_["bound_by"],
+                        "launches_per_recurrentgemma_tick": t_["launches"],
+                        "xlstm_tick_ms": out["xlstm"]["k1_tick"]["ms"],
+                        "xlstm_tick_bound_ms":
+                            out["xlstm"]["k1_tick"]["bound_ms"]})
+            row["max_abs_err"] = max(row["max_abs_err"], rg["k1_max_abs_err"],
+                                     out["xlstm"]["k1_max_abs_err"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2511,6 +2908,14 @@ def main() -> None:
                          want_streams, graph_serve_launches,
                          summary4b["graphs"]["decode_ms"], card, rows)
     log(f"fault phase in {faults['seconds']:.1f}s: {json.dumps(faults)}")
+
+    # 13. recurrent: the recurrent and hybrid families served -------------
+    del served_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = recurrent_phase(dev, CheckedEngine,
+                          [len(r.prompt) for r in reqs[:6]], rows)
+    log(f"recurrent phase in {rec['seconds']:.1f}s: {json.dumps(rec)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Parameters of the JAX package, as numpy arrays, into the port's layout.
 
-The JAX package stacks the layers of each block-pattern position on a
-leading axis under ``params["groups"][j]``; for the dense pattern
-``("attention",)`` that is ``groups[0]``, which ``from_jax_params`` unstacks
-into the port's per-layer list.  bfloat16 leaves arrive as numpy arrays
-whose ``dtype.name`` is ``"bfloat16"``; they are reinterpreted bit for bit
-through uint16, without importing any bfloat16 numpy extension.
+The JAX package stacks the layers of block-pattern position ``j`` on a
+leading axis under ``params["groups"][j]`` and keeps the remainder layers
+(a pattern that does not divide ``num_layers``) unstacked under
+``params["extra"]``; ``from_jax_params`` unstacks them into the port's
+flat per-layer list: ``groups[j][g]`` is layer ``g * len(pattern) + j``
+and ``extra[r]`` layer ``n_groups * len(pattern) + r``.  bfloat16 leaves
+arrive as numpy arrays whose ``dtype.name`` is ``"bfloat16"``; they are
+reinterpreted bit for bit through uint16, without importing any bfloat16
+numpy extension.
 """
 
 from __future__ import annotations
@@ -37,22 +40,25 @@ def _tree(node, device):
 def from_jax_params(tree: dict, mcfg: ModelConfig,
                     device: DeviceLike = None) -> dict:
     """JAX params (a tree of numpy arrays) -> the port's params dict."""
-    check_supported(mcfg)
+    check_supported(mcfg, serving=True)
     dev = resolve_device(device)
-    groups = tree["groups"]
-    if len(groups) != 1 or tree.get("extra"):
-        raise ValueError("expected the dense layout: one scanned group")
-    stacked = groups[0]
+    glen = len(mcfg.block_pattern or ("attention",))
+    n_groups = mcfg.num_layers // glen
 
-    def layer(i, node):
+    def layer(node, g=None):
         if isinstance(node, dict):
-            return {k: layer(i, v) for k, v in node.items()}
-        return to_tensor(np.asarray(node)[i], dev)
+            return {k: layer(v, g) for k, v in node.items()}
+        return to_tensor(node if g is None else np.asarray(node)[g], dev)
 
-    n = mcfg.num_layers
+    layers = [None] * mcfg.num_layers
+    for j, stacked in enumerate(tree["groups"]):
+        for g in range(n_groups):
+            layers[g * glen + j] = layer(stacked, g)
+    for r, node in enumerate(tree.get("extra", ())):
+        layers[n_groups * glen + r] = layer(node)
     out = {"embed": to_tensor(tree["embed"], dev),
            "final_norm": _tree(tree["final_norm"], dev),
-           "layers": [layer(i, stacked) for i in range(n)]}
+           "layers": layers}
     if "lm_head" in tree:
         out["lm_head"] = to_tensor(tree["lm_head"], dev)
     return out

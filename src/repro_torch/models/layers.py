@@ -12,8 +12,11 @@ The KV cache is a dict of tensors per layer, ``{"k", "v", "length"}`` plus
 ``"k_scale"``/``"v_scale"`` for the int8 cache, and is UPDATED IN PLACE:
 a decode tick writes one slot per row instead of copying the whole cache
 (about 84 MB per tick for smollm-360m at capacity 4, max_len 512 in bf16).
-Rows whose ``n_tokens`` is 0 and padding lanes are never written.  Only
-append-only caches (``window == 0``) are ported.  A PAGED cache holds
+Rows whose ``n_tokens`` is 0 and padding lanes are never written.  A
+windowed layer (``window > 0``, hybrid local attention) holds a RING
+buffer of ``window`` slots: token ``length`` goes to slot ``length %
+window``, and a chunk scans token by token through the decode core.  A
+PAGED cache holds
 per-layer page pools ``{"k_pages", "v_pages"}`` (plus the scale pools)
 shared by all rows, addressed through a (B, MP) page table
 (``paged_append_attend``).
@@ -378,51 +381,94 @@ def quantized_chunk_attention(q: Tensor, k_codes: Tensor, k_scale: Tensor,
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-def _append_attend_one(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict):
-    """Append ONE token's K/V per row (in place) and attend: the decode
-    tick core.  q: (B, 1, H, D); k, v: (B, 1, KH, D).  Returns (out,
-    kv_cache) with the cache updated in place."""
+def _cache_values(kv_cache: dict, k: Tensor, v: Tensor) -> dict:
+    """What the cache stores for K/V (..., KH, D): int8 codes and bf16
+    scales (``k``, ``v``, ``k_scale``, ``v_scale``) for the int8 cache,
+    else K/V in the cache's dtype."""
+    if "k_scale" in kv_cache:
+        kc, ks = _kv_encode(k)
+        vc, vs = _kv_encode(v)
+        return {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(kv_cache["k"].dtype), "v": v.to(kv_cache["v"].dtype)}
+
+
+def _attend_step(q: Tensor, vals: dict, kv_cache: dict, window: int,
+                 ok: Optional[Tensor] = None):
+    """Write one token's cache values per row (in place) and attend: the
+    decode core.  q: (B, 1, H, D); ``vals`` from ``_cache_values`` (B,
+    ...).  A ring buffer (``window`` > 0) writes slot ``length % S_max``
+    and attends ``min(length + 1, S_max)`` slots.  Rows with ``ok`` False
+    write back what their slot holds and keep their length.  Returns
+    (out (B, 1, H, D), kv_cache)."""
     b = q.shape[0]
+    s_max = kv_cache["k"].shape[1]
     length = kv_cache["length"]
     bidx = torch.arange(b, device=q.device)
-    slot = length.long()
+    slot = (length % s_max if window > 0 else length).long()
+    for name, val in vals.items():
+        buf = kv_cache[name]
+        if ok is not None:
+            sel = ok.reshape((b,) + (1,) * (val.ndim - 1))
+            val = torch.where(sel, val, buf[bidx, slot])
+        buf[bidx, slot] = val
+    filled = (torch.clamp(length + 1, max=s_max) if window > 0
+              else length + 1)
     if "k_scale" in kv_cache:
-        kc, ks = _kv_encode(k[:, 0])
-        vc, vs = _kv_encode(v[:, 0])
-        kv_cache["k"][bidx, slot] = kc
-        kv_cache["v"][bidx, slot] = vc
-        kv_cache["k_scale"][bidx, slot] = ks
-        kv_cache["v_scale"][bidx, slot] = vs
         out = quantized_decode_attention(
             q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
-            kv_cache["v_scale"], lengths=length + 1)
+            kv_cache["v_scale"], lengths=filled)
     else:
-        kv_cache["k"][bidx, slot] = k[:, 0].to(kv_cache["k"].dtype)
-        kv_cache["v"][bidx, slot] = v[:, 0].to(kv_cache["v"].dtype)
         out = decode_attention(q, kv_cache["k"], kv_cache["v"],
-                               lengths=length + 1)
-    length.add_(1)
+                               lengths=filled)
+    length.add_(1 if ok is None else ok.to(length.dtype))
     return out, kv_cache
 
 
+def _append_attend_one(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict,
+                       window: int = 0):
+    """Append ONE token's K/V per row (in place) and attend: the decode
+    tick core, a ring buffer with ``window`` > 0.  q: (B, 1, H, D); k, v:
+    (B, 1, KH, D).  Returns (out, kv_cache) with the cache updated in
+    place."""
+    return _attend_step(q, _cache_values(kv_cache, k[:, 0], v[:, 0]),
+                        kv_cache, window)
+
+
 def chunk_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict, *,
-                        n_tokens: Tensor):
+                        n_tokens: Tensor, window: int = 0):
     """Append up to S new K/V per row (in place) and attend all S chunk
-    queries: the chunked-prefill core (append-only cache).
+    queries: the chunked-prefill core.
 
     q: (B, S, H, D); k, v: (B, S, KH, D); ``n_tokens``: (B,) — tokens
     0..n-1 of row b's chunk are real, the rest padding.  Padding lanes and
-    rows with n_tokens == 0 write nothing, so their cache slots stay
-    bit-for-bit unchanged; this also covers the drop lane past the buffer
-    when ``length + n_tokens == S_max``.  Returns (out (B, S, H, D),
-    kv_cache).
+    rows with n_tokens == 0 leave their cache slots bit-for-bit unchanged.
+    Returns (out (B, S, H, D), kv_cache).
 
-    No data-dependent shape and no host sync (the pass runs inside a CUDA
+    A ring buffer (``window`` > 0) scans the chunk token by token through
+    the decode core (``_attend_step``), padding lanes masked: a mid-chunk
+    query may need keys that later chunk tokens evict, and the scan keeps
+    the decode tick's buffer layout.  The cache values of the whole chunk
+    are encoded at once (per vector, so the same values).
+
+    An append-only cache scatters the chunk, then attends once.  No
+    data-dependent shape and no host sync (the pass runs inside a CUDA
     graph): each of a row's first min(S, S_max) lanes owns the cache slot
     ``(length + lane) % S_max``, distinct within the row, and writes back
-    the value already there unless it is a real token inside the buffer.
-    Lanes past S_max are never real."""
+    the value already there unless it is a real token inside the buffer;
+    this also covers the drop lane past the buffer when ``length +
+    n_tokens == S_max``.  Lanes past S_max are never real."""
     b, s = q.shape[:2]
+    if window > 0:
+        vals = _cache_values(kv_cache, k, v)
+        valid = (torch.arange(s, device=q.device)[None, :]
+                 < n_tokens[:, None])
+        outs = []
+        for t in range(s):
+            out_t, _ = _attend_step(q[:, t:t + 1],
+                                    {n_: v_[:, t] for n_, v_ in vals.items()},
+                                    kv_cache, window, valid[:, t])
+            outs.append(out_t[:, 0])
+        return torch.stack(outs, dim=1), kv_cache
     length = kv_cache["length"]
     s_max = kv_cache["k"].shape[1]
     offs = torch.arange(s, device=q.device)[None, :]
@@ -619,25 +665,29 @@ def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
     return nx.dense(out.reshape(b, s, h * hd), params["wo"]), kv_cache
 
 
-def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens) -> bool:
+def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens,
+                      window: int = 0) -> bool:
     """Does this call take the fused decode path?  ``abfp_fused`` mode, a
-    single-token decode tick, an unpaged int8 KV cache and all three
-    projection weights packed; anything else (a paged cache included, as
-    in the JAX package) runs the packed chain."""
+    single-token decode tick, an unpaged, un-windowed int8 KV cache and
+    all three projection weights packed; anything else (a paged cache or
+    a ring buffer included, as in the JAX package) runs the packed
+    chain."""
     return (nx.quant.mode == "abfp_fused"
-            and s == 1 and n_tokens is None
+            and s == 1 and n_tokens is None and window == 0
             and "k_pages" not in kv_cache and "k_scale" in kv_cache
             and all(isinstance(params[w], PackedWeight)
                     for w in ("wq", "wk", "wv")))
 
 
 def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
-                    positions: Tensor, kv_cache: Optional[dict] = None,
+                    positions: Tensor, window: int = 0,
+                    kv_cache: Optional[dict] = None,
                     n_tokens: Optional[Tensor] = None, cross_kv=None,
                     train_mode: bool = False,
                     page_table: Optional[Tensor] = None):
     """Causal self-attention, over a KV cache or over the whole sequence.
-    Returns (output, kv_cache).
+    Returns (output, kv_cache).  ``window`` > 0 is local attention over
+    the last ``window`` positions (a ring-buffer cache).
 
     With a cache and S == 1 and ``n_tokens`` None this is a decode tick;
     with a cache otherwise, x holds a prompt chunk of which ``n_tokens``
@@ -658,7 +708,7 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
     if kv_cache is not None and _use_fused_decode(params, nx, s, kv_cache,
-                                                  n_tokens):
+                                                  n_tokens, window):
         return _fused_decode_attention_block(
             params, x, mcfg, nx, positions=positions, kv_cache=kv_cache)
 
@@ -670,13 +720,13 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
         k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
     if kv_cache is None:
         if train_mode:
-            out = train_attention(q, k, v, causal=True,
+            out = train_attention(q, k, v, causal=True, window=window,
                                   q_chunk=mcfg.attn_chunk)
         elif mcfg.use_flash_attention:
             flash = flash_attention_ref if nx.plain else flash_attention
-            out = flash(q, k, v, causal=True)
+            out = flash(q, k, v, causal=True, window=window)
         else:
-            out = chunked_attention(q, k, v, causal=True,
+            out = chunked_attention(q, k, v, causal=True, window=window,
                                     chunk=mcfg.attn_chunk)
     elif "k_pages" in kv_cache:
         if page_table is None:
@@ -684,11 +734,12 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
         out, kv_cache = paged_append_attend(q, k, v, kv_cache, page_table,
                                             n_tokens=n_tokens)
     elif s == 1 and n_tokens is None:
-        out, kv_cache = _append_attend_one(q, k, v, kv_cache)
+        out, kv_cache = _append_attend_one(q, k, v, kv_cache, window)
     else:
         n = n_tokens if n_tokens is not None else torch.full(
             (b,), s, dtype=torch.int32, device=x.device)
-        out, kv_cache = chunk_append_attend(q, k, v, kv_cache, n_tokens=n)
+        out, kv_cache = chunk_append_attend(q, k, v, kv_cache, n_tokens=n,
+                                            window=window)
     return nx.dense(out.reshape(b, s, h * hd), params["wo"]), kv_cache
 
 

@@ -1,21 +1,26 @@
-"""The dense decoder LM: parameters, the teacher-forced forward, decode
-state, decode tick, chunked prefill, token sampling and the paired
-FLOAT/ABFP capture of DNF.
+"""The decoder LM: parameters, the teacher-forced forward, decode state,
+decode tick, chunked prefill, token sampling and the paired FLOAT/ABFP
+capture of DNF.
 
 Params and decode state are plain dicts and lists of tensors, one list
-entry per layer (the JAX package stacks layers on a leading axis and scans;
-the port loops).  The layer index folded into the noise key is the layer's
-position, ``g * len(pattern) + j`` in the JAX package, which for the dense
-pattern ``("attention",)`` is the same number.
+entry per layer (the JAX package stacks the layers of each block-pattern
+position on a leading axis and scans; the port loops).  Layer ``i`` is of
+kind ``mcfg.layer_kind(i)``: ``attention`` (local attention over a
+ring-buffer cache of ``window_size`` slots in a hybrid pattern),
+``recurrent`` (RG-LRU), ``mlstm`` or ``slstm`` (``models.recurrent``).
+The layer index folded into the noise key is the flat index ``i``, which
+is the JAX package's ``g * len(pattern) + j`` in its scanned groups and
+``n_groups * len(pattern) + r`` in its remainder layers.
 
 ``forward`` runs a whole teacher-forced sequence without a cache: the
 evaluation path (``training.finetune.evaluate_abfp``) and, under autograd
 with the straight-through gradients of ``kernels.ops``, the training path
 (``training.train_lib``; DNF's noise with ``dnf``, per-layer
-rematerialization with ``mcfg.remat``);
-``decode_step`` (one token per row) and ``prefill`` (a prompt chunk per
-row) update the decode state in place (see ``models.layers``) and return
-it; ``forward_capture`` is DNF's paired per-layer pass.
+rematerialization with ``mcfg.remat``); it runs full-attention decoders
+only.  ``decode_step`` (one token per row) and ``prefill`` (a prompt
+chunk per row) update the decode state in place (see ``models.layers``
+and ``models.recurrent``) and return it, for every kind;
+``forward_capture`` is DNF's paired per-layer pass.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dnf import inject
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
     LM_HEAD_FOLD,
     Numerics,
@@ -43,16 +49,36 @@ from repro_torch.models.layers import (
 Tensor = torch.Tensor
 
 
-def check_supported(mcfg: ModelConfig) -> None:
-    """Raise unless ``mcfg`` is a dense decoder the port runs: full
-    attention only, no experts, no recurrent blocks, no encoder (those
-    families are ROADMAP queue 1 item 6)."""
-    if (mcfg.family != "dense" or mcfg.block_pattern or mcfg.num_experts
-            or mcfg.is_encoder_decoder or mcfg.pos_type != "rope"
-            or mcfg.window_size):
+_KINDS = ("attention", "recurrent", "mlstm", "slstm")
+
+
+def check_supported(mcfg: ModelConfig, serving: bool = False) -> None:
+    """Raise unless the port runs ``mcfg`` on this path.  Serving
+    (``serving=True``: decode state, decode tick, chunked prefill) takes
+    rope decoders whose layers are attention (windowed in a hybrid
+    pattern), RG-LRU, mLSTM or sLSTM; the cacheless ``forward``, DNF's
+    capture and training take full-attention decoders only.  Experts,
+    encoder-decoders, frontends and absolute positions are refused
+    everywhere (ROADMAP queue 1 item 6)."""
+    kinds = set(mcfg.block_pattern or ("attention",))
+    if (mcfg.num_experts or mcfg.is_encoder_decoder
+            or mcfg.frontend != "none" or mcfg.pos_type != "rope"
+            or not kinds <= set(_KINDS)):
         raise NotImplementedError(
-            f"repro_torch serves dense rope decoders only; {mcfg.name} is "
-            f"family={mcfg.family!r}")
+            f"repro_torch runs rope decoders without experts, encoders or "
+            f"frontends; {mcfg.name} (family={mcfg.family!r}) belongs to a "
+            f"later slice of the port (ROADMAP queue 1 item 6)")
+    if not serving and kinds != {"attention"}:
+        raise NotImplementedError(
+            f"repro_torch serves {mcfg.name}'s {sorted(kinds)} layers but "
+            f"does not run its cacheless forward, evaluation or training "
+            f"yet (ROADMAP queue 1 item 6)")
+
+
+def _window(mcfg: ModelConfig) -> int:
+    """The attention window of the JAX package: ``window_size`` in a
+    hybrid pattern, else 0 (full attention)."""
+    return mcfg.window_size if mcfg.attention_type == "hybrid" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +95,10 @@ def _norm_params(mcfg, device) -> dict:
 
 def init_params(seed: int, mcfg: ModelConfig,
                 device: DeviceLike = None) -> dict:
-    """Random parameters from ``seed``: the JAX package's shapes, dtypes
-    and standard deviations (not its values: the generators differ)."""
-    check_supported(mcfg)
+    """Random parameters from ``seed``: the JAX package's leaves per layer
+    kind, shapes, dtypes and standard deviations (not its values: the
+    generators differ)."""
+    check_supported(mcfg, serving=True)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     d = mcfg.d_model
@@ -81,12 +108,22 @@ def init_params(seed: int, mcfg: ModelConfig,
         "final_norm": _norm_params(mcfg, dev),
         "layers": [],
     }
-    for _ in range(mcfg.num_layers):
-        layer = {"norm1": _norm_params(mcfg, dev),
-                 "attn": init_attention(gen, mcfg, dev),
-                 "norm2": _norm_params(mcfg, dev)}
-        if mcfg.d_ff:
+    for i in range(mcfg.num_layers):
+        kind = mcfg.layer_kind(i)
+        layer = {"norm1": _norm_params(mcfg, dev)}
+        if kind == "attention":
+            layer["attn"] = init_attention(gen, mcfg, dev)
+            layer["norm2"] = _norm_params(mcfg, dev)
+            if mcfg.d_ff:
+                layer["mlp"] = init_mlp(gen, mcfg, dev)
+        elif kind == "recurrent":
+            layer["rglru"] = rec.init_rglru_block(gen, mcfg, dev)
+            layer["norm2"] = _norm_params(mcfg, dev)
             layer["mlp"] = init_mlp(gen, mcfg, dev)
+        elif kind == "mlstm":
+            layer["mlstm"] = rec.init_mlstm_block(gen, mcfg, dev)
+        else:
+            layer["slstm"] = rec.init_slstm_block(gen, mcfg, dev)
         params["layers"].append(layer)
     if not mcfg.tie_embeddings:
         params["lm_head"] = (torch.randn(d, mcfg.vocab_size, generator=gen,
@@ -110,15 +147,29 @@ def param_count(params) -> int:
 
 
 def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
-                 positions: Tensor, state: Optional[dict] = None,
+                 kind: str = "attention", positions: Tensor,
+                 state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
                  page_table: Optional[Tensor] = None):
-    """One pre-norm residual layer; returns (x, state).  Without a state
-    (the teacher-forced forward) attention is cacheless and the returned
-    state is None.  ``page_table`` (B, MP) routes a paged KV cache."""
+    """One pre-norm residual layer of ``kind``; returns (x, state).
+    Without a state (the teacher-forced forward) attention is cacheless
+    and the returned state is None.  ``page_table`` (B, MP) routes a paged
+    KV cache."""
     h = norm(x, lp["norm1"], mcfg.norm_type)
+    if kind != "attention":
+        block = {"recurrent": rec.rglru_block, "mlstm": rec.mlstm_block,
+                 "slstm": rec.slstm_block}[kind]
+        name = {"recurrent": "rglru"}.get(kind, kind)
+        y, st = block(lp[name], h, mcfg, nx,
+                      state=None if state is None else state["rec"],
+                      n_tokens=n_tokens)
+        x = x + y
+        if kind == "recurrent":
+            h = norm(x, lp["norm2"], mcfg.norm_type)
+            x = x + mlp_block(lp["mlp"], h, mcfg, nx)
+        return x, {"rec": st}
     attn_out, kv = attention_block(
-        lp["attn"], h, mcfg, nx, positions=positions,
+        lp["attn"], h, mcfg, nx, positions=positions, window=_window(mcfg),
         kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
         train_mode=mcfg.remat, page_table=page_table)
     x = x + attn_out
@@ -143,11 +194,15 @@ def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
 
 
 def calls_per_layer(mcfg: ModelConfig) -> int:
-    """Noise-keyed dense calls of one layer (its call counters 0..n-1):
-    wq, wk, wv, wo, then the MLP's wi (and wg) and wo."""
-    if not mcfg.d_ff:
-        return 4
-    return 4 + (3 if mcfg.mlp_type in ("swiglu", "geglu") else 2)
+    """Noise-keyed dense calls of the busiest layer kind of the pattern
+    (its call counters 0..n-1), so one seed-table row fits every layer:
+    attention wq, wk, wv, wo, then the MLP's wi (and wg) and wo; RG-LRU's
+    five projections and its MLP; mLSTM's seven; sLSTM's three."""
+    mlp = 0 if not mcfg.d_ff else (
+        3 if mcfg.mlp_type in ("swiglu", "geglu") else 2)
+    per_kind = {"attention": 4 + mlp, "recurrent": 5 + mlp, "mlstm": 7,
+                "slstm": 3}
+    return max(per_kind[k] for k in set(mcfg.block_pattern or ("attention",)))
 
 
 def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
@@ -162,8 +217,8 @@ def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
     pt = state.get("page_table")
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         x, state["layers"][li] = _apply_layer(
-            lp, x, mcfg, nx.fold(li), positions=positions, state=ls,
-            n_tokens=n_tokens, page_table=pt)
+            lp, x, mcfg, nx.fold(li), kind=mcfg.layer_kind(li),
+            positions=positions, state=ls, n_tokens=n_tokens, page_table=pt)
     return norm(x, params["final_norm"], mcfg.norm_type)
 
 
@@ -264,9 +319,13 @@ def init_decode_state(mcfg: ModelConfig, batch: int, max_len: int,
                       device: DeviceLike = None, *,
                       page_size: Optional[int] = None,
                       pool_pages: Optional[int] = None) -> dict:
-    """Per-layer KV caches of ``max_len`` slots for ``batch`` rows: int8
-    codes plus bf16 per-(token, head) scales with ``mcfg.kv_quant``, else
-    the activation dtype.
+    """Per-layer decode state for ``batch`` rows.  An attention layer
+    holds a KV cache of ``max_len`` slots (a ring of ``window_size`` slots
+    in a hybrid pattern, whatever ``max_len`` is): int8 codes plus bf16
+    per-(token, head) scales with ``mcfg.kv_quant``, else the activation
+    dtype.  A recurrent layer holds ``{"rec": ...}``: RG-LRU's conv tail
+    and h, mLSTM's C, n and m, sLSTM's h, c, n and m (m at -1e30), as the
+    JAX package allocates them.
 
     With ``page_size``/``pool_pages`` the caches are PAGED: each layer
     holds pools ``k_pages``/``v_pages`` (pool_pages + 1, page_size, KH, D)
@@ -274,24 +333,30 @@ def init_decode_state(mcfg: ModelConfig, batch: int, max_len: int,
     KH) bf16 under ``kv_quant``) shared by all rows, the last page the
     scratch page that takes dropped writes; the state gains ``page_table``
     (batch, ceil(max_len / page_size)) int32, filled with the sentinel
-    ``pool_pages``.  Every tensor starts at zero, so no gathered page holds
-    a NaN."""
-    check_supported(mcfg)
+    ``pool_pages``.  Every cache tensor starts at zero, so no gathered page
+    holds a NaN."""
+    check_supported(mcfg, serving=True)
     dev = resolve_device(device)
     kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
     paged = page_size is not None
     if paged and (pool_pages is None or pool_pages < 1):
         raise ValueError("a paged decode state needs pool_pages >= 1")
+    window = _window(mcfg)
+    if paged and mcfg.attention_type != "full":
+        raise ValueError("only full-attention KV caches page; "
+                         f"{mcfg.name} is {mcfg.attention_type!r}")
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    def one():
+    def one(kind):
+        if kind != "attention":
+            return {"rec": _recurrent_state(kind, mcfg, batch, dev)}
         kv = {"length": zeros(batch, torch.int32)}
         if paged:
             shape, sfx = (pool_pages + 1, page_size, kh, hd), "_pages"
         else:
-            shape, sfx = (batch, max_len, kh, hd), ""
+            shape, sfx = (batch, window or max_len, kh, hd), ""
         dtype = torch.int8 if mcfg.kv_quant else mcfg.activation_dtype
         kv["k" + sfx] = zeros(shape, dtype)
         kv["v" + sfx] = zeros(shape, dtype)
@@ -300,13 +365,34 @@ def init_decode_state(mcfg: ModelConfig, batch: int, max_len: int,
             kv["v_scale" + sfx] = zeros(shape[:3], torch.bfloat16)
         return {"kv": kv}
 
-    state = {"layers": [one() for _ in range(mcfg.num_layers)],
+    state = {"layers": [one(mcfg.layer_kind(i))
+                        for i in range(mcfg.num_layers)],
              "position": zeros(batch, torch.int32)}
     if paged:
         state["page_table"] = torch.full(
             (batch, -(-max_len // page_size)), pool_pages, dtype=torch.int32,
             device=dev)
     return state
+
+
+def _recurrent_state(kind: str, mcfg: ModelConfig, batch: int, dev) -> dict:
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if kind == "recurrent":
+        r = mcfg.lru_width or mcfg.d_model
+        return {"conv": zeros(batch, mcfg.conv_width - 1, r,
+                              dtype=mcfg.activation_dtype),
+                "h": zeros(batch, r)}
+    nh = mcfg.num_heads
+    if kind == "mlstm":
+        dh = 2 * mcfg.d_model // nh
+        return {"C": zeros(batch, nh, dh, dh), "n": zeros(batch, nh, dh),
+                "m": zeros(batch, nh)}
+    dh = mcfg.d_model // nh
+    return {"h": zeros(batch, nh, dh), "c": zeros(batch, nh, dh),
+            "n": zeros(batch, nh, dh),
+            "m": torch.full((batch, nh, dh), -1e30, device=dev)}
 
 
 def clone_state(state):

@@ -4,9 +4,10 @@
 (the operand of ``Numerics.dense``) with a ``PackedWeight`` — int8 tile
 codes plus bf16 per-(tile, column) scales — so serving never re-derives
 weight scales or codes.  In ``abfp_fused`` mode the packs also carry the
-per-tile ADC gains, and each attention layer gains a ``"qkv"`` entry: wq,
-wk and wv concatenated once for the fused QKV kernel
-(``kernels.abfp_decode_fused.concat_qkv``).
+per-tile ADC gains, and the attention block of each full-attention
+layer gains a ``"qkv"`` entry: wq, wk and wv concatenated once for the
+fused QKV kernel (``kernels.abfp_decode_fused.concat_qkv``), the only
+layers whose decode tick takes it (``models.layers._use_fused_decode``).
 
 Embedding tables, norm scales and biases stay in their original dtype.
 """
@@ -35,12 +36,16 @@ def pack_model_params(params: dict, cfg: QuantConfig,
     tile width and bit widths.  ``mcfg`` (optional) enables packing the
     tied LM head (``embed.T`` under ``"lm_head"``)."""
     adaptive = cfg.mode == "abfp_fused"
+    # Windowed (hybrid) attention and mLSTM blocks never take the fused
+    # decode, so they carry no QKV concatenation.
+    full = getattr(mcfg, "attention_type", "full") == "full"
 
     def walk(node, name=None):
         if isinstance(node, dict):
             out = {k: walk(v, k) for k, v in node.items()}
-            if adaptive and all(isinstance(out.get(w), PackedWeight)
-                                for w in ("wq", "wk", "wv")):
+            if adaptive and full and name == "attn" and all(
+                    isinstance(out.get(w), PackedWeight)
+                    for w in ("wq", "wk", "wv")):
                 out["qkv"] = concat_qkv(
                     (out["wq"], out["wk"], out["wv"]), cfg)
             return out

@@ -1,7 +1,8 @@
 """repro_torch.serving — the continuous-batching engine (chunked prefill,
-FCFS/SJF/priority admission, SLO metrics) over the dense decoder runner:
-every pass shape warmed into a CUDA graph on a GPU, blocking transfers on
-the simulated clock or the overlapped runtime on a wall clock, per-slot KV
+FCFS/SJF/priority admission, SLO metrics) over the decoder and recurrent
+runners: every pass shape warmed into a CUDA graph on a GPU, blocking
+transfers on the simulated clock or the overlapped runtime on a wall
+clock, per-slot KV
 strips or a paged KV pool with prefix sharing, preemption, backpressure,
 degraded mode, tenant quotas and deadlines; seeded fault injection,
 fingerprint detection and recovery (``serving.faults``)."""
@@ -26,7 +27,11 @@ from repro_torch.serving.pages import (  # noqa: F401
     plan_chunk,
     prefix_key,
 )
-from repro_torch.serving.runners import DecoderRunner  # noqa: F401
+from repro_torch.serving.runners import (  # noqa: F401
+    DecoderRunner,
+    RecurrentRunner,
+    runner_for,
+)
 from repro_torch.serving.scheduler import (  # noqa: F401
     POLICIES,
     FCFSScheduler,

@@ -258,6 +258,11 @@ class ServingEngine:
                                                  (FaultConfig, FaultPlan)):
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
                             f"got {type(faults).__name__}")
+        if faults is not None and mcfg.attention_type != "full":
+            raise NotImplementedError(
+                f"fault plans on {mcfg.name} are not ported: the port's "
+                f"fault sites are the dense decoder's (ROADMAP queue 1 "
+                f"item 6)")
         if quant.mode == "abfp_ref":
             raise ValueError(
                 "the serving engine does not take abfp_ref numerics: its "
@@ -628,14 +633,16 @@ class ServingEngine:
 
     def fits(self, req: Request) -> bool:
         """A request needs a non-empty prompt and must leave room for at
-        least one generated token: prompt + max(1, max_new) <= max_len.
-        Under paging the bound is the page budget instead: the page table
-        must address the request and the pool (at full eviction) grow it."""
+        least one generated token: prompt + max(1, max_new) <= max_len,
+        unless the runner's state is fixed-size (recurrent families: no
+        cache bound).  Under paging the bound is the page budget instead:
+        the page table must address the request and the pool (at full
+        eviction) grow it."""
         if len(req.prompt) < 1:
             return False
         total = len(req.prompt) + max(1, req.max_new_tokens)
         if not self.paged:
-            return total <= self.max_len
+            return self.runner.fixed_state or total <= self.max_len
         need = self.runner.capacity_cost(total, self.page_size)
         return need <= self.max_pages and need <= self.pool.num_pages
 

@@ -1,5 +1,5 @@
-"""DecoderRunner: the seam between ``ServingEngine`` and
-``repro_torch.models``.
+"""DecoderRunner and RecurrentRunner: the seam between ``ServingEngine``
+and ``repro_torch.models``.
 
 A runner owns what the engine must know about one model family: how to
 allocate the batched decode state (``init_state``, unpaged or PAGED), the
@@ -8,9 +8,11 @@ pass of each shape the engine runs (``make_pass``: the decode tick
 ``"draw"`` appended when a row samples at a temperature), the slot-state
 edits run between passes (``make_reset`` at admission, ``make_attach``
 for a prefix-cache hit, ``make_copy_page`` for a copy-on-write split) and
-what a request costs in pages (``capacity_cost``).  Only the dense
-decoder-only family is ported.  Passes and the edits update the decode
-state in place: every state tensor keeps its storage.
+what a request costs in pages (``capacity_cost``).  ``DecoderRunner``
+serves full-attention decoders, ``RecurrentRunner`` the recurrent and
+hybrid families (fixed-size state per slot); encoder-decoders are not
+ported.  Passes and the edits update the decode state in place: every
+state tensor keeps its storage.
 
 Static buffers
 --------------
@@ -146,13 +148,19 @@ class DecoderRunner:
     """Decoder-only full-attention LM: KV caches grow per token and may
     live in the shared page pool."""
 
-    #: The port's decoders are full attention (``check_supported``): their
-    #: KV may page, and prefix pages may be shared across requests.
-    paged_ok = True
+    #: The decode state grows with the sequence (the engine bounds a
+    #: request by ``max_len`` or the page budget).
+    fixed_state = False
+    #: Prefix pages may be shared across requests.
     prefix_cache_ok = True
 
     def __init__(self, mcfg: ModelConfig):
         self.mcfg = mcfg
+
+    @property
+    def paged_ok(self) -> bool:
+        """Append-only full-attention KV caches may page."""
+        return self.mcfg.attention_type == "full"
 
     def init_state(self, capacity: int, max_len: int,
                    device: DeviceLike = None, *,
@@ -220,15 +228,19 @@ class DecoderRunner:
         return io, body
 
     def make_reset(self):
-        """The slot reset ``(state, i) -> state``: zero every per-slot
-        entry of row i (caches, lengths, position), in place.  The page
-        pools are global (other slots hold their pages) and the page table
-        is the engine's (filled by every pass), so both stay."""
+        """The slot reset ``(state, i) -> state``: every per-slot entry of
+        row i (caches and ring buffers, lengths, recurrent state, position)
+        back to its initial value, in place: sLSTM's stabilizer ``m`` (rank
+        3 with the batch axis) to -1e30, everything else to 0, the JAX
+        package's fill rule.  The page pools are global (other slots hold
+        their pages) and the page table is the engine's (filled by every
+        pass), so both stay."""
         def _reset(state, i):
             for layer in state["layers"]:
-                for name, t in layer["kv"].items():
-                    if not name.endswith("_pages"):
-                        t[i] = 0
+                for part in layer.values():
+                    for name, t in part.items():
+                        if not name.endswith("_pages"):
+                            t[i] = -1e30 if name == "m" and t.ndim == 3 else 0
             state["position"][i] = 0
             return state
 
@@ -240,7 +252,8 @@ class DecoderRunner:
         ``length`` (the shared prefix), in place."""
         def _attach(state, i, length):
             for layer in state["layers"]:
-                layer["kv"]["length"][i] = length
+                if "kv" in layer:
+                    layer["kv"]["length"][i] = length
             state["position"][i] = length
             return state
 
@@ -251,12 +264,25 @@ class DecoderRunner:
         ``src`` duplicated into ``dst`` in every layer's pools, in place."""
         def _copy_page(state, src, dst):
             for layer in state["layers"]:
-                for name, t in layer["kv"].items():
+                for name, t in layer.get("kv", {}).items():
                     if name.endswith("_pages"):
                         t[dst].copy_(t[src])
             return state
 
         return _copy_page
+
+
+class RecurrentRunner(DecoderRunner):
+    """The ssm and hybrid families (xlstm, recurrentgemma): recurrent
+    folds and ring-buffer window caches are FIXED-SIZE per slot, so a
+    request costs no pages (``capacity_cost`` 0), is admissible at any
+    total length, and runs unpaged (``paged_ok`` False)."""
+
+    paged_ok = False
+    fixed_state = True
+
+    def capacity_cost(self, total_tokens: int, page_size: int) -> int:
+        return 0
 
 
 def state_tensors(state) -> list:
@@ -269,9 +295,13 @@ def state_tensors(state) -> list:
 
 
 def runner_for(mcfg: ModelConfig) -> DecoderRunner:
-    """The runner of a config: ``DecoderRunner`` for the dense decoders
-    this slice ports; anything else raises."""
+    """The runner of a config, as the JAX package's ``runner_for`` picks
+    it: ``RecurrentRunner`` when the block pattern holds a non-attention
+    kind (``attention_type`` hybrid or recurrent), else
+    ``DecoderRunner``; encoder-decoders (and anything else the port does
+    not serve) raise."""
     from repro_torch.models.lm import check_supported
-    check_supported(mcfg)
+    check_supported(mcfg, serving=True)
+    if mcfg.attention_type in ("hybrid", "recurrent"):
+        return RecurrentRunner(mcfg)
     return DecoderRunner(mcfg)
-

@@ -1159,3 +1159,92 @@ def test_cuda_failing_capture_raises(monkeypatch):
     with pytest.raises(Exception):
         graph.warmup()
     assert ("decode",) not in graph._passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 256_000), (512, 2560, 256_000),
+                                   (4, 2048, 8), (512, 2048, 8),
+                                   (4, 7680, 2560), (512, 7680, 2560)],
+                         ids=["head-m4", "head-m512", "w_if-m4",
+                              "w_if-m512", "geglu-wo-m4", "geglu-wo-m512"])
+def test_cuda_packed_matmul_at_recurrent_shapes(m, k, n):
+    """Kernel 1 at the shapes the recurrent families bring: recurrentgemma-
+    2b's tied head (N = 256,000), xLSTM's gate projection (N = 8, padded
+    to 128 columns) and the GeGLU output (K = 7,680, inside the decode
+    route's shared memory at M <= 8), at decode and prefill sizes: bit for
+    bit its plain version, one launch."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    pw = pack_abfp_weight(w.to(torch.bfloat16), CFG, adaptive_gain=True)
+    del w
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    ops.reset_launch_counts()
+    got = abfp_matmul_packed(x, pw, CFG, 77)
+    want = abfp_matmul_packed_ref(x, pw, CFG, 77)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["abfp_matmul_packed"] == 1
+    assert got.shape == (m, n)
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_key", [("decode",), ("prefill", 16)],
+                         ids=["decode", "prefill16"])
+def test_cuda_recurrent_replay_equals_eager_over_two_keys(shape_key):
+    """A three-layer recurrentgemma-2b at full width (RG-LRU, RG-LRU,
+    windowed attention over an int8 ring of 2,048 slots), abfp_fused: two
+    passes with two keys by replay and eagerly from the same state give
+    bit-equal logits, sampled tokens and state, the keys' logits differ,
+    and a decode replay launches kernel 1 only (2 x 8 + 7 + the head)."""
+    _need_cuda()
+    import dataclasses
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.runners import state_tensors
+
+    mcfg = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3,
+                               kv_quant=True)
+    quant = QuantConfig(mode="abfp_fused", tile_width=128, gain=8.0,
+                        noise_lsb=0.5)
+    params = init_params(0, mcfg, device="cuda")
+    kw = dict(capacity=4, max_len=64, quant=quant, device="cuda",
+              clock=time.perf_counter, overlap=True)
+    graph = ServingEngine(params, mcfg, **kw)
+    eager = ServingEngine(graph.params, mcfg, _graphs=False, **kw)
+    b, width = 4, 1 if shape_key[0] == "decode" else shape_key[1]
+    rng = np.random.default_rng(3)
+    fields = dict(tokens=rng.integers(1, mcfg.vocab_size, (b, width)),
+                  n_tokens=np.array([width, 1, 0, 2]),
+                  prev_mask=np.zeros(b, bool),
+                  temps=np.zeros(b, np.float32), uids=np.arange(b),
+                  idxs=np.arange(b))
+    for t in state_tensors(graph.state):
+        t.copy_(torch.randn(t.shape, device="cuda").to(t.dtype)
+                if t.is_floating_point() else t)
+    start = [t.clone() for t in state_tensors(graph.state)]
+    outs = []
+    for key in (prng.PRNGKey(1), prng.PRNGKey(2)):
+        got = []
+        for eng in (graph, eager):
+            for dst, src in zip(state_tensors(eng.state), start):
+                dst.copy_(src)
+            io, _ = eng._call(shape_key, key, **fields)
+            got.append((io.logits.clone(), io.sampled.clone(),
+                        [t.clone() for t in state_tensors(eng.state)]))
+        torch.cuda.synchronize()
+        (lg, sg, stg), (le, se, ste) = got
+        assert torch.equal(lg, le) and torch.equal(sg, se)
+        assert all(torch.equal(a, b_) for a, b_ in zip(stg, ste))
+        assert torch.isfinite(lg).all()
+        outs.append(lg)
+    assert not torch.equal(outs[0], outs[1])
+    launches = graph._passes[shape_key].launches
+    assert {k: v for k, v in launches.items() if v} == {
+        "abfp_matmul_packed": 24}
+    graph.close()
+    eager.close()

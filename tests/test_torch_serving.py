@@ -217,8 +217,11 @@ def test_deadlines_expire_queued_and_in_flight(tiny):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError):
-        init_params(0, smoke_config("xlstm-350m"), device="cpu")
+    """MoE and encoder-decoder configs wait for later slices (the
+    recurrent families are served: ``tests/test_torch_recurrent.py``)."""
+    for arch in ("granite-moe-1b-a400m", "whisper-base"):
+        with pytest.raises(NotImplementedError):
+            init_params(0, smoke_config(arch), device="cpu")
 
 
 def test_engine_state_lives_on_its_device(tiny):
