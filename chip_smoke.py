@@ -166,6 +166,35 @@ Phases (any failure exits non-zero and prints no result line):
                (b) xlstm-350m (12 mLSTM + 12 sLSTM) the same on the six
                short prompts, eager and with graphs (121 kernel-1 launches
                per tick).
+ 14. moe    — full-width granite-moe-1b-a400m (24 layers, d_model 1,024,
+               32 experts top-8, expert hidden 512) served as ``--arch
+               granite-moe-1b-a400m --full --fused`` configures it (see
+               ``moe_phase``), on phase 4's prompt lengths: (a) eagerly,
+               with graphs and with graphs + overlap in turns, each run a
+               fresh engine with the launch counts zeroed just before and
+               read just after: 8 of 8, streams equal, no NaN logits,
+               every decode tick exactly 2,329 kernel-1 launches (each
+               layer's attn.wo and its experts' wi, wg, wo, and the head)
+               and 24 each of kernels 2 and 3, every prefill pass 2,401 of
+               kernel 1; (b) every pass shape's replay against the eager
+               pass under two keys (logits, sampled tokens, KV state
+               bit-equal; the keys' logits differ); the first prefill pass
+               and decode tick through the kernels and the plain versions:
+               every kernel-1/2 call 0 flips and every kernel-3 call within
+               its card tests' bar (rtol 2**-7, atol 1e-6) on its own
+               inputs, every layer's chosen experts
+               equal, the logits within DECODE_LOGIT_BAR (bit-equal in the
+               prefill pass, and in the tick with kernel 3's plain
+               version); kernels 1-3's device time for one tick's launches
+               (kernel 1 per weight shape too) beside their bounds, a
+               profiler breakdown of a decode replay, capture seconds,
+               peak device memory; (c) one cacheless ``forward`` of 2 x 128
+               tokens in ``abfp_kernel`` with flash attention (2,401
+               kernel-4 and 24 kernel-5 launches), through the kernels and
+               the plain versions: finite logits within EVAL_LOGIT_BAR,
+               the aux and the rows routed apart reported, and with
+               kernel 5's plain version logits, aux and every layer's
+               chosen experts bit-equal to the plain run's.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -272,6 +301,10 @@ RG_LONG_PROMPTS = (2100, 2300)
 RG_TURNS = ("eager", "graphs", "overlap", "overlap", "graphs", "eager")
 RG_DECODE_K1 = 201
 XL_DECODE_K1 = 121
+# Phase 14 (MoE): 14a's served runs in turns; 14c's evaluation forward of
+# MOE_EVAL_BATCH x MOE_EVAL_SEQ tokens.
+MOE_TURNS = ("eager", "graphs", "overlap")
+MOE_EVAL_BATCH, MOE_EVAL_SEQ = 2, 128
 
 
 def fail(msg: str) -> None:
@@ -487,6 +520,56 @@ def profile_pass(dev, fn, what: str, cpu: bool = True):
         f"{res['kernels']} kernel launches; top by device ms: "
         f"{json.dumps(top)}")
     return res
+
+
+def replay_against_eager(geng, xeng, served, shapes, vocab: int, rng,
+                         what: str) -> dict:
+    """Every pass shape of ``shapes`` from the state ``served``, under two
+    keys, by replay (``geng``, captured on a GPU) and eagerly (``xeng``),
+    both overlapped (they sample on the device): the logits, the sampled
+    tokens and the whole state bit-equal, the two keys' logits different.
+    Returns each shape's input fields."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.serving.runners import state_tensors
+
+    fields_of = {}
+    for shape in shapes:
+        width = 1 if shape[0] == "decode" else shape[1]
+        fields_of[shape] = fields = dict(
+            tokens=rng.integers(1, vocab, (CAPACITY, width)),
+            n_tokens=np.array([width, max(1, width // 2), 1, 0]),
+            prev_mask=np.zeros(CAPACITY, bool),
+            temps=np.zeros(CAPACITY, np.float32),
+            uids=np.arange(CAPACITY), idxs=np.arange(CAPACITY) + 3)
+        lgs = []
+        for t, key in enumerate(prng.split(prng.PRNGKey(SEED + 7), 2)):
+            outs = []
+            for e in (geng, xeng):
+                for dst, src in zip(state_tensors(e.state), served):
+                    dst.copy_(src)
+                io, _ = e._call(shape, key, **fields)
+                outs.append((io.logits.clone(), io.sampled.clone(),
+                             [x.clone() for x in state_tensors(e.state)]))
+            (lg, sg, stg), (le, se, ste) = outs
+            if not torch.isfinite(lg).all():
+                fail(f"{what}: non-finite logits in a replay of {shape}")
+            if not (torch.equal(lg, le) and torch.equal(sg, se) and all(
+                    torch.equal(a, b) for a, b in zip(stg, ste))):
+                fail(f"{what} {shape} pass {t}: the replay differs from the "
+                     f"eager pass")
+            lgs.append(lg)
+        if torch.equal(lgs[0], lgs[1]):
+            fail(f"{what} {shape}: the two keys' logits are equal (frozen "
+                 f"seeds?)")
+        if geng.device.type == "cuda" and geng._passes[shape].graph is None:
+            fail(f"{what}: {shape} was not captured")
+    log(f"{what}: replay against eager for "
+        f"{[''.join(str(p_) for p_ in s_) for s_ in shapes]}: two keys "
+        f"each, logits, sampled tokens and the whole state bit-equal, the "
+        f"keys' logits differ")
+    return fields_of
 
 
 def train_phase(dev, params, rows: list) -> dict:
@@ -1608,41 +1691,9 @@ def recurrent_phase(dev, engine_cls, short_lens, rows: list) -> dict:
         geng, xeng = fresh(clock=time.perf_counter, overlap=True), fresh(
             clock=time.perf_counter, overlap=True, _graphs=False)
         geng.warmup()
-        rng13 = np.random.default_rng(SEED + 14)
-        fields_of = {}
-        for shape in shapes:
-            width = 1 if shape[0] == "decode" else shape[1]
-            fields_of[shape] = fields = dict(
-                tokens=rng13.integers(1, mcfg.vocab_size, (CAPACITY, width)),
-                n_tokens=np.array([width, max(1, width // 2), 1, 0]),
-                prev_mask=np.zeros(CAPACITY, bool),
-                temps=np.zeros(CAPACITY, np.float32),
-                uids=np.arange(CAPACITY), idxs=np.arange(CAPACITY) + 3)
-            lgs = []
-            for t, key in enumerate(prng.split(prng.PRNGKey(SEED + 7), 2)):
-                outs = []
-                for e in (geng, xeng):
-                    for dst, src in zip(state_tensors(e.state), served):
-                        dst.copy_(src)
-                    io, _ = e._call(shape, key, **fields)
-                    outs.append((io.logits.clone(), io.sampled.clone(),
-                                 [x.clone() for x in state_tensors(e.state)]))
-                (lg, sg, stg), (le, se, ste) = outs
-                if not torch.isfinite(lg).all():
-                    fail(f"phase 13 {arch}: non-finite logits in a replay "
-                         f"of {shape}")
-                if not (torch.equal(lg, le) and torch.equal(sg, se) and all(
-                        torch.equal(a, b) for a, b in zip(stg, ste))):
-                    fail(f"phase 13 {arch} {shape} pass {t}: the replay "
-                         f"differs from the eager pass")
-                lgs.append(lg)
-            if torch.equal(lgs[0], lgs[1]):
-                fail(f"phase 13 {arch} {shape}: the two keys' logits are "
-                     f"equal (frozen seeds?)")
-        log(f"phase 13 {arch}: replay against eager for "
-            f"{[shape_name(s_) for s_ in shapes]}: two keys each, logits, "
-            f"sampled tokens and the whole state bit-equal, the keys' "
-            f"logits differ")
+        fields_of = replay_against_eager(
+            geng, xeng, served, shapes, mcfg.vocab_size,
+            np.random.default_rng(SEED + 14), f"phase 13 {arch}")
         xeng.close()
         del xeng
 
@@ -1818,6 +1869,504 @@ def recurrent_phase(dev, engine_cls, short_lens, rows: list) -> dict:
                                      out["xlstm"]["k1_max_abs_err"])
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
+    """Phase 14: full-width granite-moe-1b-a400m served as ``--arch
+    granite-moe-1b-a400m --full --fused`` configures it, on phase 4's
+    prompt lengths (``lens``), and its evaluation forward (see the module
+    docstring).  ``engine_cls`` is phase 4's NaN-checking engine that
+    records each pass's launches.  Annotates the kernel rows with this
+    path's launches and times; returns the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        fused_qkv_packed_ref,
+        quantized_decode_attention,
+    )
+    from repro_torch.kernels.abfp_matmul import abfp_matmul_packed_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import (
+        Numerics,
+        clone_state,
+        decode_step,
+        forward,
+        init_decode_state,
+        init_params,
+        prefill,
+    )
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving import Request
+    from repro_torch.serving.runners import state_tensors
+
+    t_phase = time.perf_counter()
+    k1, k2, k3 = SERVE_KERNELS
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+    res = {}
+
+    def shape_name(k):
+        return "".join(str(p_) for p_ in k)
+
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_cli.build_parser().parse_args(
+        ["--arch", "granite-moe-1b-a400m", "--full", "--fused", "--capacity",
+         str(CAPACITY), "--max-len", str(MAX_LEN), "--max-new", str(MAX_NEW),
+         "--seed", str(SEED)])
+    mcfg, quant = serve_cli.model_and_quant(args)
+    if (mcfg.name, quant.mode) != ("granite-moe-1b-a400m", "abfp_fused") \
+            or not mcfg.kv_quant:
+        fail(f"phase 14: unexpected serving config {mcfg} {quant}")
+    # Launches per decode tick: kernel 1 on each layer's attn.wo and its
+    # experts' wi, wg and wo, and on the LM head; kernels 2 and 3 once per
+    # layer.  Per prefill pass: kernel 1 on wq, wk, wv, wo and the experts,
+    # and the head.  Per evaluation forward: kernel 4 on the same matmuls
+    # as the prefill pass, kernel 5 once per layer.
+    nl, ne = mcfg.num_layers, mcfg.num_experts
+    per_tick = {k1: nl * (1 + 3 * ne) + 1, k2: nl, k3: nl}
+    per_prefill = {k1: nl * (4 + 3 * ne) + 1}
+    per_forward = {"abfp_matmul": per_prefill[k1], "flash_attention": nl}
+    t0 = time.perf_counter()
+    params = init_params(SEED, mcfg, device=dev)
+    eng = engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                     quant=quant, seed=SEED, device=dev, _graphs=False)
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    packed = eng.params
+    log(f"phase 14: granite-moe-1b-a400m ({mcfg.num_layers} layers, "
+        f"d={mcfg.d_model}, {mcfg.num_experts} experts top-"
+        f"{mcfg.experts_per_token}, expert hidden {mcfg.d_ff}, vocab "
+        f"{mcfg.vocab_size}) built and packed in "
+        f"{res['init_and_pack_s']:.1f}s")
+    rng = np.random.default_rng(SEED + 15)
+    reqs = [Request(uid=i, prompt=rng.integers(1, mcfg.vocab_size,
+                                               n).tolist(),
+                    max_new_tokens=MAX_NEW) for i, n in enumerate(lens)]
+
+    def fresh(**kw):
+        return engine_cls(packed, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                          quant=quant, seed=SEED, device=dev, **kw)
+
+    # 14a. The served runs, in turns: each a fresh engine (graphs captured
+    # before its timed window, each shape timed), the launch counts zeroed
+    # just before the run and read just after, and every pass's launches
+    # held to ``per_tick`` / ``per_prefill``.
+    def per_pass_ok(e):
+        for kind, want_ in (("decode", per_tick), ("prefill", per_prefill)):
+            for got in e.per_pass[kind]:
+                if {n: v for n, v in got.items() if v} != want_:
+                    fail(f"phase 14: a {kind} pass launched {got}, want "
+                         f"{want_}")
+
+    want = None
+    runs = {m: [] for m in ("eager", "graphs", "overlap")}
+    geng = None
+    for mode in MOE_TURNS:
+        e = eng if mode == "eager" else fresh(
+            **{"graphs": {}, "overlap": dict(clock=time.perf_counter,
+                                             overlap=True)}[mode])
+        capture = {}
+        if mode != "eager":
+            for k in shapes:
+                t1 = time.perf_counter()
+                e._executable(k)
+                torch.cuda.synchronize()
+                capture[shape_name(k)] = time.perf_counter() - t1
+            e._warmed_shapes.clear()
+        rs = [Request(uid=r.uid, prompt=list(r.prompt),
+                      max_new_tokens=MAX_NEW) for r in reqs]
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        if len(fin) != len(reqs) or any(
+                not r.done or len(r.generated) != MAX_NEW for r in fin):
+            fail(f"phase 14 {mode}: {len(fin)} of {len(reqs)} requests "
+                 f"finished")
+        streams = {r.uid: r.generated for r in fin}
+        if want is None:
+            want = streams
+        elif streams != want:
+            bad = [u for u in want if streams[u] != want[u]]
+            fail(f"phase 14 {mode}: the streams of requests {bad} differ "
+                 f"from the eager run's")
+        per_pass_ok(e)
+        if any(counts[n] <= 0 for n in SERVE_KERNELS):
+            fail(f"phase 14 {mode}: a serving kernel was not launched: "
+                 f"{counts}")
+        med, cnt = e.pass_stats()
+        toks = sum(len(r.generated) for r in fin)
+        r_ = {"wall_s": wall, "tokens": toks, "tokens_per_s": toks / wall,
+              "decode_ms": med["decode"] * 1e3,
+              "prefill_ms": med["prefill"] * 1e3, "passes": e.ticks,
+              "passes_by_kind": cnt,
+              "tick_utilization": e.metrics.tick_utilization()["value"],
+              "launches": counts, "capture_s": capture}
+        runs[mode].append(r_)
+        log(f"phase 14 serve [{mode}]: {len(fin)}/{len(reqs)} requests, "
+            f"{toks} tokens in {wall:.3f}s ({r_['tokens_per_s']:.1f} "
+            f"tokens/s), decode tick median {r_['decode_ms']:.3f} ms, "
+            f"prefill pass median {r_['prefill_ms']:.3f} ms ({cnt}), "
+            f"tick_utilization {r_['tick_utilization']}, capture s "
+            f"{capture}, launches {counts}")
+        if mode == "overlap":
+            geng = e
+        elif e is not eng:
+            del e
+            gc.collect()
+    res["runs"] = runs
+    res["prompt_lens"] = [len(r.prompt) for r in reqs]
+    res["per_decode_tick"], res["per_prefill_pass"] = per_tick, per_prefill
+
+    # 14b. Replay against eager: every pass shape from the eager run's
+    # final state, two keys each, by replay (the overlapped run's captured
+    # engine) and eagerly.
+    served = [t.clone() for t in state_tensors(eng.state)]
+    xeng = fresh(clock=time.perf_counter, overlap=True, _graphs=False)
+    fields_of = replay_against_eager(
+        geng, xeng, served, shapes, mcfg.vocab_size,
+        np.random.default_rng(SEED + 16), "phase 14")
+    xeng.close()
+    del xeng
+
+    # Where a decode replay's device time goes (measurement only).
+    for dst, src in zip(state_tensors(geng.state), served):
+        dst.copy_(src)
+    res["profile_decode"] = profile_pass(dev, lambda: geng._call(
+        ("decode",), prng.PRNGKey(SEED + 9), **fields_of[("decode",)]),
+        "granite-moe-1b-a400m decode pass (graph replay)")
+    geng.close()
+    del geng, served
+    gc.collect()
+
+    # The first prefill pass and decode tick through the kernels and
+    # through the plain versions: every kernel-1/2 call at 0 flips and
+    # every kernel-3 call within its bar on its own inputs, every layer's
+    # chosen experts equal between the runs, the logits compared as phase
+    # 5 compares them.
+    first = reqs[:CAPACITY]
+    n_tok = np.array([min(len(r.prompt), 128) for r in first], np.int32)
+    toks = np.zeros((CAPACITY, 128), np.int32)
+    for i, r in enumerate(first):
+        toks[i, :n_tok[i]] = r.prompt[:n_tok[i]]
+    toks_t = torch.from_numpy(toks).to(dev)
+    n_t = torch.from_numpy(n_tok).to(dev)
+    key = prng.split(prng.PRNGKey(SEED))[1]
+    key_d = prng.fold_in(key, 1)
+    sites = {k1: (ops, abfp_matmul_packed_ref),
+             k2: (model_layers, lambda x, pws, cfg, seeds, qkv=None:
+                  fused_qkv_packed_ref(x, pws, cfg, seeds)),
+             k3: (model_layers, quantized_decode_attention)}
+    calls = {n: [] for n in sites}
+    eids = []
+
+    @contextlib.contextmanager
+    def recording(kernels: bool):
+        """Record every layer's expert ids and, with ``kernels``, every
+        kernel call (inputs and output)."""
+        saved = {n: getattr(mod, n) for n, (mod, _) in sites.items()}
+        route = moe_lib._route
+
+        def rec_route(*a):
+            out_ = route(*a)
+            eids.append(out_[1])
+            return out_
+
+        def wrap(name, fn):
+            def call(*a, **kw):
+                y = fn(*a, **kw)
+                calls[name].append((a, kw, y))
+                return y
+            return call
+
+        moe_lib._route = rec_route
+        if kernels:
+            for n, (mod, _) in sites.items():
+                setattr(mod, n, wrap(n, saved[n]))
+        try:
+            yield
+        finally:
+            moe_lib._route = route
+            for n, (mod, _) in sites.items():
+                setattr(mod, n, saved[n])
+
+    errs = {n: 0.0 for n in sites}
+
+    def check_calls(kind) -> bool:
+        """Kernels 1-2 bit-equal to their plain versions; kernel 3 within
+        its card tests' bar (rtol 2**-7, one bf16 ULP, atol 1e-6), its
+        elements more than one ULP off counted and shown."""
+        torch.cuda.synchronize()
+        exact = True
+        for name, rec in calls.items():
+            n = size = wide = 0
+            for a, kw, y in rec:
+                want_ = sites[name][1](*a, **kw)
+                for g, w in zip(*((y, want_) if isinstance(y, tuple)
+                                  else ((y,), (want_,)))):
+                    f_, z_, ulp, e_ = bf16_diff(g, w)
+                    if name != k3 and (f_ or ulp):
+                        fail(f"phase 14 first {kind}: {name} differs from "
+                             f"its plain version ({f_}/{z_} flips)")
+                    if name == k3:
+                        allclose_bar(g, w, f"phase 14 first {kind}: {name}",
+                                     rtol=2 ** -7, atol=1e-6, quiet=True)
+                        far = np.abs(bits(g) - bits(w)) > 1
+                        if far.any():
+                            wide += int(far.sum())
+                            log(f"phase 14 first {kind}: {name} elements "
+                                f"more than one bf16 ULP from the plain "
+                                f"version: got "
+                                f"{g.float().cpu().numpy()[far][:4]}, want "
+                                f"{w.float().cpu().numpy()[far][:4]}")
+                    n, size = n + f_, size + z_
+                    errs[name] = max(errs[name], e_)
+            exact = exact and (name == k3 or n == 0)
+            log(f"phase 14 first {kind}: {name} on its {len(rec)} calls' own "
+                f"inputs against its plain version: {n}/{size} one-ULP "
+                f"flips, {wide} elements further apart")
+        return exact
+
+    def compare(what, a, b, bar=None):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"phase 14: non-finite logits in the first {what}")
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        err = float((a - b).abs().max())
+        log(f"phase 14 first {what}: logits max-abs difference {err:.4g}, "
+            f"greedy tokens equal {same:.0%}")
+        if bar is not None and err > bar:
+            fail(f"phase 14 first {what}: logits differ by {err:.4g} > {bar}")
+        return {"logits_max_abs": err, "greedy_equal": same}
+
+    def same_experts(kind, got, want_):
+        if len(got) != mcfg.num_layers or len(want_) != mcfg.num_layers or \
+                not all(torch.equal(a, b) for a, b in zip(got, want_)):
+            fail(f"phase 14 first {kind}: the chosen experts differ between "
+                 f"the kernel run and the plain run")
+        log(f"phase 14 first {kind}: the {mcfg.num_layers} layers' chosen "
+            f"experts ({tuple(got[0].shape)} each) equal the plain run's")
+
+    state0 = init_decode_state(mcfg, CAPACITY, MAX_LEN, device=dev)
+    st_k, st_p = clone_state(state0), clone_state(state0)
+    with recording(True):
+        lg_k, _ = prefill(packed, st_k, toks_t, n_t, mcfg,
+                          Numerics(quant, key))
+    if len(calls[k1]) != per_prefill[k1] or calls[k2] or calls[k3]:
+        fail(f"phase 14: the first prefill pass made "
+             f"{ {n: len(c) for n, c in calls.items()} } kernel calls")
+    exact = check_calls("prefill pass")
+    for rec in calls.values():
+        rec.clear()
+    ids_k, eids[:] = list(eids), []
+    with recording(False):
+        lg_p, _ = prefill(packed, st_p, toks_t, n_t, mcfg,
+                          Numerics(quant, key, plain=True))
+    same_experts("prefill pass", ids_k, eids)
+    eids.clear()
+    res["first_prefill"] = compare("prefill pass, kernels vs plain versions",
+                                   lg_k, lg_p, DECODE_LOGIT_BAR)
+    if exact and not torch.equal(lg_k, lg_p):
+        fail("phase 14: the prefill pass runs no kernel 3 and every kernel-1 "
+             "call was bit-equal, yet its logits differ")
+    tok = lg_k.argmax(-1).to(torch.int32)
+    st_a = clone_state(st_p)
+    with recording(True):
+        lg_k, _ = decode_step(packed, st_k, tok, mcfg, Numerics(quant, key_d))
+    tick = {n: [c for c in rec] for n, rec in calls.items()}
+    if {n: len(c) for n, c in tick.items()} != per_tick:
+        fail(f"phase 14: the first decode tick made "
+             f"{ {n: len(c) for n, c in tick.items()} } kernel calls, want "
+             f"{per_tick}")
+    exact = check_calls("decode tick")
+    for rec in calls.values():
+        rec.clear()
+    ids_k, eids[:] = list(eids), []
+    with recording(False):
+        lg_p, _ = decode_step(packed, st_p, tok, mcfg,
+                              Numerics(quant, key_d, plain=True))
+    same_experts("decode tick", ids_k, eids)
+    eids.clear()
+    res["first_decode"] = compare("decode tick, kernels vs plain versions",
+                                  lg_k, lg_p, DECODE_LOGIT_BAR)
+    saved3 = model_layers.fused_quantized_decode_attention
+    model_layers.fused_quantized_decode_attention = quantized_decode_attention
+    try:
+        lg_a, _ = decode_step(packed, st_a, tok, mcfg, Numerics(quant, key_d))
+    finally:
+        model_layers.fused_quantized_decode_attention = saved3
+    if exact and not torch.equal(lg_a, lg_p):
+        fail("phase 14: the decode tick with kernel 3's plain version "
+             "differs from the plain run, yet every kernel-1/2 call was "
+             "bit-equal")
+    log("phase 14 first decode tick with kernel 3's plain version: logits "
+        "bit-equal to the plain run's")
+    res["max_abs_err"] = dict(errs)
+    del st_k, st_p, st_a, state0, lg_a
+
+    # Device time of one decode tick's worth of each kernel's launches (a
+    # graph replay of the tick's recorded calls), the plain versions' time
+    # and the bound from these calls' bytes and operations; kernel 1 per
+    # weight shape too.
+    k1_calls = [a for a, _, _ in tick[k1]]
+    nb = i8 = f32 = 0
+    for x, pw, _, _ in k1_calls:
+        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
+        nb, i8, f32 = nb + b_, i8 + i_, f32 + f_
+    k2_calls = [(a, kw) for a, kw, _ in tick[k2]]
+    nb2 = i82 = f322 = 0
+    for (x, pws, _, _), _ in k2_calls:
+        for pw in pws:
+            b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw,
+                                 x.element_size())
+            nb2, i82, f322 = nb2 + b_, i82 + i_, f322 + f_
+    k3_calls = [(a, kw) for a, kw, _ in tick[k3]]
+    nb3 = f33 = 0
+    for a, kw in k3_calls:
+        q, kc = a[0], a[1]
+        b_, f_ = k3_cost(kw["lengths"].tolist(), kc.shape[1], kc.shape[2],
+                         q.shape[2], q.shape[3])
+        nb3, f33 = nb3 + b_, f33 + f_
+    del tick
+    k1_fn = ops.abfp_matmul_packed
+    k2_fn = model_layers.fused_qkv_packed
+    k3_fn = model_layers.fused_quantized_decode_attention
+    timed = {}
+    for name, fn, plain, cs, (bms, by), reps in (
+            (k1, lambda: [k1_fn(*c) for c in k1_calls],
+             lambda: [abfp_matmul_packed_ref(*c) for c in k1_calls],
+             k1_calls, bound(nb, i8, f32), 1),
+            (k2, lambda: [k2_fn(*a, **kw) for a, kw in k2_calls],
+             lambda: [sites[k2][1](*a, **kw) for a, kw in k2_calls],
+             k2_calls, bound(nb2, i82, f322), 3),
+            (k3, lambda: [k3_fn(*a, **kw) for a, kw in k3_calls],
+             lambda: [quantized_decode_attention(*a, **kw)
+                      for a, kw in k3_calls],
+             k3_calls, bound(nb3, 0.0, f33), 3)):
+        ms, how = graph_ms(fn, 20)
+        timed[name] = {"launches": len(cs), "ms": ms, "timing": how,
+                       "plain_ms": median_ms(plain, reps), "bound_ms": bms,
+                       "bound_by": by}
+        log(f"phase 14: {name}'s {len(cs)} launches of one decode tick take "
+            f"{ms:.4f} ms ({how}; plain versions "
+            f"{timed[name]['plain_ms']:.3f} ms), bound {bms:.4f} ms by {by}")
+    timed[k1].update(bytes=nb, code_bytes=sum(pw.k * pw.n_cols
+                                               for _, pw, _, _ in k1_calls))
+    by_shape = {}
+    for c in k1_calls:
+        x, pw = c[0], c[1]
+        key_ = f"{pw.k}x{pw.n_cols}"
+        if key_ in by_shape:
+            by_shape[key_]["calls"] += 1
+            continue
+        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
+        one_ms = graph_ms(lambda c=c: k1_fn(*c), 20)[0]
+        by_shape[key_] = {"calls": 1, "ms": one_ms,
+                          "bound_ms": bound(b_, i_, f_)[0],
+                          "gb_per_s": b_ / one_ms / 1e6}
+    timed[k1]["by_shape"] = by_shape
+    log("phase 14: kernel 1 per weight shape (K x N: calls, ms per call, "
+        "bound ms, GB/s): " + json.dumps(
+            {k_: [v["calls"], round(v["ms"], 4), round(v["bound_ms"], 4),
+                  round(v["gb_per_s"], 1)] for k_, v in by_shape.items()}))
+    res["tick"] = timed
+    del k1_calls, k2_calls, k3_calls, eng, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14c. One cacheless evaluation forward in abfp_kernel with flash
+    # attention (kernel 4 on every matmul, kernel 5 per layer), read
+    # around it, once through the kernels and once through the plain
+    # versions; then through kernel 4 with kernel 5's plain version, which
+    # must give the plain run's logits, aux and chosen experts bit for bit
+    # (kernel 4 is exact; kernel 5 is held allclose, and its one-ULP flips
+    # can move activation codes and so a near-tied route).  The kernel
+    # run's logits are held to EVAL_LOGIT_BAR as phase 7 holds its own;
+    # its aux and the (layer, token) rows whose chosen experts differ
+    # from the plain run's are reported.
+    emcfg = dataclasses.replace(mcfg, use_flash_attention=True)
+    equant = QuantConfig(mode="abfp_kernel", tile_width=quant.tile_width,
+                         gain=quant.gain, noise_lsb=quant.noise_lsb)
+    etoks = torch.from_numpy(rng.integers(
+        1, mcfg.vocab_size, (MOE_EVAL_BATCH, MOE_EVAL_SEQ)).astype(
+        np.int32)).to(dev)
+    ekey = prng.PRNGKey(SEED + 17)
+    runs14c = {}
+    saved5 = model_layers.flash_attention
+    for how in ("kernels", "plain", "kernel 5 plain"):
+        nx = Numerics(equant, ekey, plain=how == "plain")
+        if how == "kernel 5 plain":
+            model_layers.flash_attention = flash_attention_ref
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            with recording(False):
+                lg, aux = forward(params, etoks, emcfg, nx)
+            torch.cuda.synchronize()
+        finally:
+            model_layers.flash_attention = saved5
+        runs14c[how] = (lg, aux, list(eids), time.perf_counter() - t1,
+                        {n: v for n, v in ops.launch_counts().items() if v})
+        eids.clear()
+    lg_k, aux_k, ids_k, fwd_s, got_counts = runs14c["kernels"]
+    lg_p, aux_p, ids_p = runs14c["plain"][:3]
+    lg_a, aux_a, ids_a = runs14c["kernel 5 plain"][:3]
+    if got_counts != per_forward:
+        fail(f"phase 14c: the forward launched {got_counts}, want "
+             f"{per_forward}")
+    if not (torch.isfinite(lg_k).all() and torch.isfinite(aux_k)):
+        fail("phase 14c: non-finite logits or aux")
+    if not (torch.equal(lg_a, lg_p) and torch.equal(aux_a, aux_p) and all(
+            torch.equal(a, b) for a, b in zip(ids_a, ids_p))):
+        fail("phase 14c: with kernel 5's plain version the forward differs "
+             "from the plain run")
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(ids_k, ids_p))
+    err = float((lg_k - lg_p).abs().max())
+    res["eval_forward"] = {
+        "launches": got_counts, "host_s": fwd_s, "aux": float(aux_k),
+        "aux_plain": float(aux_p), "aux_equal": bool(torch.equal(aux_k,
+                                                                 aux_p)),
+        "rows_routed_apart": moved,
+        "rows": mcfg.num_layers * MOE_EVAL_BATCH * MOE_EVAL_SEQ,
+        "logits_max_abs": err}
+    log(f"phase 14c: evaluation forward of {MOE_EVAL_BATCH} x {MOE_EVAL_SEQ} "
+        f"tokens ({got_counts}) in {fwd_s:.2f}s: aux {float(aux_k)!r} "
+        f"through the kernels, {float(aux_p)!r} through the plain versions "
+        f"(equal: {res['eval_forward']['aux_equal']}); {moved} of "
+        f"{res['eval_forward']['rows']} (layer, token) rows chose other "
+        f"experts; logits max-abs difference {err:.4g}; with kernel 5's "
+        f"plain version logits, aux and experts bit-equal to the plain "
+        f"run's")
+    if err > EVAL_LOGIT_BAR:
+        fail(f"phase 14c: logits differ from the plain run's by {err:.4g} > "
+             f"{EVAL_LOGIT_BAR}")
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, runs14c, lg_k, lg_p, lg_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g_ = runs["graphs"][0]["launches"]
+    for row in rows:
+        name = row["name"]
+        row["launches_granite_serve"] = g_.get(name, 0)
+        row["launches_granite_eval_forward"] = got_counts.get(name, 0)
+        if name in timed:
+            t_ = timed[name]
+            row.update({"granite_tick_ms": t_["ms"],
+                        "granite_tick_plain_ms": t_["plain_ms"],
+                        "granite_tick_bound_ms": t_["bound_ms"],
+                        "granite_tick_bound_by": t_["bound_by"],
+                        "launches_per_granite_tick": t_["launches"]})
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def main() -> None:
@@ -2916,6 +3465,12 @@ def main() -> None:
     rec = recurrent_phase(dev, CheckedEngine,
                           [len(r.prompt) for r in reqs[:6]], rows)
     log(f"recurrent phase in {rec['seconds']:.1f}s: {json.dumps(rec)}")
+
+    # 14. moe: the MoE family served ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev, CheckedEngine, [len(r.prompt) for r in reqs], rows)
+    log(f"moe phase in {moe['seconds']:.1f}s: {json.dumps(moe)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""repro_torch.models — the dense decoder with ABFP-dispatched matmuls:
-layers, the LM (params, teacher-forced forward with DNF noise and
-remat, DNF capture, decode tick, chunked prefill, sampling), packing and
-conversion of the JAX package's parameters."""
+"""repro_torch.models — the decoders with ABFP-dispatched matmuls:
+layers, the MoE block, the recurrent blocks, the LM (params,
+teacher-forced forward with DNF noise and remat, DNF capture, decode
+tick, chunked prefill, sampling), packing and conversion of the JAX
+package's parameters."""
 
 from repro_torch.models.layers import (  # noqa: F401
     Numerics,

@@ -7,7 +7,9 @@ entry per layer (the JAX package stacks the layers of each block-pattern
 position on a leading axis and scans; the port loops).  Layer ``i`` is of
 kind ``mcfg.layer_kind(i)``: ``attention`` (local attention over a
 ring-buffer cache of ``window_size`` slots in a hybrid pattern),
-``recurrent`` (RG-LRU), ``mlstm`` or ``slstm`` (``models.recurrent``).
+``recurrent`` (RG-LRU), ``mlstm`` or ``slstm`` (``models.recurrent``);
+an attention layer of a config with ``num_experts`` holds a ``"moe"``
+block (``models.moe``) in place of its ``"mlp"``.
 The layer index folded into the noise key is the flat index ``i``, which
 is the JAX package's ``g * len(pattern) + j`` in its scanned groups and
 ``n_groups * len(pattern) + r`` in its remainder layers.
@@ -35,6 +37,7 @@ from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dnf import inject
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
     LM_HEAD_FOLD,
@@ -56,16 +59,15 @@ def check_supported(mcfg: ModelConfig, serving: bool = False) -> None:
     """Raise unless the port runs ``mcfg`` on this path.  Serving
     (``serving=True``: decode state, decode tick, chunked prefill) takes
     rope decoders whose layers are attention (windowed in a hybrid
-    pattern), RG-LRU, mLSTM or sLSTM; the cacheless ``forward``, DNF's
-    capture and training take full-attention decoders only.  Experts,
-    encoder-decoders, frontends and absolute positions are refused
-    everywhere (ROADMAP queue 1 item 6)."""
+    pattern), RG-LRU, mLSTM or sLSTM, with or without experts; the
+    cacheless ``forward``, DNF's capture and training take full-attention
+    decoders only.  Encoder-decoders, frontends and absolute positions are
+    refused everywhere (ROADMAP queue 1 item 6)."""
     kinds = set(mcfg.block_pattern or ("attention",))
-    if (mcfg.num_experts or mcfg.is_encoder_decoder
-            or mcfg.frontend != "none" or mcfg.pos_type != "rope"
-            or not kinds <= set(_KINDS)):
+    if (mcfg.is_encoder_decoder or mcfg.frontend != "none"
+            or mcfg.pos_type != "rope" or not kinds <= set(_KINDS)):
         raise NotImplementedError(
-            f"repro_torch runs rope decoders without experts, encoders or "
+            f"repro_torch runs rope decoders without encoders or "
             f"frontends; {mcfg.name} (family={mcfg.family!r}) belongs to a "
             f"later slice of the port (ROADMAP queue 1 item 6)")
     if not serving and kinds != {"attention"}:
@@ -114,7 +116,9 @@ def init_params(seed: int, mcfg: ModelConfig,
         if kind == "attention":
             layer["attn"] = init_attention(gen, mcfg, dev)
             layer["norm2"] = _norm_params(mcfg, dev)
-            if mcfg.d_ff:
+            if mcfg.num_experts:
+                layer["moe"] = moe_lib.init_moe(gen, mcfg, dev)
+            elif mcfg.d_ff:
                 layer["mlp"] = init_mlp(gen, mcfg, dev)
         elif kind == "recurrent":
             layer["rglru"] = rec.init_rglru_block(gen, mcfg, dev)
@@ -151,10 +155,12 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
                  state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
                  page_table: Optional[Tensor] = None):
-    """One pre-norm residual layer of ``kind``; returns (x, state).
+    """One pre-norm residual layer of ``kind``; returns (x, state, aux),
+    ``aux`` the MoE block's f32 load-balance loss (None without one).
     Without a state (the teacher-forced forward) attention is cacheless
     and the returned state is None.  ``page_table`` (B, MP) routes a paged
     KV cache."""
+    aux = None
     h = norm(x, lp["norm1"], mcfg.norm_type)
     if kind != "attention":
         block = {"recurrent": rec.rglru_block, "mlstm": rec.mlstm_block,
@@ -167,16 +173,19 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
         if kind == "recurrent":
             h = norm(x, lp["norm2"], mcfg.norm_type)
             x = x + mlp_block(lp["mlp"], h, mcfg, nx)
-        return x, {"rec": st}
+        return x, {"rec": st}, aux
     attn_out, kv = attention_block(
         lp["attn"], h, mcfg, nx, positions=positions, window=_window(mcfg),
         kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
         train_mode=mcfg.remat, page_table=page_table)
     x = x + attn_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
-    if mcfg.d_ff:
+    if mcfg.num_experts:
+        y, aux = moe_lib.moe_block(lp["moe"], h, mcfg, nx)
+        x = x + y
+    elif mcfg.d_ff:
         x = x + mlp_block(lp["mlp"], h, mcfg, nx)
-    return x, None if state is None else {"kv": kv}
+    return x, None if state is None else {"kv": kv}, aux
 
 
 def _embed(params, tokens: Tensor, mcfg: ModelConfig) -> Tensor:
@@ -196,11 +205,13 @@ def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
 def calls_per_layer(mcfg: ModelConfig) -> int:
     """Noise-keyed dense calls of the busiest layer kind of the pattern
     (its call counters 0..n-1), so one seed-table row fits every layer:
-    attention wq, wk, wv, wo, then the MLP's wi (and wg) and wo; RG-LRU's
-    five projections and its MLP; mLSTM's seven; sLSTM's three."""
+    attention wq, wk, wv, wo, then the MLP's wi (and wg) and wo, or each
+    expert's wi, wg and wo in expert order; RG-LRU's five projections and
+    its MLP; mLSTM's seven; sLSTM's three."""
     mlp = 0 if not mcfg.d_ff else (
         3 if mcfg.mlp_type in ("swiglu", "geglu") else 2)
-    per_kind = {"attention": 4 + mlp, "recurrent": 5 + mlp, "mlstm": 7,
+    ffn = 3 * mcfg.num_experts if mcfg.num_experts else mlp
+    per_kind = {"attention": 4 + ffn, "recurrent": 5 + mlp, "mlstm": 7,
                 "slstm": 3}
     return max(per_kind[k] for k in set(mcfg.block_pattern or ("attention",)))
 
@@ -216,7 +227,7 @@ def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
 def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
     pt = state.get("page_table")
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
-        x, state["layers"][li] = _apply_layer(
+        x, state["layers"][li], _ = _apply_layer(
             lp, x, mcfg, nx.fold(li), kind=mcfg.layer_kind(li),
             positions=positions, state=ls, n_tokens=n_tokens, page_table=pt)
     return norm(x, params["final_norm"], mcfg.norm_type)
@@ -233,15 +244,15 @@ def _positions(tokens: Tensor) -> Tensor:
 
 
 def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
-                   li: int, positions: Tensor, dnf, dnf_key) -> Tensor:
+                   li: int, positions: Tensor, dnf, dnf_key):
     """Layer ``li`` of the teacher-forced forward under ``nx.fold(li)``,
-    then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``.
-    Each call folds afresh, so a rematerialized layer draws what its
-    first run drew."""
-    x, _ = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
+    then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``;
+    returns (x, aux).  Each call folds afresh, so a rematerialized layer
+    draws what its first run drew."""
+    x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
     if dnf is None:
-        return x
-    return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li))
+        return x, aux
+    return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li)), aux
 
 
 def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
@@ -251,7 +262,9 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
 
     tokens: (B, S) int ids.  Returns (logits (B, S, V) f32, aux), or
     (hidden (B, S, d), aux) with ``return_hidden``; ``aux`` is the f32
-    auxiliary loss, 0 for the dense decoder.  Layer ``li`` runs under
+    auxiliary loss, the sum of the MoE layers' load-balance losses (0
+    without experts), added layer by layer as the JAX package's scan
+    adds it.  Layer ``li`` runs under
     ``nx.fold(li)`` and the head under ``nx.fold(999_983)``, as the JAX
     package's scan folds them.
 
@@ -269,12 +282,14 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     positions = _positions(tokens)
     x = _embed(params, tokens, mcfg)
     remat = mcfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(params["layers"]):
         args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key)
-        x = (checkpoint(_forward_layer, *args, use_reentrant=False) if remat
-             else _forward_layer(*args))
+        x, a = (checkpoint(_forward_layer, *args, use_reentrant=False)
+                if remat else _forward_layer(*args))
+        if a is not None:
+            aux = aux + a
     x = norm(x, params["final_norm"], mcfg.norm_type)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD)), aux
@@ -300,10 +315,10 @@ def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
     x = _embed(params, tokens, mcfg)
     deltas = []
     for li, lp in enumerate(params["layers"]):
-        x_f, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li),
-                              positions=positions)
-        x_q, _ = _apply_layer(lp, x, mcfg, nx_abfp_factory().fold(li),
-                              positions=positions)
+        x_f, _, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li),
+                                 positions=positions)
+        x_q, _, _ = _apply_layer(lp, x, mcfg, nx_abfp_factory().fold(li),
+                                 positions=positions)
         deltas.append(x_q.float() - x_f.float())
         x = x_f
     x = norm(x, params["final_norm"], mcfg.norm_type)

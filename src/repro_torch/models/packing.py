@@ -8,8 +8,13 @@ per-tile ADC gains, and the attention block of each full-attention
 layer gains a ``"qkv"`` entry: wq, wk and wv concatenated once for the
 fused QKV kernel (``kernels.abfp_decode_fused.concat_qkv``), the only
 layers whose decode tick takes it (``models.layers._use_fused_decode``).
+An MoE block's (E, K, N) expert weights pack expert by expert into a list
+of E ``PackedWeight``s (kernel 1 takes one 2-D weight per launch); expert
+``ex``'s codes, scales and gains are the ``[ex]`` slice of the JAX
+package's pack of the stacked leaf.
 
-Embedding tables, norm scales and biases stay in their original dtype.
+Embedding tables, norm scales and biases, and the MoE router (routing
+stays digital) stay in their original dtype.
 """
 
 from __future__ import annotations
@@ -51,9 +56,12 @@ def pack_model_params(params: dict, cfg: QuantConfig,
             return out
         if isinstance(node, list):
             return [walk(v, name) for v in node]
-        if (name in DENSE_WEIGHT_NAMES and isinstance(node, torch.Tensor)
-                and node.ndim == 2):
-            return pack_abfp_weight(node, cfg, adaptive_gain=adaptive)
+        if name in DENSE_WEIGHT_NAMES and isinstance(node, torch.Tensor):
+            if node.ndim == 2:
+                return pack_abfp_weight(node, cfg, adaptive_gain=adaptive)
+            if node.ndim == 3:
+                return [pack_abfp_weight(w, cfg, adaptive_gain=adaptive)
+                        for w in node]
         return node
 
     packed = walk(params)

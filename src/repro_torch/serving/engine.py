@@ -258,11 +258,12 @@ class ServingEngine:
                                                  (FaultConfig, FaultPlan)):
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
                             f"got {type(faults).__name__}")
-        if faults is not None and mcfg.attention_type != "full":
+        if faults is not None and (mcfg.attention_type != "full"
+                                   or mcfg.num_experts):
             raise NotImplementedError(
                 f"fault plans on {mcfg.name} are not ported: the port's "
                 f"fault sites are the dense decoder's (ROADMAP queue 1 "
-                f"item 6)")
+                f"item 6.5)")
         if quant.mode == "abfp_ref":
             raise ValueError(
                 "the serving engine does not take abfp_ref numerics: its "

@@ -9,9 +9,9 @@ pass of each shape the engine runs (``make_pass``: the decode tick
 edits run between passes (``make_reset`` at admission, ``make_attach``
 for a prefix-cache hit, ``make_copy_page`` for a copy-on-write split) and
 what a request costs in pages (``capacity_cost``).  ``DecoderRunner``
-serves full-attention decoders, ``RecurrentRunner`` the recurrent and
-hybrid families (fixed-size state per slot); encoder-decoders are not
-ported.  Passes and the edits update the decode state in place: every
+serves full-attention decoders, MoE ones included, ``RecurrentRunner``
+the recurrent and hybrid families (fixed-size state per slot);
+encoder-decoders are not ported.  Passes and the edits update the decode state in place: every
 state tensor keeps its storage.
 
 Static buffers
@@ -297,9 +297,9 @@ def state_tensors(state) -> list:
 def runner_for(mcfg: ModelConfig) -> DecoderRunner:
     """The runner of a config, as the JAX package's ``runner_for`` picks
     it: ``RecurrentRunner`` when the block pattern holds a non-attention
-    kind (``attention_type`` hybrid or recurrent), else
-    ``DecoderRunner``; encoder-decoders (and anything else the port does
-    not serve) raise."""
+    kind (``attention_type`` hybrid or recurrent), else ``DecoderRunner``
+    (MoE decoders included); encoder-decoders (and anything else the port
+    does not serve) raise."""
     from repro_torch.models.lm import check_supported
     check_supported(mcfg, serving=True)
     if mcfg.attention_type in ("hybrid", "recurrent"):

@@ -1248,3 +1248,98 @@ def test_cuda_recurrent_replay_equals_eager_over_two_keys(shape_key):
         "abfp_matmul_packed": 24}
     graph.close()
     eager.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("k,n", [(1024, 512), (512, 1024)],
+                         ids=["wi-wg", "wo"])
+def test_cuda_packed_matmul_at_expert_shapes(m, k, n):
+    """Kernel 1 on granite-moe-1b-a400m's expert weights (wi and wg 1,024
+    x 512, wo 512 x 1,024), each expert packed alone as the MoE packing
+    packs it, at a decode tick's M = 4 and a prefill pass's M = 512: bit
+    for bit its plain version, one launch."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    w = torch.randn(4, k, n, generator=gen, device="cuda") * k ** -0.5
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for ex in range(w.shape[0]):
+        pw = pack_abfp_weight(w[ex].to(torch.bfloat16), CFG,
+                              adaptive_gain=True)
+        ops.reset_launch_counts()
+        got = abfp_matmul_packed(x, pw, CFG, 11 + ex)
+        want = abfp_matmul_packed_ref(x, pw, CFG, 11 + ex)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["abfp_matmul_packed"] == 1
+        _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_key", [("decode",), ("prefill", 16)],
+                         ids=["decode", "prefill16"])
+def test_cuda_moe_replay_equals_eager_over_two_keys(shape_key):
+    """A two-layer granite-moe-1b-a400m at full width (32 experts, top-8),
+    abfp_fused: two passes with two keys by replay and eagerly from the
+    same state give bit-equal logits, sampled tokens and state, the keys'
+    logits differ, and a replay launches kernel 1 2 x (1 + 96) + 1 times
+    per decode tick (2 x (4 + 96) + 1 per prefill pass) and kernels 2-3
+    twice per tick."""
+    _need_cuda()
+    import dataclasses
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.runners import state_tensors
+
+    mcfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                               num_layers=2, kv_quant=True)
+    params = init_params(0, mcfg, device="cuda")
+    kw = dict(capacity=4, max_len=64, quant=CFG, device="cuda",
+              clock=time.perf_counter, overlap=True)
+    graph = ServingEngine(params, mcfg, **kw)
+    eager = ServingEngine(graph.params, mcfg, _graphs=False, **kw)
+    b, width = 4, 1 if shape_key[0] == "decode" else shape_key[1]
+    rng = np.random.default_rng(3)
+    fields = dict(tokens=rng.integers(1, mcfg.vocab_size, (b, width)),
+                  n_tokens=np.array([width, 1, 0, 2]),
+                  prev_mask=np.zeros(b, bool),
+                  temps=np.zeros(b, np.float32), uids=np.arange(b),
+                  idxs=np.arange(b))
+    # A random int8 cache of 5 tokens per row (positions and lengths 5).
+    for t in state_tensors(graph.state):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, device="cuda"))
+        elif t.dtype == torch.int32:
+            t.fill_(5)
+        else:
+            t.copy_(torch.rand(t.shape, device="cuda").to(t.dtype))
+    start = [t.clone() for t in state_tensors(graph.state)]
+    outs = []
+    for key in (prng.PRNGKey(1), prng.PRNGKey(2)):
+        got = []
+        for eng in (graph, eager):
+            for dst, src in zip(state_tensors(eng.state), start):
+                dst.copy_(src)
+            io, _ = eng._call(shape_key, key, **fields)
+            got.append((io.logits.clone(), io.sampled.clone(),
+                        [t.clone() for t in state_tensors(eng.state)]))
+        torch.cuda.synchronize()
+        (lg, sg, stg), (le, se, ste) = got
+        assert torch.equal(lg, le) and torch.equal(sg, se)
+        assert all(torch.equal(a, b_) for a, b_ in zip(stg, ste))
+        assert torch.isfinite(lg).all()
+        outs.append(lg)
+    assert not torch.equal(outs[0], outs[1])
+    launches = {k: v for k, v in graph._passes[shape_key].launches.items()
+                if v}
+    if shape_key[0] == "decode":
+        assert launches == {"abfp_matmul_packed": 2 * 97 + 1,
+                            "fused_qkv_packed": 2,
+                            "fused_quantized_decode_attention": 2}
+    else:
+        assert launches == {"abfp_matmul_packed": 2 * 100 + 1}
+    graph.close()
+    eager.close()

@@ -52,7 +52,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.kernels.abfp_decode_fused",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.serving.engine", "repro_torch.launch.serve",
-                "repro_torch.models.recurrent",
+                "repro_torch.models.recurrent", "repro_torch.models.moe",
                 "repro_torch.models.convert", "repro_torch.core.dnf",
                 "repro_torch.training.finetune",
                 "repro_torch.distributed.fault",
