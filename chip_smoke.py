@@ -196,6 +196,45 @@ Phases (any failure exits non-zero and prints no result line):
                kernel 5's plain version logits, aux and every layer's
                chosen experts bit-equal to the plain run's.
 
+ 15. encdec — the encoder-decoder family and the stub frontends (see
+               ``encdec_phase``): (a) full-width whisper-base (6 + 6
+               layers, d_model 512, 8 heads of 64, vocab 51,865) served as
+               ``--arch whisper-base --full --fused`` configures it, capacity
+               4, max_len 448, each of phase 4's eight prompt lengths with
+               1,500 frames of ``audio_stub_features`` keyed (seed, uid),
+               eagerly, with graphs and with graphs + overlap in turns:
+               8 of 8, streams equal, every decode tick 31 / 6 / 6
+               launches of kernels 1-3, every prefill pass 49 and every
+               admission pass 48 of kernel 1; every pass shape's replay,
+               the admission pass's too, bit-equal to the eager pass under
+               two keys; admission host time, kernel 1's admission launches
+               timed against their bound, profiles of a decode and an
+               admission replay; (b) paged with graphs on a pool that
+               preempts: 8 of 8, conservation, every re-admission's cross
+               K/V bit-equal to the first admission's, and against the
+               unpaged engine with kernel 3's plain version every request
+               whose passes (shape, noise key, slot) are the same in both
+               runs has the same stream (a preemption shifts the later
+               passes' keys; where a request's passes part is reported);
+               without noise every request never preempted has the same
+               stream (the resumed ones' reported, beside the bits in
+               which the re-prefill's 16-query attention forms differ from
+               a tick's one-query forms);
+               (c) kernel 1 at M = 1,500 on the encoder's
+               weights at 0 flips, kernel 3 at group 1 within its bar,
+               kernel 5 non-causal at (1,500, 1,500) and (128, 1,500) in
+               bf16 and f32 within phase 3's bars, timed with bounds and
+               SDPA; (d) an ``abfp_kernel`` + flash ``forward`` of 2 x 128
+               tokens over 2 x 1,500 frames (97 kernel-4 and 18 kernel-5
+               launches) against the plain versions (EVAL_LOGIT_BAR; with
+               kernel 5's plain version bit-equal); (e) full-width
+               phi-3-vision-4.2b (32 layers, d_model 3,072, 32 heads of
+               96): an ``abfp_kernel`` + flash ``forward`` on 1 x 256 stub
+               embeddings (225 / 32 launches) the same way, a 2-request
+               ``abfp_fused`` graphs run and kernel 3 at D = 96 on its
+               caches within its bar, and kernel 5 at D = 96 in bf16 and
+               f32, timed.
+
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
 Without CUDA, or without the ``repro_torch`` sources beside this file, it
@@ -305,6 +344,13 @@ XL_DECODE_K1 = 121
 # MOE_EVAL_BATCH x MOE_EVAL_SEQ tokens.
 MOE_TURNS = ("eager", "graphs", "overlap")
 MOE_EVAL_BATCH, MOE_EVAL_SEQ = 2, 128
+# Phase 15 (encoder-decoder): whisper's 30 s window (3,000 mel frames
+# after its stride-2 conv) and decoder context; 15b's pages and pool, small
+# enough that phase 4's eight prompts preempt.
+WHISPER_FRAMES = 1500
+WHISPER_MAX_LEN = 448
+WHISPER_PAGE = 32
+WHISPER_POOL = 8
 
 
 def fail(msg: str) -> None:
@@ -570,6 +616,91 @@ def replay_against_eager(geng, xeng, served, shapes, vocab: int, rng,
         f"each, logits, sampled tokens and the whole state bit-equal, the "
         f"keys' logits differ")
     return fields_of
+
+
+def serve_in_turns(eager, fresh, requests, shapes, per_pass: dict,
+                   what: str):
+    """The served runs in turns (MOE_TURNS): ``eager`` the eager engine,
+    ``fresh(**kw)`` a new engine for the graphs and overlapped runs (every
+    shape of ``shapes`` captured and timed before the timed window),
+    ``requests()`` the workload anew.  The launch counts are zeroed just
+    before each run and read just after; every run finishes every request
+    with the eager run's streams, launches every serving kernel, and each
+    pass of each kind of ``per_pass`` launches exactly its counts.
+    Returns (the runs by mode, the eager streams, the overlapped engine)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    want = geng = None
+    runs = {m: [] for m in MOE_TURNS}
+    for mode in MOE_TURNS:
+        e = eager if mode == "eager" else fresh(
+            **{"graphs": {}, "overlap": dict(clock=time.perf_counter,
+                                             overlap=True)}[mode])
+        capture = {}
+        if mode != "eager":
+            for k in shapes:
+                t1 = time.perf_counter()
+                e._executable(k)
+                torch.cuda.synchronize()
+                capture["".join(str(p_) for p_ in k)] = \
+                    time.perf_counter() - t1
+            e._warmed_shapes.clear()
+        rs = requests()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        if len(fin) != len(rs) or any(
+                not r.done or len(r.generated) != r.max_new_tokens
+                for r in fin):
+            fail(f"{what} {mode}: {len(fin)} of {len(rs)} requests finished")
+        streams = {r.uid: r.generated for r in fin}
+        if want is None:
+            want = streams
+        elif streams != want:
+            bad = [u for u in want if streams[u] != want[u]]
+            fail(f"{what} {mode}: the streams of requests {bad} differ from "
+                 f"the eager run's")
+        for kind, want_ in per_pass.items():
+            if not e.per_pass[kind]:
+                fail(f"{what} {mode}: no {kind} pass ran")
+            for got in e.per_pass[kind]:
+                if {n: v for n, v in got.items() if v} != want_:
+                    fail(f"{what} {mode}: a {kind} pass launched {got}, "
+                         f"want {want_}")
+        if any(counts[n] <= 0 for n in SERVE_KERNELS):
+            fail(f"{what} {mode}: a serving kernel was not launched: "
+                 f"{counts}")
+        med, cnt = e.pass_stats()
+        toks = sum(len(r.generated) for r in fin)
+        r_ = {"wall_s": wall, "tokens": toks, "tokens_per_s": toks / wall,
+              "decode_ms": med["decode"] * 1e3,
+              "prefill_ms": med["prefill"] * 1e3, "passes": e.ticks,
+              "passes_by_kind": cnt,
+              "tick_utilization": e.metrics.tick_utilization()["value"],
+              "launches": counts, "capture_s": capture}
+        if "admit" in per_pass:
+            r_["admissions"] = len(e.per_pass["admit"])
+        runs[mode].append(r_)
+        log(f"{what} serve [{mode}]: {len(fin)}/{len(rs)} requests, {toks} "
+            f"tokens in {wall:.3f}s ({r_['tokens_per_s']:.1f} tokens/s), "
+            f"decode tick median {r_['decode_ms']:.3f} ms, prefill pass "
+            f"median {r_['prefill_ms']:.3f} ms ({cnt}), "
+            + (f"{r_['admissions']} admissions, " if "admit" in per_pass
+               else "")
+            + f"tick_utilization {r_['tick_utilization']}, capture s "
+            f"{capture}, launches {counts}")
+        if mode == "overlap":
+            geng = e
+        elif e is not eager:
+            del e
+            gc.collect()
+    return runs, want, geng
 
 
 def train_phase(dev, params, rows: list) -> dict:
@@ -1888,13 +2019,11 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
         quantized_decode_attention,
     )
     from repro_torch.kernels.abfp_matmul import abfp_matmul_packed_ref
-    from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import (
         Numerics,
         clone_state,
         decode_step,
-        forward,
         init_decode_state,
         init_params,
         prefill,
@@ -1908,9 +2037,6 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     k1, k2, k3 = SERVE_KERNELS
     shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
     res = {}
-
-    def shape_name(k):
-        return "".join(str(p_) for p_ in k)
 
     torch.cuda.reset_peak_memory_stats()
     args = serve_cli.build_parser().parse_args(
@@ -1955,72 +2081,10 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     # before its timed window, each shape timed), the launch counts zeroed
     # just before the run and read just after, and every pass's launches
     # held to ``per_tick`` / ``per_prefill``.
-    def per_pass_ok(e):
-        for kind, want_ in (("decode", per_tick), ("prefill", per_prefill)):
-            for got in e.per_pass[kind]:
-                if {n: v for n, v in got.items() if v} != want_:
-                    fail(f"phase 14: a {kind} pass launched {got}, want "
-                         f"{want_}")
-
-    want = None
-    runs = {m: [] for m in ("eager", "graphs", "overlap")}
-    geng = None
-    for mode in MOE_TURNS:
-        e = eng if mode == "eager" else fresh(
-            **{"graphs": {}, "overlap": dict(clock=time.perf_counter,
-                                             overlap=True)}[mode])
-        capture = {}
-        if mode != "eager":
-            for k in shapes:
-                t1 = time.perf_counter()
-                e._executable(k)
-                torch.cuda.synchronize()
-                capture[shape_name(k)] = time.perf_counter() - t1
-            e._warmed_shapes.clear()
-        rs = [Request(uid=r.uid, prompt=list(r.prompt),
-                      max_new_tokens=MAX_NEW) for r in reqs]
-        ops.reset_launch_counts()
-        t1 = time.perf_counter()
-        fin = e.run(rs)
-        e.close()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        counts = ops.launch_counts()
-        if len(fin) != len(reqs) or any(
-                not r.done or len(r.generated) != MAX_NEW for r in fin):
-            fail(f"phase 14 {mode}: {len(fin)} of {len(reqs)} requests "
-                 f"finished")
-        streams = {r.uid: r.generated for r in fin}
-        if want is None:
-            want = streams
-        elif streams != want:
-            bad = [u for u in want if streams[u] != want[u]]
-            fail(f"phase 14 {mode}: the streams of requests {bad} differ "
-                 f"from the eager run's")
-        per_pass_ok(e)
-        if any(counts[n] <= 0 for n in SERVE_KERNELS):
-            fail(f"phase 14 {mode}: a serving kernel was not launched: "
-                 f"{counts}")
-        med, cnt = e.pass_stats()
-        toks = sum(len(r.generated) for r in fin)
-        r_ = {"wall_s": wall, "tokens": toks, "tokens_per_s": toks / wall,
-              "decode_ms": med["decode"] * 1e3,
-              "prefill_ms": med["prefill"] * 1e3, "passes": e.ticks,
-              "passes_by_kind": cnt,
-              "tick_utilization": e.metrics.tick_utilization()["value"],
-              "launches": counts, "capture_s": capture}
-        runs[mode].append(r_)
-        log(f"phase 14 serve [{mode}]: {len(fin)}/{len(reqs)} requests, "
-            f"{toks} tokens in {wall:.3f}s ({r_['tokens_per_s']:.1f} "
-            f"tokens/s), decode tick median {r_['decode_ms']:.3f} ms, "
-            f"prefill pass median {r_['prefill_ms']:.3f} ms ({cnt}), "
-            f"tick_utilization {r_['tick_utilization']}, capture s "
-            f"{capture}, launches {counts}")
-        if mode == "overlap":
-            geng = e
-        elif e is not eng:
-            del e
-            gc.collect()
+    runs, _, geng = serve_in_turns(
+        eng, fresh, lambda: [Request(uid=r.uid, prompt=list(r.prompt),
+                                     max_new_tokens=MAX_NEW) for r in reqs],
+        shapes, {"decode": per_tick, "prefill": per_prefill}, "phase 14")
     res["runs"] = runs
     res["prompt_lens"] = [len(r.prompt) for r in reqs]
     res["per_decode_tick"], res["per_prefill_pass"] = per_tick, per_prefill
@@ -2281,74 +2345,25 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     torch.cuda.empty_cache()
 
     # 14c. One cacheless evaluation forward in abfp_kernel with flash
-    # attention (kernel 4 on every matmul, kernel 5 per layer), read
-    # around it, once through the kernels and once through the plain
-    # versions; then through kernel 4 with kernel 5's plain version, which
-    # must give the plain run's logits, aux and chosen experts bit for bit
-    # (kernel 4 is exact; kernel 5 is held allclose, and its one-ULP flips
-    # can move activation codes and so a near-tied route).  The kernel
-    # run's logits are held to EVAL_LOGIT_BAR as phase 7 holds its own;
-    # its aux and the (layer, token) rows whose chosen experts differ
-    # from the plain run's are reported.
+    # attention (kernel 4 on every matmul, kernel 5 per layer) through the
+    # kernels, the plain versions and kernel 5's plain version (see
+    # ``eval_forward_runs``): the kernel run's logits held to
+    # EVAL_LOGIT_BAR as phase 7 holds its own, its aux and the rows routed
+    # apart from the plain run's reported.
     emcfg = dataclasses.replace(mcfg, use_flash_attention=True)
     equant = QuantConfig(mode="abfp_kernel", tile_width=quant.tile_width,
                          gain=quant.gain, noise_lsb=quant.noise_lsb)
     etoks = torch.from_numpy(rng.integers(
         1, mcfg.vocab_size, (MOE_EVAL_BATCH, MOE_EVAL_SEQ)).astype(
         np.int32)).to(dev)
-    ekey = prng.PRNGKey(SEED + 17)
-    runs14c = {}
-    saved5 = model_layers.flash_attention
-    for how in ("kernels", "plain", "kernel 5 plain"):
-        nx = Numerics(equant, ekey, plain=how == "plain")
-        if how == "kernel 5 plain":
-            model_layers.flash_attention = flash_attention_ref
-        ops.reset_launch_counts()
-        t1 = time.perf_counter()
-        try:
-            with recording(False):
-                lg, aux = forward(params, etoks, emcfg, nx)
-            torch.cuda.synchronize()
-        finally:
-            model_layers.flash_attention = saved5
-        runs14c[how] = (lg, aux, list(eids), time.perf_counter() - t1,
-                        {n: v for n, v in ops.launch_counts().items() if v})
-        eids.clear()
-    lg_k, aux_k, ids_k, fwd_s, got_counts = runs14c["kernels"]
-    lg_p, aux_p, ids_p = runs14c["plain"][:3]
-    lg_a, aux_a, ids_a = runs14c["kernel 5 plain"][:3]
+    ev, got_counts = eval_forward_runs(dev, params, etoks, emcfg, equant,
+                                       prng.PRNGKey(SEED + 17), "phase 14c")
     if got_counts != per_forward:
         fail(f"phase 14c: the forward launched {got_counts}, want "
              f"{per_forward}")
-    if not (torch.isfinite(lg_k).all() and torch.isfinite(aux_k)):
-        fail("phase 14c: non-finite logits or aux")
-    if not (torch.equal(lg_a, lg_p) and torch.equal(aux_a, aux_p) and all(
-            torch.equal(a, b) for a, b in zip(ids_a, ids_p))):
-        fail("phase 14c: with kernel 5's plain version the forward differs "
-             "from the plain run")
-    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-                for a, b in zip(ids_k, ids_p))
-    err = float((lg_k - lg_p).abs().max())
-    res["eval_forward"] = {
-        "launches": got_counts, "host_s": fwd_s, "aux": float(aux_k),
-        "aux_plain": float(aux_p), "aux_equal": bool(torch.equal(aux_k,
-                                                                 aux_p)),
-        "rows_routed_apart": moved,
-        "rows": mcfg.num_layers * MOE_EVAL_BATCH * MOE_EVAL_SEQ,
-        "logits_max_abs": err}
-    log(f"phase 14c: evaluation forward of {MOE_EVAL_BATCH} x {MOE_EVAL_SEQ} "
-        f"tokens ({got_counts}) in {fwd_s:.2f}s: aux {float(aux_k)!r} "
-        f"through the kernels, {float(aux_p)!r} through the plain versions "
-        f"(equal: {res['eval_forward']['aux_equal']}); {moved} of "
-        f"{res['eval_forward']['rows']} (layer, token) rows chose other "
-        f"experts; logits max-abs difference {err:.4g}; with kernel 5's "
-        f"plain version logits, aux and experts bit-equal to the plain "
-        f"run's")
-    if err > EVAL_LOGIT_BAR:
-        fail(f"phase 14c: logits differ from the plain run's by {err:.4g} > "
-             f"{EVAL_LOGIT_BAR}")
+    res["eval_forward"] = dict(ev, launches=got_counts)
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    del params, runs14c, lg_k, lg_p, lg_a
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2367,6 +2382,641 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], errs[name])
     res["seconds"] = time.perf_counter() - t_phase
     return res
+
+
+def encdec_phase(dev, engine_cls, lens, rows: list) -> dict:
+    """Phase 15: full-width whisper-base served as ``--arch whisper-base
+    --full --fused`` configures it, with 1,500-frame stub audio per
+    request, and full-width phi-3-vision-4.2b on stub embeddings (see the
+    module docstring).  ``engine_cls`` is phase 4's NaN-checking engine
+    that records each pass's launches; ``lens`` phase 4's prompt lengths.
+    Annotates the kernel rows; returns the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        fused_quantized_decode_attention,
+        quantized_decode_attention,
+    )
+    from repro_torch.kernels.abfp_matmul import (
+        abfp_matmul_packed,
+        abfp_matmul_packed_ref,
+    )
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import frontends, init_params
+    from repro_torch.models import layers as model_layers
+    from repro_torch.serving import EncDecRunner, Request
+    from repro_torch.serving.runners import state_tensors
+
+    t_phase = time.perf_counter()
+    k1, k2, k3 = SERVE_KERNELS
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+    res = {}
+    enc_len = WHISPER_FRAMES
+
+    class EncEngine(engine_cls):
+        """Records each admission pass's launches (as the passes'), the
+        cross K/V every admission writes, and the passes that computed
+        each request's rows: (shape, key, slot) of every decode tick and
+        prefill pass, by request uid."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.per_pass["admit"] = []
+            self.encoded = {}
+            self.passes_of = {}
+
+        def _admit_pass(self, i, req):
+            self._counted("admit", super()._admit_pass, i, req)
+            self.encoded.setdefault(req.uid, []).append(
+                [e[n][i].clone() for e in self.state["enc"]
+                 for n in ("k", "v")])
+
+        def _call(self, shape, key, **fields):
+            n = fields.get("n_tokens")
+            for i, r in enumerate(self.slots):
+                if r is not None and (n is None or n[i] > 0):
+                    self.passes_of.setdefault(r.uid, []).append(
+                        (shape, tuple(int(w) for w in key), i))
+            return super()._call(shape, key, **fields)
+
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_cli.build_parser().parse_args(
+        ["--arch", "whisper-base", "--full", "--fused", "--capacity",
+         str(CAPACITY), "--max-len", str(WHISPER_MAX_LEN), "--max-new",
+         str(MAX_NEW), "--seed", str(SEED)])
+    mcfg, quant = serve_cli.model_and_quant(args)
+    if (mcfg.name, quant.mode) != ("whisper-base", "abfp_fused") \
+            or not mcfg.kv_quant or not mcfg.is_encoder_decoder:
+        fail(f"phase 15: unexpected serving config {mcfg} {quant}")
+    # Launches: a decode tick runs kernel 2 (wq|wk|wv) and kernel 3 per
+    # layer and kernel 1 on attn.wo, cross wq and wo, mlp wi and wo, and
+    # the head; a prefill pass kernel 1 on all eight matmuls of a layer
+    # and the head; an admission pass kernel 1 on each encoder layer's six
+    # matmuls and on every decoder layer's cross wk and wv (M = enc_len).
+    nl, ne = mcfg.num_layers, mcfg.num_encoder_layers
+    per_pass = {"decode": {k1: 5 * nl + 1, k2: nl, k3: nl},
+                "prefill": {k1: 8 * nl + 1},
+                "admit": {k1: 6 * ne + 2 * nl}}
+    t0 = time.perf_counter()
+    params = init_params(SEED, mcfg, device=dev)
+    runner = EncDecRunner(mcfg, enc_len=enc_len)
+    eng = EncEngine(params, mcfg, capacity=CAPACITY, max_len=WHISPER_MAX_LEN,
+                    runner=runner, quant=quant, seed=SEED, device=dev,
+                    _graphs=False)
+    torch.cuda.synchronize()
+    res["init_and_pack_s"] = time.perf_counter() - t0
+    packed = eng.params
+    log(f"phase 15: whisper-base ({ne} + {nl} layers, d={mcfg.d_model}, "
+        f"{mcfg.num_heads} heads of {mcfg.resolved_head_dim}, vocab "
+        f"{mcfg.vocab_size}, {enc_len} frames) built and packed in "
+        f"{res['init_and_pack_s']:.1f}s")
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(1, mcfg.vocab_size, n).tolist() for n in lens]
+    feats = [frontends.audio_stub_features(
+        prng.fold_in(prng.PRNGKey(SEED), uid), 1, enc_len, mcfg.d_model,
+        dtype=mcfg.activation_dtype, device=dev)[0].cpu()
+        for uid in range(len(lens))]
+
+    def requests():
+        return [Request(uid=i, prompt=list(p), max_new_tokens=MAX_NEW,
+                        features=feats[i]) for i, p in enumerate(prompts)]
+
+    def fresh(**kw):
+        return EncEngine(packed, mcfg, capacity=CAPACITY,
+                         max_len=WHISPER_MAX_LEN, runner=runner,
+                         **{"quant": quant, **kw}, seed=SEED, device=dev)
+
+    # 15a. The served runs, in turns (the admission pass captured and
+    # timed with the other shapes).
+    runs, want, geng = serve_in_turns(eng, fresh, requests,
+                                      shapes + [("admit",)], per_pass,
+                                      "phase 15")
+    res["runs"] = runs
+    res["prompt_lens"] = list(lens)
+    res["per_pass"] = per_pass
+    res["streams_distinct_tokens"] = len({t for s in want.values()
+                                          for t in s})
+
+    # Replay against eager: every pass shape from the eager run's final
+    # state under two keys, and the admission pass under two request keys
+    # (uids): the whole state, the cross K/V rows included, bit-equal
+    # between replay and eager, the two keys' cross K/V different.
+    served = [t.clone() for t in state_tensors(eng.state)]
+    xeng = fresh(clock=time.perf_counter, overlap=True, _graphs=False)
+    fields_of = replay_against_eager(
+        geng, xeng, served, shapes, mcfg.vocab_size,
+        np.random.default_rng(SEED + 19), "phase 15")
+    encs = []
+    for uid in (100, 101):
+        req = Request(uid=uid, prompt=[1], max_new_tokens=1,
+                      features=feats[uid % len(feats)])
+        outs = []
+        for e in (geng, xeng):
+            for dst, src in zip(state_tensors(e.state), served):
+                dst.copy_(src)
+            e._admit_pass(1, req)
+            outs.append([x.clone() for x in state_tensors(e.state)])
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            fail(f"phase 15: the admission pass of uid {uid} by replay "
+                 f"differs from the eager pass")
+        encs.append([x.clone() for e_ in xeng.state["enc"]
+                     for x in (e_["k"][1], e_["v"][1])])
+    if all(torch.equal(a, b) for a, b in zip(*encs)):
+        fail("phase 15: two request keys gave equal cross K/V (frozen "
+             "seeds?)")
+    if geng._passes[("admit",)].graph is None:
+        fail("phase 15: the admission pass was not captured")
+    log("phase 15: the admission pass by replay against eager under two "
+        "request keys: the whole state bit-equal, the keys' cross K/V "
+        "differ")
+
+    # The admission pass: host time to a synchronized device (replay),
+    # kernel 1's device time for its launches (their recorded calls,
+    # replayed in a graph) and its bound; profiles of a decode replay and
+    # an admission replay.
+    req0 = Request(uid=0, prompt=[1], max_new_tokens=1, features=feats[0])
+    admit_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        geng._admit_pass(0, req0)
+        torch.cuda.synchronize()
+        admit_ms.append((time.perf_counter() - t1) * 1e3)
+    res["admit_host_ms"] = statistics.median(admit_ms)
+    rec = []
+    saved1 = ops.abfp_matmul_packed
+
+    def rec1(*a, **kw):
+        rec.append(a)
+        return saved1(*a, **kw)
+
+    ops.abfp_matmul_packed = rec1
+    try:
+        xeng._admit_pass(0, req0)
+    finally:
+        ops.abfp_matmul_packed = saved1
+    if len(rec) != per_pass["admit"][k1]:
+        fail(f"phase 15: the admission pass made {len(rec)} kernel-1 calls")
+    nb = i8 = f32 = 0
+    for x, pw, _, _ in rec:
+        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
+        nb, i8, f32 = nb + b_, i8 + i_, f32 + f_
+    ms, how = graph_ms(lambda: [saved1(*c) for c in rec], 10)
+    bms, by = bound(nb, i8, f32)
+    res["admit_k1"] = {"launches": len(rec), "ms": ms, "timing": how,
+                       "plain_ms": median_ms(lambda: [
+                           abfp_matmul_packed_ref(*c) for c in rec], 1),
+                       "bound_ms": bms, "bound_by": by}
+    log(f"phase 15: kernel 1's {len(rec)} launches of one admission "
+        f"pass (M={enc_len}) take {ms:.4f} ms ({how}; plain "
+        f"{res['admit_k1']['plain_ms']:.3f} ms), bound {bms:.4f} ms by "
+        f"{by}; the admission pass {res['admit_host_ms']:.2f} ms host "
+        f"time (replay, to a synchronized device)")
+    for dst, src in zip(state_tensors(geng.state), served):
+        dst.copy_(src)
+    res["profile_decode"] = profile_pass(dev, lambda: geng._call(
+        ("decode",), prng.PRNGKey(SEED + 9), **fields_of[("decode",)]),
+        "whisper-base decode pass (graph replay)")
+    res["profile_admit"] = profile_pass(
+        dev, lambda: geng._admit_pass(0, req0),
+        "whisper-base admission pass (graph replay)")
+    del rec
+    xeng.close()
+    geng.close()
+    del xeng, geng, served
+
+    # 15b. Re-admission after preemption: paged with graphs on a pool
+    # small enough to preempt (8 of 8, conservation, at least one
+    # preemption, every re-admission's cross K/V bit-equal to the
+    # request's first admission: the key is the request's uid), against
+    # the unpaged engine with kernel 3's plain version (the attention the
+    # paged tick runs; phase 11 shows the paging changes no number).  Each
+    # pass draws its noise from the engine's next key, and a preemption
+    # changes the sequence of passes, so under noise a stream is held
+    # where the request's passes (shape, key, slot) are the same in both
+    # runs, and where they part is reported.  Without noise (the keys draw
+    # nothing) every request never preempted keeps its stream; a resumed
+    # request re-prefills its generated tokens through the S-query forms
+    # of the self- and cross-attention, not a tick's one-query forms, and
+    # the bits in which those forms differ are counted at whisper's
+    # shapes; its stream is reported.
+    def paged_pair(q, what):
+        real3 = model_layers.fused_quantized_decode_attention
+        model_layers.fused_quantized_decode_attention = \
+            quantized_decode_attention
+        try:
+            ref = fresh(quant=q, _graphs=False)
+            ref_streams = {r.uid: r.generated for r in ref.run(requests())}
+        finally:
+            model_layers.fused_quantized_decode_attention = real3
+        e = fresh(quant=q, paged=True, page_size=WHISPER_PAGE,
+                  pool_pages=WHISPER_POOL)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        fin = {r.uid: r for r in e.run(requests())}
+        e.close()
+        wall = time.perf_counter() - t1
+        pre = e.metrics.summary()["requests"]["preempted"]
+        if len(fin) != len(lens) or not e.metrics.conservation()["ok"] or \
+                any(len(r.generated) != MAX_NEW for r in fin.values()):
+            fail(f"phase 15b {what}: {len(fin)} of {len(lens)} finished, "
+                 f"conservation {e.metrics.conservation()}")
+        twice = sorted(u for u, v in e.encoded.items() if len(v) > 1)
+        if pre < 1 or not twice:
+            fail(f"phase 15b {what}: {pre} preemptions, {twice} admitted "
+                 f"twice")
+        for u in twice:
+            v = e.encoded[u]
+            if not all(all(torch.equal(a, b) for a, b in zip(v[0], w_))
+                       for w_ in v[1:]):
+                fail(f"phase 15b {what}: request {u}'s re-admission "
+                     f"encoded other cross K/V")
+        out = {"wall_s": wall, "preempted": pre, "readmitted": twice,
+               "launches": ops.launch_counts(),
+               "pool": dataclasses.asdict(e.pool.stats()),
+               "streams_equal_unpaged": sum(
+                   r.generated == ref_streams[u] for u, r in fin.items())}
+        log(f"phase 15b {what}: paged with graphs ({WHISPER_POOL} pages of "
+            f"{WHISPER_PAGE}): {len(fin)}/{len(lens)} finished, {pre} "
+            f"preemptions, requests {twice} re-admitted with cross K/V "
+            f"bit-equal to their first admission, "
+            f"{out['streams_equal_unpaged']} of {len(fin)} streams equal "
+            f"the unpaged run's (kernel 3's plain version); {wall:.2f}s")
+        return out, fin, ref_streams, e.passes_of, ref.passes_of
+
+    out, fin, ref_streams, pas, ref_pas = paged_pair(quant, "noisy")
+    kept = sorted(u for u in ref_streams if pas[u] == ref_pas[u])
+    bad = [u for u in kept if fin[u].generated != ref_streams[u]]
+    if not kept or bad:
+        fail(f"phase 15b: requests {kept} kept their passes, yet the "
+             f"streams of {bad} differ from the unpaged run's")
+    parted = {}
+    for u in sorted(set(ref_streams) - set(kept)):
+        a, b = pas[u], ref_pas[u]
+        parted[u] = {"first_pass_apart": next(
+            (j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+            min(len(a), len(b))), "passes": len(a), "passes_unpaged": len(b),
+            "preempted": fin[u].preempted,
+            "stream_equal": fin[u].generated == ref_streams[u]}
+    out.update(kept_passes=kept, parted=parted,
+               streams_equal_15a=sum(r.generated == want[u]
+                                     for u, r in fin.items()),
+               unpaged_equal_15a=sum(s == want[u]
+                                     for u, s in ref_streams.items()))
+    log(f"phase 15b: requests {kept} kept their passes and their streams; "
+        f"the others' passes part at {parted}; "
+        f"{out['streams_equal_15a']} of {len(fin)} paged streams equal "
+        f"15a's, the unpaged run with kernel 3's plain version "
+        f"{out['unpaged_equal_15a']}")
+    res["paged"] = out
+    out0, fin, ref_streams, _, _ = paged_pair(
+        dataclasses.replace(quant, noise_lsb=0.0), "without noise")
+    bad = [u for u, r in fin.items()
+           if not r.preempted and r.generated != ref_streams[u]]
+    if bad:
+        fail(f"phase 15b without noise: requests {bad} were never preempted, "
+             f"yet their streams differ from the unpaged run's")
+    out0["resumed_stream_equal"] = {u: r.generated == ref_streams[u]
+                                    for u, r in fin.items() if r.preempted}
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn(1, 16, h, hd, device=dev, generator=gen).to(
+        torch.bfloat16)
+    codes = [torch.randint(-127, 128, (1, WHISPER_MAX_LEN, kh, hd),
+                           dtype=torch.int8, device=dev, generator=gen)
+             for _ in "kv"]
+    scales = [(torch.rand(1, WHISPER_MAX_LEN, kh, device=dev, generator=gen)
+               * 4).to(torch.bfloat16) for _ in "kv"]
+    kv_ = (codes[0], scales[0], codes[1], scales[1])
+    enc_kv = [torch.randn(1, enc_len, kh, hd, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in "kv"]
+    pos = torch.arange(100, 116, device=dev)[None]
+    forms = {
+        "self": (model_layers.quantized_chunk_attention(q, *kv_, q_pos=pos),
+                 torch.cat([quantized_decode_attention(
+                     q[:, j:j + 1], *kv_, lengths=pos[0, j:j + 1] + 1)
+                     for j in range(16)], 1)),
+        "cross": (model_layers.chunked_attention(
+            q, *enc_kv, causal=False, chunk=mcfg.attn_chunk),
+            torch.cat([model_layers.chunked_attention(
+                q[:, j:j + 1], *enc_kv, causal=False, chunk=mcfg.attn_chunk)
+                for j in range(16)], 1))}
+    out0["forms_bits_apart"] = {k_: [int((a != b).sum()), a.numel()]
+                                for k_, (a, b) in forms.items()}
+    log(f"phase 15b without noise: every request never preempted keeps its "
+        f"stream; the resumed requests' streams equal "
+        f"{out0['resumed_stream_equal']}; the 16-query forms against 16 "
+        f"one-query calls (bf16 elements apart, of): "
+        f"{out0['forms_bits_apart']}")
+    res["paged_noise_free"] = out0
+    del fin, pas, ref_pas, forms, q, codes, scales, kv_, enc_kv
+    gc.collect()
+
+    # 15c. Kernels against their plain versions at whisper's shapes:
+    # kernel 1 at M = enc_len on the encoder's weights (0 flips), kernel 3
+    # at group 1 on a served-size cache (its bar), kernel 5 non-causal at
+    # (enc_len, enc_len) and (128, enc_len), bf16 and f32 (phase 3's
+    # bars), each timed with its bound and SDPA's time.
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lp = packed["encoder"]["layers"][0]
+    e1 = 0.0
+    for name, pw in (("encoder attn.wq", lp["attn"]["wq"]),
+                     ("encoder mlp.wi", lp["mlp"]["wi"]),
+                     ("encoder mlp.wo", lp["mlp"]["wo"]),
+                     ("cross wk", packed["layers"][0]["cross"]["wk"])):
+        x = torch.randn(enc_len, pw.k, generator=gen, device=dev).to(
+            torch.bfloat16)
+        n_, z_, ulp, err = bf16_diff(abfp_matmul_packed(x, pw, quant, 77),
+                                     abfp_matmul_packed_ref(x, pw, quant, 77))
+        if ulp:
+            fail(f"phase 15c: kernel 1 {name} M={enc_len}: {n_}/{z_} flips")
+        e1 = max(e1, err)
+    log(f"phase 15c: kernel 1 at M={enc_len} (encoder attn.wq, mlp.wi, "
+        f"mlp.wo, cross wk): 0 flips against the plain version")
+    s3 = WHISPER_MAX_LEN
+    codes = [torch.randint(-127, 128, (CAPACITY, s3, kh, hd),
+                           dtype=torch.int8, device=dev, generator=gen)
+             for _ in "kv"]
+    scales = [(torch.rand(CAPACITY, s3, kh, device=dev, generator=gen) * 4)
+              .to(torch.bfloat16) for _ in "kv"]
+    q3 = torch.randn(CAPACITY, 1, h, hd, device=dev, generator=gen).to(
+        torch.bfloat16)
+    lens3 = torch.tensor([1, 107, s3, 64][:CAPACITY], dtype=torch.int32,
+                         device=dev)
+    a3 = (q3, codes[0], scales[0], codes[1], scales[1])
+    e3 = allclose_bar(
+        fused_quantized_decode_attention(*a3, lengths=lens3),
+        quantized_decode_attention(*a3, lengths=lens3),
+        f"phase 15c: kernel 3 at group 1 (H = KH = {h}, D = {hd}, S = {s3})",
+        rtol=2 ** -7, atol=1e-6)
+    k5 = {}
+    e5 = 0.0
+    for sq in (enc_len, 128):
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = [torch.randn(shape, device=dev, generator=gen).to(dt)
+                   for shape in ((1, sq, h, hd), (1, enc_len, kh, hd),
+                                 (1, enc_len, kh, hd))]
+            tol = (dict(rtol=2 ** -7, atol=1e-5) if dt == torch.bfloat16
+                   else dict(rtol=1e-5, atol=2e-5))
+            what = (f"phase 15c: kernel 5 non-causal (Sq, Skv) = ({sq}, "
+                    f"{enc_len}), {h} heads of {hd}, "
+                    f"{str(dt).split('.')[-1]}")
+            e5 = max(e5, allclose_bar(
+                flash_attention(*qkv, causal=False),
+                flash_attention_ref(*qkv, causal=False), what, **tol))
+            if dt == torch.bfloat16:
+                b_, d_, f_ = k5_cost(1, sq, enc_len, h, kh, hd, False, 0)
+                bms, by = bound(b_, 0.0, f_, d_)
+                qt, kt, vt = (t.transpose(1, 2) for t in qkv)
+                k5[f"{sq}x{enc_len}"] = {
+                    "ms": graph_ms(lambda: flash_attention(
+                        *qkv, causal=False), 20)[0],
+                    "plain_ms": median_ms(lambda: flash_attention_ref(
+                        *qkv, causal=False), 3),
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": graph_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qt, kt, vt), 20)[0]}
+                log(f"{what}: {k5[f'{sq}x{enc_len}']}")
+    res["k5_noncausal"] = k5
+
+    # 15d. One abfp_kernel + flash forward of 2 x 128 decoder tokens over
+    # 2 x enc_len frames, through the kernels, the plain versions, and the
+    # kernels with kernel 5's plain version (which must equal the plain
+    # run bit for bit: kernel 4 is exact).
+    emcfg = dataclasses.replace(mcfg, use_flash_attention=True)
+    equant = QuantConfig(mode="abfp_kernel", tile_width=quant.tile_width,
+                         gain=quant.gain, noise_lsb=quant.noise_lsb)
+    etoks = torch.from_numpy(rng.integers(
+        1, mcfg.vocab_size, (2, 128)).astype(np.int32)).to(dev)
+    efeats = torch.stack([feats[0], feats[1]]).to(dev)
+    per_forward = {"abfp_matmul": 6 * ne + 2 * nl + 8 * nl + 1,
+                   "flash_attention": ne + 2 * nl}
+    ev, fwd_counts = eval_forward_runs(
+        dev, params, etoks, emcfg, equant, prng.PRNGKey(SEED + 20),
+        "phase 15d", encoder_features=efeats)
+    if fwd_counts != per_forward:
+        fail(f"phase 15d: the forward launched {fwd_counts}, want "
+             f"{per_forward}")
+    res["eval_forward"] = dict(ev, launches=fwd_counts)
+    del params, packed, eng
+    gc.collect()
+    res["whisper_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 15e. Full-width phi-3-vision-4.2b (head dim 96): one abfp_kernel +
+    # flash forward on 1 x 256 stub embeddings against the plain versions;
+    # a 2-request abfp_fused graphs run, kernel 3 at D = 96 on its caches
+    # against the plain version; kernel 5 at D = 96 alone.
+    pargs = serve_cli.build_parser().parse_args(
+        ["--arch", "phi-3-vision-4.2b", "--full", "--fused", "--capacity", "2",
+         "--max-len", "128", "--max-new", "8", "--seed", str(SEED)])
+    pcfg, pquant = serve_cli.model_and_quant(pargs)
+    if pcfg.frontend != "vision_stub" or pcfg.resolved_head_dim != 96:
+        fail(f"phase 15e: unexpected config {pcfg}")
+    t0 = time.perf_counter()
+    pparams = init_params(SEED, pcfg, device=dev)
+    log(f"phase 15e: phi-3-vision-4.2b ({pcfg.num_layers} layers, d="
+        f"{pcfg.d_model}, {pcfg.num_heads} heads of "
+        f"{pcfg.resolved_head_dim}) built in {time.perf_counter() - t0:.1f}s")
+    emb = frontends.vision_stub_embeddings(
+        prng.PRNGKey(SEED + 21), 1, 256, pcfg.d_model,
+        dtype=pcfg.activation_dtype, device=dev)
+    pl = pcfg.num_layers
+    pe, pcounts = eval_forward_runs(
+        dev, pparams, emb, dataclasses.replace(pcfg,
+                                               use_flash_attention=True),
+        equant, prng.PRNGKey(SEED + 22), "phase 15e")
+    if pcounts != {"abfp_matmul": 7 * pl + 1,
+                               "flash_attention": pl}:
+        fail(f"phase 15e: the forward launched {pcounts}")
+    res["phi_eval_forward"] = dict(pe, launches=pcounts)
+    peng = engine_cls(pparams, pcfg, capacity=2, max_len=128, quant=pquant,
+                      seed=SEED, device=dev)
+    del pparams
+    prng_ = np.random.default_rng(SEED + 23)
+    preqs = [Request(uid=i, prompt=prng_.integers(1, pcfg.vocab_size,
+                                                  n).tolist(),
+                     max_new_tokens=8) for i, n in enumerate((40, 97))]
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    pfin = peng.run(preqs)
+    wall = time.perf_counter() - t1
+    pc = ops.launch_counts()
+    if len(pfin) != 2 or any(len(r.generated) != 8 for r in pfin):
+        fail("phase 15e: the phi-3-vision run did not finish 2 of 2")
+    if any(pc[n] <= 0 for n in SERVE_KERNELS):
+        fail(f"phase 15e: a serving kernel was not launched: {pc}")
+    kv = peng.state["layers"][0]["kv"]
+    q = torch.randn(2, 1, pcfg.num_heads, pcfg.resolved_head_dim,
+                    device=dev, generator=gen).to(torch.bfloat16)
+    a3 = (q, kv["k"], kv["k_scale"], kv["v"], kv["v_scale"])
+    lens_p = kv["length"].clone()
+    e3 = max(e3, allclose_bar(
+        fused_quantized_decode_attention(*a3, lengths=lens_p),
+        quantized_decode_attention(*a3, lengths=lens_p),
+        f"phase 15e: kernel 3 at D = {pcfg.resolved_head_dim} on the "
+        f"served caches (lengths {lens_p.tolist()})", rtol=2 ** -7,
+        atol=1e-6))
+    med, _ = peng.pass_stats()
+    res["phi_serve"] = {"wall_s": wall, "decode_ms": med["decode"] * 1e3,
+                        "prefill_ms": med["prefill"] * 1e3, "launches": pc}
+    log(f"phase 15e: phi-3-vision served 2 of 2 with graphs in {wall:.2f}s "
+        f"(decode tick median {res['phi_serve']['decode_ms']:.3f} ms), "
+        f"launches {pc}")
+    b_, f_ = k3_cost(lens_p.tolist(), kv["k"].shape[1], pcfg.num_kv_heads,
+                     pcfg.num_heads, pcfg.resolved_head_dim)
+    bms, by = bound(b_, 0.0, f_)
+    k3_96 = {"ms": graph_ms(lambda: fused_quantized_decode_attention(
+        *a3, lengths=lens_p), 20)[0],
+             "plain_ms": median_ms(lambda: quantized_decode_attention(
+                 *a3, lengths=lens_p), 5),
+             "bound_ms": bms, "bound_by": by}
+    log(f"phase 15e: kernel 3 at D = 96, one layer's call: {k3_96}")
+    peng.close()
+    del peng, kv, a3
+    gc.collect()
+    hp, dp = pcfg.num_heads, pcfg.resolved_head_dim
+    k5_96 = None
+    for dt in (torch.bfloat16, torch.float32):
+        qkv = [torch.randn((1, 256, hp, dp), device=dev,
+                           generator=gen).to(dt) for _ in range(3)]
+        tol = (dict(rtol=2 ** -7, atol=1e-5) if dt == torch.bfloat16
+               else dict(rtol=1e-5, atol=2e-5))
+        e5 = max(e5, allclose_bar(
+            flash_attention(*qkv), flash_attention_ref(*qkv),
+            f"phase 15e: kernel 5 at D = {dp} (1 x 256, {hp} heads), causal, "
+            f"{str(dt).split('.')[-1]}", **tol))
+        if dt == torch.bfloat16:
+            b_, d_, f_ = k5_cost(1, 256, 256, hp, hp, dp, True, 0)
+            bms, by = bound(b_, 0.0, f_, d_)
+            qt, kt, vt = (t.transpose(1, 2) for t in qkv)
+            k5_96 = {"ms": graph_ms(lambda: flash_attention(*qkv), 20)[0],
+                     "plain_ms": median_ms(lambda: flash_attention_ref(
+                         *qkv), 3),
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": graph_ms(
+                         lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                         20)[0]}
+            log(f"phase 15e: kernel 5 at D = 96: {k5_96}")
+    res["k3_d96"], res["k5_d96"] = k3_96, k5_96
+    res["phi_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+
+    g_ = runs["graphs"][0]["launches"]
+    for row in rows:
+        name = row["name"]
+        row["launches_whisper_serve"] = g_.get(name, 0)
+        row["launches_whisper_eval_forward"] = fwd_counts.get(name, 0)
+        row["launches_phi3v_serve"] = pc.get(name, 0)
+        row["launches_phi3v_eval_forward"] = pcounts.get(name, 0)
+        if name == k1:
+            a_ = res["admit_k1"]
+            row.update({"whisper_admit_ms": a_["ms"],
+                        "whisper_admit_plain_ms": a_["plain_ms"],
+                        "whisper_admit_bound_ms": a_["bound_ms"],
+                        "whisper_admit_bound_by": a_["bound_by"],
+                        "launches_per_whisper_admit": a_["launches"]})
+            row["max_abs_err"] = max(row["max_abs_err"], e1)
+        if name == k3:
+            row["d96"] = k3_96
+            row["max_abs_err"] = max(row["max_abs_err"], e3)
+        if name == "flash_attention":
+            row["noncausal"] = k5
+            row["d96"] = k5_96
+            row["max_abs_err"] = max(row["max_abs_err"], e5)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
+                      encoder_features=None):
+    """One cacheless ``forward`` through the kernels (launch counts read
+    around it), through the plain versions, and through the kernels with
+    kernel 5's plain version, which must equal the plain run bit for bit
+    (kernel 4 is exact, kernel 5 held allclose): logits, aux and, on an
+    MoE model, every layer's chosen experts.  The kernel run's logits are
+    held within EVAL_LOGIT_BAR of the plain run's; on an MoE model its aux
+    and the (layer, token) rows whose chosen experts differ from the plain
+    run's are reported (kernel 5's one-ULP flips can move activation codes
+    and so a near-tied route).  Returns (measurements, launch counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import Numerics, forward
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import moe as moe_lib
+
+    out = {}
+    saved5, route = model_layers.flash_attention, moe_lib._route
+    for how in ("kernels", "plain", "kernel 5 plain"):
+        ids = []
+
+        def rec_route(*a):
+            r_ = route(*a)
+            ids.append(r_[1])
+            return r_
+
+        moe_lib._route = rec_route
+        if how == "kernel 5 plain":
+            model_layers.flash_attention = flash_attention_ref
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            with torch.no_grad():
+                lg, aux = forward(params, inputs, mcfg,
+                                  Numerics(quant, key, plain=how == "plain"),
+                                  encoder_features=encoder_features)
+            torch.cuda.synchronize()
+        finally:
+            model_layers.flash_attention, moe_lib._route = saved5, route
+        out[how] = (lg, aux, ids, time.perf_counter() - t1,
+                    {n: v for n, v in ops.launch_counts().items() if v})
+    lg_k, aux_k, ids_k, host_s, counts = out["kernels"]
+    lg_p, aux_p, ids_p = out["plain"][:3]
+    lg_a, aux_a, ids_a = out["kernel 5 plain"][:3]
+    if not (torch.isfinite(lg_k).all() and torch.isfinite(aux_k).all()):
+        fail(f"{what}: non-finite logits or aux")
+    if not (torch.equal(lg_a, lg_p) and torch.equal(aux_a, aux_p)
+            and len(ids_a) == len(ids_p)
+            and all(torch.equal(a, b) for a, b in zip(ids_a, ids_p))):
+        fail(f"{what}: with kernel 5's plain version the forward differs "
+             f"from the plain run")
+    err = float((lg_k - lg_p).abs().max())
+    same = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
+    res = {"host_s": host_s, "logits_max_abs": err, "argmax_equal": same}
+    routed, equal = "", "logits and aux"
+    if ids_k:
+        equal = "logits, aux and every layer's chosen experts"
+        res.update(
+            aux=float(aux_k), aux_plain=float(aux_p),
+            aux_equal=bool(torch.equal(aux_k, aux_p)),
+            rows_routed_apart=sum(
+                int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(ids_k, ids_p)),
+            rows=sum(a.numel() // a.shape[-1] for a in ids_k))
+        routed = (f"aux {res['aux']!r} through the kernels, "
+                  f"{res['aux_plain']!r} through the plain versions (equal: "
+                  f"{res['aux_equal']}); {res['rows_routed_apart']} of "
+                  f"{res['rows']} (layer, token) rows chose other experts; ")
+    log(f"{what}: evaluation forward {tuple(inputs.shape)} ({counts}) in "
+        f"{host_s:.2f}s: {routed}logits max-abs {err:.4g} from the plain "
+        f"run's, argmax equal {same:.1%}; with kernel 5's plain version "
+        f"{equal} bit-equal to the plain run's")
+    if err > EVAL_LOGIT_BAR:
+        fail(f"{what}: logits differ from the plain run's by {err:.4g} > "
+             f"{EVAL_LOGIT_BAR}")
+    return res, counts
 
 
 def main() -> None:
@@ -3471,6 +4121,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = moe_phase(dev, CheckedEngine, [len(r.prompt) for r in reqs], rows)
     log(f"moe phase in {moe['seconds']:.1f}s: {json.dumps(moe)}")
+
+    # 15. encdec: whisper-base served, phi-3-vision at head dim 96 --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = encdec_phase(dev, CheckedEngine, [len(r.prompt) for r in reqs],
+                       rows)
+    log(f"encdec phase in {enc['seconds']:.1f}s: {json.dumps(enc)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

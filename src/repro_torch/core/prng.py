@@ -23,7 +23,8 @@ draws.  Their uint32 words are held in int64 tensors.  ``key_bits`` draws
 JAX's ``random_bits(key, shape)`` for host keys (one or a stack), and
 ``uniform(key, shape, minval, maxval)``, ``randint`` and ``categorical``
 build JAX's samplers on it, bit for bit: the ABFP scan's ADC noise, DNF's
-histogram draws and the synthetic data.  A shape's bits are those of its
+histogram draws and the synthetic data; ``normal`` (the stub frontends'
+features) to the last bit of ``erfinv``.  A shape's bits are those of its
 flattened counter range, which holds below 2**32 elements.
 """
 
@@ -120,21 +121,39 @@ def _threefry_np(k0, k1, x0, x1):
 
 
 def seed_table(key: np.ndarray, num_layers: int, calls: int,
-               head_fold: int) -> np.ndarray:
+               head_fold: int, extra=(), root: bool = False) -> np.ndarray:
     """Every noise seed of one pass, in one vectorised evaluation: the
-    int32 ``key_to_seed(fold_in(fold_in(key, layer), call))`` for layers
-    0..num_layers-1 and calls 0..calls-1 (layer-major), then the LM head's
+    int32 ``key_to_seed(fold_in(fold_in(key, fold), call))`` for the folds
+    0..num_layers-1, then the folds ``extra`` (an encoder's layers), and
+    calls 0..calls-1 (fold-major); with ``root`` then the root key's own
+    calls, ``key_to_seed(fold_in(key, call))``; last the LM head's
     ``key_to_seed(fold_in(fold_in(key, head_fold), 0))``.  Shape
-    (num_layers * calls + 1,)."""
-    folds = np.append(np.arange(num_layers, dtype=np.uint32),
-                      np.uint32(head_fold))
+    ((num_layers + len(extra) + root) * calls + 1,)."""
+    folds = np.concatenate([np.arange(num_layers, dtype=np.uint32),
+                            np.asarray(extra, dtype=np.uint32),
+                            [np.uint32(head_fold)]])
     zero = np.zeros((), np.uint32)
+    calls_ = np.arange(calls, dtype=np.uint32)
     lk0, lk1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]), zero,
                             folds)
-    c0, c1 = _threefry_np(lk0[:, None], lk1[:, None], zero,
-                          np.arange(calls, dtype=np.uint32)[None, :])
+    c0, c1 = _threefry_np(lk0[:, None], lk1[:, None], zero, calls_[None, :])
     seeds = (c0 ^ c1).view(np.int32)
-    return np.concatenate([seeds[:num_layers].reshape(-1), seeds[-1, :1]])
+    parts = [seeds[:-1].reshape(-1)]
+    if root:
+        r0, r1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]), zero,
+                              calls_)
+        parts.append((r0 ^ r1).view(np.int32))
+    return np.concatenate(parts + [seeds[-1, :1]])
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """JAX's f32 ``jax.random.normal(key, shape)``: ``sqrt(2) *
+    erfinv(u)`` of the uniform draw ``u`` on [nextafter(-1, 0), 1).  The
+    uniform is bit-equal to JAX's; ``torch.erfinv`` and XLA's ``erf_inv``
+    may differ in the last bit."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
 
 
 # ---------------------------------------------------------------------------

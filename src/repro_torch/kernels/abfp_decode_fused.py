@@ -180,12 +180,12 @@ def quantized_decode_attention(q: Tensor, k_codes: Tensor, k_scale: Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-# The CUDA kernel's head dims (16-byte chunks of a position's codes that a
-# warp's lanes divide), query heads per block, and its position split: one
+# The CUDA kernel's head dims (a position's codes in 16-byte chunks, one
+# lane each, up to 16 chunks), query heads per block, and its position split: one
 # block per (row, KV head, head group) up to SPLIT_POSITIONS cached
 # positions; beyond, enough splits to give the card about SPLIT_BLOCKS
 # blocks, each split at least SPLIT_POSITIONS long.
-DECODE_HEAD_DIMS = (32, 64, 128, 256)
+DECODE_HEAD_DIMS = (32, 64, 96, 128, 256)
 DECODE_MAX_HEADS = 4
 SPLIT_POSITIONS = 1024
 SPLIT_BLOCKS = 264

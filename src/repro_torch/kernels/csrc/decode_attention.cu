@@ -16,10 +16,14 @@
 //
 // Design (flash-decoding): a block of 8 warps per (batch row, KV head,
 // group of up to four of its query heads, position split).  A warp step
-// takes PPW = 512 / D positions: lane (pl, ch) reads the 16-byte chunk ch
-// of position pl's K codes and of its V codes (one load each) and the two
-// scales, so each code is read once for every query head of the group; the
-// chunk dots are summed over the D / 16 lanes of a position with shuffles.
+// takes PPW = 32 / (D / 16) positions: lane (pl, ch) reads the 16-byte
+// chunk ch of position pl's K codes and of its V codes (one load each) and
+// the two scales, so each code is read once for every query head of the
+// group; the chunk dots are summed over the D / 16 lanes of a position
+// with shuffles.  When D / 16 does not divide 32 (D = 96: 6 chunks, 5
+// positions a step) the last 32 mod (D / 16) lanes idle, and the sums over
+// a position's lanes and over the positions of a chunk read their lanes by
+// index instead of by butterfly.
 // The warps take the block's positions in interleaved steps (the next
 // step's codes requested before this step's arithmetic), each keeping
 // an online softmax per query head in f32 (running max, per-lane partial
@@ -87,6 +91,54 @@ struct Place {
   }
 };
 
+// Sum over the CH lanes of this lane's position (lanes pl * CH ..
+// pl * CH + CH - 1): a butterfly when CH divides 32, else lane by lane.
+template <int CH>
+__device__ __forceinline__ float position_sum(float v, int lane) {
+  if constexpr (32 % CH == 0) {
+#pragma unroll
+    for (int o = 1; o < CH; o <<= 1)
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  } else {
+    const int first = lane - lane % CH;
+    float s = __shfl_sync(0xffffffffu, v, first);
+#pragma unroll
+    for (int c = 1; c < CH; ++c)
+      s = __fadd_rn(s, __shfl_sync(0xffffffffu, v, first + c));
+    return s;
+  }
+}
+
+// Sum over the PPW positions of this lane's chunk (lanes ch, ch + CH, ..).
+template <int CH, int PPW>
+__device__ __forceinline__ float chunk_sum(float v, int lane) {
+  if constexpr (32 % CH == 0) {
+#pragma unroll
+    for (int o = CH; o < 32; o <<= 1)
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  } else {
+    const int ch = lane % CH;
+    float s = __shfl_sync(0xffffffffu, v, ch);
+#pragma unroll
+    for (int p = 1; p < PPW; ++p)
+      s = __fadd_rn(s, __shfl_sync(0xffffffffu, v, p * CH + ch));
+    return s;
+  }
+}
+
+// Max over the warp's positions: over the lanes of one chunk when CH
+// divides 32, else over all 32 lanes (a position's lanes hold one score,
+// idle lanes -inf).
+template <int CH>
+__device__ __forceinline__ float positions_max(float v) {
+#pragma unroll
+  for (int o = 32 % CH == 0 ? CH : 1; o < 32; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Merges (max, denominator, accumulator) parts i < n, at strides sm (max
 // and denominator) and sa (accumulator): max m, sum of e_i * den_i and of
 // e_i * acc_i with e_i = exp(m_i - m).  A part with no position (m_i =
@@ -128,6 +180,7 @@ decode_attention(const void* __restrict__ q, int q_bf16,
   const int z = at.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ch = lane % CH, pl = lane / CH;
+  const bool lane_live = pl < PPW;    // false on the idle lanes (D = 96)
 
   const int len = lengths[at.b];
   float qv[RG][16];
@@ -169,7 +222,7 @@ decode_attention(const void* __restrict__ q, int q_bf16,
   auto fetch = [&](int p) {
     Chunk c{make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0), 0.0f, 0.0f};
     const int s = p + pl;
-    if (s < p_hi) {
+    if (lane_live && s < p_hi) {
       const long pos = pos0 + (long)s * KH;
       if (!all_masked) {
         c.k = __ldg((const uint4*)(kc + pos * D) + ch);
@@ -184,7 +237,7 @@ decode_attention(const void* __restrict__ q, int q_bf16,
   Chunk cur = fetch(p);
   for (; p < p_hi; p += STEP) {
     const Chunk nxt = fetch(p + STEP);
-    const bool valid = p + pl < p_hi;    // lane pl = 0 always is
+    const bool valid = lane_live && p + pl < p_hi;  // lane 0 always is
     const float kscale = cur.kscale, vscale = cur.vscale;
     float kf[16], vf[16];
     unpack16(cur.k, kf);
@@ -196,17 +249,11 @@ decode_attention(const void* __restrict__ q, int q_bf16,
       float d4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int i = 0; i < 16; ++i) d4[i & 3] = fmaf(qv[r][i], kf[i], d4[i & 3]);
-      float dot = __fadd_rn(__fadd_rn(d4[0], d4[1]), __fadd_rn(d4[2], d4[3]));
-#pragma unroll
-      for (int o = 1; o < CH; o <<= 1)
-        dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, o));
+      const float dot = position_sum<CH>(
+          __fadd_rn(__fadd_rn(d4[0], d4[1]), __fadd_rn(d4[2], d4[3])), lane);
       const float sc = !valid ? -INFINITY
                               : (all_masked ? MASKED : __fmul_rn(dot, kscale));
-      float mx = sc;
-#pragma unroll
-      for (int o = CH; o < 32; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_run[r], mx);
+      const float m_new = fmaxf(m_run[r], positions_max<CH>(sc));
       const float corr = expf(m_run[r] - m_new);
       const float pr = valid ? expf(sc - m_new) : 0.0f;
       l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr), pr);
@@ -221,16 +268,11 @@ decode_attention(const void* __restrict__ q, int q_bf16,
   // The warp's sums over its positions (the lanes of one chunk), then the
   // block's over its warps.
 #pragma unroll
-  for (int r = 0; r < RG; ++r)
+  for (int r = 0; r < RG; ++r) {
+    l_run[r] = chunk_sum<CH, PPW>(l_run[r], lane);
 #pragma unroll
-    for (int o = CH; o < 32; o <<= 1) {
-      l_run[r] =
-          __fadd_rn(l_run[r], __shfl_xor_sync(0xffffffffu, l_run[r], o));
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        acc[r][i] =
-            __fadd_rn(acc[r][i], __shfl_xor_sync(0xffffffffu, acc[r][i], o));
-    }
+    for (int i = 0; i < 16; ++i) acc[r][i] = chunk_sum<CH, PPW>(acc[r][i], lane);
+  }
   if (pl == 0) {
 #pragma unroll
     for (int r = 0; r < RG; ++r) {
@@ -322,7 +364,7 @@ cudaError_t launch_d(int RG, const void* q, int q_bf16, const void* kc,
 
 // part: nsplit > 1 only, f32 scratch of B * KH * groups * nsplit * RG *
 // (D + 2) floats, RG = min(H / KH, 4) query heads per block and groups =
-// ceil((H / KH) / RG).  D is 32, 64, 128 or 256.
+// ceil((H / KH) / RG).  D is 32, 64, 96, 128 or 256.
 extern "C" int decode_attention_launch(const void* q, int q_bf16,
                                        const void* kc, const void* ks,
                                        const void* vc, const void* vs,
@@ -344,6 +386,9 @@ extern "C" int decode_attention_launch(const void* q, int q_bf16,
                                pt, B, S, H, KH, nsplit, qscale, st);
     case 64:
       return (int)launch_d<64>(RG, q, q_bf16, kc, ks, vc, vs, lengths, out,
+                               pt, B, S, H, KH, nsplit, qscale, st);
+    case 96:
+      return (int)launch_d<96>(RG, q, q_bf16, kc, ks, vc, vs, lengths, out,
                                pt, B, S, H, KH, nsplit, qscale, st);
     case 128:
       return (int)launch_d<128>(RG, q, q_bf16, kc, ks, vc, vs, lengths, out,

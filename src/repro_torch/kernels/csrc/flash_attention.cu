@@ -35,8 +35,10 @@
 //   * f32 (flash_fwd, f32 FMAs): one block per (64-query block, batch x
 //     head); 4 threads per query row, each holding the scaled query and the
 //     f32 accumulator of every 4th dimension; K/V tiles of 4,096 / D
-//     positions staged in shared memory as f32; 16 keys per online-softmax
-//     update.
+//     positions (rounded down to whole 16s: 32 at D = 96) staged in shared
+//     memory as f32; 16 keys per online-softmax update.
+// Head dims 32, 64, 96 (phi-3-vision: six 16-deep k-steps on the tensor
+// cores) and 128.
 // Both walk only the KV range some query of the block can see (causal: up
 // to the block's last query; window: from its first query's window start),
 // so they skip every block the TPU kernel skips, at a finer grain.  The
@@ -105,7 +107,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H, int KH,
           int Sq, int Skv, float scale, int causal, int window) {
-  constexpr int BK = TILE_ELEMS / D;  // 128, 64, 32 positions
+  // 128, 64, 32, 32 positions at D = 32, 64, 96, 128: whole SUB steps.
+  constexpr int BK = TILE_ELEMS / D / SUB * SUB;
   constexpr int DP = D / TPR;         // dimensions per thread
   __shared__ float ks[TILE_ELEMS];
   __shared__ float vs[TILE_ELEMS];
@@ -135,7 +138,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    for (int e = threadIdx.x; e < TILE_ELEMS; e += THREADS) {
+    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int j = e / D, d = e % D;
       const int kp = k0 + j;
       float kk = 0.0f, vv = 0.0f;
@@ -522,6 +525,9 @@ int launch_tc_d(const void* q, const void* k, const void* v, void* out, int B,
     case 64:
       return launch_tc<64, QLO>(q, k, v, out, B, H, KH, Sq, Skv, scale,
                                 causal, window, st);
+    case 96:
+      return launch_tc<96, QLO>(q, k, v, out, B, H, KH, Sq, Skv, scale,
+                                causal, window, st);
     case 128:
       return launch_tc<128, QLO>(q, k, v, out, B, H, KH, Sq, Skv, scale,
                                  causal, window, st);
@@ -545,6 +551,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       break;
     case 64:
       flash_fwd<64><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, H, KH, Sq, Skv,
+                                              scale, causal, window);
+      break;
+    case 96:
+      flash_fwd<96><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, H, KH, Sq, Skv,
                                               scale, causal, window);
       break;
     case 128:

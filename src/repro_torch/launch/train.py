@@ -10,12 +10,14 @@ the GPU.
 ``--seed``; batch ``step`` is the synthetic pipeline's, so a resumed run
 sees the batches it would have seen.  ``--reduced`` takes the smoke-scale
 config, and ``--device cpu`` runs it on the CPU (the kernels' plain
-versions).  Single process.
+versions).  An encoder-decoder or a vision-stub arch trains its text
+backbone (the JAX driver's fallback).  Single process.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -63,6 +65,12 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     mcfg = smoke_config(args.arch) if args.reduced else get_config(args.arch)
+    if mcfg.frontend == "vision_stub" or mcfg.is_encoder_decoder:
+        # The synthetic data is token ids: train the text backbone.
+        mcfg = dataclasses.replace(mcfg, frontend="none",
+                                   is_encoder_decoder=False,
+                                   num_encoder_layers=0)
+        print("[train] stub-frontend arch: training the text backbone")
     dcfg = DataConfig(vocab_size=mcfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed)
     quant = (QuantConfig(mode="abfp_ref", tile_width=128, gain=8.0,

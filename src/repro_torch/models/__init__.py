@@ -1,5 +1,6 @@
-"""repro_torch.models — the decoders with ABFP-dispatched matmuls:
-layers, the MoE block, the recurrent blocks, the LM (params,
+"""repro_torch.models — the decoders and encoder-decoders with
+ABFP-dispatched matmuls: layers, the MoE block, the recurrent blocks, the
+stub frontends, the LM (params, encoder,
 teacher-forced forward with DNF noise and remat, DNF capture, decode
 tick, chunked prefill, sampling), packing and conversion of the JAX
 package's parameters."""
@@ -17,6 +18,8 @@ from repro_torch.models.layers import (  # noqa: F401
 from repro_torch.models.lm import (  # noqa: F401
     clone_state,
     decode_step,
+    encode,
+    encode_cross_kv,
     forward,
     forward_capture,
     init_decode_state,

@@ -5,7 +5,9 @@ leading axis under ``params["groups"][j]`` and keeps the remainder layers
 (a pattern that does not divide ``num_layers``) unstacked under
 ``params["extra"]``; ``from_jax_params`` unstacks them into the port's
 flat per-layer list: ``groups[j][g]`` is layer ``g * len(pattern) + j``
-and ``extra[r]`` layer ``n_groups * len(pattern) + r``.  bfloat16 leaves
+and ``extra[r]`` layer ``n_groups * len(pattern) + r``; an
+encoder-decoder's stacked ``encoder["layers"]`` (E, ...) become a list of
+E layers.  bfloat16 leaves
 arrive as numpy arrays whose ``dtype.name`` is ``"bfloat16"``; they are
 reinterpreted bit for bit through uint16, without importing any bfloat16
 numpy extension.
@@ -61,4 +63,10 @@ def from_jax_params(tree: dict, mcfg: ModelConfig,
            "layers": layers}
     if "lm_head" in tree:
         out["lm_head"] = to_tensor(tree["lm_head"], dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [layer(enc["layers"], g)
+                       for g in range(mcfg.num_encoder_layers)],
+            "final_norm": _tree(enc["final_norm"], dev)}
     return out

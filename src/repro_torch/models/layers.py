@@ -1,5 +1,6 @@
-"""Model layers of the dense decoder: the serving (KV-cache) paths and
-the cacheless teacher-forced attention.
+"""Model layers of the decoders and the encoder: the serving (KV-cache)
+paths, the cacheless teacher-forced attention and cross-attention, and
+the absolute (sinusoidal) and rotary positions.
 
 Every weight-activation matmul goes through ``Numerics.dense``, so one
 switch runs the model in ``float``, ``abfp_ref``, ``abfp_kernel``,
@@ -73,10 +74,14 @@ class Numerics:
 
     A pass hands its kernels the resulting seeds from a SEED TABLE: an
     int32 tensor on the pass's device holding every call's seed
-    (``core.prng.seed_table``, layer-major, ``calls`` per layer, the LM
+    (``core.prng.seed_table``, fold-major, ``calls`` per fold, the LM
     head's last).  ``Numerics(quant, seeds=table, calls=C)`` gives each
     dense call a one-element slot of it, so no seed is a launch argument
     and a captured pass reads fresh seeds from the table on every replay.
+    Row ``i`` holds fold ``i`` (layer ``i``); ``rows`` maps the folds past
+    the layers (an encoder's ``ENCODER_FOLD + g``) to their rows, and
+    ``base`` places the root's own calls (the cross K/V) on theirs
+    (``table_numerics``).
     A key-mode ``Numerics(quant, key)`` turns into table mode at the top of
     a model pass (``as_table``); below a key-mode ``Numerics`` that was not
     turned (DNF's per-layer factories), each call's seed is a host int.
@@ -92,39 +97,44 @@ class Numerics:
 
     def __init__(self, quant: QuantConfig, key=None, plain: bool = False, *,
                  seeds: Optional[Tensor] = None, calls: int = 0,
-                 base: int = 0):
+                 base: int = 0, rows: Optional[dict] = None):
         self.quant = quant
         self._key = key
         self.plain = plain
         self.seeds = seeds
         self.calls = calls
         self._base = base
+        self._rows = rows or {}
         self._count = 0
 
     @property
     def noisy(self) -> bool:
         return self.quant.noise_lsb > 0.0 and self.quant.mode != "float"
 
-    def as_table(self, num_layers: int, calls: int, device) -> "Numerics":
+    def as_table(self, num_layers: int, calls: int, device, extra=(),
+                 root: bool = False) -> "Numerics":
         """This root key's whole pass as a seed table on ``device`` (one
-        host-to-device copy, pinned and non-blocking on a GPU); unchanged
-        without a key, without noise or already in table mode."""
+        host-to-device copy, pinned and non-blocking on a GPU), with rows
+        for the folds ``extra`` and, with ``root``, the root's own calls
+        (``core.prng.seed_table``); unchanged without a key, without noise
+        or already in table mode."""
         if (self.seeds is not None or self._key is None or not self.noisy
                 or self.quant.mode == "abfp_ref"):
             return self
         tbl = torch.from_numpy(seed_table(self._key, num_layers, calls,
-                                          LM_HEAD_FOLD))
+                                          LM_HEAD_FOLD, extra, root))
         dev = torch.device(device)
         if dev.type == "cuda":
             tbl = tbl.pin_memory().to(dev, non_blocking=True)
-        return Numerics(self.quant, plain=self.plain, seeds=tbl, calls=calls)
+        return table_numerics(self.quant, tbl, num_layers, calls, extra,
+                              root, plain=self.plain)
 
     def fold(self, idx: int) -> "Numerics":
         if self.seeds is not None:
             base = (self.seeds.numel() - 1 if idx == LM_HEAD_FOLD
-                    else idx * self.calls)
+                    else self._rows.get(idx, idx) * self.calls)
             return Numerics(self.quant, plain=self.plain, seeds=self.seeds,
-                            calls=self.calls, base=base)
+                            calls=self.calls, base=base, rows=self._rows)
         key = None if self._key is None else fold_in(self._key, idx)
         return Numerics(self.quant, key, self.plain)
 
@@ -154,6 +164,18 @@ class Numerics:
                          plain=self.plain)
 
 
+def table_numerics(quant: QuantConfig, seeds: Tensor, num_layers: int,
+                   calls: int, extra=(), root: bool = False,
+                   plain: bool = False) -> Numerics:
+    """The root ``Numerics`` of a pass over the seed table ``seeds`` laid
+    out as ``core.prng.seed_table(key, num_layers, calls, LM_HEAD_FOLD,
+    extra, root)`` lays it out."""
+    rows = {f: num_layers + i for i, f in enumerate(extra)}
+    base = (num_layers + len(extra)) * calls if root else 0
+    return Numerics(quant, plain=plain, seeds=seeds, calls=calls, base=base,
+                    rows=rows)
+
+
 # ---------------------------------------------------------------------------
 # Norms and positions (digital float32)
 # ---------------------------------------------------------------------------
@@ -181,6 +203,20 @@ def norm(x: Tensor, params: dict, kind: str) -> Tensor:
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"])
     return layernorm(x, params["scale"], params["bias"])
+
+
+def sinusoidal_positions(positions: Tensor, d: int) -> Tensor:
+    """Absolute sinusoidal position embedding at ``positions`` (B, S) ->
+    (B, S, d) f32: sin on the even dims, cos on the odd ones."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
+    ang = pos / torch.pow(torch.full((), 10_000.0, device=positions.device),
+                          dim / d)                             # (B, S, d/2)
+    pe = torch.zeros(positions.shape + (d,), dtype=torch.float32,
+                     device=positions.device)
+    pe[..., 0::2] = torch.sin(ang)
+    pe[..., 1::2] = torch.cos(ang)
+    return pe
 
 
 def rope(x: Tensor, positions: Tensor, theta: float,
@@ -669,65 +705,81 @@ def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens,
                       window: int = 0) -> bool:
     """Does this call take the fused decode path?  ``abfp_fused`` mode, a
     single-token decode tick, an unpaged, un-windowed int8 KV cache and
-    all three projection weights packed; anything else (a paged cache or
-    a ring buffer included, as in the JAX package) runs the packed
-    chain."""
-    return (nx.quant.mode == "abfp_fused"
+    all three projection weights packed; anything else (a paged cache, a
+    ring buffer or a cross-attention call, which has no cache, included,
+    as in the JAX package) runs the packed chain."""
+    return (kv_cache is not None and nx.quant.mode == "abfp_fused"
             and s == 1 and n_tokens is None and window == 0
             and "k_pages" not in kv_cache and "k_scale" in kv_cache
             and all(isinstance(params[w], PackedWeight)
                     for w in ("wq", "wk", "wv")))
 
 
+def _cacheless_attention(q, k, v, mcfg, nx: Numerics, *, causal: bool,
+                         window: int, train_mode: bool) -> Tensor:
+    """Attention over whole sequences: ``train_attention`` in train mode,
+    the flash kernel with ``mcfg.use_flash_attention`` (its plain version
+    under ``nx.plain``), else ``chunked_attention``."""
+    if train_mode:
+        return train_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=mcfg.attn_chunk)
+    if mcfg.use_flash_attention:
+        flash = flash_attention_ref if nx.plain else flash_attention
+        return flash(q, k, v, causal=causal, window=window)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk=mcfg.attn_chunk)
+
+
 def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
-                    positions: Tensor, window: int = 0,
+                    positions: Tensor, causal: bool = True, window: int = 0,
                     kv_cache: Optional[dict] = None,
                     n_tokens: Optional[Tensor] = None, cross_kv=None,
                     train_mode: bool = False,
                     page_table: Optional[Tensor] = None):
-    """Causal self-attention, over a KV cache or over the whole sequence.
+    """Self-attention (causal unless ``causal`` is False: the encoder's),
+    over a KV cache or over the whole sequence, or cross-attention.
     Returns (output, kv_cache).  ``window`` > 0 is local attention over
     the last ``window`` positions (a ring-buffer cache).
 
     With a cache and S == 1 and ``n_tokens`` None this is a decode tick;
     with a cache otherwise, x holds a prompt chunk of which ``n_tokens``
     (B,) tokens are real per row (None == all S), appended and attended in
-    one pass.  Without a cache (the teacher-forced ``forward``), each of
-    the S queries attends the keys up to its own position: the flash
+    one pass.  Without a cache (the teacher-forced ``forward``, the
+    encoder), each of the S queries attends the keys up to its own
+    position (every key when not ``causal``): the flash
     kernel with ``mcfg.use_flash_attention`` (its plain version under
     ``nx.plain``), else ``chunked_attention``; ``train_mode`` (the
     training forward under ``mcfg.remat``) takes ``train_attention``
     instead.  The returned cache is None.
 
     A PAGED cache ({"k_pages", ...}, see ``serving.pages``) needs
-    ``page_table`` (B, MP) and goes through ``paged_append_attend``."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross attention belongs to the encoder-decoder slice of the "
-            "port (ROADMAP queue 1 item 6)")
+    ``page_table`` (B, MP) and goes through ``paged_append_attend``.
+
+    ``cross_kv`` (k, v), each (B, Skv, KH, D), makes it cross-attention
+    (the decoder of an encoder-decoder): q from ``x`` through ``wq``, k
+    and v as given, no rope and no cache, every query over all Skv keys
+    (non-causal, cacheless), then ``wo``: two dense calls."""
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
-    if kv_cache is not None and _use_fused_decode(params, nx, s, kv_cache,
-                                                  n_tokens, window):
+    if cross_kv is None and _use_fused_decode(params, nx, s, kv_cache,
+                                              n_tokens, window):
         return _fused_decode_attention_block(
             params, x, mcfg, nx, positions=positions, kv_cache=kv_cache)
 
     q = nx.dense(x, params["wq"]).reshape(b, s, h, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = _cacheless_attention(q, k, v, mcfg, nx, causal=False,
+                                   window=0, train_mode=train_mode)
+        return nx.dense(out.reshape(b, s, h * hd), params["wo"]), None
     k = nx.dense(x, params["wk"]).reshape(b, s, kh, hd)
     v = nx.dense(x, params["wv"]).reshape(b, s, kh, hd)
     if mcfg.pos_type == "rope":
         q = rope(q, positions, mcfg.rope_theta, mcfg.rope_fraction)
         k = rope(k, positions, mcfg.rope_theta, mcfg.rope_fraction)
     if kv_cache is None:
-        if train_mode:
-            out = train_attention(q, k, v, causal=True, window=window,
-                                  q_chunk=mcfg.attn_chunk)
-        elif mcfg.use_flash_attention:
-            flash = flash_attention_ref if nx.plain else flash_attention
-            out = flash(q, k, v, causal=True, window=window)
-        else:
-            out = chunked_attention(q, k, v, causal=True, window=window,
-                                    chunk=mcfg.attn_chunk)
+        out = _cacheless_attention(q, k, v, mcfg, nx, causal=causal,
+                                   window=window, train_mode=train_mode)
     elif "k_pages" in kv_cache:
         if page_table is None:
             raise ValueError("a paged kv_cache needs a page_table")

@@ -23,12 +23,26 @@ only.  ``decode_step`` (one token per row) and ``prefill`` (a prompt
 chunk per row) update the decode state in place (see ``models.layers``
 and ``models.recurrent``) and return it, for every kind;
 ``forward_capture`` is DNF's paired per-layer pass.
+
+An encoder-decoder (whisper) adds ``params["encoder"]`` (full-attention
+layers, non-causal) and, per decoder layer, a cross-attention block
+``"cross"`` with its norm ``"norm3"``: ``encode`` runs the encoder over
+frame features, ``encode_cross_kv`` projects its output to every decoder
+layer's cross K/V, and the passes take them as ``encoder_features``
+(``forward``) or ``enc_kv`` (``decode_step``, ``prefill``).  A stub
+frontend (phi-3-vision) hands ``forward`` float embeddings in place of
+token ids.  Noise folds: decoder layer ``i`` under ``fold(i)``, encoder
+layer ``g`` under ``fold(ENCODER_FOLD + g)``, every layer's cross K/V under
+the pass's root key at calls 0 (wk) and 1 (wv): the JAX package traces its
+per-layer cross projection once under ``vmap``, so the counter advances
+twice in all.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -37,6 +51,7 @@ from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dnf import inject
+from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
@@ -47,6 +62,8 @@ from repro_torch.models.layers import (
     init_mlp,
     mlp_block,
     norm,
+    sinusoidal_positions,
+    table_numerics,
 )
 
 Tensor = torch.Tensor
@@ -54,22 +71,27 @@ Tensor = torch.Tensor
 
 _KINDS = ("attention", "recurrent", "mlstm", "slstm")
 
+# Encoder layer g's noise fold is ENCODER_FOLD + g (the JAX package's).
+ENCODER_FOLD = 1000
+
 
 def check_supported(mcfg: ModelConfig, serving: bool = False) -> None:
     """Raise unless the port runs ``mcfg`` on this path.  Serving
     (``serving=True``: decode state, decode tick, chunked prefill) takes
-    rope decoders whose layers are attention (windowed in a hybrid
-    pattern), RG-LRU, mLSTM or sLSTM, with or without experts; the
-    cacheless ``forward``, DNF's capture and training take full-attention
-    decoders only.  Encoder-decoders, frontends and absolute positions are
-    refused everywhere (ROADMAP queue 1 item 6)."""
+    decoders whose layers are attention (windowed in a hybrid pattern),
+    RG-LRU, mLSTM or sLSTM, with or without experts, and full-attention
+    encoder-decoders; the cacheless ``forward``, DNF's capture and training
+    take full-attention models only.  Rope or absolute positions, and the
+    audio and vision stub frontends, on every path."""
     kinds = set(mcfg.block_pattern or ("attention",))
-    if (mcfg.is_encoder_decoder or mcfg.frontend != "none"
-            or mcfg.pos_type != "rope" or not kinds <= set(_KINDS)):
+    if (mcfg.frontend not in ("none", "audio_stub", "vision_stub")
+            or mcfg.pos_type not in ("rope", "absolute")
+            or not kinds <= set(_KINDS)
+            or (mcfg.is_encoder_decoder and kinds != {"attention"})):
         raise NotImplementedError(
-            f"repro_torch runs rope decoders without encoders or "
-            f"frontends; {mcfg.name} (family={mcfg.family!r}) belongs to a "
-            f"later slice of the port (ROADMAP queue 1 item 6)")
+            f"repro_torch does not run {mcfg.name} (family="
+            f"{mcfg.family!r}, frontend={mcfg.frontend!r}, pos_type="
+            f"{mcfg.pos_type!r}, pattern={sorted(kinds)})")
     if not serving and kinds != {"attention"}:
         raise NotImplementedError(
             f"repro_torch serves {mcfg.name}'s {sorted(kinds)} layers but "
@@ -95,11 +117,28 @@ def _norm_params(mcfg, device) -> dict:
     return {"scale": torch.zeros(mcfg.d_model, device=device)}
 
 
+def _init_attention_layer(gen, mcfg: ModelConfig, dev,
+                          cross: bool) -> dict:
+    layer = {"norm1": _norm_params(mcfg, dev),
+             "attn": init_attention(gen, mcfg, dev),
+             "norm2": _norm_params(mcfg, dev)}
+    if mcfg.num_experts:
+        layer["moe"] = moe_lib.init_moe(gen, mcfg, dev)
+    elif mcfg.d_ff:
+        layer["mlp"] = init_mlp(gen, mcfg, dev)
+    if cross:
+        layer["cross"] = init_attention(gen, mcfg, dev)
+        layer["norm3"] = _norm_params(mcfg, dev)
+    return layer
+
+
 def init_params(seed: int, mcfg: ModelConfig,
                 device: DeviceLike = None) -> dict:
     """Random parameters from ``seed``: the JAX package's leaves per layer
     kind, shapes, dtypes and standard deviations (not its values: the
-    generators differ)."""
+    generators differ).  An encoder-decoder's decoder layers carry
+    ``"cross"`` and ``"norm3"``, and ``params["encoder"]`` holds its
+    ``"layers"`` and ``"final_norm"``."""
     check_supported(mcfg, serving=True)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -112,15 +151,12 @@ def init_params(seed: int, mcfg: ModelConfig,
     }
     for i in range(mcfg.num_layers):
         kind = mcfg.layer_kind(i)
-        layer = {"norm1": _norm_params(mcfg, dev)}
         if kind == "attention":
-            layer["attn"] = init_attention(gen, mcfg, dev)
-            layer["norm2"] = _norm_params(mcfg, dev)
-            if mcfg.num_experts:
-                layer["moe"] = moe_lib.init_moe(gen, mcfg, dev)
-            elif mcfg.d_ff:
-                layer["mlp"] = init_mlp(gen, mcfg, dev)
-        elif kind == "recurrent":
+            params["layers"].append(_init_attention_layer(
+                gen, mcfg, dev, mcfg.is_encoder_decoder))
+            continue
+        layer = {"norm1": _norm_params(mcfg, dev)}
+        if kind == "recurrent":
             layer["rglru"] = rec.init_rglru_block(gen, mcfg, dev)
             layer["norm2"] = _norm_params(mcfg, dev)
             layer["mlp"] = init_mlp(gen, mcfg, dev)
@@ -133,6 +169,11 @@ def init_params(seed: int, mcfg: ModelConfig,
         params["lm_head"] = (torch.randn(d, mcfg.vocab_size, generator=gen,
                                          device=dev)
                              * d ** -0.5).to(mcfg.param_dtype)
+    if mcfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [_init_attention_layer(gen, mcfg, dev, False)
+                       for _ in range(mcfg.num_encoder_layers)],
+            "final_norm": _norm_params(mcfg, dev)}
     return params
 
 
@@ -154,12 +195,13 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
                  kind: str = "attention", positions: Tensor,
                  state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
-                 page_table: Optional[Tensor] = None):
+                 page_table: Optional[Tensor] = None, enc_kv=None):
     """One pre-norm residual layer of ``kind``; returns (x, state, aux),
     ``aux`` the MoE block's f32 load-balance loss (None without one).
     Without a state (the teacher-forced forward) attention is cacheless
     and the returned state is None.  ``page_table`` (B, MP) routes a paged
-    KV cache."""
+    KV cache.  ``enc_kv`` (k, v) adds cross-attention over the encoder's
+    frames between the self-attention and the MLP."""
     aux = None
     h = norm(x, lp["norm1"], mcfg.norm_type)
     if kind != "attention":
@@ -179,6 +221,12 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
         kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
         train_mode=mcfg.remat, page_table=page_table)
     x = x + attn_out
+    if enc_kv is not None:
+        h = norm(x, lp["norm3"], mcfg.norm_type)
+        cross_out, _ = attention_block(lp["cross"], h, mcfg, nx,
+                                       positions=positions, cross_kv=enc_kv,
+                                       train_mode=mcfg.remat)
+        x = x + cross_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
     if mcfg.num_experts:
         y, aux = moe_lib.moe_block(lp["moe"], h, mcfg, nx)
@@ -188,10 +236,20 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
     return x, None if state is None else {"kv": kv}, aux
 
 
-def _embed(params, tokens: Tensor, mcfg: ModelConfig) -> Tensor:
-    x = params["embed"][tokens.long()].to(mcfg.activation_dtype)
+def _embed(params, tokens: Tensor, mcfg: ModelConfig,
+           positions: Tensor) -> Tensor:
+    """Token ids (B, S), or a stub frontend's float embeddings (B, S, d)
+    (cast to ``param_dtype`` first, as the JAX package casts them), in the
+    activation dtype; absolute positions add their sinusoidal embedding."""
+    if tokens.is_floating_point():
+        x = tokens.to(mcfg.param_dtype)
+    else:
+        x = params["embed"][tokens.long()]
+    x = x.to(mcfg.activation_dtype)
     if mcfg.embed_scale:
         x = x * torch.tensor(mcfg.d_model ** 0.5, dtype=x.dtype)
+    if mcfg.pos_type == "absolute":
+        x = x + sinusoidal_positions(positions, mcfg.d_model).to(x.dtype)
     return x
 
 
@@ -205,15 +263,51 @@ def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
 def calls_per_layer(mcfg: ModelConfig) -> int:
     """Noise-keyed dense calls of the busiest layer kind of the pattern
     (its call counters 0..n-1), so one seed-table row fits every layer:
-    attention wq, wk, wv, wo, then the MLP's wi (and wg) and wo, or each
-    expert's wi, wg and wo in expert order; RG-LRU's five projections and
-    its MLP; mLSTM's seven; sLSTM's three."""
+    attention wq, wk, wv, wo, then an encoder-decoder's cross wq and wo,
+    then the MLP's wi (and wg) and wo, or each expert's wi, wg and wo in
+    expert order; RG-LRU's five projections and its MLP; mLSTM's seven;
+    sLSTM's three.  An encoder layer (wq, wk, wv, wo and the MLP) and the
+    root's cross K/V (two) fit the same row."""
     mlp = 0 if not mcfg.d_ff else (
         3 if mcfg.mlp_type in ("swiglu", "geglu") else 2)
     ffn = 3 * mcfg.num_experts if mcfg.num_experts else mlp
-    per_kind = {"attention": 4 + ffn, "recurrent": 5 + mlp, "mlstm": 7,
-                "slstm": 3}
+    cross = 2 if mcfg.is_encoder_decoder else 0
+    per_kind = {"attention": 4 + cross + ffn, "recurrent": 5 + mlp,
+                "mlstm": 7, "slstm": 3}
     return max(per_kind[k] for k in set(mcfg.block_pattern or ("attention",)))
+
+
+def _seed_folds(mcfg: ModelConfig):
+    """(folds past the decoder's layers, root row) of a pass's seed table:
+    an encoder-decoder's encoder layers and its root cross K/V calls."""
+    if not mcfg.is_encoder_decoder:
+        return (), False
+    return tuple(ENCODER_FOLD + g
+                 for g in range(mcfg.num_encoder_layers)), True
+
+
+def pass_seed_table(mcfg: ModelConfig, key) -> np.ndarray:
+    """Every noise seed of one pass of ``mcfg`` under the root ``key``
+    (``core.prng.seed_table``; the encoder's rows and the root's for an
+    encoder-decoder), the table ``pass_numerics`` reads."""
+    extra, root = _seed_folds(mcfg)
+    return prng.seed_table(key, mcfg.num_layers, calls_per_layer(mcfg),
+                           LM_HEAD_FOLD, extra, root)
+
+
+def n_pass_seeds(mcfg: ModelConfig) -> int:
+    """Entries of ``pass_seed_table``."""
+    extra, root = _seed_folds(mcfg)
+    return (mcfg.num_layers + len(extra) + root) * calls_per_layer(mcfg) + 1
+
+
+def pass_numerics(quant: QuantConfig, seeds: Tensor, mcfg: ModelConfig,
+                  plain: bool = False) -> Numerics:
+    """The root ``Numerics`` of a pass reading ``seeds``, a
+    ``pass_seed_table`` on the pass's device."""
+    extra, root = _seed_folds(mcfg)
+    return table_numerics(quant, seeds, mcfg.num_layers,
+                          calls_per_layer(mcfg), extra, root, plain=plain)
 
 
 def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
@@ -221,16 +315,80 @@ def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
     """A pass's root Numerics in seed-table mode (float without one); an
     ``abfp_ref`` Numerics stays in key mode (``Numerics.as_table``)."""
     nx = nx or Numerics(QuantConfig(mode="float"))
-    return nx.as_table(mcfg.num_layers, calls_per_layer(mcfg), device)
+    extra, root = _seed_folds(mcfg)
+    return nx.as_table(mcfg.num_layers, calls_per_layer(mcfg), device,
+                       extra, root)
 
 
-def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None):
+def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None,
+                enc_kv=None):
     pt = state.get("page_table")
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         x, state["layers"][li], _ = _apply_layer(
             lp, x, mcfg, nx.fold(li), kind=mcfg.layer_kind(li),
-            positions=positions, state=ls, n_tokens=n_tokens, page_table=pt)
+            positions=positions, state=ls, n_tokens=n_tokens, page_table=pt,
+            enc_kv=None if enc_kv is None else enc_kv[li])
     return norm(x, params["final_norm"], mcfg.norm_type)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (encoder-decoders)
+# ---------------------------------------------------------------------------
+
+
+def encode(params: dict, features: Tensor, mcfg: ModelConfig,
+           nx: Numerics) -> Tensor:
+    """The whisper-style encoder over stub frame embeddings (B, S_enc, d):
+    the features in the activation dtype plus sinusoidal positions, then
+    each encoder layer ``g`` (non-causal self-attention and the MLP, pre-
+    norm) under ``nx.fold(ENCODER_FOLD + g)``, then the encoder's final
+    norm.  Returns (B, S_enc, d)."""
+    b, s = features.shape[:2]
+    positions = torch.arange(s, device=features.device)[None, :].expand(b, s)
+    x = features.to(mcfg.activation_dtype)
+    x = x + sinusoidal_positions(positions, mcfg.d_model).to(x.dtype)
+    enc = params["encoder"]
+    for g, lp in enumerate(enc["layers"]):
+        nxg = nx.fold(ENCODER_FOLD + g)
+        h = norm(x, lp["norm1"], mcfg.norm_type)
+        attn_out, _ = attention_block(lp["attn"], h, mcfg, nxg,
+                                      positions=positions, causal=False,
+                                      train_mode=mcfg.remat)
+        x = x + attn_out
+        h = norm(x, lp["norm2"], mcfg.norm_type)
+        x = x + mlp_block(lp["mlp"], h, mcfg, nxg)
+    return norm(x, enc["final_norm"], mcfg.norm_type)
+
+
+def encode_cross_kv(params: dict, enc_out: Tensor, mcfg: ModelConfig,
+                    nx: Numerics) -> list:
+    """Every decoder layer's cross-attention (k, v), each (B, S_enc, KH,
+    D), from an encoder output: the per-slot encoder cache of
+    ``serving.runners.EncDecRunner``.  All layers take the root ``nx``'s
+    calls 0 (wk) and 1 (wv), as the JAX package's ``vmap`` over its
+    stacked layers does."""
+    b, s, _ = enc_out.shape
+    kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
+    sk, sv = nx.next_seeds(2)
+    out = []
+    for lp in params["layers"]:
+        w = lp["cross"]
+        out.append((
+            ops.dense(enc_out, w["wk"], nx.quant, sk,
+                      plain=nx.plain).reshape(b, s, kh, hd),
+            ops.dense(enc_out, w["wv"], nx.quant, sv,
+                      plain=nx.plain).reshape(b, s, kh, hd)))
+    return out
+
+
+def _encoder_kv(params, encoder_features, mcfg, nx):
+    """The cross K/V of a cacheless pass: None without an encoder."""
+    if not mcfg.is_encoder_decoder:
+        return None
+    if encoder_features is None:
+        raise ValueError(f"{mcfg.name} needs encoder_features")
+    return encode_cross_kv(params, encode(params, encoder_features, mcfg,
+                                          nx), mcfg, nx)
 
 
 # ---------------------------------------------------------------------------
@@ -244,23 +402,27 @@ def _positions(tokens: Tensor) -> Tensor:
 
 
 def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
-                   li: int, positions: Tensor, dnf, dnf_key):
+                   li: int, positions: Tensor, dnf, dnf_key, enc_kv=None):
     """Layer ``li`` of the teacher-forced forward under ``nx.fold(li)``,
     then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``;
     returns (x, aux).  Each call folds afresh, so a rematerialized layer
     draws what its first run drew."""
-    x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions)
+    x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions,
+                             enc_kv=enc_kv)
     if dnf is None:
         return x, aux
     return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li)), aux
 
 
 def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
-            nx: Optional[Numerics] = None, *, dnf=None, dnf_key=None,
-            return_hidden: bool = False):
+            nx: Optional[Numerics] = None, *, encoder_features=None,
+            dnf=None, dnf_key=None, return_hidden: bool = False):
     """Teacher-forced forward over whole sequences, without a cache.
 
-    tokens: (B, S) int ids.  Returns (logits (B, S, V) f32, aux), or
+    tokens: (B, S) int ids, or (B, S, d) float stub-frontend embeddings.
+    An encoder-decoder needs ``encoder_features`` (B, S_enc, d): the
+    encoder runs first (``encode``, then ``encode_cross_kv`` under the
+    root key), and every decoder layer attends its cross K/V.  Returns (logits (B, S, V) f32, aux), or
     (hidden (B, S, d), aux) with ``return_hidden``; ``aux`` is the f32
     auxiliary loss, the sum of the MoE layers' load-balance losses (0
     without experts), added layer by layer as the JAX package's scan
@@ -273,18 +435,19 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     li)`` (Eq. 9).  With ``mcfg.remat``, each layer (its DNF noise
     included) runs under ``torch.utils.checkpoint`` when autograd records,
     and its attention is ``train_attention``.  The JAX signature's
-    ``encoder_features`` and ``mesh`` belong to later slices (ROADMAP
-    queue 1 items 5-6)."""
+    ``mesh`` belongs to a later slice (ROADMAP queue 1)."""
     check_supported(mcfg)
     if dnf is not None and dnf_key is None:
         raise ValueError("dnf needs a dnf_key")
     nx = _pass_numerics(nx, mcfg, tokens.device)
     positions = _positions(tokens)
-    x = _embed(params, tokens, mcfg)
+    x = _embed(params, tokens, mcfg, positions)
+    enc_kv = _encoder_kv(params, encoder_features, mcfg, nx)
     remat = mcfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(params["layers"]):
-        args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key)
+        args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key,
+                None if enc_kv is None else enc_kv[li])
         x, a = (checkpoint(_forward_layer, *args, use_reentrant=False)
                 if remat else _forward_layer(*args))
         if a is not None:
@@ -303,22 +466,26 @@ def lm_head_logits(params: dict, hidden: Tensor, mcfg: ModelConfig,
 
 
 def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
-                    nx_float: Numerics, nx_abfp_factory):
+                    nx_float: Numerics, nx_abfp_factory, *,
+                    encoder_features=None):
     """DNF's paired pass (paper Fig. 3): every layer runs in FLOAT on the
     FLOAT stream and, on the same input, in ABFP; ``dy = ABFP - FLOAT``
     per layer.  ``nx_abfp_factory()`` returns a fresh ABFP ``Numerics``
-    for each layer, which is then folded with the layer index.
+    for each layer, which is then folded with the layer index.  An
+    encoder-decoder's encoder and cross K/V run once, in FLOAT.
 
     Returns (logits of the FLOAT stream, [dy_0, ..., dy_{L-1}] in f32)."""
     check_supported(mcfg)
     positions = _positions(tokens)
-    x = _embed(params, tokens, mcfg)
+    x = _embed(params, tokens, mcfg, positions)
+    enc_kv = _encoder_kv(params, encoder_features, mcfg, nx_float)
     deltas = []
     for li, lp in enumerate(params["layers"]):
+        ek = None if enc_kv is None else enc_kv[li]
         x_f, _, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li),
-                                 positions=positions)
+                                 positions=positions, enc_kv=ek)
         x_q, _, _ = _apply_layer(lp, x, mcfg, nx_abfp_factory().fold(li),
-                                 positions=positions)
+                                 positions=positions, enc_kv=ek)
         deltas.append(x_q.float() - x_f.float())
         x = x_f
     x = norm(x, params["final_norm"], mcfg.norm_type)
@@ -420,37 +587,40 @@ def clone_state(state):
 
 
 def decode_step(params: dict, state: dict, token: Tensor, mcfg: ModelConfig,
-                nx: Optional[Numerics] = None):
-    """One decode tick.  token: (B,) int.  Returns (logits (B, V) f32,
-    state), the state updated in place.
+                nx: Optional[Numerics] = None, *, enc_kv=None):
+    """One decode tick.  token: (B,) int (or (B, d) embeddings).  Returns
+    (logits (B, V) f32, state), the state updated in place.  ``enc_kv``:
+    an encoder-decoder's cross (k, v) per decoder layer, each (B, S_enc,
+    KH, D).
 
     In ``abfp_fused`` numerics every layer runs the fused QKV and int8-KV
     attention kernels (``models.layers._fused_decode_attention_block``)."""
     nx = _pass_numerics(nx, mcfg, token.device)
     positions = state["position"][:, None]                      # (B, 1)
-    x = _embed(params, token[:, None], mcfg)
-    x = _run_layers(params, state, x, mcfg, nx, positions)
+    x = _embed(params, token[:, None], mcfg, positions)
+    x = _run_layers(params, state, x, mcfg, nx, positions, enc_kv=enc_kv)
     logits = _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
     state["position"].add_(1)
     return logits, state
 
 
 def prefill(params: dict, state: dict, tokens: Tensor, n_tokens: Tensor,
-            mcfg: ModelConfig, nx: Optional[Numerics] = None):
+            mcfg: ModelConfig, nx: Optional[Numerics] = None, *,
+            enc_kv=None):
     """Advance every row by a prompt chunk in one pass.
 
     tokens: (B, S) int (padding values arbitrary); ``n_tokens``: (B,) —
     tokens[b, :n_tokens[b]] are real.  A row with n_tokens == 0 is left
     unchanged.  Returns (logits (B, V) f32 at each row's LAST real token,
-    state), the state updated in place."""
+    state), the state updated in place.  ``enc_kv`` as ``decode_step``'s."""
     b, s = tokens.shape[:2]
     dev = tokens.device
     nx = _pass_numerics(nx, mcfg, dev)
     positions = state["position"][:, None] \
         + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     n_tokens = n_tokens.to(device=dev, dtype=torch.int32)
-    x = _embed(params, tokens, mcfg)
-    x = _run_layers(params, state, x, mcfg, nx, positions, n_tokens)
+    x = _embed(params, tokens, mcfg, positions)
+    x = _run_layers(params, state, x, mcfg, nx, positions, n_tokens, enc_kv)
     last = torch.clamp(n_tokens.long() - 1, 0, s - 1)
     x_last = x[torch.arange(b, device=dev), last][:, None]     # (B, 1, d)
     logits = _lm_head(params, x_last, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]

@@ -7,8 +7,9 @@ weight scales or codes.  In ``abfp_fused`` mode the packs also carry the
 per-tile ADC gains, and the attention block of each full-attention
 layer gains a ``"qkv"`` entry: wq, wk and wv concatenated once for the
 fused QKV kernel (``kernels.abfp_decode_fused.concat_qkv``), the only
-layers whose decode tick takes it (``models.layers._use_fused_decode``).
-An MoE block's (E, K, N) expert weights pack expert by expert into a list
+layers whose decode tick takes it (``models.layers._use_fused_decode``);
+an encoder's attention and a decoder's cross-attention run no decode
+tick and get none.  An MoE block's (E, K, N) expert weights pack expert by expert into a list
 of E ``PackedWeight``s (kernel 1 takes one 2-D weight per launch); expert
 ``ex``'s codes, scales and gains are the ``[ex]`` slice of the JAX
 package's pack of the stacked leaf.
@@ -45,17 +46,18 @@ def pack_model_params(params: dict, cfg: QuantConfig,
     # decode, so they carry no QKV concatenation.
     full = getattr(mcfg, "attention_type", "full") == "full"
 
-    def walk(node, name=None):
+    def walk(node, name=None, decoder=True):
         if isinstance(node, dict):
-            out = {k: walk(v, k) for k, v in node.items()}
-            if adaptive and full and name == "attn" and all(
+            out = {k: walk(v, k, decoder and k != "encoder")
+                   for k, v in node.items()}
+            if adaptive and full and decoder and name == "attn" and all(
                     isinstance(out.get(w), PackedWeight)
                     for w in ("wq", "wk", "wv")):
                 out["qkv"] = concat_qkv(
                     (out["wq"], out["wk"], out["wv"]), cfg)
             return out
         if isinstance(node, list):
-            return [walk(v, name) for v in node]
+            return [walk(v, name, decoder) for v in node]
         if name in DENSE_WEIGHT_NAMES and isinstance(node, torch.Tensor):
             if node.ndim == 2:
                 return pack_abfp_weight(node, cfg, adaptive_gain=adaptive)

@@ -29,6 +29,7 @@ from repro_torch.serving.pages import (  # noqa: F401
 )
 from repro_torch.serving.runners import (  # noqa: F401
     DecoderRunner,
+    EncDecRunner,
     RecurrentRunner,
     runner_for,
 )

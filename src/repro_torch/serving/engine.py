@@ -121,6 +121,18 @@ at least one pass.  Tokens produced under a live fault mark their request
 ``corrupted``.  With ``faults=None`` nothing of this exists on the hot
 path: the same graphs, the same launches, no spare.
 
+Encoder-decoders
+----------------
+A runner with ``needs_admission`` (``EncDecRunner``) takes requests whose
+``features`` it ``accepts`` (anything else is rejected at ``submit``, as
+the JAX engine rejects it).  Admission runs the runner's ``("admit",)``
+pass after the slot reset and before the prompt: the encoder over the
+request's features under the key ``fold_in(PRNGKey(seed), uid)``, its
+cross-attention K/V written into the slot's rows of the state, so a
+preempted request re-admits and re-encodes to the same bits.  On a GPU
+the admission pass is a captured shape of its own (its features, slot
+index and seed table are device data).  Fault plans are refused on it.
+
 Not ported (each raises when asked for): meshes and fleets.
 """
 
@@ -140,8 +152,8 @@ from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.distributed.fault import StragglerMonitor
 from repro_torch.kernels import ops
-from repro_torch.models.layers import LM_HEAD_FOLD
-from repro_torch.models.lm import calls_per_layer, clone_state
+from repro_torch.models.convert import to_tensor
+from repro_torch.models.lm import clone_state
 from repro_torch.serving import faults as faultlib
 from repro_torch.serving.faults import FaultConfig, FaultPlan
 from repro_torch.serving.metrics import ServingMetrics
@@ -181,6 +193,9 @@ class Request:
                                         # the request is cancelled (queued or
                                         # in flight) and marked timed_out
     on_token: Optional[Callable[["Request", int], None]] = None
+    features: Optional[Any] = None      # frontend side input (enc-dec:
+                                        # (enc_len, d_model) frame
+                                        # embeddings, numpy or a tensor)
     generated: List[int] = dataclasses.field(default_factory=list)
     prompt_pos: int = 0                 # prompt tokens consumed so far
     dispatched: int = 0                 # tokens whose pass has run; ahead
@@ -259,7 +274,8 @@ class ServingEngine:
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
                             f"got {type(faults).__name__}")
         if faults is not None and (mcfg.attention_type != "full"
-                                   or mcfg.num_experts):
+                                   or mcfg.num_experts
+                                   or mcfg.is_encoder_decoder):
             raise NotImplementedError(
                 f"fault plans on {mcfg.name} are not ported: the port's "
                 f"fault sites are the dense decoder's (ROADMAP queue 1 "
@@ -374,12 +390,12 @@ class ServingEngine:
         # -- warmed passes ---------------------------------------------------
         self._passes = {}
         self._warmed_shapes = set()
-        self._calls = calls_per_layer(mcfg)
         self._noisy = quant.mode != "float" and quant.noise_lsb > 0.0
         widest = max((1,) + self.prefill_chunks)
         self._staging = Staging(
             PassIO.n_words(capacity, widest, self.runner.n_seeds(),
                            self.max_pages), depth, self.device)
+        self._admit_staging = None      # the admission pass's (enc-dec)
 
         self.ticks = 0
         self.scheduler = get_scheduler(policy)
@@ -474,6 +490,8 @@ class ServingEngine:
         if self.chunked:
             for bucket in self.prefill_chunks:
                 self._executable(("prefill", bucket))
+        if self.runner.needs_admission:
+            self._executable(("admit",))
         self._warmed_shapes.clear()
 
     def _call(self, shape_key: Tuple, key, **fields) -> Tuple[PassIO, bool]:
@@ -487,13 +505,29 @@ class ServingEngine:
         if self.paged:
             fields["table"] = self._table
         if self._noisy:
-            fields["seeds"] = prng.seed_table(
-                key, self.mcfg.num_layers, self._calls, LM_HEAD_FOLD)
+            fields["seeds"] = self.runner.seed_table(key)
         self._staging.copy(io.pack(**fields), io.words)
         if fields["prev_mask"].any():
             io.prev.copy_(self._dev_next, non_blocking=True)
         wp.run(self.state)
         return io, warm
+
+    def _admit_pass(self, i: int, req: Request) -> None:
+        """The runner's admission pass for slot i (enc-dec: the encoder
+        over ``req.features`` into the slot's cross K/V) under the key
+        ``fold_in(PRNGKey(seed), uid)``: one host-to-device copy of the
+        features, slot and seeds, then the pass (a replay on a GPU)."""
+        wp, _ = self._executable(("admit",))
+        io = wp.io
+        if self._admit_staging is None:
+            self._admit_staging = Staging(io.words.numel(), 2, self.device)
+        feats = req.features
+        feats = (feats.detach().cpu() if isinstance(feats, torch.Tensor)
+                 else to_tensor(feats, "cpu"))
+        seeds = (self.runner.seed_table(prng.fold_in(
+            prng.PRNGKey(self.seed), req.uid)) if self._noisy else None)
+        self._admit_staging.copy(io.pack(feats, i, seeds), io.words)
+        wp.run(self.state)
 
     def _shape(self, base: Tuple, temps: np.ndarray) -> Tuple:
         """The shape key of a pass: an overlapped pass in which some row
@@ -672,8 +706,10 @@ class ServingEngine:
         defaults to now).  Oversized requests are rejected (marked done,
         recorded in metrics); under the backpressure watermarks an arriving
         request is SHED (``shed`` with a ``retry_after`` hint, returned by
-        the next ``poll()``).  Returns False for both."""
-        if not self.fits(req):
+        the next ``poll()``).  A request the runner does not accept (an
+        encoder-decoder's without features of its shape) is rejected too.
+        Returns False for each."""
+        if not self.fits(req) or not self.runner.accepts(req):
             req.done = True
             self.metrics.on_reject(req.uid)
             return False
@@ -726,6 +762,8 @@ class ServingEngine:
                     if self._degraded and self.degraded_max_new is not None:
                         self._slot_cap[i] = max(self.degraded_max_new,
                                                 len(req.generated) + 1)
+                if self.runner.needs_admission:
+                    self._admit_pass(i, req)
                 if self.chunked:
                     req.prompt_pos = 0      # consumed by prefill passes
                     if self.prefix_enabled:

@@ -1,5 +1,5 @@
-"""DecoderRunner and RecurrentRunner: the seam between ``ServingEngine``
-and ``repro_torch.models``.
+"""DecoderRunner, RecurrentRunner and EncDecRunner: the seam between
+``ServingEngine`` and ``repro_torch.models``.
 
 A runner owns what the engine must know about one model family: how to
 allocate the batched decode state (``init_state``, unpaged or PAGED), the
@@ -10,9 +10,11 @@ edits run between passes (``make_reset`` at admission, ``make_attach``
 for a prefix-cache hit, ``make_copy_page`` for a copy-on-write split) and
 what a request costs in pages (``capacity_cost``).  ``DecoderRunner``
 serves full-attention decoders, MoE ones included, ``RecurrentRunner``
-the recurrent and hybrid families (fixed-size state per slot);
-encoder-decoders are not ported.  Passes and the edits update the decode state in place: every
-state tensor keeps its storage.
+the recurrent and hybrid families (fixed-size state per slot),
+``EncDecRunner`` the encoder-decoders: an admission pass ``("admit",)``
+encodes a request's features into its slot's cross-attention K/V
+(``state["enc"]``), which every later pass reads.  Passes and the edits
+update the decode state in place: every state tensor keeps its storage.
 
 Static buffers
 --------------
@@ -39,11 +41,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
-from repro_torch.models.layers import Numerics
 from repro_torch.models.lm import (
-    calls_per_layer,
     decode_step,
+    encode,
+    encode_cross_kv,
     init_decode_state,
+    n_pass_seeds,
+    pass_numerics,
+    pass_seed_table,
     prefill,
     sample_tokens,
 )
@@ -153,6 +158,8 @@ class DecoderRunner:
     fixed_state = False
     #: Prefix pages may be shared across requests.
     prefix_cache_ok = True
+    #: Admission runs a pass of its own (``("admit",)``).
+    needs_admission = False
 
     def __init__(self, mcfg: ModelConfig):
         self.mcfg = mcfg
@@ -170,8 +177,17 @@ class DecoderRunner:
                                  page_size=page_size, pool_pages=pool_pages)
 
     def n_seeds(self) -> int:
-        """Entries of a pass's seed table (``core.prng.seed_table``)."""
-        return self.mcfg.num_layers * calls_per_layer(self.mcfg) + 1
+        """Entries of a pass's seed table (``models.lm.pass_seed_table``)."""
+        return n_pass_seeds(self.mcfg)
+
+    def seed_table(self, key) -> np.ndarray:
+        """The seed table of a pass under the root ``key``."""
+        return pass_seed_table(self.mcfg, key)
+
+    def accepts(self, req) -> bool:
+        """Model-specific request validation beyond the engine's
+        ``fits()``: a decoder takes any request."""
+        return True
 
     def capacity_cost(self, total_tokens: int, page_size: int) -> int:
         """Pages a request of ``total_tokens`` (prompt + max_new) occupies
@@ -204,20 +220,21 @@ class DecoderRunner:
         width = 1 if decode else int(shape_key[1])
         io = PassIO(capacity, width, self.n_seeds(), self.mcfg.vocab_size,
                     device, max_pages)
-        calls = calls_per_layer(self.mcfg)
         mcfg = self.mcfg
 
         def body(state: dict) -> None:
             if io.table is not None:
                 state["page_table"].copy_(io.table)
             first = torch.where(io.prev_mask != 0, io.prev, io.tokens[:, 0])
-            nx = Numerics(quant, seeds=io.seeds, calls=calls)
+            nx = pass_numerics(quant, io.seeds, mcfg)
+            enc_kv = self.enc_kv(state)
             if decode:
-                logits, _ = decode_step(params, state, first, mcfg, nx)
+                logits, _ = decode_step(params, state, first, mcfg, nx,
+                                        enc_kv=enc_kv)
             else:
                 toks = torch.cat([first[:, None], io.tokens[:, 1:]], dim=1)
                 logits, _ = prefill(params, state, toks, io.n_tokens, mcfg,
-                                    nx)
+                                    nx, enc_kv=enc_kv)
             io.logits.copy_(logits)
             if sample and draw:
                 io.sampled.copy_(sample_tokens(logits, io.temps, io.uids,
@@ -226,6 +243,10 @@ class DecoderRunner:
                 io.sampled.copy_(torch.argmax(logits, dim=-1))
 
         return io, body
+
+    def enc_kv(self, state: dict):
+        """The cross K/V the passes read from the state: none here."""
+        return None
 
     def make_reset(self):
         """The slot reset ``(state, i) -> state``: every per-slot entry of
@@ -285,6 +306,128 @@ class RecurrentRunner(DecoderRunner):
         return 0
 
 
+class AdmitIO:
+    """The static inputs of the admission pass on ``device``, one int32
+    word array as ``PassIO``'s: the request's ``features`` (enc_len,
+    d_model) in the activation dtype (stored by their bits), the ``slot``
+    index and the pass's seed table."""
+
+    def __init__(self, enc_len: int, d_model: int, dtype, n_seeds: int,
+                 device):
+        nbytes = enc_len * d_model * torch.empty((), dtype=dtype
+                                                 ).element_size()
+        if nbytes % 4:
+            raise ValueError("the features must fill whole int32 words")
+        sizes = {"features": nbytes // 4, "slot": 1, "seeds": n_seeds}
+        self.offsets: Dict[str, Tuple[int, int]] = {}
+        at = 0
+        for f, n in sizes.items():
+            self.offsets[f] = (at, at + n)
+            at += n
+        self.words = torch.zeros(at, dtype=torch.int32, device=device)
+        view = {f: self.words[a:e] for f, (a, e) in self.offsets.items()}
+        self.dtype = dtype
+        self.features = view["features"].view(dtype).view(enc_len, d_model)
+        self.slot = view["slot"]
+        self.seeds = view["seeds"]
+
+    def pack(self, features: Tensor, slot: int,
+             seeds: Optional[np.ndarray] = None) -> np.ndarray:
+        """The host word array of one admission: ``features`` a CPU tensor
+        (cast to the activation dtype here, as the encoder casts them)."""
+        out = np.zeros(self.words.numel(), np.int32)
+        a, e = self.offsets["features"]
+        out[a:e] = features.to(self.dtype).contiguous().view(
+            torch.int32).reshape(-1).numpy()
+        out[self.offsets["slot"][0]] = slot
+        if seeds is not None:
+            a, e = self.offsets["seeds"]
+            out[a:e] = seeds
+        return out
+
+
+class EncDecRunner(DecoderRunner):
+    """Whisper-style encoder-decoder.  Admission runs ONE encoder pass
+    over the request's frontend features (``make_pass(("admit",), ...)``)
+    and writes the resulting cross-attention K/V into the slot's rows of
+    ``state["enc"]``, in place (a captured decode or prefill pass keeps
+    reading the same storage); decode then proceeds as a decoder-only
+    model's, every pass reading each layer's K/V.  The self-attention KV
+    pages as a decoder's does, but prefix-page sharing is off: a
+    decoder's KV depends on the request's audio.
+
+    ``enc_len`` is the fixed encoder frame count; a request must carry
+    ``features`` of shape (enc_len, d_model)."""
+
+    needs_admission = True
+    prefix_cache_ok = False
+
+    DEFAULT_ENC_LEN = 64
+
+    def __init__(self, mcfg: ModelConfig, enc_len: int = DEFAULT_ENC_LEN):
+        if not mcfg.is_encoder_decoder:
+            raise ValueError(f"{mcfg.name} is not an encoder-decoder")
+        super().__init__(mcfg)
+        self.enc_len = int(enc_len)
+
+    def accepts(self, req) -> bool:
+        feats = getattr(req, "features", None)
+        if feats is None:
+            return False
+        return (tuple(getattr(feats, "shape", ()))
+                == (self.enc_len, self.mcfg.d_model))
+
+    def init_state(self, capacity: int, max_len: int,
+                   device: DeviceLike = None, *,
+                   page_size: Optional[int] = None,
+                   pool_pages: Optional[int] = None) -> dict:
+        """The decoder's state plus ``state["enc"]``: per decoder layer the
+        cross ``k`` and ``v`` of every slot, (capacity, enc_len, KH, D) in
+        the activation dtype."""
+        state = super().init_state(capacity, max_len, device,
+                                   page_size=page_size,
+                                   pool_pages=pool_pages)
+        mcfg = self.mcfg
+        shape = (capacity, self.enc_len, mcfg.num_kv_heads,
+                 mcfg.resolved_head_dim)
+        dev = state["position"].device
+        state["enc"] = [
+            {n: torch.zeros(shape, dtype=mcfg.activation_dtype, device=dev)
+             for n in ("k", "v")} for _ in range(mcfg.num_layers)]
+        return state
+
+    def enc_kv(self, state: dict):
+        return [(e["k"], e["v"]) for e in state["enc"]]
+
+    def make_pass(self, shape_key: tuple, params, quant, seed: int,
+                  capacity: int, device, sample: bool = True,
+                  max_pages: int = 0):
+        """As ``DecoderRunner.make_pass``, plus the admission pass
+        ``("admit",)``: ``(AdmitIO, body)``, whose body encodes
+        ``io.features`` (``models.lm.encode``, encoder layer g under fold
+        1000 + g) and writes its cross K/V (``encode_cross_kv``, the root's
+        calls 0 and 1) into row ``io.slot`` of every ``state["enc"]``
+        entry.  The slot and the seeds are device data, so one capture
+        serves every admission."""
+        if shape_key[0] != "admit":
+            return super().make_pass(shape_key, params, quant, seed,
+                                     capacity, device, sample, max_pages)
+        mcfg = self.mcfg
+        io = AdmitIO(self.enc_len, mcfg.d_model, mcfg.activation_dtype,
+                     self.n_seeds(), device)
+
+        def body(state: dict) -> None:
+            nx = pass_numerics(quant, io.seeds, mcfg)
+            enc_out = encode(params, io.features[None], mcfg, nx)
+            slot = io.slot.long()
+            for e, (k, v) in zip(state["enc"],
+                                 encode_cross_kv(params, enc_out, mcfg, nx)):
+                e["k"].index_copy_(0, slot, k.to(e["k"].dtype))
+                e["v"].index_copy_(0, slot, v.to(e["v"].dtype))
+
+        return io, body
+
+
 def state_tensors(state) -> list:
     """Every tensor of a decode state, in a fixed order."""
     if isinstance(state, dict):
@@ -294,14 +437,18 @@ def state_tensors(state) -> list:
     return [state]
 
 
-def runner_for(mcfg: ModelConfig) -> DecoderRunner:
+def runner_for(mcfg: ModelConfig, **kwargs) -> DecoderRunner:
     """The runner of a config, as the JAX package's ``runner_for`` picks
-    it: ``RecurrentRunner`` when the block pattern holds a non-attention
-    kind (``attention_type`` hybrid or recurrent), else ``DecoderRunner``
-    (MoE decoders included); encoder-decoders (and anything else the port
-    does not serve) raise."""
+    it, passing ``kwargs`` on: ``EncDecRunner`` (``enc_len``) for an
+    encoder-decoder,
+    ``RecurrentRunner`` when the block pattern holds a non-attention kind
+    (``attention_type`` hybrid or recurrent), else ``DecoderRunner`` (MoE
+    decoders and stub-frontend ones included); anything the port does not
+    serve raises."""
     from repro_torch.models.lm import check_supported
     check_supported(mcfg, serving=True)
+    if mcfg.is_encoder_decoder:
+        return EncDecRunner(mcfg, **kwargs)
     if mcfg.attention_type in ("hybrid", "recurrent"):
-        return RecurrentRunner(mcfg)
-    return DecoderRunner(mcfg)
+        return RecurrentRunner(mcfg, **kwargs)
+    return DecoderRunner(mcfg, **kwargs)

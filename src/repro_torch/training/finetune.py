@@ -52,12 +52,24 @@ def _tokens(tokens, params) -> torch.Tensor:
     return torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=dev)
 
 
+def _features(encoder_features, params):
+    """An encoder-decoder's features on the parameters' device (None
+    stays None)."""
+    if encoder_features is None:
+        return None
+    from repro_torch.models.convert import to_tensor
+    t = (encoder_features if isinstance(encoder_features, torch.Tensor)
+         else to_tensor(encoder_features, "cpu"))
+    return t.to(params["embed"].device)
+
+
 def capture_histograms(params: dict, tokens, mcfg: ModelConfig,
-                       quant: QuantConfig, *, key,
-                       num_bins: int = 100) -> tuple:
+                       quant: QuantConfig, *, key, num_bins: int = 100,
+                       encoder_features=None) -> tuple:
     """Fit per-layer differential-noise histograms from one batch.
 
-    ``tokens``: (B, S) ids.  Layer ``li``'s ABFP pass runs under
+    ``tokens``: (B, S) ids; an encoder-decoder's ``encoder_features`` (B,
+    S_enc, d).  Layer ``li``'s ABFP pass runs under
     ``Numerics(quant, fold_in(key, li + 1)).fold(li)`` (a fresh key per
     layer, counter from 1, as the JAX package's factory).  Returns
     (stacked ``NoiseHistogram`` on the parameters' device, per-layer std
@@ -70,8 +82,9 @@ def capture_histograms(params: dict, tokens, mcfg: ModelConfig,
         return Numerics(quant, fold_in(key, counter[0]))
 
     with torch.no_grad():
-        _, deltas = forward_capture(params, _tokens(tokens, params), mcfg,
-                                    nx_float, abfp_factory)
+        _, deltas = forward_capture(
+            params, _tokens(tokens, params), mcfg, nx_float, abfp_factory,
+            encoder_features=_features(encoder_features, params))
     hists = [NoiseHistogram.fit(d, num_bins=num_bins) for d in deltas]
     stds = [float(h.std) for h in hists]
     return NoiseHistogram.stack(hists).to(params["embed"].device), stds
@@ -122,17 +135,21 @@ def make_dnf_train_step(mcfg: ModelConfig, optimizer, hists: NoiseHistogram,
 
 
 def evaluate_abfp(params: dict, batches, mcfg: ModelConfig,
-                  quant: QuantConfig, *, key) -> float:
+                  quant: QuantConfig, *, key,
+                  encoder_features=None) -> float:
     """Mean next-token accuracy over ``batches`` of ``{"tokens": (B,
     S + 1)}``: batch ``i`` runs under ``Numerics(quant, fold_in(key,
-    i))``, inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``."""
+    i))``, inputs ``tokens[:, :-1]``, labels ``tokens[:, 1:]``; an
+    encoder-decoder's batches take ``encoder_features`` (B, S_enc, d)."""
+    feats = _features(encoder_features, params)
     correct = total = 0
     with torch.no_grad():
         for i, batch in enumerate(batches):
             nx = Numerics(quant, fold_in(key, i))
             tokens = _tokens(batch["tokens"], params)
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
-            logits, _ = forward(params, inputs, mcfg, nx)
+            logits, _ = forward(params, inputs, mcfg, nx,
+                                encoder_features=feats)
             pred = torch.argmax(logits, dim=-1)
             correct += int((pred == labels).sum())
             total += labels.numel()

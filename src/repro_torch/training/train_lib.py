@@ -95,6 +95,20 @@ def tokens_on(batch: dict, device) -> Tensor:
     return t.to(device=device, dtype=torch.int64)
 
 
+def batch_on(batch: dict, device) -> dict:
+    """A batch's tensors on ``device``: ``tokens`` (B, S + 1) and
+    ``labels`` (B, S) as int64, a stub frontend's ``embeds`` (B, S, d) and
+    an encoder-decoder's ``encoder_features`` (B, S_enc, d) as they are
+    (numpy bfloat16 kept bit for bit)."""
+    from repro_torch.models.convert import to_tensor
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, Tensor) else to_tensor(v, "cpu")
+        out[k] = (t.to(device=device, dtype=torch.int64)
+                  if k in ("tokens", "labels") else t.to(device))
+    return out
+
+
 def value_and_grad(loss_fn, params, *args):
     """(loss, aux, grads) of ``loss_fn(params, *args) -> (objective, loss,
     aux)`` with respect to every leaf of ``params``; a leaf the objective
@@ -113,15 +127,23 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
     """Returns (init_state, train_step): ``init_state(params) ->
     TrainState`` and ``train_step(state, batch, key) -> (state, metrics)``
     with metrics ``loss``, ``aux_loss`` and ``grad_norm`` (0-dim tensors
-    on the device).  ``batch["tokens"]`` is (B, S + 1); ``key`` a host
-    PRNG key (``core.prng``).  The parameters live on ``device``."""
+    on the device).  ``batch["tokens"]`` is (B, S + 1) (next-token
+    prediction), or a stub frontend's ``batch["embeds"]`` (B, S, d) with
+    ``batch["labels"]`` (B, S); an encoder-decoder's batch adds
+    ``encoder_features``.  ``key`` is a host PRNG key (``core.prng``).  The
+    parameters live on ``device``."""
     check_supported(mcfg)
     dev = resolve_device(device)
 
-    def loss_fn(params, tokens, key):
+    def loss_fn(params, batch, key):
         nx = Numerics(tcfg.quant, key)
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        hidden, aux = forward(params, inputs, mcfg, nx, return_hidden=True)
+        if "labels" in batch:
+            inputs, labels = batch["embeds"], batch["labels"]
+        else:
+            inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        hidden, aux = forward(params, inputs, mcfg, nx,
+                              encoder_features=batch.get("encoder_features"),
+                              return_hidden=True)
         loss = chunked_cross_entropy(params, hidden, labels, mcfg, nx)
         return loss + tcfg.aux_loss_weight * aux, loss, aux
 
@@ -132,10 +154,10 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
                           torch.zeros((), dtype=torch.int32))
 
     def train_step(state: TrainState, batch: dict, key):
-        tokens = tokens_on(batch, dev)
+        batch = batch_on(batch, dev)
         nm = tcfg.microbatches
         if nm > 1:
-            b = tokens.shape[0]
+            b = next(iter(batch.values())).shape[0]
             if b % nm:
                 raise ValueError(f"batch {b} does not split into {nm} "
                                  f"microbatches")
@@ -147,14 +169,15 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
             loss = aux = 0.0
             for i in range(nm):
                 l_i, a_i, g_i = value_and_grad(
-                    loss_fn, state.params, tokens[i * mb:(i + 1) * mb],
+                    loss_fn, state.params,
+                    {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
                     fold_in(key, i))
                 grads = tree_map(torch.add, grads, g_i)
                 loss, aux = loss + l_i, aux + a_i
             grads = tree_map(lambda g: g / nm, grads)
             loss, aux = loss / nm, aux / nm
         else:
-            loss, aux, grads = value_and_grad(loss_fn, state.params, tokens,
+            loss, aux, grads = value_and_grad(loss_fn, state.params, batch,
                                               key)
         grads, ef = collectives.apply_compression(grads, tcfg.compression,
                                                   state.ef)

@@ -18,6 +18,8 @@ from repro.kernels.abfp_matmul import default_bk as j_default_bk
 from repro_torch.core import abfp as T
 from repro_torch.kernels.abfp_matmul import _hash_uniform, auto_bm, default_bk
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 
 def _f32(v):
     return np.float32(v)

@@ -35,17 +35,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import abfp_matmul_ref as oracle
 from repro_torch.models.layers import Numerics
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 GRAD_TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread is as fast alone and
-    does not oversubscribe the cores when test workers run side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(a):

@@ -54,6 +54,8 @@ from repro_torch.serving import (
 from repro_torch.serving.runners import state_tensors
 from repro_torch.serving.stream import Ticket
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 FLOAT = QuantConfig(mode="float")
 PACKED = QuantConfig(mode="abfp_packed", tile_width=32, gain=4.0,
                      noise_lsb=0.5)

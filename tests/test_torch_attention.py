@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.models.layers import chunked_attention
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 

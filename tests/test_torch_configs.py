@@ -14,6 +14,8 @@ import torch
 import repro.configs as jcfg
 import repro_torch.configs as tcfg
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 DTYPES = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
           jnp.dtype(jnp.float32): torch.float32}
 

@@ -55,6 +55,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 CFG = QuantConfig(mode="abfp_fused", tile_width=128, gain=8.0, noise_lsb=0.5)
 
 
@@ -243,9 +245,12 @@ def _flash_inputs(b, sq, skv, h, kh, d, dtype, seed):
                                    (4, 512, 512, 15, 5, 64),
                                    (2, 100, 100, 4, 4, 128),
                                    (1, 77, 200, 6, 3, 32),
-                                   (1, 200, 77, 6, 3, 32)])
+                                   (1, 200, 77, 6, 3, 32),
+                                   (2, 128, 1500, 8, 8, 64),
+                                   (1, 300, 300, 4, 4, 96)])
 def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
-    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/128;
+    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/96/128;
+    whisper's cross-attention (128 decoder queries over 1,500 frames);
     query lengths that are not whole 64-row blocks; Sq > Skv + window,
     where rows from Skv + window - 1 on see no key and take the plain
     version's mean of v over its live blocks.  bf16 runs on the tensor
@@ -489,13 +494,14 @@ def _kv_cache(b, s_max, kh, d, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("rep", [1, 3, 4])
 @pytest.mark.parametrize("b", [1, 2, 4])
 def test_cuda_decode_attention_split_kernel_matches_plain(b, rep, d, dtype):
     """Kernel 3 at lengths 0 (the uniform softmax over all S), 1, S and
     between, one launch per call (S = 512): within one bf16 ULP (rtol
-    2**-7, atol 1e-5) of its plain version."""
+    2**-7, atol 1e-5) of its plain version.  D = 96 (phi-3-vision) leaves
+    two lanes of each warp idle."""
     _need_cuda()
     kh, s_max = 2, 512
     kc, ks, vc, vs = _kv_cache(b, s_max, kh, d, seed=b * rep + d)
@@ -516,13 +522,14 @@ def test_cuda_decode_attention_split_kernel_matches_plain(b, rep, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96])
 @pytest.mark.parametrize("lengths", [(32768, 0), (1, 20000), (4097, 32768)])
-def test_cuda_decode_attention_long_cache_matches_plain(lengths, dtype):
+def test_cuda_decode_attention_long_cache_matches_plain(lengths, d, dtype):
     """S = 32,768 at rep 3 (past what an S-sized shared-memory design takes):
     split positions and the combine launch, within one bf16 ULP of the
     plain version."""
     _need_cuda()
-    b, kh, rep, d, s_max = 2, 2, 3, 64, 32768
+    b, kh, rep, s_max = 2, 2, 3, 32768
     kc, ks, vc, vs = _kv_cache(b, s_max, kh, d, seed=sum(lengths))
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, 1, kh * rep, d, device="cuda", generator=g).to(dtype)

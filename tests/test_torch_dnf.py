@@ -44,19 +44,11 @@ from repro_torch.models.convert import from_jax_params
 from repro_torch.optim import AdamW, constant
 from repro_torch.training import make_dnf_train_step
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 B, S = 2, 16
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread is as fast alone and
-    does not oversubscribe the cores when test workers run side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _key(seed):

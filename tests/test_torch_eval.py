@@ -56,6 +56,8 @@ from repro_torch.models import (
 from repro_torch.models.convert import from_jax_params
 from repro_torch.training import capture_histograms, evaluate_abfp
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 B, S = 2, 32
 ABFP_PASS_TOL = 0.5

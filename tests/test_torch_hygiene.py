@@ -21,6 +21,8 @@ from repro_torch.core.abfp import QuantConfig
 from repro_torch.models import init_decode_state, init_params
 from repro_torch.serving import ServingEngine
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""

@@ -57,6 +57,8 @@ from repro_torch.kernels.abfp_matmul import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 
 def bf16_bits(a) -> np.ndarray:
     """bf16 values (JAX array or torch tensor) as int32 bit patterns."""

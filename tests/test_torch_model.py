@@ -61,6 +61,8 @@ from repro_torch.models import (
 from repro_torch.models.convert import from_jax_params, to_tensor
 from repro_torch.models.layers import chunk_append_attend
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 B = 2
 TICKS = 16

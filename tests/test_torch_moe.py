@@ -75,6 +75,8 @@ from repro_torch.models.lm import calls_per_layer
 from repro_torch.serving.runners import state_tensors
 from repro_torch.training import TrainConfig, make_train_step
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "granite-moe-1b-a400m"
 ROUTE_TOL = 1e-6
 FLOAT_TOL = 1e-5
@@ -83,16 +85,6 @@ ABFP_CALL_ROWS = 6
 KEY_SEED = 3
 ABFP = dict(tile_width=32, gain=8.0, noise_lsb=0.5)
 T = 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread is as fast alone and
-    does not oversubscribe the cores when test workers run side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -48,6 +48,8 @@ from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import FaultConfig, Request, ServingEngine
 from repro_torch.serving.runners import DecoderRunner, runner_for
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "granite-moe-1b-a400m"
 FLOAT_SEEDS = (0, 1)
 FUSED_SEED = 7
@@ -56,16 +58,6 @@ PROMPT_LENS = (3, 30, 17, 9, 26, 5)
 MAX_NEW = (6, 4, 8, 5, 3, 7)
 MAX_LEN = 48
 CASES = [("float", s) for s in FLOAT_SEEDS] + [("abfp_fused", FUSED_SEED)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread is as fast alone and
-    does not oversubscribe the cores when test workers run side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _workload(cls, vocab):

@@ -22,6 +22,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.models import init_params as j_init_params
@@ -30,6 +31,8 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch.configs import smoke_config
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import Request, ServingEngine
+
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
 
 pytestmark = [pytest.mark.overload]
 

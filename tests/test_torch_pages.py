@@ -62,6 +62,8 @@ from repro_torch.serving.pages import (
     prefix_key,
 )
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 
 # ---------------------------------------------------------------------------

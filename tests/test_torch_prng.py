@@ -9,9 +9,12 @@ every matmul is a function of this chain.  Exact equality.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.kernels.ops import _key_to_seed as j_key_to_seed
 from repro_torch.core import prng
+
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
 
 
 def _jdata(key):

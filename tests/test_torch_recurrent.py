@@ -74,10 +74,13 @@ from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.faults import FaultConfig
 from repro_torch.serving.runners import (
     DecoderRunner,
+    EncDecRunner,
     RecurrentRunner,
     runner_for,
     state_tensors,
 )
+
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
 
 FLOAT_TOL = 1e-5
 ABFP_ROWS = 1
@@ -480,10 +483,13 @@ def test_runner_for_mapping():
     for arch, cls in (("recurrentgemma-2b", RecurrentRunner),
                       ("xlstm-350m", RecurrentRunner),
                       ("smollm-360m", DecoderRunner),
-                      ("granite-moe-1b-a400m", DecoderRunner)):
+                      ("granite-moe-1b-a400m", DecoderRunner),
+                      ("phi-3-vision-4.2b", DecoderRunner),
+                      ("whisper-base", EncDecRunner)):
         assert type(runner_for(smoke_config(arch))) is cls, arch
     with pytest.raises(NotImplementedError):
-        runner_for(smoke_config("whisper-base"))
+        runner_for(dataclasses.replace(smoke_config("whisper-base"),
+                                       frontend="video_stub"))
 
 
 def test_recurrent_runner_costs_no_pages_and_never_pages():

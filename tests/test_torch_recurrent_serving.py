@@ -31,6 +31,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.core.abfp import QuantConfig as JQuantConfig
@@ -43,6 +44,8 @@ from repro_torch.core.abfp import QuantConfig
 from repro_torch.launch import serve
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import Request, ServingEngine
+
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
 
 ENGINE_SEEDS = {"recurrentgemma-2b": 0, "xlstm-350m": 2}
 CHUNKS = (16, 64)

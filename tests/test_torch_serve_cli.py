@@ -16,11 +16,14 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.launch import serve as j_serve
 from repro_torch.configs import smoke_config
 from repro_torch.launch import serve
+
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
 
 ARCH = "smollm-360m"
 

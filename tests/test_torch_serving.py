@@ -36,6 +36,8 @@ from repro_torch.models import init_params
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import Request, ServingEngine, get_scheduler
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 ENGINE_SEED = 4
 PROMPT_LENS = (3, 40, 17, 9, 26, 5)
@@ -217,11 +219,15 @@ def test_deadlines_expire_queued_and_in_flight(tiny):
 
 
 def test_unported_arch_raises():
-    """Encoder-decoder configs wait for a later slice (the recurrent
-    families and MoE are served: ``tests/test_torch_recurrent.py``,
-    ``tests/test_torch_moe.py``)."""
+    """Every registered family is ported (encoder-decoders:
+    ``tests/test_torch_encdec.py``); a frontend the port has no stub for
+    raises."""
     with pytest.raises(NotImplementedError):
-        init_params(0, smoke_config("whisper-base"), device="cpu")
+        init_params(0, dataclasses.replace(smoke_config("whisper-base"),
+                                           frontend="video_stub"),
+                    device="cpu")
+    params = init_params(0, smoke_config("whisper-base"), device="cpu")
+    assert "cross" in params["layers"][0] and "encoder" in params
     params = init_params(0, smoke_config("granite-moe-1b-a400m"),
                          device="cpu")
     assert "moe" in params["layers"][0]

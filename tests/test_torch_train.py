@@ -61,18 +61,10 @@ from repro_torch.training import (
     make_train_step,
 )
 
+torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
+
 ARCH = "smollm-360m"
 QAT = dict(mode="abfp_ref", tile_width=32, gain=8.0, noise_lsb=0.5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: one intra-op thread is as fast alone and
-    does not oversubscribe the cores when test workers run side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _key(seed):
