@@ -234,6 +234,45 @@ Phases (any failure exits non-zero and prints no result line):
                ``abfp_fused`` graphs run and kernel 3 at D = 96 on its
                caches within its bar, and kernel 5 at D = 96 in bf16 and
                f32, timed.
+ 16. fleet  — the multi-model fleet (see ``fleet_phase``): (a) one
+               ``ServingEngine(models=...)`` over full-width smollm-360m,
+               whisper-base (1,500 stub frames per request from
+               ``attach_features``), xlstm-350m and recurrentgemma-2b as
+               ``--archs ... --full --fused`` configures them, capacity 8
+               (2 slots per lane), max_len 448 for every lane, 16 greedy
+               requests routed round-robin (phase 4's prompt draws folded
+               into each lane's vocabulary), served eagerly, with graphs
+               (blocking) and with graphs + overlap (one shared delivery
+               stream, inflight 4): 16 of 16, every lane's conservation,
+               ``ticks`` the lanes' sum, every lane's passes and greedy
+               streams those of its requests served alone by a
+               single-model engine (graphs, blocking, 2 slots), and the
+               kernel launches the sum of those four single-model runs';
+               per-lane TTFT / TPOT p50, tokens/s, the overlapped lanes'
+               tick utilization; (b) a paged fleet, smollm-360m as ``dec``
+               (4 slots on 6 pages of 128; 8 requests of 200 + 56 tokens
+               need 2 pages each) beside xlstm-350m as ``rec`` (2 slots):
+               ``dec`` paged and preempted at least once, ``rec`` without
+               a pool, never preempted, with its single-model streams;
+               12 of 12, conservation and ``preempt_ok``.
+ 17. family faults — fault plans on the MoE, hybrid and encoder-decoder
+               models (see ``family_fault_phase``): granite-moe-1b-a400m,
+               recurrentgemma-2b and whisper-base each serve their phase's
+               8 requests (14, 13, 15) at capacity 4 under an explicit
+               plan on sites the dense decoder lacks (a stuck column pair
+               on every expert's ``moe/wo`` and drifted ``moe/wi`` tiles;
+               ``groups/1/rglru/w_in``, ``groups/2/attn/wq`` and the
+               remainder layer's ``extra/1/rglru/w_in``; the encoder's
+               ``mlp/wi`` and the cross ``wk``), with recovery on, eagerly
+               and with graphs: 8 of 8, conservation, every event's site
+               detected and repaired (its columns remapped, its tiles
+               re-quantized), after each run every site bit-equal to the
+               clean pack with ``kcodes == kernel_layout(codes)`` and each
+               ``PackedQKV`` a fresh concatenation, no served tensor
+               moved, eager and graphs equal in counters, requests and
+               streams; a rate-0 plan with graphs gives the family phase's
+               streams and launches; each model's detection round (host
+               ms, device busy ms) and reshard time.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -351,6 +390,41 @@ WHISPER_FRAMES = 1500
 WHISPER_MAX_LEN = 448
 WHISPER_PAGE = 32
 WHISPER_POOL = 8
+# Phase 16 (the fleet): the JAX fleet test's four lanes, the total slot
+# count (2 per lane), 16 requests routed round-robin; 16b's paged fleet:
+# 4 decoder slots whose 8 requests of 200 + 56 tokens need 2 pages of 128
+# each, on a 6-page pool, beside 2 fixed-state slots.
+FLEET_ARCHS = ("smollm-360m", "whisper-base", "xlstm-350m",
+               "recurrentgemma-2b")
+FLEET_CAPACITY = 8
+FLEET_REQUESTS = 16
+FLEET_INFLIGHT = 4
+PAGED_FLEET_SPLIT = {"dec": 4, "rec": 2}
+PAGED_FLEET_PAGE = 128
+PAGED_FLEET_POOL = 6
+PAGED_FLEET_PROMPT, PAGED_FLEET_NEW = 200, 56
+# Phase 17 (faults on every family): each model's explicit plan on sites
+# the dense decoder lacks (an MoE expert stack, RG-LRU and windowed
+# attention groups, a remainder layer, the encoder, the cross-attention).
+FAMILY_FAULTS = {
+    "granite-moe-1b-a400m": (
+        (3, "stuck_col", "groups/0/moe/wo", {"cols": (17, 900)}),
+        (6, "scale_drift", "groups/0/moe/wi",
+         {"tiles": ((0, 5), (7, 400)), "factors": (1.2, 0.8)})),
+    "recurrentgemma-2b": (
+        (3, "stuck_col", "groups/1/rglru/w_in", {"cols": (3, 2000)}),
+        (6, "scale_drift", "groups/2/attn/wq",
+         {"tiles": ((1, 9), (19, 2500)), "factors": (0.85, 1.15)}),
+        (9, "stuck_col", "extra/1/rglru/w_in", {"cols": (11,)})),
+    "whisper-base": (
+        (3, "stuck_col", "encoder/layers/mlp/wi", {"cols": (5, 1900)}),
+        (6, "scale_drift", "groups/0/cross/wk",
+         {"tiles": ((0, 7), (3, 300)), "factors": (1.2, 0.8)})),
+}
+# The served workloads of phases 13-15 (prompts, features, the graphs
+# run's streams and launches), which phase 17 serves again under fault
+# plans and under a rate-0 plan.
+WORKLOADS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -1815,6 +1889,10 @@ def recurrent_phase(dev, engine_cls, short_lens, rows: list) -> dict:
                 gc.collect()
         res["runs"] = runs
         res["prompt_lens"] = [len(r.prompt) for r in reqs]
+        WORKLOADS[arch] = {"prompts": [list(r.prompt) for r in reqs],
+                           "features": None, "max_len": MAX_LEN,
+                           "streams": want,
+                           "launches": runs["graphs"][0]["launches"]}
 
         # Replay against eager: every pass shape from the eager run's final
         # state, two keys each, by replay and eagerly.
@@ -2081,10 +2159,14 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     # before its timed window, each shape timed), the launch counts zeroed
     # just before the run and read just after, and every pass's launches
     # held to ``per_tick`` / ``per_prefill``.
-    runs, _, geng = serve_in_turns(
+    runs, want, geng = serve_in_turns(
         eng, fresh, lambda: [Request(uid=r.uid, prompt=list(r.prompt),
                                      max_new_tokens=MAX_NEW) for r in reqs],
         shapes, {"decode": per_tick, "prefill": per_prefill}, "phase 14")
+    WORKLOADS[mcfg.name] = {"prompts": [list(r.prompt) for r in reqs],
+                            "features": None, "max_len": MAX_LEN,
+                            "streams": want,
+                            "launches": runs["graphs"][0]["launches"]}
     res["runs"] = runs
     res["prompt_lens"] = [len(r.prompt) for r in reqs]
     res["per_decode_tick"], res["per_prefill_pass"] = per_tick, per_prefill
@@ -2498,6 +2580,10 @@ def encdec_phase(dev, engine_cls, lens, rows: list) -> dict:
     runs, want, geng = serve_in_turns(eng, fresh, requests,
                                       shapes + [("admit",)], per_pass,
                                       "phase 15")
+    WORKLOADS[mcfg.name] = {"prompts": [list(p_) for p_ in prompts],
+                            "features": feats, "max_len": WHISPER_MAX_LEN,
+                            "streams": want,
+                            "launches": runs["graphs"][0]["launches"]}
     res["runs"] = runs
     res["prompt_lens"] = list(lens)
     res["per_pass"] = per_pass
@@ -2934,6 +3020,550 @@ def encdec_phase(dev, engine_cls, lens, rows: list) -> dict:
             row["noncausal"] = k5
             row["d96"] = k5_96
             row["max_abs_err"] = max(row["max_abs_err"], e5)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def fleet_phase(dev, engine_cls, rows: list, card: str) -> dict:
+    """Phase 16: the multi-model fleet at full width (see the module
+    docstring).  ``engine_cls`` is phase 4's NaN-checking engine, used for
+    the single-model runs the fleet is held to.  Annotates kernel rows
+    with the fleet run's launches; returns the measurements."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import init_params
+    from repro_torch.serving import (
+        EncDecRunner,
+        FleetEngine,
+        Request,
+        ServingEngine,
+        runner_for,
+    )
+
+    t_phase = time.perf_counter()
+    res = {}
+    args = serve_cli.build_parser().parse_args(
+        ["--archs", ",".join(FLEET_ARCHS), "--full", "--fused",
+         "--capacity", str(FLEET_CAPACITY), "--max-len",
+         str(WHISPER_MAX_LEN), "--max-new", str(MAX_NEW), "--seed",
+         str(SEED)])
+    archs = serve_cli.resolve_archs(args)
+    quant = serve_cli.quant_config(args)
+    cfgs = {a: serve_cli.model_config(a, args) for a in archs}
+    if quant.mode != "abfp_fused" or not all(c.kv_quant
+                                             for c in cfgs.values()):
+        fail(f"phase 16: unexpected serving config {quant}")
+    # Whisper's lane takes its 30 s window of stub frames.
+    runners = {a: EncDecRunner(c, enc_len=WHISPER_FRAMES)
+               if c.is_encoder_decoder else runner_for(c)
+               for a, c in cfgs.items()}
+    # The CLI's workload: phase 4's prompt draws routed round-robin over
+    # the lanes, folded into each lane's vocabulary, the whisper lane's
+    # requests given ``attach_features``' stub frames keyed (seed, uid).
+    rng = np.random.default_rng(SEED)
+    protos = []
+    for i in range(FLEET_REQUESTS):
+        plen = int(rng.integers(16, 101))
+        prompt = rng.integers(1, cfgs[archs[0]].vocab_size, plen).tolist()
+        name = archs[i % len(archs)]
+        vmax = cfgs[name].vocab_size
+        protos.append(Request(uid=i, prompt=[t % (vmax - 1) + 1
+                                             for t in prompt],
+                              max_new_tokens=MAX_NEW, model=name))
+    serve_cli.attach_features(protos, runners, SEED)
+
+    def requests(names=archs):
+        return [Request(uid=r.uid, prompt=list(r.prompt),
+                        max_new_tokens=r.max_new_tokens, model=r.model,
+                        features=r.features)
+                for r in protos if r.model in names]
+
+    def finished(fin, want, what, lane_arch=None):
+        """Every request of ``want`` finished with all its tokens, each in
+        its lane's vocabulary (``lane_arch`` maps a lane to its arch)."""
+        arch_of = lane_arch or {}
+        if len(fin) != len(want) or any(
+                not r.done or len(r.generated) != r.max_new_tokens
+                for r in fin):
+            fail(f"{what}: {len(fin)} of {len(want)} requests finished")
+        if any(not 0 <= t < cfgs[arch_of.get(r.model, r.model)].vocab_size
+               for r in fin for t in r.generated):
+            fail(f"{what}: a token outside its lane's vocabulary")
+        return {r.uid: r.generated for r in fin}
+
+    # 16a, the reference: each lane's requests served alone by a
+    # single-model engine (graphs, blocking) at the lane's capacity; the
+    # first engine of each model packs the weights every later engine
+    # shares.
+    lane_slots = FLEET_CAPACITY // len(archs)
+    packed, solo = {}, {}
+    for a in archs:
+        t0 = time.perf_counter()
+        params = init_params(SEED, cfgs[a], device=dev)
+        e = engine_cls(params, cfgs[a], runner=runners[a],
+                       capacity=lane_slots, max_len=WHISPER_MAX_LEN,
+                       quant=quant, seed=SEED, device=dev)
+        del params
+        packed[a] = e.params
+        e.warmup()      # a capture's warm-up run launches kernels too
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        rs = requests((a,))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = e.run(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        solo[a] = {"streams": finished(fin, rs, f"phase 16a solo {a}"),
+                   "launches": ops.launch_counts(), "ticks": e.ticks,
+                   "wall_s": wall, "built_and_captured_s": built}
+        log(f"phase 16a solo {a}: {len(fin)} requests at capacity "
+            f"{lane_slots}, {e.ticks} passes in {wall:.3f}s, launches "
+            f"{solo[a]['launches']} (built, packed and captured in "
+            f"{built:.1f}s)")
+        e.close()
+        del e
+        gc.collect()
+    want_counts = {k: sum(solo[a]["launches"][k] for a in archs)
+                   for k in solo[archs[0]]["launches"]}
+
+    def fleet(mode, **kw):
+        mode_kw = {"eager": dict(_graphs=False), "graphs": {},
+                   "overlap": dict(clock=time.perf_counter, overlap=True,
+                                   inflight=FLEET_INFLIGHT)}[mode]
+        return ServingEngine(
+            models={a: (packed[a], cfgs[a], runners[a]) for a in archs},
+            capacity=FLEET_CAPACITY, max_len=WHISPER_MAX_LEN, quant=quant,
+            seed=SEED, device=dev, **mode_kw, **kw)
+
+    runs = {}
+    for mode in ("eager", "graphs", "overlap"):
+        what = f"phase 16a fleet [{mode}]"
+        eng = fleet(mode)
+        if not isinstance(eng, FleetEngine) or {
+                n: l_.capacity for n, l_ in eng.lanes.items()} != {
+                a: lane_slots for a in archs}:
+            fail(f"{what}: not a fleet of {lane_slots} slots per lane")
+        if mode == "overlap" and not all(
+                l_._stream is eng._shared_stream
+                for l_ in eng.lanes.values()):
+            fail(f"{what}: the lanes do not share one delivery stream")
+        capture = 0.0
+        if mode != "eager":
+            t0 = time.perf_counter()
+            eng.warmup()
+            torch.cuda.synchronize()
+            capture = time.perf_counter() - t0
+        rs = requests()
+        if mode == "overlap":
+            # The wall clock's arrivals: now, after the captures (the
+            # fleet's clock was read when it was built).
+            base = time.perf_counter()
+            for r in rs:
+                r.arrival_time = base
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fin = eng.run(rs)
+        eng.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        streams = finished(fin, rs, what)
+        cons = eng.conservation()
+        for a in archs:
+            c, lane = cons[a], eng.lanes[a]
+            if not c["ok"] or c["completed"] != FLEET_REQUESTS // len(archs):
+                fail(f"{what}: lane {a} conservation {c}")
+            if lane.ticks != solo[a]["ticks"]:
+                fail(f"{what}: lane {a} ran {lane.ticks} passes, alone "
+                     f"{solo[a]['ticks']}")
+            bad = [u for u, v in solo[a]["streams"].items()
+                   if streams[u] != v]
+            if bad:
+                fail(f"{what}: lane {a}'s streams of {bad} differ from the "
+                     f"single-model run's")
+        if eng.ticks != sum(l_.ticks for l_ in eng.lanes.values()):
+            fail(f"{what}: ticks {eng.ticks} are not the lanes' sum")
+        if counts != want_counts:
+            fail(f"{what}: launched {counts}, the single-model runs "
+                 f"{want_counts}")
+        summ = eng.summary()
+        toks = sum(len(r.generated) for r in fin)
+        lanes = {a: {"ttft_p50": summ[a]["ttft"]["p50"],
+                     "tpot_p50": summ[a]["tpot"]["p50"],
+                     "passes": eng.lanes[a].ticks,
+                     "tick_utilization":
+                         eng.lanes[a].metrics.tick_utilization()["value"]}
+                 for a in archs}
+        runs[mode] = {"wall_s": wall, "tokens": toks,
+                      "tokens_per_s": toks / wall, "passes": eng.ticks,
+                      "capture_s": capture, "launches": counts,
+                      "lanes": lanes}
+        unit = "s" if mode == "overlap" else "ticks"
+        log(f"{what}: {len(fin)}/{len(rs)} requests, {toks} tokens in "
+            f"{wall:.3f}s ({toks / wall:.1f} tokens/s), {eng.ticks} passes "
+            f"(the lanes' sum; each lane's equal to its single-model "
+            f"run's), every lane's streams equal to its single-model run's, "
+            f"launches {counts} = the four single-model runs' sum; captured "
+            f"in {capture:.1f}s; per lane TTFT / TPOT p50 ({unit}) "
+            + ", ".join(f"{a} {v['ttft_p50']:.4g} / {v['tpot_p50']:.4g}"
+                        for a, v in lanes.items())
+            + ("; tick_utilization " + ", ".join(
+                f"{a} {v['tick_utilization']:.4f}"
+                for a, v in lanes.items()) if mode == "overlap" else "")
+            + f"; {card}")
+        del eng, fin
+        gc.collect()
+    res["solo"] = {a: {k: v for k, v in r_.items() if k != "streams"}
+                   for a, r_ in solo.items()}
+    res["runs"] = runs
+
+    # 16b. A paged fleet: the decoder lane on a pool too small for its
+    # demand (it preempts), the fixed-state lane beside it with no pool
+    # (never preempted: its streams are its 16a single-model run's).
+    t_b = time.perf_counter()
+    lanes = {"dec": "smollm-360m", "rec": "xlstm-350m"}
+    rng = np.random.default_rng(SEED + 23)
+    vd = cfgs["smollm-360m"].vocab_size
+    dec_reqs = [Request(uid=200 + i, prompt=rng.integers(
+                    1, vd, PAGED_FLEET_PROMPT).tolist(),
+                    max_new_tokens=PAGED_FLEET_NEW, model="dec")
+                for i in range(8)]
+    rec_reqs = [dataclasses.replace(r, model="rec", generated=[])
+                for r in requests(("xlstm-350m",))]
+    eng = ServingEngine(
+        models={n: (packed[a], cfgs[a], runners[a])
+                for n, a in lanes.items()},
+        capacity=sum(PAGED_FLEET_SPLIT.values()),
+        model_split={"dec": PAGED_FLEET_SPLIT["dec"]},
+        max_len=WHISPER_MAX_LEN, quant=quant, seed=SEED, device=dev,
+        paged=True, page_size=PAGED_FLEET_PAGE, pool_pages=PAGED_FLEET_POOL)
+    dec, rec = eng.lanes["dec"], eng.lanes["rec"]
+    if not (dec.paged and dec.pool is not None
+            and dec.pool.num_pages == PAGED_FLEET_POOL
+            and dec.capacity == PAGED_FLEET_SPLIT["dec"]):
+        fail("phase 16b: the decoder lane is not paged on the whole pool")
+    if rec.paged or rec.pool is not None or rec.preemption:
+        fail("phase 16b: the fixed-state lane has a pool")
+    eng.warmup()
+    torch.cuda.synchronize()
+    rs = dec_reqs + rec_reqs
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin = eng.run(rs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    streams = finished(fin, rs, "phase 16b", lanes)
+    cons = eng.conservation()
+    if not (cons["dec"]["ok"] and cons["dec"]["preempt_ok"]
+            and cons["rec"]["ok"]):
+        fail(f"phase 16b: conservation {cons}")
+    if cons["dec"]["preempted"] < 1 or cons["rec"]["preempted"] != 0:
+        fail(f"phase 16b: preemptions dec {cons['dec']['preempted']}, rec "
+             f"{cons['rec']['preempted']}")
+    bad = [r.uid for r in rec_reqs
+           if streams[r.uid] != solo["xlstm-350m"]["streams"][r.uid]]
+    if bad:
+        fail(f"phase 16b: the fixed-state lane's streams of {bad} differ "
+             f"from its single-model run's")
+    res["paged"] = {"wall_s": wall, "passes": eng.ticks,
+                    "launches": counts,
+                    "dec": {k: cons["dec"][k] for k in (
+                        "completed", "preempted", "resumed")},
+                    "rec": {k: cons["rec"][k] for k in (
+                        "completed", "preempted")},
+                    "pool_pressure_max":
+                        dec.metrics.summary()["pool"]["pressure_max"],
+                    "seconds": time.perf_counter() - t_b}
+    log(f"phase 16b: paged fleet (dec: smollm-360m, "
+        f"{PAGED_FLEET_SPLIT['dec']} slots on {PAGED_FLEET_POOL} pages of "
+        f"{PAGED_FLEET_PAGE}; rec: xlstm-350m, {PAGED_FLEET_SPLIT['rec']} "
+        f"slots, no pool) with graphs: {len(fin)}/{len(rs)} requests in "
+        f"{wall:.3f}s, {eng.ticks} passes; dec preempted "
+        f"{cons['dec']['preempted']} times (resumed "
+        f"{cons['dec']['resumed']}, preempt_ok), rec 0 with its "
+        f"single-model streams; launches {counts}")
+    del eng, dec, rec, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g_ = runs["graphs"]["launches"]
+    for row in rows:
+        row["launches_fleet_serve"] = g_.get(row["name"], 0)
+        row["launches_paged_fleet_serve"] = counts.get(row["name"], 0)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def family_fault_phase(dev, engine_cls, rows: list, card: str) -> dict:
+    """Phase 17: fault plans on every model family at full width (see the
+    module docstring), on the workloads phases 13-15 served
+    (``WORKLOADS``).  ``engine_cls`` is phase 4's NaN-checking engine.
+    Annotates kernel rows with the graph runs' launches; returns the
+    measurements."""
+    import torch
+
+    from repro_torch.core.abfp import kernel_layout
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import PackedQKV, concat_qkv
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import init_params
+    from repro_torch.serving import (
+        EncDecRunner,
+        FaultConfig,
+        FaultPlan,
+        Request,
+        runner_for,
+    )
+    from repro_torch.serving import faults as faultlib
+    from repro_torch.serving.faults import FaultEvent
+
+    t_phase = time.perf_counter()
+    res = {}
+
+    class FaultEngine(engine_cls):
+        """Times each detection round and each reshard to a synchronized
+        device."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.round_ms, self.reshard_ms = [], []
+
+        def _detect_and_recover(self):
+            t0 = time.perf_counter()
+            super()._detect_and_recover()
+            torch.cuda.synchronize()
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def _reshard_and_requeue(self):
+            t0 = time.perf_counter()
+            super()._reshard_and_requeue()
+            torch.cuda.synchronize()
+            self.reshard_ms.append((time.perf_counter() - t0) * 1e3)
+
+    repaired = []
+    real = (faultlib.repair_stuck, faultlib.repair_drift)
+
+    def recording(fn, kind):
+        def wrapped(params, clean, path, what):
+            repaired.append((kind, path, tuple(what)))
+            return fn(params, clean, path, what)
+        return wrapped
+
+    def i16(t):
+        return t.view(torch.int16)
+
+    def ptrs(p, sites):
+        out = []
+        for site in sites:
+            for leaf in faultlib.site_leaves(p, site.path):
+                out += [leaf.codes.data_ptr(), leaf.scales.data_ptr(),
+                        leaf.kcodes.data_ptr()]
+        return out
+
+    def qkvs(p):
+        return [lp["attn"]["qkv"] for lp in p["layers"]
+                if isinstance(lp.get("attn", {}).get("qkv"), PackedQKV)]
+
+    def check_clean(p, golden, sites, what):
+        """Every site equals the clean pack byte for byte, ``kcodes ==
+        kernel_layout(codes)``, each ``PackedQKV`` a fresh ``concat_qkv``
+        of its pieces."""
+        for site in sites:
+            for a, b in zip(faultlib.site_leaves(p, site.path),
+                            faultlib.site_leaves(golden, site.path)):
+                if not (torch.equal(a.codes, b.codes)
+                        and torch.equal(i16(a.scales), i16(b.scales))
+                        and torch.equal(a.kcodes, kernel_layout(a.codes))):
+                    fail(f"{what}: {site.path} differs from the clean pack")
+        for q in qkvs(p):
+            fresh = concat_qkv(q.pws, quant)
+            if not (torch.equal(q.kcodes, fresh.kcodes)
+                    and torch.equal(i16(q.scales), i16(fresh.scales))):
+                fail(f"{what}: a PackedQKV differs from its pieces")
+
+    for arch, events in FAMILY_FAULTS.items():
+        t_arch = time.perf_counter()
+        wl = WORKLOADS[arch]
+        args = serve_cli.build_parser().parse_args(
+            ["--arch", arch, "--full", "--fused", "--capacity",
+             str(CAPACITY), "--max-len", str(wl["max_len"]), "--max-new",
+             str(MAX_NEW), "--seed", str(SEED)])
+        mcfg, quant = serve_cli.model_and_quant(args)
+        runner = (EncDecRunner(mcfg, enc_len=WHISPER_FRAMES)
+                  if mcfg.is_encoder_decoder else runner_for(mcfg))
+        params = init_params(SEED, mcfg, device=dev)
+        kw = dict(runner=runner, capacity=CAPACITY, max_len=wl["max_len"],
+                  quant=quant, seed=SEED, device=dev,
+                  detect_every=FAULT_DETECT_EVERY)
+        first = FaultEngine(params, mcfg, **kw)      # packs the weights
+        del params
+        packed = first.params
+        del first
+        sites = faultlib.fault_sites(packed)
+        by_path = {s_.path: s_ for s_ in sites}
+        for _, kind, path, x in events:
+            s_ = by_path.get(path)
+            if s_ is None or any(c >= s_.n_cols for c in x.get("cols", ())) \
+                    or any(t >= s_.n_tiles or j >= s_.n_cols
+                           for t, j in x.get("tiles", ())):
+                fail(f"phase 17 {arch}: no site {path} for {kind} {x}")
+        golden = faultlib.clone_sites(packed)
+        n_leaves = sum(len(faultlib.site_leaves(packed, s_.path))
+                       for s_ in sites)
+        plan = FaultPlan([FaultEvent(t, k, p_, **x)
+                          for t, k, p_, x in events], FaultConfig(rate=0.01))
+
+        def requests():
+            return [Request(uid=i, prompt=list(p_), max_new_tokens=MAX_NEW,
+                            features=None if wl["features"] is None
+                            else wl["features"][i])
+                    for i, p_ in enumerate(wl["prompts"])]
+
+        def run(mode, faults):
+            planned = isinstance(faults, FaultPlan)
+            what = (f"phase 17 {arch} [{mode}, "
+                    f"{'plan' if planned else 'rate 0'}]")
+            e = FaultEngine(packed, mcfg, faults=faults,
+                            **({"_graphs": False} if mode == "eager"
+                               else {}), **kw)
+            before = ptrs(e.params, sites) + [
+                t.data_ptr() for q in qkvs(e.params)
+                for t in (q.kcodes, q.scales)]
+            if mode != "eager":
+                e.warmup()
+            torch.cuda.synchronize()
+            rs = requests()
+            repaired.clear()
+            faultlib.repair_stuck = recording(real[0], "stuck_col")
+            faultlib.repair_drift = recording(real[1], "scale_drift")
+            try:
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                fin = e.run(rs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = ops.launch_counts()
+            finally:
+                faultlib.repair_stuck, faultlib.repair_drift = real
+            if len(fin) != len(rs) or any(
+                    not r.done or len(r.generated) != MAX_NEW for r in fin):
+                fail(f"{what}: {len(fin)} of {len(rs)} requests finished")
+            cons = e.metrics.conservation()
+            if not cons["ok"]:
+                fail(f"{what}: conservation {cons}")
+            f = dict(e.metrics.faults)
+            if planned:
+                # Every event's site was detected and repaired: its stuck
+                # columns remapped, its drifted tiles re-quantized.
+                for _, kind, path, x in events:
+                    got = [w for k, p_, w in repaired
+                           if k == kind and p_ == path]
+                    want = (tuple(x["cols"]) if kind == "stuck_col"
+                            else tuple(x["tiles"]))
+                    if not got or not set(want) <= set().union(*got):
+                        fail(f"{what}: {kind} on {path} was not detected "
+                             f"and repaired ({repaired}; counters {f}, "
+                             f"{e.ticks} passes)")
+                if f["injected"] != len(events) or f["detected"] < 1:
+                    fail(f"{what}: counters {f}")
+            check_clean(e.params, golden, sites, f"{what}, after the run")
+            after = ptrs(e.params, sites) + [
+                t.data_ptr() for q in qkvs(e.params)
+                for t in (q.kcodes, q.scales)]
+            if after != before:
+                fail(f"{what}: a served tensor moved")
+            s = e.metrics.summary()
+            out = {"streams": {r.uid: r.generated for r in fin},
+                   "faults": f, "requests": s["requests"], "wall_s": wall,
+                   "passes": e.ticks, "launches": counts,
+                   "round_ms": list(e.round_ms)}
+            log(f"{what}: {len(fin)}/{len(rs)} requests in {wall:.3f}s, "
+                f"{e.ticks} passes, faults {f}, requests requeued "
+                f"{s['requests']['requeued']}, corrupted "
+                f"{s['requests']['corrupted']}, repairs {repaired}, "
+                f"detection rounds {[round(v, 3) for v in e.round_ms]} ms, "
+                f"launches {counts}; after it every site equals the clean "
+                f"pack and no served tensor moved")
+            if mode == "graphs" and planned:
+                # A reshard on the idle engine: every site re-programmed
+                # from the spare and the state reset, to a synchronized
+                # device.
+                e._lost_shard = 0
+                e._reshard_and_requeue()
+                out["reshard_ms"] = list(e.reshard_ms)
+                check_clean(e.params, golden, sites,
+                            f"{what}, after a reshard")
+            e.close()
+            del e
+            gc.collect()
+            return out
+
+        runs = {m: run(m, plan) for m in ("eager", "graphs")}
+        if (runs["graphs"]["streams"] != runs["eager"]["streams"]
+                or runs["graphs"]["faults"] != runs["eager"]["faults"]
+                or runs["graphs"]["requests"] != runs["eager"]["requests"]):
+            fail(f"phase 17 {arch}: eager and graphs differ: "
+                 f"{runs['eager']['faults']} / {runs['graphs']['faults']}")
+        if runs["graphs"]["requests"]["requeued"] < 1:
+            fail(f"phase 17 {arch}: no request was requeued")
+        zero = run("graphs", FaultConfig(rate=0.0))
+        if zero["streams"] != wl["streams"] or \
+                zero["launches"] != wl["launches"]:
+            fail(f"phase 17 {arch}: a rate-0 plan gave other streams or "
+                 f"launches ({zero['launches']}) than the family phase's "
+                 f"({wl['launches']})")
+
+        # One detection round on the clean array: host time (every leaf's
+        # fingerprint on the device, one copy, the verdicts on the host)
+        # and the profiler's device time.
+        base = faultlib.fingerprint_round(packed, sites)
+
+        def detect_round():
+            c = faultlib.fingerprint_round(packed, sites)
+            return [faultlib.detect_site(base[s_.path], c[s_.path])
+                    for s_ in sites]
+
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not all(d.clean for d in detect_round()):
+                fail(f"phase 17 {arch}: the clean array reads as faulted")
+            host.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_pass(dev, detect_round,
+                            f"phase 17 {arch} detection round")
+        busy = None if prof is None else prof["device_busy_ms"]
+        res[arch] = {
+            "sites": len(sites), "leaves": n_leaves,
+            "runs": {m: {k: v for k, v in r_.items() if k != "streams"}
+                     for m, r_ in runs.items()},
+            "rate0": {k: v for k, v in zero.items() if k != "streams"},
+            "detect_round_host_ms": host,
+            "detect_round_device_busy_ms": busy,
+            "reshard_ms": runs["graphs"]["reshard_ms"],
+            "seconds": time.perf_counter() - t_arch}
+        log(f"phase 17 {arch}: the plan eagerly and with graphs: 8/8, "
+            f"conservation, every event detected and repaired, equal "
+            f"streams and counters; a rate-0 plan gives the family phase's "
+            f"streams and launches; one detection round ({len(sites)} "
+            f"sites, {n_leaves} leaves, one device-to-host copy) "
+            f"{statistics.median(host):.3f} ms host (of "
+            f"{[round(v, 3) for v in host]}), device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}; "
+            f"reshard {[round(v, 3) for v in res[arch]['reshard_ms']]} ms; "
+            f"{res[arch]['seconds']:.1f}s; {card}")
+        del packed, golden, base
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for row in rows:
+        row["launches_family_faults"] = sum(
+            r_["runs"]["graphs"]["launches"].get(row["name"], 0)
+            for r_ in res.values())
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
@@ -4128,6 +4758,18 @@ def main() -> None:
     enc = encdec_phase(dev, CheckedEngine, [len(r.prompt) for r in reqs],
                        rows)
     log(f"encdec phase in {enc['seconds']:.1f}s: {json.dumps(enc)}")
+
+    # 16. fleet: four model families as lanes of one engine ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    flt = fleet_phase(dev, CheckedEngine, rows, card)
+    log(f"fleet phase in {flt['seconds']:.1f}s: {json.dumps(flt)}")
+
+    # 17. family faults: fault plans on the MoE, hybrid and enc-dec models -
+    gc.collect()
+    torch.cuda.empty_cache()
+    ffl = family_fault_phase(dev, CheckedEngine, rows, card)
+    log(f"family fault phase in {ffl['seconds']:.1f}s: {json.dumps(ffl)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

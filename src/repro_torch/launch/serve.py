@@ -46,6 +46,19 @@ fault is live the engine fingerprints the array and repairs it, unless
 ``--no-recovery`` (the degraded-mode baseline for the goodput
 comparison).
 
+``--archs a,b,c`` serves a multi-model FLEET (``serving.fleet``): one
+lane per arch on a shared clock, ``--capacity`` slots split near-equally
+(``--model-split name=slots,...`` overrides lanes), requests routed
+round-robin over the lanes with their prompts folded into each lane's
+vocabulary, the requests of an encoder-decoder lane given stub audio
+features keyed by (``--seed``, uid); it prints one summary line per
+lane and ``--metrics-out`` writes ``{"fleet": ..., "conservation":
+...}``.  As in the JAX CLI it takes neither the fault flags nor the wall
+clock:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --archs smollm-360m,xlstm-350m
+
 ``--wall-clock`` drives the engine on ``time.perf_counter`` (latencies in
 seconds, the tick utilization printed); ``--overlap`` (implies
 ``--wall-clock``) serves through the overlapped runtime: sampling on the
@@ -72,15 +85,30 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
-from repro_torch.models import init_params, param_count
-from repro_torch.serving import FaultConfig, Request, ServingEngine
+from repro_torch.models import frontends, init_params, param_count
+from repro_torch.serving import (
+    EncDecRunner,
+    FaultConfig,
+    Request,
+    ServingEngine,
+    runner_for,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
                     help="model architecture (see repro_torch.configs)")
+    ap.add_argument("--archs", default=None,
+                    help="comma-separated arch list: serve a multi-model "
+                         "fleet (one lane per arch on a shared clock; "
+                         "requests route round-robin across the models)")
+    ap.add_argument("--model-split", default=None,
+                    help="'name=slots,...' per-model slot overrides for "
+                         "--archs (the remaining capacity splits "
+                         "near-equally)")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="reduced (smoke) shapes — the default")
     ap.add_argument("--full", dest="reduced", action="store_false",
@@ -197,22 +225,77 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def model_and_quant(args):
-    """The ModelConfig and QuantConfig the flags ask for."""
-    if args.arch not in list_archs():
-        raise SystemExit(f"[serve] unknown arch {args.arch!r}; registered: "
-                         f"{', '.join(list_archs())}")
-    mcfg = smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    mode = {"float": "float", "abfp-kernel": "abfp_kernel",
-            "abfp-packed": "abfp_packed"}[args.quant]
+def resolve_archs(args) -> List[str]:
+    """The validated arch list: ``--archs a,b,c`` (fleet) or ``--arch``
+    (single).  Unknown names fail fast with the registry listed."""
+    names = ([a.strip() for a in args.archs.split(",") if a.strip()]
+             if args.archs else [args.arch])
+    known = sorted(list_archs())
+    bad = [a for a in names if a not in known]
+    if bad or not names:
+        what = f"unknown arch(es) {bad}" if bad else "no archs given"
+        raise SystemExit(
+            f"[serve] {what}; registered archs: {', '.join(known)}")
+    return names
+
+
+def parse_model_split(arg: Optional[str]) -> Optional[dict]:
+    """'name=slots,name=slots' -> {name: slots}; None passes through."""
+    if arg is None:
+        return None
+    out = {}
+    for part in arg.split(","):
+        if not part.strip():
+            continue
+        try:
+            name, slots = part.split("=")
+            out[name.strip()] = int(slots)
+        except ValueError:
+            raise SystemExit(
+                f"--model-split expects 'name=slots,...' (got {arg!r})")
+    return out or None
+
+
+def attach_features(reqs: List[Request], runners: dict, seed: int) -> None:
+    """Stub frontend features for the requests routed to encoder-decoder
+    lanes: each request gets its own (enc_len, d_model) audio-frame
+    embedding keyed by (seed, uid), as f32 numpy (the JAX CLI's draws)."""
+    for r in reqs:
+        runner = runners.get(r.model)
+        if not isinstance(runner, EncDecRunner):
+            continue
+        key = prng.fold_in(prng.PRNGKey(seed), r.uid)
+        r.features = frontends.audio_stub_features(
+            key, 1, runner.enc_len, runner.mcfg.d_model,
+            device="cpu")[0].float().numpy()
+
+
+def model_config(arch: str, args):
+    """The ModelConfig of ``arch`` the flags ask for."""
+    mcfg = smoke_config(arch) if args.reduced else get_config(arch)
     if args.fused:
         # The fused decode kernels attend over the int8 KV cache.
         mcfg = dataclasses.replace(mcfg, kv_quant=True)
+    return mcfg
+
+
+def quant_config(args) -> QuantConfig:
+    """The QuantConfig the flags ask for."""
+    mode = {"float": "float", "abfp-kernel": "abfp_kernel",
+            "abfp-packed": "abfp_packed"}[args.quant]
+    if args.fused:
         mode = "abfp_fused"
-    quant = (QuantConfig(mode=mode, tile_width=args.tile, gain=args.gain,
-                         noise_lsb=0.5)
-             if mode != "float" else QuantConfig(mode="float"))
-    return mcfg, quant
+    return (QuantConfig(mode=mode, tile_width=args.tile, gain=args.gain,
+                        noise_lsb=0.5)
+            if mode != "float" else QuantConfig(mode="float"))
+
+
+def model_and_quant(args):
+    """The ModelConfig (of ``--arch``) and QuantConfig the flags ask for."""
+    if args.arch not in list_archs():
+        raise SystemExit(f"[serve] unknown arch {args.arch!r}; registered: "
+                         f"{', '.join(list_archs())}")
+    return model_config(args.arch, args), quant_config(args)
 
 
 def poisson_workload(mcfg, args, rng: np.random.Generator) -> List[Request]:
@@ -256,10 +339,94 @@ def trace_workload(mcfg, args, rng: np.random.Generator) -> List[Request]:
     return reqs
 
 
+def serve_fleet(built: dict, quant: QuantConfig, args) -> None:
+    """Multi-model fleet serving: one lane per ``--archs`` entry on a
+    shared clock, requests routed round-robin over the models (the
+    requests of encoder-decoder lanes get stub frontend features)."""
+    runners = {name: runner_for(cfg) for name, (_, cfg) in built.items()}
+    eng = ServingEngine(
+        models={name: (p, cfg, runners[name])
+                for name, (p, cfg) in built.items()},
+        capacity=args.capacity,
+        model_split=parse_model_split(args.model_split),
+        max_len=args.max_len, quant=quant, seed=args.seed,
+        chunked=not args.no_chunked, policy=args.policy,
+        prefill_chunks=tuple(int(c) for c in args.prefill_chunks.split(",")),
+        device=args.device, paged=args.paged, page_size=args.page_size,
+        pool_pages=args.pool_pages, prefix_cache=not args.no_prefix_cache)
+    lanes = {n: l_.capacity for n, l_ in eng.lanes.items()}
+    print(f"[serve] fleet: {len(built)} models, slots {lanes}, "
+          f"quant={args.quant}, policy={args.policy}")
+    if next(iter(eng.lanes.values())).device.type == "cuda":
+        eng.warmup()        # capture every lane's passes before requests
+
+    rng = np.random.default_rng(args.seed)
+    names = list(built)
+    if args.arrival_rate is not None or args.trace is not None:
+        reqs = (trace_workload(built[names[0]][1], args, rng) if args.trace
+                else poisson_workload(built[names[0]][1], args, rng))
+    else:
+        reqs = [Request(uid=i,
+                        prompt=rng.integers(
+                            1, built[names[0]][1].vocab_size,
+                            args.prompt_len).tolist(),
+                        max_new_tokens=args.max_new,
+                        temperature=args.temperature)
+                for i in range(args.requests)]
+    for i, r in enumerate(reqs):
+        r.model = names[i % len(names)]
+        # Prompts must fit every lane's vocabulary.
+        vmax = built[r.model][1].vocab_size
+        r.prompt = [t % (vmax - 1) + 1 for t in r.prompt]
+    attach_features(reqs, runners, args.seed)
+
+    t0 = time.time()
+    done = eng.run(reqs)
+    dt = time.time() - t0
+    eng.close()
+    tokens = sum(len(r.generated) for r in done)
+    print(f"[serve] fleet: {len(done)} requests, {tokens} tokens in "
+          f"{dt:.1f}s ({tokens / max(dt, 1e-9):.1f} tok/s, "
+          f"{eng.ticks} ticks)")
+
+    def fmt(d, key):
+        v = d[key]
+        return "-" if v is None else f"{v:.2f}"
+
+    summaries = eng.summary()
+    cons = eng.conservation()
+    for name in names:
+        s, c = summaries[name], cons[name]
+        print(f"  {name}: TTFT p50 {fmt(s['ttft'], 'p50')} / "
+              f"p99 {fmt(s['ttft'], 'p99')} | TPOT p50 "
+              f"{fmt(s['tpot'], 'p50')} | completed "
+              f"{c['completed']}/{c['submitted']} "
+              f"(conservation_ok {c['ok']})")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"fleet": {n: summaries[n] for n in names},
+                       "conservation": cons}, f, indent=2, default=str)
+        print(f"[serve] wrote {args.metrics_out}")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if args.overlap:
         args.wall_clock = True
+    if args.archs is not None:
+        archs = resolve_archs(args)
+        if args.fault_rate is not None:
+            raise SystemExit("[serve] --archs (fleet mode) does not "
+                             "compose with fault injection flags yet")
+        quant = quant_config(args)
+        if args.fused:
+            args.quant = "abfp-fused"
+        built = {}
+        for a in archs:
+            cfg = model_config(a, args)
+            built[a] = (init_params(args.seed, cfg, device=args.device), cfg)
+        serve_fleet(built, quant, args)
+        return
     mcfg, quant = model_and_quant(args)
     try:
         wm_hi, wm_lo = (float(v) for v in args.page_watermarks.split(","))

@@ -5,7 +5,9 @@ transfers on the simulated clock or the overlapped runtime on a wall
 clock, per-slot KV
 strips or a paged KV pool with prefix sharing, preemption, backpressure,
 degraded mode, tenant quotas and deadlines; seeded fault injection,
-fingerprint detection and recovery (``serving.faults``)."""
+fingerprint detection and recovery on every model family
+(``serving.faults``); multi-model fleets of single-model lanes on one
+clock (``serving.fleet``)."""
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
 from repro_torch.serving.faults import (  # noqa: F401
     FAULT_KINDS,
@@ -16,6 +18,7 @@ from repro_torch.serving.faults import (  # noqa: F401
     drift_detect_rtol,
     make_fault_plan,
 )
+from repro_torch.serving.fleet import FleetEngine  # noqa: F401
 from repro_torch.serving.metrics import (  # noqa: F401
     RequestMetrics,
     ServingMetrics,

@@ -131,9 +131,18 @@ request's features under the key ``fold_in(PRNGKey(seed), uid)``, its
 cross-attention K/V written into the slot's rows of the state, so a
 preempted request re-admits and re-encodes to the same bits.  On a GPU
 the admission pass is a captured shape of its own (its features, slot
-index and seed table are device data).  Fault plans are refused on it.
+index and seed table are device data).  A fault in an encoder weight or a
+cross-attention ``wk``/``wv`` reaches the served cross K/V only at an
+admission: a requeued request re-admits, and so re-encodes under the
+repaired weights, as in the JAX engine.
 
-Not ported (each raises when asked for): meshes and fleets.
+Fleets
+------
+``ServingEngine(models={name: (params, mcfg[, runner])}, ...)`` builds a
+``serving.fleet.FleetEngine``: one single-model lane per entry on a
+shared clock, routed by ``Request.model``.
+
+Not ported (raises when asked for): meshes.
 """
 
 from __future__ import annotations
@@ -189,6 +198,9 @@ class Request:
     arrival_time: Optional[float] = None    # engine clock; None = at submit
     priority: int = 0                       # larger = served first
     tenant: str = "default"                 # fairness domain for `priority`
+    model: Optional[str] = None         # fleet routing key (ServingEngine
+                                        # with models=...); None on a
+                                        # single-model engine
     deadline: Optional[float] = None    # absolute engine-clock time; past it
                                         # the request is cancelled (queued or
                                         # in flight) and marked timed_out
@@ -211,7 +223,7 @@ class Request:
     retry_after: Optional[float] = None  # backoff hint stamped when shed
 
 
-_UNPORTED = ("mesh", "models")
+_UNPORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -233,6 +245,14 @@ class WarmPass:
 
 
 class ServingEngine:
+    def __new__(cls, params=None, mcfg=None, *args, models=None, **kwargs):
+        # ``models={name: (params, mcfg[, runner])}`` makes a multi-model
+        # fleet (serving.fleet); a subclass is never dispatched.
+        if models is not None and cls is ServingEngine:
+            from repro_torch.serving.fleet import FleetEngine
+            return super().__new__(FleetEngine)
+        return super().__new__(cls)
+
     def __init__(self, params, mcfg: ModelConfig, *, capacity: int = 8,
                  max_len: int = 512,
                  runner: Optional[DecoderRunner] = None,
@@ -268,18 +288,11 @@ class ServingEngine:
         if asked:
             raise NotImplementedError(
                 f"repro_torch's ServingEngine does not port {asked}: "
-                f"meshes and fleets stay with the JAX package for now")
+                f"meshes stay with the JAX package for now")
         if faults is not None and not isinstance(faults,
                                                  (FaultConfig, FaultPlan)):
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
                             f"got {type(faults).__name__}")
-        if faults is not None and (mcfg.attention_type != "full"
-                                   or mcfg.num_experts
-                                   or mcfg.is_encoder_decoder):
-            raise NotImplementedError(
-                f"fault plans on {mcfg.name} are not ported: the port's "
-                f"fault sites are the dense decoder's (ROADMAP queue 1 "
-                f"item 6.5)")
         if quant.mode == "abfp_ref":
             raise ValueError(
                 "the serving engine does not take abfp_ref numerics: its "

@@ -19,13 +19,23 @@ Fault model (``FAULT_KINDS``)
 Sites
 -----
 A site is one dense weight of the JAX package's param tree, addressed by
-its path: ``groups/0/attn/wq`` ... ``lm_head``.  JAX stacks the layers of
-``groups/0`` on a leading axis; the port keeps a per-layer list, so a
-``groups/0/<block>/<name>`` site is the leaf ``params["layers"][i]
-[<block>][<name>]`` of EVERY layer ``i``, and a fault on it lands in all
-of them, as JAX's ``.at[..., idx]`` does on the stacked leaf.  With the
-JAX package's site list, ``make_fault_plan`` draws JAX's events from the
-same seed.  The ``qkv`` entry (``models.packing``) is not a site.
+its path, and the walk gives JAX's paths for every family.  JAX stacks
+the layers of block-pattern position ``j`` on a leading axis under
+``groups/j``, keeps the remainder layers (a pattern that does not divide
+the depth) under ``extra/r`` and stacks an encoder's layers under
+``encoder/layers``; the port keeps per-layer lists (``models.convert``).
+So a ``groups/j/<block>/<name>`` site is the leaf ``<block>/<name>`` of
+every layer ``g * len(pattern) + j``, ``extra/r/...`` the one remainder
+layer ``n_groups * len(pattern) + r``, and ``encoder/layers/...`` every
+encoder layer; a fault on a site lands in all of them, as JAX's
+``.at[..., idx]`` does on the stacked leaf.  The pattern's length is the
+period of the layers' block kinds (no registered pattern repeats within
+itself).  An MoE block's packed ``wi``/``wg``/``wo`` are lists of E
+``PackedWeight``s in the port and one stacked (E, K, N) leaf in JAX: the
+site holds every expert of every layer (an unpacked (E, K, N) weight is
+one leaf).  Sites come sorted by path, so ``make_fault_plan`` draws
+JAX's events from the same seed.  The ``qkv`` entry
+(``models.packing``) is not a site.
 
 Injection and repair are in place
 ---------------------------------
@@ -51,8 +61,8 @@ Detection
 ---------
 ``site_fingerprint`` reduces each site to the per-(tile, col) probe
 response ``R[t, j] = sum_i |codes[t, i, j]| * delta_w * scales[t, j]``
-(``core.abfp.packed_tile_fingerprint``), per layer on the device, summed
-over the layers in layer order; ``fingerprint_round`` fetches a round of
+(``core.abfp.packed_tile_fingerprint``), per leaf on the device, summed
+over the site's leaves in (layer, expert) order; ``fingerprint_round`` fetches a round of
 sites in ONE device-to-host copy.  ``detect_site`` compares a fingerprint
 with the healthy baseline taken at engine init: a relative deviation
 beyond ``drift_detect_rtol`` flags a drifted tile; a column whose every
@@ -96,8 +106,6 @@ FAULT_KINDS = ("stuck_col", "scale_drift", "shard_drop")
 # drift is detectable by the fingerprint probe at the default tolerance.
 _DRIFT_LO, _DRIFT_HI = 0.05, 0.25
 
-# A layer site's path prefix: the JAX package's stacked dense group.
-_LAYERS = "groups/0"
 _QKV = ("wq", "wk", "wv")
 
 
@@ -180,14 +188,46 @@ class FaultSite:
     n_tiles: int        # ABFP K-tiles (1 for float sites)
 
 
+def _group_len(layers: List[dict]) -> int:
+    """The block pattern's length: the period of the layers' kinds (each
+    layer's set of block names)."""
+    kinds = [tuple(sorted(lp)) for lp in layers]
+    return next(p for p in range(1, len(kinds) + 1)
+                if all(kinds[i] == kinds[i % p] for i in range(len(kinds))))
+
+
+def _layer_roots(params: Any) -> List[Tuple[str, List[dict]]]:
+    """Every stacked layer root of the JAX package's tree, as (its path,
+    the port's layers it stacks, in order): ``groups/j``, ``extra/r`` and
+    ``encoder/layers``."""
+    out = []
+    layers = params.get("layers") or []
+    if layers:
+        glen = _group_len(layers)
+        n_groups = len(layers) // glen
+        for j in range(glen):
+            out.append((f"groups/{j}",
+                        [layers[g * glen + j] for g in range(n_groups)]))
+        for r in range(len(layers) - n_groups * glen):
+            out.append((f"extra/{r}", [layers[n_groups * glen + r]]))
+    enc = (params.get("encoder") or {}).get("layers")
+    if enc:
+        out.append(("encoder/layers", list(enc)))
+    return out
+
+
 def fault_sites(params: Any) -> List[FaultSite]:
-    """The faultable dense weights, sorted by path: every packed leaf, and
-    every float leaf of >= 2 dims named as a dense-matmul weight
-    (``models.packing.DENSE_WEIGHT_NAMES``).  A layer site is enumerated
-    once, from layer 0, under the JAX package's ``groups/0`` path."""
+    """The faultable dense weights, sorted by path: every packed leaf (an
+    MoE block's list of packed experts is one site), and every float leaf
+    of >= 2 dims named as a dense-matmul weight
+    (``models.packing.DENSE_WEIGHT_NAMES``).  A stacked site is enumerated
+    once, from its first layer, under the JAX package's path."""
     sites: List[FaultSite] = []
 
     def visit(path: str, node, name: str):
+        if isinstance(node, list) and node and isinstance(node[0],
+                                                          PackedWeight):
+            node = node[0]          # the experts share one geometry
         if isinstance(node, PackedWeight):
             sites.append(FaultSite(path, True, node.n_cols, node.n_padded,
                                    node.num_tiles))
@@ -199,12 +239,12 @@ def fault_sites(params: Any) -> List[FaultSite]:
             n = int(node.shape[-1])
             sites.append(FaultSite(path, False, n, n, 1))
 
+    for prefix, layers in _layer_roots(params):
+        visit(prefix, layers[0], prefix)
     for k, v in params.items():
-        if k == "layers":
-            if v:
-                for name, leaf in v[0].items():
-                    visit(f"{_LAYERS}/{name}", leaf, name)
-        else:
+        if k == "encoder":
+            v = {n: x for n, x in v.items() if n != "layers"}
+        if k != "layers":
             visit(k, v, k)
     return sorted(sites, key=lambda s: s.path)
 
@@ -219,13 +259,15 @@ class _Leaf:
 
 
 def _leaves(params: Any, path: str) -> List[_Leaf]:
-    """Every leaf of the site at ``path``: one per layer for a
-    ``groups/0/...`` path, else the one leaf.  KeyError if none."""
-    parts = path.split("/")
-    if path.startswith(_LAYERS + "/"):
-        roots, parts = params.get("layers") or [], parts[2:]
+    """Every leaf of the site at ``path``, in (layer, expert) order: one
+    per layer (per expert of each layer for a packed MoE weight) for a
+    stacked path, else the one leaf.  KeyError if none."""
+    for prefix, roots in _layer_roots(params):
+        if path.startswith(prefix + "/"):
+            parts = path[len(prefix) + 1:].split("/")
+            break
     else:
-        roots = [params]
+        roots, parts = [params], path.split("/")
     out = []
     for node in roots:
         parent = node
@@ -235,6 +277,9 @@ def _leaves(params: Any, path: str) -> List[_Leaf]:
             leaf = parent[parts[-1]]
         except (KeyError, TypeError):
             raise KeyError(f"no param leaf at {path!r}") from None
+        if isinstance(leaf, list):
+            out.extend(_Leaf(x) for x in leaf)
+            continue
         qkv, off = parent.get("qkv"), 0
         if isinstance(qkv, PackedQKV) and parts[-1] in _QKV:
             i = _QKV.index(parts[-1])
@@ -248,8 +293,9 @@ def _leaves(params: Any, path: str) -> List[_Leaf]:
 
 
 def site_leaves(params: Any, path: str) -> List[Any]:
-    """The served leaves of the site at ``path`` (one per layer for a
-    layer site), in layer order."""
+    """The served leaves of the site at ``path``, in (layer, expert)
+    order: the rows of JAX's stacked leaf with its leading axes
+    flattened."""
     return [e.leaf for e in _leaves(params, path)]
 
 
@@ -344,7 +390,7 @@ def _zero_cols(e: _Leaf, cols: Sequence[int]) -> None:
 
 
 def inject_stuck_cols(params: Any, path: str, cols: Sequence[int]) -> None:
-    """Stuck-at-zero output columns in every layer of the site: codes,
+    """Stuck-at-zero output columns in every leaf of the site: codes,
     kcodes and scales zeroed (packed), or the weight columns (float)."""
     for e in _leaves(params, path):
         _zero_cols(e, cols)
@@ -353,7 +399,7 @@ def inject_stuck_cols(params: Any, path: str, cols: Sequence[int]) -> None:
 def inject_scale_drift(params: Any, path: str,
                        tiles: Sequence[Tuple[int, int]],
                        factors: Sequence[float]) -> None:
-    """Multiply the (tile, col) scales of every layer of the site by their
+    """Multiply the (tile, col) scales of every leaf of the site by their
     drift factors: an f32 product rounded to the bf16 storage (conductance
     drift re-read through the same DACs)."""
     for e in _leaves(params, path):
@@ -397,9 +443,9 @@ def apply_event(params: Any, ev: FaultEvent) -> None:
 
 
 def _site_fingerprint_dev(params: Any, site: FaultSite) -> Tensor:
-    """A site's (T, Np) f32 fingerprint on the device: each layer's, summed
-    over the layers in layer order.  Float sites: the column L1 norm,
-    shaped (1, N)."""
+    """A site's (T, Np) f32 fingerprint on the device: each leaf's, summed
+    over the leaves in (layer, expert) order.  Float sites: the column L1
+    norm, shaped (1, N)."""
     acc = None
     for e in _leaves(params, site.path):
         if isinstance(e.leaf, PackedWeight):
@@ -472,7 +518,8 @@ def clone_sites(params: Any) -> Any:
     """The clean spare: a device clone of every fault site (codes, kcodes
     and scales; float weights) and of each layer's ``PackedQKV``, in the
     params' nesting, so ``site_leaves`` addresses it as it does the
-    params.  Gains are shared: no fault touches them."""
+    params.  Every other leaf, and the gains, are shared: no fault touches
+    them."""
     def walk(node, name):
         if isinstance(node, PackedWeight):
             return dataclasses.replace(
@@ -480,7 +527,6 @@ def clone_sites(params: Any) -> Any:
                 kcodes=None if node.kcodes is None else node.kcodes.clone())
         if isinstance(node, dict):
             out = {k: walk(v, k) for k, v in node.items()}
-            out = {k: v for k, v in out.items() if v is not None}
             qkv = node.get("qkv")
             if isinstance(qkv, PackedQKV):
                 out["qkv"] = PackedQKV(
@@ -492,7 +538,7 @@ def clone_sites(params: Any) -> Any:
         if (isinstance(node, Tensor) and name in DENSE_WEIGHT_NAMES
                 and node.ndim >= 2):
             return node.clone()
-        return None
+        return node
 
     return walk(params, None)
 
@@ -504,7 +550,7 @@ def _pairs(params: Any, clean: Any, path: str):
 def repair_stuck(params: Any, clean: Any, path: str,
                  cols: Sequence[int]) -> None:
     """Remap stuck columns onto the spare: re-program codes, kcodes and
-    scales (or float columns) of exactly those columns, in every layer."""
+    scales (or float columns) of exactly those columns, in every leaf."""
     for e, c in _pairs(params, clean, path):
         idx = _index(cols, _device(e))
         if not isinstance(e.leaf, PackedWeight):
@@ -524,7 +570,7 @@ def repair_stuck(params: Any, clean: Any, path: str,
 def repair_drift(params: Any, clean: Any, path: str,
                  tiles: Sequence[Tuple[int, int]]) -> None:
     """Re-quantize on drift: restore ONLY the drifted (tile, col) scales
-    from the spare, in every layer; codes and healthy tiles stay."""
+    from the spare, in every leaf; codes and healthy tiles stay."""
     for e, c in _pairs(params, clean, path):
         if not isinstance(e.leaf, PackedWeight):
             raise ValueError(f"repair_drift targets PackedWeight (got {path})")

@@ -225,11 +225,17 @@ def test_overlapped_streams_equal_blocking(pair):
 
 
 def test_fault_plan_refused(pair):
+    """Fault plans were refused on an encoder-decoder until the site walk
+    reached its encoder and cross-attention weights; the engine now takes
+    one, over JAX's sites (its runs against the JAX engine's are in
+    ``tests/test_torch_faults_families_engine.py``)."""
     _, (tp, tm) = pair
-    with pytest.raises(NotImplementedError, match="fault"):
-        ServingEngine(tp, tm, capacity=2, max_len=32, device="cpu",
-                      quant=QuantConfig(mode="abfp_packed", **KW),
-                      faults=FaultConfig(rate=0.01))
+    eng = ServingEngine(tp, tm, capacity=2, max_len=32, device="cpu",
+                        quant=QuantConfig(mode="abfp_packed", **KW),
+                        faults=FaultConfig(rate=0.01))
+    paths = [s.path for s in eng._fault_sites]
+    assert "encoder/layers/mlp/wi" in paths
+    assert "groups/0/cross/wk" in paths and eng.fault_plan.events
 
 
 def test_cli_refuses_featureless_requests(capsys):

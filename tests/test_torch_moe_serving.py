@@ -111,13 +111,16 @@ def test_engine_streams_match_jax(jax_runs, mode, seed, overlap):
 
 def test_runner_and_fault_plans():
     """granite takes the ``DecoderRunner`` (as the JAX package's
-    ``runner_for`` picks it); the engine refuses a fault plan on it."""
+    ``runner_for`` picks it); the engine takes a fault plan on it, whose
+    sites hold the experts (the runs against JAX's:
+    ``tests/test_torch_faults_families_engine.py``)."""
     mcfg = smoke_config(ARCH)
     assert type(runner_for(mcfg)) is DecoderRunner
     params = init_params(0, mcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="6.5"):
-        ServingEngine(params, mcfg, capacity=2, max_len=16, device="cpu",
-                      faults=FaultConfig(rate=0.1))
+    eng = ServingEngine(params, mcfg, capacity=2, max_len=16, device="cpu",
+                        faults=FaultConfig(rate=0.1))
+    assert "groups/0/moe/wo" in [s.path for s in eng._fault_sites]
+    assert eng.fault_plan.events
 
 
 CLI = ["--arch", ARCH, "--reduced", "--requests", "5", "--prompt-len", "12",

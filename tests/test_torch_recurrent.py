@@ -503,9 +503,11 @@ def test_recurrent_runner_costs_no_pages_and_never_pages():
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(params, mcfg, capacity=2, max_len=16, device="cpu",
                       paged=True)
-    with pytest.raises(NotImplementedError, match="fault"):
-        ServingEngine(params, mcfg, capacity=2, max_len=16, device="cpu",
-                      faults=FaultConfig(rate=0.1))
+    # A fault plan is taken (over JAX's groups/j sites; the runs against
+    # JAX's engine: tests/test_torch_faults_families_engine.py).
+    eng = ServingEngine(params, mcfg, capacity=2, max_len=16, device="cpu",
+                        faults=FaultConfig(rate=0.1))
+    assert "groups/2/attn/wq" in [s.path for s in eng._fault_sites]
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])

@@ -187,12 +187,15 @@ def test_unchunked_prefill_in_decode_matches_chunked_float(tiny):
     dict(models=object()), dict(mesh=object()), dict(overlap=True),
     dict(faults=object())])
 def test_unported_options_raise(tiny, option):
-    """The options the port does not take (meshes, fleets) raise
+    """The option the port does not take (meshes) raises
     NotImplementedError; ``overlap=True`` is ported and, as in the JAX
     engine, raises ValueError without a wall clock; ``faults`` is ported
-    and raises TypeError for anything but a FaultConfig or FaultPlan."""
+    and raises TypeError for anything but a FaultConfig or FaultPlan;
+    ``models`` (a fleet, ``serving.fleet``) is ported and, as in the JAX
+    engine, raises TypeError beside positional params."""
     params, mcfg = tiny
-    err = {"overlap": ValueError, "faults": TypeError}.get(
+    err = {"overlap": ValueError, "faults": TypeError,
+           "models": TypeError}.get(
         next(iter(option)), NotImplementedError)
     with pytest.raises(err):
         ServingEngine(params, mcfg, capacity=1, device="cpu", **option)
