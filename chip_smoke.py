@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build   — nvcc builds every CUDA source of ``repro_torch`` from this
                checkout (one nvcc per source, all at once); cuobjdump's
                SASS must show int8 MMAs (IMMA) in every fused ABFP kernel
-               and bf16 MMAs (HMMA) in every tensor-core flash kernel;
+               and bf16 MMAs (HMMA) in every tensor-core flash kernel; the
+               flash kernels' registers and spill bytes are reported;
   3. kernels — each CUDA kernel against its plain PyTorch version: kernels
                1-3 at the serving path's full smollm-360m shapes (tile 128,
                gain 8, noise 0.5): kernels 1-2 bit-equal (0 flips), kernel
@@ -273,6 +274,40 @@ Phases (any failure exits non-zero and prints no result line):
                streams; a rate-0 plan with graphs gives the family phase's
                streams and launches; each model's detection round (host
                ms, device busy ms) and reshard time.
+ 18. recurrent training — the cacheless forward, evaluation and training
+               of the recurrent and hybrid families at full width, bf16
+               weights from seed 0 (see ``recurrent_train_phase``): (a)
+               ``evaluate_abfp`` of recurrentgemma-2b (flash on) and of
+               xlstm-350m over 2 batches of 4 x 513 tokens in abfp_kernel
+               (tile 128, gain 8, noise 0.5), then in float, the launches
+               read around each forward (exactly 201 of kernel 4 and 8 of
+               kernel 5, and 121 and 0; in float kernel 5 alone); a parity
+               forward
+               of 2 x 128 tokens through the kernels (every kernel-4 call
+               0 flips and every kernel-5 call within phase 3's bar on its
+               own inputs; logits bit-equal with kernel 5's plain version;
+               through kernel 5 within the plain forward's own spread
+               under a second noise key, and in float within
+               EVAL_LOGIT_BAR of the plain versions');
+               ``capture_histograms`` (26 and 24 per-layer stds); (b) a
+               float forward of recurrentgemma-2b over 1 x 4,096 tokens
+               with flash on (the 2,048 window masks and skips blocks):
+               kernel 5's 8 calls (head dim 256) against the plain version
+               (and one in f32 on the FMA kernel), their device time beside
+               their bound, the plain version's and SDPA's under the same
+               window mask; (c) training on batches of 4 x 129: xlstm-350m
+               through the train driver in float (4 steps, a checkpoint
+               every 2, resumed to 6), QAT abfp_kernel through
+               ``make_train_step`` (2 steps, exactly 121 kernel-4 launches
+               each, the loss on batch 0 through the kernels bit-equal to
+               the plain versions' and the train step's, the gradients
+               within TRAIN_GRAD_RTOL) and DNF (18a's histograms, the top
+               half of the layers by std, 3 steps); recurrentgemma-2b float
+               (2 steps) and QAT abfp_kernel (2 steps, 201 launches each,
+               the same checks); every run's losses and gradient norms
+               finite and every weight moved; the steps donate their state
+               (in place: one AdamW state of 2.9 B parameters fits the
+               card); median step time and peak device memory per recipe.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -421,6 +456,12 @@ FAMILY_FAULTS = {
         (6, "scale_drift", "groups/0/cross/wk",
          {"tiles": ((0, 7), (3, 300)), "factors": (1.2, 0.8)})),
 }
+# Phase 18 (recurrent training): per arch, (layers, d_model, kernel-4 and
+# kernel-5 launches per forward): 18 RG-LRU x 8 + 8 attention x 7 + the
+# head, and the 8 windowed attention layers; 12 mLSTM x 7 + 12 sLSTM x 3 +
+# the head.
+RECURRENT_TRAIN = {"recurrentgemma-2b": (26, 2560, 201, 8),
+                   "xlstm-350m": (24, 1024, 121, 0)}
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -590,6 +631,28 @@ def sass_mma_counts(lib) -> dict:
             counts[cur][0] += " IMMA" in line
             counts[cur][1] += " HMMA" in line
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def resource_usage(lib) -> dict:
+    """{kernel function: {"REG", "STACK", "LOCAL", ...}} from cuobjdump's
+    resource usage of a built library (registers per thread; stack and
+    local bytes, where a register spill lands)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -res-usage {lib}: {r.stderr.strip()[:500]}")
+    out, cur = {}, None
+    for line in r.stdout.splitlines():
+        if "Function" in line:
+            cur = line.split("Function")[1].strip(" :")
+        elif cur is not None and "REG:" in line:
+            out[cur] = {k: int(v) for k, v in
+                        (f.split(":", 1) for f in line.split()
+                         if ":" in f and f.split(":", 1)[1].isdigit())}
+            cur = None
+    return out
 
 
 def in_turns(fns: dict, time_fn) -> dict:
@@ -777,12 +840,138 @@ def serve_in_turns(eager, fresh, requests, shapes, per_pass: dict,
     return runs, want, geng
 
 
+def run_train_driver(argv: list, arch: str):
+    """``python -m repro_torch.launch.train --arch ARCH`` in this process,
+    on the card, on TRAIN_BATCH x TRAIN_SEQ batches; its lines are logged,
+    its losses and grad norms must be finite.  Returns (result, text)."""
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_cli.main(argv + [
+            "--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--seed", str(SEED), "--device", "cuda"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    if not np.isfinite(res["losses"] + res["grad_norms"]).all():
+        fail(f"non-finite loss or grad_norm in the driver run {argv}")
+    return res, text
+
+
+def qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys, measured,
+                      what, donate: bool = False) -> dict:
+    """QAT in abfp_kernel mode through ``make_train_step`` (AdamW), one
+    step per key of ``keys`` on the synthetic batches of ``dcfg``, the
+    launch counts zeroed just before each step and read just after (each
+    exactly ``per_step``; the STE backward launches none); then the loss
+    and gradients on batch 0 / key 0 through the kernels and through the
+    plain versions: the loss bit for bit (and equal to the first step's),
+    the gradients within TRAIN_GRAD_RTOL.  ``measured(mode, fn)`` runs the
+    steps under a peak-memory reading.  ``donate`` runs them in place on a
+    copy of ``params`` (one optimizer state on the card).  Returns step
+    times, losses, counts, how many weights moved, and the comparison."""
+    import torch
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data import batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import Numerics, forward
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.training import (
+        TrainConfig,
+        chunked_cross_entropy,
+        make_train_step,
+    )
+    from repro_torch.training.train_lib import tokens_on, value_and_grad
+
+    init, step = make_train_step(tm, AdamW(constant(1e-4)),
+                                 TrainConfig(quant=kq), device=dev,
+                                 donate=donate)
+
+    def qat_kernel_run():
+        start = tree_map(torch.clone, params) if donate else params
+        st, times, losses, counts = init(start), [], [], []
+        for i, key in enumerate(keys):
+            batch = batch_at_step(dcfg, i)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, met = step(st, batch, key)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(ops.launch_counts())
+            if not np.isfinite(float(met["grad_norm"])):
+                fail(f"{what}: non-finite grad_norm")
+        moved = sum(not torch.equal(a, b)
+                    for a, b in zip(leaves(st.params), leaves(params)))
+        return times, losses, counts, moved
+
+    times, k_losses, counts, moved = measured("qat_abfp_kernel",
+                                              qat_kernel_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counts:
+        if c != per_step:
+            fail(f"{what}: an abfp_kernel QAT step launched {c}, expected "
+                 f"{per_step}")
+    if not np.isfinite(k_losses).all():
+        fail(f"{what}: non-finite abfp_kernel QAT losses {k_losses}")
+    log(f"{what}: QAT abfp_kernel (make_train_step, tile 128, gain 8, noise "
+        f"0.5): losses {k_losses}, step {[round(t, 4) for t in times]} s, "
+        f"kernel 4 launched {[c['abfp_matmul'] for c in counts]} times per "
+        f"step, {moved}/{len(leaves(params))} weights moved")
+
+    tokens = tokens_on(batch_at_step(dcfg, 0), dev)
+
+    def loss_fn(plain):
+        def fn(tree, toks, key):
+            nx = Numerics(kq, key, plain=plain)
+            hidden, aux = forward(tree, toks[:, :-1], tm, nx,
+                                  return_hidden=True)
+            loss = chunked_cross_entropy(tree, hidden, toks[:, 1:], tm, nx)
+            return loss, loss, aux
+        return fn
+
+    ops.reset_launch_counts()
+    lk, _, gk = value_and_grad(loss_fn(False), params, tokens, keys[0])
+    if ops.launch_counts() != per_step:
+        fail(f"{what}: the kernels' loss and gradients launched "
+             f"{ops.launch_counts()}, expected {per_step}")
+    ops.reset_launch_counts()
+    lp, _, gp = value_and_grad(loss_fn(True), params, tokens, keys[0])
+    if sum(ops.launch_counts().values()):
+        fail(f"{what}: the plain versions' loss launched a kernel")
+    if not torch.equal(lk, lp) or float(lk) != k_losses[0]:
+        fail(f"{what}: QAT abfp_kernel loss through the kernels "
+             f"{float(lk)!r}, plain versions {float(lp)!r}, train step "
+             f"{k_losses[0]!r}")
+    exact, grad_err = 0, 0.0
+    for a, b in zip(leaves(gk), leaves(gp)):
+        exact += int(torch.equal(a, b))
+        grad_err = max(grad_err, allclose_bar(
+            a, b, f"{what}: QAT abfp_kernel gradient, kernels vs plain "
+            f"versions", rtol=TRAIN_GRAD_RTOL, atol=1e-6, quiet=True))
+    log(f"{what}: QAT abfp_kernel on batch 0: loss {float(lk)!r} through the "
+        f"kernels = plain versions = the train step's, bit for bit; "
+        f"gradients: {exact}/{len(leaves(gk))} leaves bit-equal, max-abs "
+        f"{grad_err:.3g} (bar rtol {TRAIN_GRAD_RTOL:g})")
+    del gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps_s": times, "losses": k_losses, "counts": counts,
+            "moved": moved, "qat_kernel_loss": float(lk),
+            "grad_leaves_equal": exact, "grad_leaves": len(leaves(params)),
+            "grad_max_abs": grad_err}
+
+
 def train_phase(dev, params, rows: list) -> dict:
     """Phase 10: the training path on full smollm-360m (see the module
     docstring).  ``params`` are full smollm-360m's bf16 parameters from
     seed SEED; ``rows`` the kernel line's rows (kernel 4's gains its
     launches per QAT step).  Returns the phase's measurements."""
-    import io
     import shutil
     import tempfile
 
@@ -798,17 +987,15 @@ def train_phase(dev, params, rows: list) -> dict:
     from repro_torch.core.tree import leaves
     from repro_torch.data import DataConfig, batch_at_step
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models import Numerics, forward, init_params
+    from repro_torch.models import init_params
     from repro_torch.optim import AdamW, constant
     from repro_torch.training import (
         TrainConfig,
         capture_histograms,
-        chunked_cross_entropy,
         make_train_step,
     )
     from repro_torch.training.finetune import make_dnf_train_step
-    from repro_torch.training.train_lib import tokens_on, value_and_grad
+    from repro_torch.training.train_lib import tokens_on
 
     tm = get_config("smollm-360m")
     if (tm.num_layers, tm.d_model, tm.vocab_size, tm.param_dtype,
@@ -832,20 +1019,7 @@ def train_phase(dev, params, rows: list) -> dict:
         return res
 
     def driver(argv):
-        """``python -m repro_torch.launch.train`` in this process, on the
-        card; its lines are logged, its losses must be finite."""
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            res = train_cli.main(argv + [
-                "--arch", "smollm-360m", "--batch", str(TRAIN_BATCH),
-                "--seq", str(TRAIN_SEQ), "--seed", str(SEED), "--device",
-                "cuda"])
-        text = buf.getvalue()
-        for line in text.splitlines():
-            log(f"  {line}")
-        if not np.isfinite(res["losses"] + res["grad_norms"]).all():
-            fail(f"non-finite loss or grad_norm in the driver run {argv}")
-        return res, text
+        return run_train_driver(argv, "smollm-360m")
 
     laps = [time.perf_counter()]
 
@@ -892,79 +1066,19 @@ def train_phase(dev, params, rows: list) -> dict:
     lap("QAT abfp_ref driver")
 
     # 10c. QAT through kernel 4 (abfp_kernel) with make_train_step, 2 steps,
-    # the launch counts zeroed just before each step and read just after.
+    # the launch counts zeroed just before each step and read just after;
+    # the loss and gradients on batch 0 / key 0 against the plain versions.
     per_step = {name: 0 for name in ops.launch_counts()}
     per_step["abfp_matmul"] = 7 * nl + 1
-    init, step = make_train_step(tm, AdamW(constant(1e-4)),
-                                 TrainConfig(quant=kq), device=dev)
     keys = [prng.fold_in(prng.PRNGKey(SEED + 1), i) for i in range(2)]
-
-    def qat_kernel_run():
-        st, times, losses, counts = init(params), [], [], []
-        for i in range(2):
-            batch = batch_at_step(dcfg, i)
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            st, met = step(st, batch, keys[i])
-            losses.append(float(met["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            counts.append(ops.launch_counts())
-        return st, times, losses, counts
-
-    st, times, k_losses, counts = measured("qat_abfp_kernel", qat_kernel_run)
-    for c in counts:
-        if c != per_step:
-            fail(f"an abfp_kernel QAT step launched {c}, expected "
-                 f"{per_step}")
-    if not np.isfinite(k_losses).all():
-        fail(f"non-finite abfp_kernel QAT losses {k_losses}")
-    out["steps_s"]["qat_abfp_kernel"] = times
-    log(f"QAT abfp_kernel (make_train_step, tile 128, gain 8, noise 0.5): "
-        f"losses {k_losses}, step {[round(t, 4) for t in times]} s, kernel "
-        f"4 launched {[c['abfp_matmul'] for c in counts]} times per step")
-    del st
-
-    # The same loss and gradients on batch 0 / key 0, through the kernels
-    # and through the plain versions: the loss bit for bit (and equal to
-    # the train step's), the gradients within TRAIN_GRAD_RTOL.
+    qk = qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys,
+                           measured, "phase 10c")
+    out["steps_s"]["qat_abfp_kernel"] = qk.pop("steps_s")
+    counts = qk.pop("counts")
+    for k in ("moved", "losses"):
+        qk.pop(k)
+    out.update(qk)
     tokens = tokens_on(batch_at_step(dcfg, 0), dev)
-
-    def loss_fn(plain):
-        def fn(tree, toks, key):
-            nx = Numerics(kq, key, plain=plain)
-            hidden, aux = forward(tree, toks[:, :-1], tm, nx,
-                                  return_hidden=True)
-            loss = chunked_cross_entropy(tree, hidden, toks[:, 1:], tm, nx)
-            return loss, loss, aux
-        return fn
-
-    ops.reset_launch_counts()
-    lk, _, gk = value_and_grad(loss_fn(False), params, tokens, keys[0])
-    if ops.launch_counts() != per_step:
-        fail(f"the kernels' loss and gradients launched "
-             f"{ops.launch_counts()}, expected {per_step}")
-    ops.reset_launch_counts()
-    lp, _, gp = value_and_grad(loss_fn(True), params, tokens, keys[0])
-    if sum(ops.launch_counts().values()):
-        fail("the plain versions' loss launched a kernel")
-    if not torch.equal(lk, lp) or float(lk) != k_losses[0]:
-        fail(f"QAT abfp_kernel loss through the kernels {float(lk)!r}, "
-             f"plain versions {float(lp)!r}, train step {k_losses[0]!r}")
-    exact, grad_err = 0, 0.0
-    for a, b in zip(leaves(gk), leaves(gp)):
-        exact += int(torch.equal(a, b))
-        grad_err = max(grad_err, allclose_bar(
-            a, b, "QAT abfp_kernel gradient, kernels vs plain versions",
-            rtol=TRAIN_GRAD_RTOL, atol=1e-6, quiet=True))
-    log(f"QAT abfp_kernel on batch 0: loss {float(lk)!r} through the kernels"
-        f" = plain versions = the train step's, bit for bit; gradients: "
-        f"{exact}/{len(leaves(gk))} leaves bit-equal, max-abs {grad_err:.3g}"
-        f" (bar rtol {TRAIN_GRAD_RTOL:g})")
-    out.update(qat_kernel_loss=float(lk), grad_leaves_equal=exact,
-               grad_leaves=len(leaves(gk)), grad_max_abs=grad_err)
-    del gk, gp
     lap("QAT abfp_kernel steps and the plain comparison")
 
     # 10d. Kernel 1 under the dense_packed straight-through Function, at
@@ -3568,8 +3682,393 @@ def family_fault_phase(dev, engine_cls, rows: list, card: str) -> dict:
     return res
 
 
+def recurrent_train_phase(dev, rows: list) -> dict:
+    """Phase 18: the cacheless forward, evaluation and training of the
+    recurrent and hybrid families at full width (see the module
+    docstring).  Annotates the kernel rows of kernels 4 and 5; returns the
+    measurements."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.core.dnf import select_layers_by_std
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+    from repro_torch.models import Numerics, forward, init_params, param_count
+    from repro_torch.models import layers as model_layers
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.training import (
+        TrainConfig,
+        capture_histograms,
+        evaluate_abfp,
+        finetune,
+        make_dnf_train_step,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    kq = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                     noise_lsb=0.5)
+    res = {"steps_s": {}, "peak_gib": {}}
+    e5 = 0.0
+    laps = [t_phase]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        res.setdefault("laps_s", {})[what] = laps[-1] - laps[-2]
+        log(f"phase 18 {what}: {laps[-1] - laps[-2]:.1f}s")
+
+    def measured(mode, fn):
+        """Run ``fn`` with the peak-memory counter reset just before."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        res["peak_gib"][mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    def moved_all(new, old, what):
+        still = [i for i, (a, b) in enumerate(zip(leaves(new), leaves(old)))
+                 if torch.equal(a, b)]
+        if still:
+            fail(f"{what}: {len(still)} weights did not move (leaves "
+                 f"{still[:8]})")
+
+    models = {}
+    for arch, want in RECURRENT_TRAIN.items():
+        mcfg = get_config(arch)
+        if (mcfg.num_layers, mcfg.d_model, mcfg.param_dtype, mcfg.remat,
+                mcfg.use_flash_attention) != (
+                    want[0], want[1], torch.bfloat16, False, False):
+            fail(f"phase 18: unexpected config {mcfg}")
+        t0 = time.perf_counter()
+        params = init_params(SEED, mcfg, device=dev)
+        torch.cuda.synchronize()
+        log(f"phase 18: {arch} ({mcfg.num_layers} layers, "
+            f"{param_count(params) / 1e9:.3f} B parameters) built in "
+            f"{time.perf_counter() - t0:.1f}s")
+        per_forward = {n: 0 for n in ops.launch_counts()}
+        per_forward.update(abfp_matmul=want[2], flash_attention=want[3])
+        emcfg = dataclasses.replace(mcfg, use_flash_attention=True)
+        short = arch.split("-")[0]
+
+        # 18a. evaluate_abfp over 2 batches of 4 x 513, the launches read
+        # around each forward; the same in float; a parity forward of 2 x
+        # 128; DNF's capture.
+        rng = np.random.default_rng(SEED + 30)
+        batches = [{"tokens": rng.integers(1, mcfg.vocab_size,
+                                           (EVAL_BATCH, EVAL_SEQ + 1))
+                    .astype(np.int32)} for _ in range(EVAL_BATCHES)]
+        per_call = []
+        real_forward = finetune.forward
+
+        def counted_forward(*a, **kw):
+            before = ops.launch_counts()
+            out = real_forward(*a, **kw)
+            after = ops.launch_counts()
+            per_call.append({n: after[n] - before[n] for n in after})
+            return out
+
+        finetune.forward = counted_forward
+        try:
+            ekey = prng.PRNGKey(SEED + 31)
+            t0 = time.perf_counter()
+            acc_q = evaluate_abfp(params, batches, emcfg, kq, key=ekey)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            acc_f = evaluate_abfp(params, batches, emcfg,
+                                  QuantConfig(mode="float"), key=ekey)
+        finally:
+            finetune.forward = real_forward
+        float_forward = dict(per_forward, abfp_matmul=0)
+        if per_call != [per_forward] * EVAL_BATCHES \
+                + [float_forward] * EVAL_BATCHES:
+            fail(f"phase 18a: {arch}'s evaluation forwards launched "
+                 f"{per_call}, want {per_forward} per abfp_kernel forward "
+                 f"and {float_forward} per float forward")
+        log(f"phase 18a: evaluate_abfp of {arch} ({EVAL_BATCHES} batches of "
+            f"{EVAL_BATCH} x {EVAL_SEQ + 1}, flash on) in {eval_s:.2f}s, "
+            f"launches per forward {per_call[0]}: accuracy {acc_q:.6f} "
+            f"(abfp_kernel, tile 128, gain 8, noise 0.5), {acc_f:.6f} "
+            f"(float)")
+        ptoks = torch.from_numpy(rng.integers(
+            1, mcfg.vocab_size, (2, 128)).astype(np.int32)).to(dev)
+        # The parity forward's bars.  In float, kernel 5's sum order moves
+        # the logits smoothly: EVAL_LOGIT_BAR.  Under ABFP its one-ULP
+        # flips move activation codes, and a recurrent state carries a
+        # moved code to every later token (recurrentgemma-2b: 1.25 on an
+        # H100, bit-equal with kernel 5's plain version); there the
+        # bar is the model's own noise: the plain forward's logits under a
+        # second noise key.
+        pkey = prng.PRNGKey(SEED + 32)
+        with torch.no_grad():
+            la = forward(params, ptoks, emcfg, Numerics(kq, pkey,
+                                                         plain=True))[0]
+            lb = forward(params, ptoks, emcfg, Numerics(
+                kq, prng.PRNGKey(SEED + 37), plain=True))[0]
+            noise_floor = float((la - lb).abs().max())
+            la = forward(params, ptoks, emcfg)[0]
+            lb = forward(params, ptoks, emcfg, Numerics(
+                QuantConfig(mode="float"), plain=True))[0]
+            float_err = float((la - lb).abs().max())
+            del la, lb
+        log(f"phase 18a {arch}: the plain forward's logits under two noise "
+            f"keys differ by {noise_floor:.4g} (the abfp_kernel parity "
+            f"forward's bar); a float forward through kernel 5 differs from "
+            f"its plain version's by {float_err:.4g} (bar "
+            f"{EVAL_LOGIT_BAR})")
+        if float_err > EVAL_LOGIT_BAR:
+            fail(f"phase 18a: {arch}'s float forward through kernel 5 "
+                 f"differs from the plain version's by {float_err:.4g}")
+        ev, counts = eval_forward_runs(
+            dev, params, ptoks, emcfg, kq, pkey, f"phase 18a {arch}",
+            check_calls=True, bar=noise_floor)
+        if counts != {n: v for n, v in per_forward.items() if v}:
+            fail(f"phase 18a: {arch}'s parity forward launched {counts}")
+        ev.update(noise_key_max_abs=noise_floor, float_k5_max_abs=float_err)
+        e5 = max(e5, ev["k5_max_abs"])
+        inputs = torch.from_numpy(batches[0]["tokens"][:, :-1]).to(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hists, stds = capture_histograms(params, inputs, emcfg, kq,
+                                         key=prng.fold_in(ekey, 7))
+        cap = ops.launch_counts()
+        if len(stds) != mcfg.num_layers or not np.isfinite(stds).all() \
+                or min(stds) <= 0:
+            fail(f"phase 18a: {arch}'s capture_histograms gave stds {stds}")
+        log(f"phase 18a: capture_histograms of {arch} on one batch in "
+            f"{time.perf_counter() - t0:.2f}s (kernel 4 x "
+            f"{cap['abfp_matmul']}, kernel 5 x {cap['flash_attention']}): "
+            f"{len(stds)} per-layer dy stds "
+            f"{json.dumps([float(f'{v:.4g}') for v in stds])}")
+        res[short] = {"accuracy_abfp": acc_q, "accuracy_float": acc_f,
+                      "eval_s": eval_s, "launches_per_forward": per_call[0],
+                      "parity_forward": ev, "dnf_stds": stds,
+                      "params_b": param_count(params) / 1e9}
+        models[arch] = (mcfg, params, hists)
+        lap(f"18a {arch}")
+
+    # 18b. The window: one float forward of recurrentgemma-2b over 1 x
+    # 4,096 tokens with flash on, so the 2,048 window masks and skips
+    # blocks; kernel 5's 8 calls against the plain version, timed against
+    # their bound and SDPA under the same window mask.
+    rcfg, rparams, _ = models["recurrentgemma-2b"]
+    wcfg = dataclasses.replace(rcfg, use_flash_attention=True)
+    calls5 = []
+
+    def rec5(*a, **kw):
+        out = flash_attention(*a, **kw)
+        calls5.append((a, kw))
+        return out
+
+    wtoks = torch.from_numpy(np.random.default_rng(SEED + 33).integers(
+        1, rcfg.vocab_size, (1, 2 * rcfg.window_size)).astype(
+            np.int32)).to(dev)
+    model_layers.flash_attention = rec5
+    ops.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            hidden, _ = forward(rparams, wtoks, wcfg, return_hidden=True)
+        torch.cuda.synchronize()
+    finally:
+        model_layers.flash_attention = flash_attention
+    wcount = ops.launch_counts()
+    if wcount["flash_attention"] != 8 or len(calls5) != 8 or \
+            sum(wcount.values()) != 8 or not torch.isfinite(hidden).all():
+        fail(f"phase 18b: the windowed forward launched {wcount}")
+    h, kh, hd = rcfg.num_heads, rcfg.num_kv_heads, rcfg.resolved_head_dim
+    sw, win = wtoks.shape[1], rcfg.window_size
+    for a, kw in calls5:
+        if kw.get("window") != win or a[0].shape != (1, sw, h, hd):
+            fail(f"phase 18b: kernel 5 was called with {a[0].shape} {kw}")
+        e5 = max(e5, allclose_bar(flash_attention(*a, **kw),
+                                  flash_attention_ref(*a, **kw),
+                                  "phase 18b: a windowed kernel-5 call",
+                                  quiet=True))
+    a32 = [t.float() for t in calls5[0][0]]
+    allclose_bar(flash_attention(*a32, causal=True, window=win),
+                 flash_attention_ref(*a32, causal=True, window=win),
+                 f"phase 18b: kernel 5 at D = {hd}, window {win}, f32 (FMA "
+                 f"kernel)", rtol=1e-5, atol=2e-5)
+    log(f"phase 18b: kernel 5's {len(calls5)} windowed calls (1 x {sw}, "
+        f"{h} / {kh} heads of {hd}, window {win}) against the plain version "
+        f"(rtol 2**-7, atol 1e-5): max-abs {e5:.3g}")
+    b_, d_, f_ = k5_cost(1, sw, sw, h, kh, hd, True, win)
+    bms, by = bound(b_ * 8, 0.0, f_ * 8, d_ * 8)
+    qpos = torch.arange(sw, device=dev)
+    mask = (qpos[None, :] <= qpos[:, None]) \
+        & (qpos[None, :] > qpos[:, None] - win)
+    sdpa_in = [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(
+        h // kh, dim=1), v.transpose(1, 2).repeat_interleave(h // kh, dim=1))
+        for (q, k, v), _ in calls5]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sd_err = float((sdpa(*sdpa_in[0], attn_mask=mask).transpose(1, 2)
+                    .float() - flash_attention(*calls5[0][0], **calls5[0][1])
+                    .float()).abs().max())
+    win5 = {"ms": graph_ms(lambda: [flash_attention(*a, **kw)
+                                    for a, kw in calls5], 10)[0],
+            "plain_ms": median_ms(lambda: [flash_attention_ref(*a, **kw)
+                                           for a, kw in calls5], 1),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": graph_ms(lambda: [sdpa(*t, attn_mask=mask)
+                                            for t in sdpa_in], 10)[0],
+            "sdpa_max_abs": sd_err,
+            "work": f"8 layers x (1, {sw}, {h} / {kh} heads of {hd}), "
+                    f"causal, window {win}, bf16"}
+    log(f"phase 18b: kernel 5 over the windowed forward's 8 calls: "
+        f"{json.dumps(win5)}")
+    res["k5_d256_window"] = win5
+    del calls5, sdpa_in, hidden, mask
+    ops.reset_launch_counts()
+    lap("18b window")
+
+    # 18c. Training at full width on batches of TRAIN_BATCH x (TRAIN_SEQ +
+    # 1): xlstm-350m through the driver (float, checkpoint, resume), QAT
+    # abfp_kernel, DNF; recurrentgemma-2b float and QAT abfp_kernel.  Steps
+    # donate their state (one optimizer state on the card).
+    def steps_run(mcfg, params, quant, n, what):
+        init, step = make_train_step(mcfg, AdamW(constant(1e-4)),
+                                     TrainConfig(quant=quant), device=dev,
+                                     donate=True)
+        dcfg = DataConfig(mcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+        st, times, losses = init(tree_map(torch.clone, params)), [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = step(st, batch_at_step(dcfg, i),
+                           prng.fold_in(prng.PRNGKey(SEED + 34), i))
+            losses.append(float(met["loss"]))
+            gn = float(met["grad_norm"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not (np.isfinite(losses[-1]) and np.isfinite(gn)):
+                fail(f"{what}: non-finite loss or grad_norm")
+        moved_all(st.params, params, what)
+        log(f"{what}: losses {losses}, step {[round(t, 4) for t in times]} "
+            f"s, every weight moved")
+        return times
+
+    _, xparams, _ = models["xlstm-350m"]
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        f1, _ = measured("xlstm_float", lambda: run_train_driver(
+            ["--steps", "4", "--ckpt-every", "2", "--ckpt-dir", ck],
+            "xlstm-350m"))
+        f2, text = run_train_driver(["--steps", "6", "--ckpt-every", "2",
+                                     "--ckpt-dir", ck], "xlstm-350m")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if "[train] resumed from step 4" not in text or f2["start_step"] != 4 \
+            or len(f2["losses"]) != 2:
+        fail("phase 18c: the xlstm-350m driver did not resume from step 4")
+    moved_all(f2["state"].params, xparams, "phase 18c: the xlstm driver")
+    res["steps_s"]["xlstm_float"] = f1["step_s"][1:] + f2["step_s"][1:]
+    del f1, f2
+    lap("18c xlstm driver and resume")
+
+    qkeys = [prng.fold_in(prng.PRNGKey(SEED + 35), i) for i in range(2)]
+    qat = {}
+    for arch in ("xlstm-350m", "recurrentgemma-2b"):
+        mcfg, params, _ = models[arch]
+        short = arch.split("-")[0]
+        dcfg = DataConfig(mcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+        if arch == "recurrentgemma-2b":
+            res["steps_s"]["recurrentgemma_float"] = measured(
+                "recurrentgemma_float", lambda: steps_run(
+                    mcfg, params, QuantConfig(mode="float"), 2,
+                    "phase 18c: recurrentgemma-2b float"))
+        per_step = {n: 0 for n in ops.launch_counts()}
+        per_step["abfp_matmul"] = res[short]["launches_per_forward"][
+            "abfp_matmul"]
+
+        def measured_q(mode, fn, short=short):
+            return measured(f"{short}_{mode}", fn)
+
+        qk = qat_kernel_checks(dev, params, mcfg, dcfg, kq, per_step, qkeys,
+                               measured_q, f"phase 18c {arch}", donate=True)
+        if qk["moved"] != len(leaves(params)):
+            fail(f"phase 18c: {arch} QAT abfp_kernel moved {qk['moved']} of "
+                 f"{len(leaves(params))} weights")
+        res["steps_s"][f"{short}_qat_abfp_kernel"] = qk.pop("steps_s")
+        qat[arch] = qk
+        lap(f"18c {arch} QAT abfp_kernel")
+
+    # DNF on xlstm-350m: 18a's histograms, the top half of the layers by
+    # std, 3 steps.
+    mcfg, params, hists = models["xlstm-350m"]
+    nl = mcfg.num_layers
+    mask = select_layers_by_std([hists.layer(i) for i in range(nl)], 0.5)
+    dinit, dstep = make_dnf_train_step(mcfg, AdamW(constant(1e-4)), hists,
+                                       layer_mask=mask, device=dev)
+    dcfg = DataConfig(mcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+
+    def dnf_run():
+        st, times, losses = dinit(params), [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, met = dstep(st, batch_at_step(dcfg, i),
+                            prng.fold_in(prng.PRNGKey(SEED + 36), i))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        moved_all(st.params, params, "phase 18c: xlstm-350m DNF")
+        return times, losses
+
+    times, d_losses = measured("xlstm_dnf", dnf_run)
+    if not np.isfinite(d_losses).all() or sum(mask) < nl // 2:
+        fail(f"phase 18c: xlstm-350m DNF losses {d_losses}, mask {mask}")
+    res["steps_s"]["xlstm_dnf"] = times
+    log(f"phase 18c: xlstm-350m DNF (noise on layers "
+        f"{[i for i, v in enumerate(mask) if v]}), 3 steps: losses "
+        f"{d_losses}, step {[round(t, 4) for t in times]} s")
+    lap("18c xlstm DNF")
+    res["step_median_ms"] = {
+        k: statistics.median(v[1:] if len(v) > 1 else v) * 1e3
+        for k, v in res["steps_s"].items()}
+    res["qat"] = qat
+    for k, v in res["step_median_ms"].items():
+        log(f"phase 18c: train step {k}: median {v:.2f} ms (steps "
+            f"{[round(t * 1e3, 2) for t in res['steps_s'][k]]} ms), peak "
+            f"device memory {res['peak_gib'].get(k, float('nan')):.3f} GiB")
+    del models, params, hists, xparams, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for row in rows:
+        if row["name"] == "abfp_matmul":
+            row["launches_per_recurrentgemma_forward"] = res["recurrentgemma"][
+                "launches_per_forward"]["abfp_matmul"]
+            row["launches_per_xlstm_forward"] = res["xlstm"][
+                "launches_per_forward"]["abfp_matmul"]
+            row["qat_step_launches_recurrentgemma"] = [
+                c["abfp_matmul"] for c in qat["recurrentgemma-2b"]["counts"]]
+            row["qat_step_launches_xlstm"] = [
+                c["abfp_matmul"] for c in qat["xlstm-350m"]["counts"]]
+        if row["name"] == "flash_attention":
+            row["launches_per_recurrentgemma_forward"] = res["recurrentgemma"][
+                "launches_per_forward"]["flash_attention"]
+            row["d256_window"] = win5
+            row["max_abs_err"] = max(row["max_abs_err"], e5)
+    for q in qat.values():
+        q.pop("counts")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
-                      encoder_features=None):
+                      encoder_features=None, check_calls: bool = False,
+                      bar: float = EVAL_LOGIT_BAR):
     """One cacheless ``forward`` through the kernels (launch counts read
     around it), through the plain versions, and through the kernels with
     kernel 5's plain version, which must equal the plain run bit for bit
@@ -3578,10 +4077,15 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
     held within EVAL_LOGIT_BAR of the plain run's; on an MoE model its aux
     and the (layer, token) rows whose chosen experts differ from the plain
     run's are reported (kernel 5's one-ULP flips can move activation codes
-    and so a near-tied route).  Returns (measurements, launch counts)."""
+    and so a near-tied route).  ``check_calls``: every kernel-4 and
+    kernel-5 call of the kernel run is recorded and held against its plain
+    version on its own inputs (kernel 4 with 0 flips, kernel 5 within
+    phase 3's bar).  ``bar``: the logits' bar (EVAL_LOGIT_BAR unless a
+    phase states another).  Returns (measurements, launch counts)."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_matmul import abfp_matmul_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models import Numerics, forward
     from repro_torch.models import layers as model_layers
@@ -3589,6 +4093,16 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
 
     out = {}
     saved5, route = model_layers.flash_attention, moe_lib._route
+    saved4 = ops.abfp_matmul
+    calls = {"abfp_matmul": [], "flash_attention": []}
+
+    def recorder(name, fn):
+        def call(*a, **kw):
+            res_ = fn(*a, **kw)
+            calls[name].append((a, kw, res_))
+            return res_
+        return call
+
     for how in ("kernels", "plain", "kernel 5 plain"):
         ids = []
 
@@ -3600,6 +4114,9 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
         moe_lib._route = rec_route
         if how == "kernel 5 plain":
             model_layers.flash_attention = flash_attention_ref
+        if how == "kernels" and check_calls:
+            ops.abfp_matmul = recorder("abfp_matmul", saved4)
+            model_layers.flash_attention = recorder("flash_attention", saved5)
         ops.reset_launch_counts()
         t1 = time.perf_counter()
         try:
@@ -3610,6 +4127,7 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
             torch.cuda.synchronize()
         finally:
             model_layers.flash_attention, moe_lib._route = saved5, route
+            ops.abfp_matmul = saved4
         out[how] = (lg, aux, ids, time.perf_counter() - t1,
                     {n: v for n, v in ops.launch_counts().items() if v})
     lg_k, aux_k, ids_k, host_s, counts = out["kernels"]
@@ -3624,7 +4142,28 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
              f"from the plain run")
     err = float((lg_k - lg_p).abs().max())
     same = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
-    res = {"host_s": host_s, "logits_max_abs": err, "argmax_equal": same}
+    res = {"host_s": host_s, "logits_max_abs": err, "argmax_equal": same,
+           "logits_over_0p1": int(((lg_k - lg_p).abs() > 0.1).sum()),
+           "rows_apart": int((lg_k != lg_p).any(-1).sum()),
+           "rows": lg_k.numel() // lg_k.shape[-1]}
+    for a, kw, got in calls["abfp_matmul"]:
+        n, size, ulp, _ = bf16_diff(got, abfp_matmul_ref(*a, **kw))
+        if ulp:
+            fail(f"{what}: a kernel-4 call {tuple(a[0].shape)} x "
+                 f"{tuple(a[1].shape)}: {n}/{size} one-ULP flips, largest "
+                 f"{ulp} ULP, against its plain version")
+    e5 = 0.0
+    for a, kw, got in calls["flash_attention"]:
+        e5 = max(e5, allclose_bar(got, flash_attention_ref(*a, **kw),
+                                  f"{what}: a kernel-5 call", quiet=True))
+    if check_calls:
+        res.update(k4_calls=len(calls["abfp_matmul"]),
+                   k5_calls=len(calls["flash_attention"]), k5_max_abs=e5)
+        log(f"{what}: every call of the kernel run against its plain version"
+            f" on its own inputs: kernel 4 {res['k4_calls']} calls, 0 flips;"
+            f" kernel 5 {res['k5_calls']} calls, max-abs {e5:.3g} (rtol "
+            f"2**-7, atol 1e-5)")
+    del calls
     routed, equal = "", "logits and aux"
     if ids_k:
         equal = "logits, aux and every layer's chosen experts"
@@ -3643,9 +4182,9 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
         f"{host_s:.2f}s: {routed}logits max-abs {err:.4g} from the plain "
         f"run's, argmax equal {same:.1%}; with kernel 5's plain version "
         f"{equal} bit-equal to the plain run's")
-    if err > EVAL_LOGIT_BAR:
+    if err > bar:
         fail(f"{what}: logits differ from the plain run's by {err:.4g} > "
-             f"{EVAL_LOGIT_BAR}")
+             f"{bar:.4g}")
     return res, counts
 
 
@@ -3727,6 +4266,17 @@ def main() -> None:
             fail(f"{src}: no {op} in the SASS of {tag}: {found}")
         log(f"SASS of {src}.cu: {op} per {tag} instantiation "
             f"{sorted(found.values())}")
+    # Registers and spills (stack / local bytes) of the flash kernels by
+    # head dim: at D = 256 the 16 x 256 f32 accumulator alone is 128
+    # registers per thread.
+    usage = {k: v for k, v in
+             resource_usage(_build.lib_path("flash_attention")).items()
+             if "flash_fwd" in k}
+    log("flash_attention.cu resource usage (REG, STACK, LOCAL bytes) per "
+        "instantiation: " + json.dumps(
+            {k[k.index("flash_fwd"):][:24]: [v.get("REG"), v.get("STACK"),
+                                              v.get("LOCAL")]
+             for k, v in usage.items()}))
 
     # The served model, as ``python -m repro_torch.launch.serve --full
     # --fused`` builds it: full smollm-360m, abfp_fused (tile 128, gain 8,
@@ -4770,6 +5320,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     ffl = family_fault_phase(dev, CheckedEngine, rows, card)
     log(f"family fault phase in {ffl['seconds']:.1f}s: {json.dumps(ffl)}")
+
+    # 18. recurrent training: the cacheless forward, evaluation and
+    # training of the recurrent and hybrid families -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rtr = recurrent_train_phase(dev, rows)
+    log(f"recurrent training phase in {rtr['seconds']:.1f}s: "
+        f"{json.dumps(rtr)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,12 @@
 The JAX package's ``repro.checkpoint.validate`` accepts a directory this
 module wrote and this module's accepts one the JAX package wrote.  The
 leaves are named and ordered as there (``core.tree``); a restore fills
-the structure, dtypes and devices of a ``like`` tree.
+the structure, dtypes and devices of a ``like`` tree.  ``save_params`` and
+``restore_params`` write and read a model's parameters in the JAX
+package's layout (layers stacked under ``groups/j``, the remainder layers
+under ``extra/r``; ``models.convert.to_jax_layout``), so the JAX package
+restores the port's model checkpoint into its own ``init_params`` tree
+and the port restores the JAX package's.
 """
 
 from __future__ import annotations
@@ -136,6 +141,25 @@ def restore(directory: str, like: Pytree, step: Optional[int] = None,
                 manifest = json.load(f)
             return _load(path, manifest, like), s, manifest.get("extra", {})
     raise IOError(f"all checkpoints in {directory} are corrupt")
+
+
+def save_params(directory: str, step: int, params: dict, mcfg, *,
+                keep_last_k: int = 3, extra: Optional[dict] = None) -> str:
+    """``save`` of the port's ``params`` of ``mcfg`` in the JAX package's
+    layout (the leaves the JAX package's ``init_params`` tree has)."""
+    from repro_torch.models.convert import to_jax_layout
+    return save(directory, step, to_jax_layout(params, mcfg),
+                keep_last_k=keep_last_k, extra=extra)
+
+
+def restore_params(directory: str, like: dict, mcfg,
+                   step: Optional[int] = None) -> Tuple[dict, int, dict]:
+    """``restore`` of a model checkpoint in the JAX package's layout (the
+    port's ``save_params`` or the JAX package's ``save`` of its params)
+    into the port's layout of ``like``; returns (params, step, extra)."""
+    from repro_torch.models.convert import from_jax_layout, to_jax_layout
+    tree, s, ex = restore(directory, to_jax_layout(like, mcfg), step)
+    return from_jax_layout(tree, mcfg), s, ex
 
 
 def _load(path: str, manifest: dict, like: Pytree) -> Pytree:

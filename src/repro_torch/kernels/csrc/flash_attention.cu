@@ -35,10 +35,23 @@
 //   * f32 (flash_fwd, f32 FMAs): one block per (64-query block, batch x
 //     head); 4 threads per query row, each holding the scaled query and the
 //     f32 accumulator of every 4th dimension; K/V tiles of 4,096 / D
-//     positions (rounded down to whole 16s: 32 at D = 96) staged in shared
-//     memory as f32; 16 keys per online-softmax update.
+//     positions (rounded down to whole 16s: 32 at D = 96, 16 at D = 256)
+//     staged in shared memory as f32; 16 keys per online-softmax update.
 // Head dims 32, 64, 96 (phi-3-vision: six 16-deep k-steps on the tensor
-// cores) and 128.
+// cores), 128 and 256 (recurrentgemma-2b, gemma-7b).
+// At D = 256 the bf16 kernel's registers are the limit: a warp's 16 x 256
+// f32 accumulator alone is 128 registers per thread, and the scaled query's
+// 16 k-chunks of A fragments would add 64 more (plus 32 for a 64-key score
+// tile), past the 255 cap.  So at D > 128 the scaled query lives in shared
+// memory (64 rows x 264 bf16, hi and lo tiles when the scale is not a power
+// of two) and is read with ldmatrix per k-chunk, and the K/V tiles shrink
+// to 32 keys (16 score registers): 101,376 B of dynamic shared memory per
+// block (135,168 B with the lo tile), two blocks per SM.  Compiled for
+// sm_90a (CUDA 12.8), flash_fwd_tc<256> then takes 255 registers and no
+// spill, with and without the lo tile, and flash_fwd<256> 255 and no
+// spill; at D <= 128 the query stays in registers (216 at D = 128 without
+// the lo tile; with it, 255 and a 12-byte spill).  chip_smoke.py's build
+// phase reports every instantiation's registers and spill bytes.
 // Both walk only the KV range some query of the block can see (causal: up
 // to the block's last query; window: from its first query's window start),
 // so they skip every block the TPU kernel skips, at a finer grain.  The
@@ -107,7 +120,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H, int KH,
           int Sq, int Skv, float scale, int causal, int window) {
-  // 128, 64, 32, 32 positions at D = 32, 64, 96, 128: whole SUB steps.
+  // 128, 64, 32, 32, 16 positions at D = 32, 64, 96, 128, 256: whole SUB
+  // steps.
   constexpr int BK = TILE_ELEMS / D / SUB * SUB;
   constexpr int DP = D / TPR;         // dimensions per thread
   __shared__ float ks[TILE_ELEMS];
@@ -212,8 +226,24 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BQ = 64;       // query rows per block (4 warps x 16)
-constexpr int TC_BK = 64;       // key positions per staged tile
 constexpr int TC_THREADS = 128;
+
+// Key positions per staged tile, and whether the scaled query is kept in
+// shared memory (not in registers): both by head dim (see the header).
+template <int D>
+struct TcShape {
+  static constexpr bool QS = D > 128;
+  static constexpr int BK = QS ? 32 : 64;
+};
+
+// Dynamic shared memory of one flash_fwd_tc block: double-buffered K and V
+// tiles, then the scaled query's hi (and lo) tiles when QS.
+template <int D, bool QLO>
+constexpr int tc_smem_bytes() {
+  return (2 * 2 * TcShape<D>::BK +
+          (TcShape<D>::QS ? TC_BQ * (QLO ? 2 : 1) : 0)) *
+         (D + 8) * (int)sizeof(__nv_bfloat16);
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -286,10 +316,13 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              float scale, int causal, int window) {
   constexpr int LD = D + 8;        // padded shared-memory row (bf16)
   constexpr int KC = D / 16;       // 16-deep chunks of the score dot
+  constexpr int TC_BK = TcShape<D>::BK;
+  constexpr bool QS = TcShape<D>::QS;
   constexpr int NT = TC_BK / 8;    // key tiles of a score row
   constexpr int DT = D / 8;        // dimension tiles of the output
   constexpr int CH = D / 8;        // 16-byte chunks of a K/V row
-  extern __shared__ __align__(16) __nv_bfloat16 kv_smem[];  // [2][K|V][BK][LD]
+  // [2][K|V][BK][LD], then (QS) the query's [hi|lo][TC_BQ][LD].
+  extern __shared__ __align__(16) __nv_bfloat16 kv_smem[];
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -300,24 +333,50 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
   // The scaled query as A fragments, bf16 hi (+ lo when the scale is not a
-  // power of two).
-  uint32_t qh[KC][4], ql[QLO ? KC : 1][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = qrow[r & 1];
+  // power of two): in registers, or (QS) in shared memory, read per
+  // k-chunk with ldmatrix (lane l: row l % 8 + 8 ((l / 8) % 2), column
+  // 8 (l / 16) of the 16 x 16 chunk).
+  uint32_t qh[QS ? 1 : KC][4], ql[QLO && !QS ? KC : 1][4];
+  __nv_bfloat16* qs_hi = kv_smem + 2 * 2 * TC_BK * LD;
+  __nv_bfloat16* qs_lo = qs_hi + TC_BQ * LD;
+  if (QS) {
+    for (int e = threadIdx.x; e < TC_BQ * D / 2; e += TC_THREADS) {
+      const int row = e / (D / 2), col = 2 * (e % (D / 2));
+      const int qi = q0 + row;
       float2 f = make_float2(0.0f, 0.0f);
       if (qi < Sq)
         f = __bfloat1622float2(*(const __nv_bfloat162*)(
-            q + (((long)b * Sq + qi) * H + h) * D + kc * 16 + (r >> 1) * 8 +
-            2 * tig));
+            q + (((long)b * Sq + qi) * H + h) * D + col));
       const float a0 = __fmul_rn(f.x, scale), a1 = __fmul_rn(f.y, scale);
+      uint32_t hi, lo = 0;
       if (QLO)
-        split_bf16(a0, a1, qh[kc][r], ql[QLO ? kc : 0][r]);
+        split_bf16(a0, a1, hi, lo);
       else
-        qh[kc][r] = bf16x2_bits(__floats2bfloat162_rn(a0, a1));
+        hi = bf16x2_bits(__floats2bfloat162_rn(a0, a1));
+      *(uint32_t*)(qs_hi + row * LD + col) = hi;
+      if (QLO) *(uint32_t*)(qs_lo + row * LD + col) = lo;
     }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int qi = qrow[r & 1];
+        float2 f = make_float2(0.0f, 0.0f);
+        if (qi < Sq)
+          f = __bfloat1622float2(*(const __nv_bfloat162*)(
+              q + (((long)b * Sq + qi) * H + h) * D + kc * 16 + (r >> 1) * 8 +
+              2 * tig));
+        const float a0 = __fmul_rn(f.x, scale), a1 = __fmul_rn(f.y, scale);
+        if (QLO)
+          split_bf16(a0, a1, qh[QS ? 0 : kc][r], ql[QLO && !QS ? kc : 0][r]);
+        else
+          qh[QS ? 0 : kc][r] = bf16x2_bits(__floats2bfloat162_rn(a0, a1));
+      }
+  }
+  const int q_ld = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                   (lane >> 4) * 8;
 
   float o[DT][4];
 #pragma unroll
@@ -363,19 +422,27 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a_hi[4], a_lo[4];
+      if (QS) {
+        ldsm_x4(a_hi, qs_hi + q_ld + kc * 16);
+        if (QLO) ldsm_x4(a_lo, qs_lo + q_ld + kc * 16);
+      }
+      const uint32_t(&qa)[4] = QS ? a_hi : qh[QS ? 0 : kc];
+      const uint32_t(&qb)[4] = QS ? a_lo : ql[QLO && !QS ? kc : 0];
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         uint32_t r[4];
         ldsm_x4(r, ks + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
                        kc * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[2 * jp], qh[kc], r[0], r[1]);
-        mma_bf16(sc[2 * jp + 1], qh[kc], r[2], r[3]);
+        mma_bf16(sc[2 * jp], qa, r[0], r[1]);
+        mma_bf16(sc[2 * jp + 1], qa, r[2], r[3]);
         if (QLO) {
-          mma_bf16(sc[2 * jp], ql[QLO ? kc : 0], r[0], r[1]);
-          mma_bf16(sc[2 * jp + 1], ql[QLO ? kc : 0], r[2], r[3]);
+          mma_bf16(sc[2 * jp], qb, r[0], r[1]);
+          mma_bf16(sc[2 * jp + 1], qb, r[2], r[3]);
         }
       }
+    }
 
     // Masks, only where some (key, query) pair of the block is masked.
     const bool full = k0 + TC_BK <= Skv &&
@@ -499,7 +566,7 @@ template <int D, bool QLO>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int H, int KH, int Sq, int Skv, float scale, int causal,
               int window, cudaStream_t st) {
-  const int smem = 2 * 2 * TC_BK * (D + 8) * (int)sizeof(__nv_bfloat16);
+  constexpr int smem = tc_smem_bytes<D, QLO>();
   // The block's shared memory depends only on D: set once on each device.
   static std::atomic<uint64_t> cap_set{0};
   if (smem > 48 * 1024) {
@@ -531,6 +598,9 @@ int launch_tc_d(const void* q, const void* k, const void* v, void* out, int B,
     case 128:
       return launch_tc<128, QLO>(q, k, v, out, B, H, KH, Sq, Skv, scale,
                                  causal, window, st);
+    case 256:
+      return launch_tc<256, QLO>(q, k, v, out, B, H, KH, Sq, Skv, scale,
+                                 causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -559,6 +629,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       break;
     case 128:
       flash_fwd<128><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, H, KH, Sq, Skv,
+                                               scale, causal, window);
+      break;
+    case 256:
+      flash_fwd<256><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, H, KH, Sq, Skv,
                                                scale, causal, window);
       break;
     default:

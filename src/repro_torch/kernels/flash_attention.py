@@ -30,7 +30,7 @@ Tensor = torch.Tensor
 DEFAULT_BQ = 512
 DEFAULT_BK = 512
 NEG = -1e30
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor) -> None:

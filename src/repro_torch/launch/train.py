@@ -81,7 +81,9 @@ def main(argv=None) -> dict:
         compression=None if args.compression == "none" else args.compression,
         quant=quant)
     opt = AdamW(schedule=cosine_one_cycle(args.lr, args.steps))
-    init_state, train_step = make_train_step(mcfg, opt, tcfg, device=dev)
+    # The step consumes its state, as the JAX driver's donated jit does.
+    init_state, train_step = make_train_step(mcfg, opt, tcfg, device=dev,
+                                             donate=True)
 
     params = init_params(args.seed, mcfg, device=dev)
     print(f"[train] {args.arch} ({'reduced' if args.reduced else 'full'}): "

@@ -18,11 +18,11 @@ is the JAX package's ``g * len(pattern) + j`` in its scanned groups and
 evaluation path (``training.finetune.evaluate_abfp``) and, under autograd
 with the straight-through gradients of ``kernels.ops``, the training path
 (``training.train_lib``; DNF's noise with ``dnf``, per-layer
-rematerialization with ``mcfg.remat``); it runs full-attention decoders
-only.  ``decode_step`` (one token per row) and ``prefill`` (a prompt
-chunk per row) update the decode state in place (see ``models.layers``
-and ``models.recurrent``) and return it, for every kind;
-``forward_capture`` is DNF's paired per-layer pass.
+rematerialization with ``mcfg.remat``), for every layer kind (the
+recurrent blocks' parallel forms).  ``decode_step`` (one token per row)
+and ``prefill`` (a prompt chunk per row) update the decode state in place
+(see ``models.layers`` and ``models.recurrent``) and return it, for every
+kind; ``forward_capture`` is DNF's paired per-layer pass.
 
 An encoder-decoder (whisper) adds ``params["encoder"]`` (full-attention
 layers, non-causal) and, per decoder layer, a cross-attention block
@@ -76,13 +76,13 @@ ENCODER_FOLD = 1000
 
 
 def check_supported(mcfg: ModelConfig, serving: bool = False) -> None:
-    """Raise unless the port runs ``mcfg`` on this path.  Serving
-    (``serving=True``: decode state, decode tick, chunked prefill) takes
-    decoders whose layers are attention (windowed in a hybrid pattern),
-    RG-LRU, mLSTM or sLSTM, with or without experts, and full-attention
-    encoder-decoders; the cacheless ``forward``, DNF's capture and training
-    take full-attention models only.  Rope or absolute positions, and the
-    audio and vision stub frontends, on every path."""
+    """Raise unless the port runs ``mcfg``.  Every path (serving: decode
+    state, decode tick, chunked prefill; the cacheless ``forward``, DNF's
+    capture and training) takes decoders whose layers are attention
+    (windowed in a hybrid pattern), RG-LRU, mLSTM or sLSTM, with or
+    without experts, and full-attention encoder-decoders; rope or
+    absolute positions, and the audio and vision stub frontends.
+    ``serving`` names the path and refuses nothing more."""
     kinds = set(mcfg.block_pattern or ("attention",))
     if (mcfg.frontend not in ("none", "audio_stub", "vision_stub")
             or mcfg.pos_type not in ("rope", "absolute")
@@ -92,11 +92,6 @@ def check_supported(mcfg: ModelConfig, serving: bool = False) -> None:
             f"repro_torch does not run {mcfg.name} (family="
             f"{mcfg.family!r}, frontend={mcfg.frontend!r}, pos_type="
             f"{mcfg.pos_type!r}, pattern={sorted(kinds)})")
-    if not serving and kinds != {"attention"}:
-        raise NotImplementedError(
-            f"repro_torch serves {mcfg.name}'s {sorted(kinds)} layers but "
-            f"does not run its cacheless forward, evaluation or training "
-            f"yet (ROADMAP queue 1 item 6)")
 
 
 def _window(mcfg: ModelConfig) -> int:
@@ -192,7 +187,7 @@ def param_count(params) -> int:
 
 
 def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
-                 kind: str = "attention", positions: Tensor,
+                 kind: str, positions: Tensor,
                  state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
                  page_table: Optional[Tensor] = None, enc_kv=None):
@@ -407,7 +402,8 @@ def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
     then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``;
     returns (x, aux).  Each call folds afresh, so a rematerialized layer
     draws what its first run drew."""
-    x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li), positions=positions,
+    x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li),
+                             kind=mcfg.layer_kind(li), positions=positions,
                              enc_kv=enc_kv)
     if dnf is None:
         return x, aux
@@ -482,10 +478,11 @@ def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
     deltas = []
     for li, lp in enumerate(params["layers"]):
         ek = None if enc_kv is None else enc_kv[li]
-        x_f, _, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li),
+        kind = mcfg.layer_kind(li)
+        x_f, _, _ = _apply_layer(lp, x, mcfg, nx_float.fold(li), kind=kind,
                                  positions=positions, enc_kv=ek)
         x_q, _, _ = _apply_layer(lp, x, mcfg, nx_abfp_factory().fold(li),
-                                 positions=positions, enc_kv=ek)
+                                 kind=kind, positions=positions, enc_kv=ek)
         deltas.append(x_q.float() - x_f.float())
         x = x_f
     x = norm(x, params["final_norm"], mcfg.norm_type)

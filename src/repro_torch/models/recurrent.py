@@ -1,5 +1,5 @@
 """Recurrent temporal-mixing blocks: RG-LRU (Griffin / recurrentgemma),
-mLSTM and sLSTM (xLSTM), on the serving paths.
+mLSTM and sLSTM (xLSTM).
 
 Projections run through ``Numerics.dense`` (so ABFP applies to them), in
 the JAX package's call order, since a call's noise seed is
@@ -7,20 +7,25 @@ the JAX package's call order, since a call's noise seed is
 w_out``; mLSTM ``w_up, w_gate, wq, wk, wv, w_if, w_down``; sLSTM ``w_x,
 w_up, w_down``.  The recurrences stay in digital float32.
 
-Serving runs each block as the JAX package's decode step (one token per
-row) or its chunked-prefill fold (``n_tokens``: a prompt chunk of which
-the first n_tokens[b] positions are real), both sequential per token, so
-a chunk leaves the state a token-by-token run leaves.  The state is
-UPDATED IN PLACE (a replayed CUDA graph reads fixed storage): every
-block computes the new state as the JAX package does, masked per step
-with ``torch.where`` so padding positions and idle rows (n_tokens 0) keep
-their values bit for bit, and ``copy_``s it into the state's tensors.
+Two paths, as in the JAX package:
 
-The JAX package's parallel forms (RG-LRU's associative scan over a whole
-sequence, mLSTM at chunk > 1) belong to the cacheless ``forward``, which
-this port does not run for these families yet: they raise
-``NotImplementedError`` (ROADMAP queue 1 item 6).  ``_mlstm_chunk_scan``
-itself is ported whole, any chunk.
+  * **serving** (a decode state and one token per row, or ``n_tokens``:
+    a prompt chunk of which the first n_tokens[b] positions are real):
+    the decode step or the chunked-prefill fold, sequential per token, so
+    a chunk leaves the state a token-by-token run leaves.  The state is
+    UPDATED IN PLACE (a replayed CUDA graph reads fixed storage): every
+    block computes the new state as the JAX package does, masked per step
+    with ``torch.where`` so padding positions and idle rows (n_tokens 0)
+    keep their values bit for bit, and ``copy_``s it into the state's
+    tensors;
+  * **the parallel forms** (no state, or a state with S > 1 and no
+    ``n_tokens``: the cacheless ``forward``, evaluation and training):
+    RG-LRU's associative scan (``associative_scan``, the JAX package's
+    odd/even recursion and so its association order), the chunkwise
+    mLSTM at ``chunk = min(128, S)``, the sLSTM fold over all S
+    positions, each from the JAX package's initial state when none is
+    given.  They build fresh tensors and return a fresh state: autograd
+    never sees an in-place write.
 
 Function forms follow the JAX package's where PyTorch has a choice:
 softplus is ``logaddexp(x, 0)``, log-sigmoid ``-softplus(-x)`` and SiLU
@@ -39,9 +44,6 @@ from repro_torch.models.layers import Numerics
 Tensor = torch.Tensor
 
 _RGLRU_C = 8.0
-_FORWARD_TODO = ("belongs to the cacheless forward of the recurrent "
-                 "families, which the port does not run yet (ROADMAP "
-                 "queue 1 item 6)")
 
 
 def _softplus(x: Tensor) -> Tensor:
@@ -58,6 +60,53 @@ def _silu(x: Tensor) -> Tensor:
 
 def _normal(gen, device, dtype, std, *shape) -> Tensor:
     return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def associative_scan(fn, elems: list, dim: int = 1) -> list:
+    """Inclusive scan of the associative ``fn`` over ``dim`` of every
+    tensor of ``elems`` (``fn(a_list, b_list) -> list``, ``a`` before
+    ``b``), by the odd/even recursion of ``jax.lax.associative_scan``:
+    combine adjacent pairs, scan the half-length result (the odd
+    outputs), combine each odd output with the next even input (the even
+    outputs), interleave.  About 2 log2 S rounds of whole-tensor ops, and
+    JAX's association order."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.ndim
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    reduced = fn([sl(e, 0, n - 1, 2) for e in elems],
+                 [sl(e, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn([sl(e, 0, -1) for e in odd], [sl(e, 2, None, 2)
+                                                for e in elems])
+    else:
+        even = fn(odd, [sl(e, 2, None, 2) for e in elems])
+    even = [torch.cat([sl(e, 0, 1), r], dim=dim)
+            for e, r in zip(elems, even)]
+    out = []
+    for e, o in zip(even, odd):
+        m = o.shape[dim]
+        pairs = torch.stack([sl(e, 0, m), o], dim=dim + 1).flatten(dim,
+                                                                 dim + 1)
+        out.append(torch.cat([pairs, sl(e, m)], dim=dim) if n % 2 else pairs)
+    return out
+
+
+def _linear_recurrence(a: Tensor, b: Tensor) -> Tensor:
+    """h_t = a_t h_{t-1} + b_t over dim 1 from h_{-1} = 0, by the
+    associative scan with the JAX package's operator ``(a1 a2, a2 b1 +
+    b2)``; returns h (every t)."""
+    def op(c1, c2):
+        (a1, b1), (a2, b2) = c1, c2
+        return [a1 * a2, a2 * b1 + b2]
+
+    return associative_scan(op, [a, b], dim=1)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -117,17 +166,23 @@ def _causal_depthwise_conv(u: Tensor, w: Tensor, state: Optional[Tensor],
 def rglru_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None,
                 n_tokens: Optional[Tensor] = None):
-    """Griffin recurrent block.  Returns (y, state): the decode step (S ==
-    1) or, with ``n_tokens`` (B,), the chunked-prefill fold, one
-    ``where(ok, a_t * h + b_t, h)`` per position; ``state`` ({"conv",
-    "h"}) is updated in place."""
-    if state is None or (n_tokens is None and x.shape[1] != 1):
-        raise NotImplementedError("RG-LRU's associative scan " + _FORWARD_TODO)
+    """Griffin recurrent block.  Returns (y, state).
+
+    Serving: the decode step (a state, S == 1) or, with ``n_tokens`` (B,),
+    the chunked-prefill fold, one ``where(ok, a_t * h + b_t, h)`` per
+    position; ``state`` ({"conv", "h"}) is updated in place.  Otherwise
+    the associative scan over all S positions (a given state's h folded
+    into position 0, as ``b.at[:, 0].add(a[:, 0] * h0)``), and the state
+    returned is new."""
+    serving = n_tokens is not None or (state is not None and x.shape[1] == 1)
+    if n_tokens is not None and state is None:
+        raise ValueError("chunked prefill needs a carried state")
     gate = F.gelu(nx.dense(x, params["w_gate"]).float(),
                   approximate="tanh")
     u = nx.dense(x, params["w_in"])
-    u, new_conv = _causal_depthwise_conv(u, params["conv_w"], state["conv"],
-                                         n_tokens=n_tokens)
+    u, new_conv = _causal_depthwise_conv(
+        u, params["conv_w"], None if state is None else state["conv"],
+        n_tokens=n_tokens)
 
     uf = u.float()
     r = torch.sigmoid(nx.dense(u, params["w_rg"]).float())
@@ -136,6 +191,14 @@ def rglru_block(params: dict, x: Tensor, mcfg, nx: Numerics,
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i * uf)
+
+    if not serving:
+        if state is not None:
+            b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None],
+                           b[:, 1:]], dim=1)
+        hs = _linear_recurrence(a, b)
+        y = nx.dense((hs * gate).to(x.dtype), params["w_out"])
+        return y, {"conv": new_conv, "h": hs[:, -1]}
 
     h = state["h"]
     if n_tokens is None:
@@ -250,19 +313,15 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int, valid=None):
 def mlstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None, chunk: int = 128,
                 n_tokens: Optional[Tensor] = None):
-    """xLSTM mLSTM block.  Returns (y, state).  Serving runs the scan at
-    chunk 1: the decode step (S == 1) or, with ``n_tokens``, the chunked
-    prefill with its padding masked; ``state`` ({"C", "n", "m"}) is
-    updated in place."""
+    """xLSTM mLSTM block.  Returns (y, state).
+
+    Serving runs the scan at chunk 1: the decode step (a state, S == 1)
+    or, with ``n_tokens``, the chunked prefill with its padding masked;
+    ``state`` ({"C", "n", "m"}) is updated in place.  Otherwise the
+    chunkwise scan at ``min(chunk, S)`` from the given state or the JAX
+    package's zero state, and the state returned is new."""
     b, s, _ = x.shape
-    if n_tokens is not None:
-        chunk_eff = 1
-        valid = (torch.arange(s, device=x.device)[None, :]
-                 < n_tokens[:, None])
-    else:
-        chunk_eff, valid = min(chunk, max(s, 1)), None
-    if state is None or chunk_eff > 1:
-        raise NotImplementedError("the chunkwise mLSTM " + _FORWARD_TODO)
+    serving = n_tokens is not None or (state is not None and s == 1)
     nh = mcfg.num_heads
     up = nx.dense(x, params["w_up"])
     gate = _silu(nx.dense(x, params["w_gate"]).float())
@@ -277,21 +336,38 @@ def mlstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
     v = heads(nx.dense(up, params["wv"]))
     gl = nx.dense(up, params["w_if"]).float()                 # (B, S, 2NH)
     log_i = gl[..., :nh].transpose(1, 2)                      # (B, NH, S)
-    # One token at a time, so a chunk's forget gates see the decode step's
-    # shapes: the CPU's elementwise kernels compute a vector's tail
-    # elements by another routine, and a chunk must leave the state a
-    # token-by-token run leaves.
-    log_f = torch.stack([_log_sigmoid(gl[:, t, nh:].contiguous())
-                         for t in range(s)], dim=-1)          # (B, NH, S)
-    h, new = _mlstm_chunk_scan(q, k, v, log_i, log_f,
-                               (state["C"], state["n"], state["m"]),
-                               chunk_eff, valid)
-    for name, t in zip(("C", "n", "m"), new):
-        state[name].copy_(t)
+    if serving:
+        if state is None:
+            raise ValueError("chunked prefill needs a carried state")
+        valid = (None if n_tokens is None else
+                 torch.arange(s, device=x.device)[None, :]
+                 < n_tokens[:, None])
+        # One token at a time, so a chunk's forget gates see the decode
+        # step's shapes: the CPU's elementwise kernels compute a vector's
+        # tail elements by another routine, and a chunk must leave the
+        # state a token-by-token run leaves.
+        log_f = torch.stack([_log_sigmoid(gl[:, t, nh:].contiguous())
+                             for t in range(s)], dim=-1)      # (B, NH, S)
+        h, new = _mlstm_chunk_scan(q, k, v, log_i, log_f,
+                                   (state["C"], state["n"], state["m"]), 1,
+                                   valid)
+        for name, t in zip(("C", "n", "m"), new):
+            state[name].copy_(t)
+        out_state = state
+    else:
+        log_f = _log_sigmoid(gl[..., nh:]).transpose(1, 2)
+        if state is None:
+            z = q.new_zeros
+            start = (z((b, nh, dh, dh)), z((b, nh, dh)), z((b, nh)))
+        else:
+            start = (state["C"], state["n"], state["m"])
+        h, new = _mlstm_chunk_scan(q, k, v, log_i, log_f, start,
+                                   min(chunk, max(s, 1)))
+        out_state = dict(zip(("C", "n", "m"), new))
     h = h.transpose(1, 2).reshape(b, s, inner)
     h = h + params["skip_scale"][None, None].float() * up.float()
     y = nx.dense((h * gate).to(x.dtype), params["w_down"])
-    return y, state
+    return y, out_state
 
 
 # ---------------------------------------------------------------------------
@@ -317,12 +393,11 @@ def slstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None,
                 n_tokens: Optional[Tensor] = None):
     """xLSTM sLSTM block with exponential input gate and stabilizer state,
-    sequential over time.  Returns (y, state); ``state`` ({"h", "c", "n",
-    "m"}) is updated in place, positions at or past n_tokens[b] leaving
-    row b's state unchanged."""
-    if state is None:
-        raise NotImplementedError("the sLSTM scan without a decode state "
-                                  + _FORWARD_TODO)
+    sequential over time.  Returns (y, state).  With a state (serving)
+    ``state`` ({"h", "c", "n", "m"}) is updated in place, positions at or
+    past n_tokens[b] leaving row b's state unchanged; without one the fold
+    starts from the JAX package's h = c = n = 0, m = -1e30 and the state
+    returned is new."""
     b, s, d = x.shape
     nh = mcfg.num_heads
     dh = d // nh
@@ -330,7 +405,13 @@ def slstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
     r_h = params["r_h"].float()                               # (NH, dh, 4dh)
     valid = (None if n_tokens is None else
              torch.arange(s, device=x.device)[None, :] < n_tokens[:, None])
-    h, c, n, m = (state[k] for k in ("h", "c", "n", "m"))
+    if state is None:
+        if n_tokens is not None:
+            raise ValueError("chunked prefill needs a carried state")
+        zeros = torch.zeros((b, nh, dh), device=x.device)
+        h, c, n, m = zeros, zeros, zeros, torch.full_like(zeros, -1e30)
+    else:
+        h, c, n, m = (state[k] for k in ("h", "c", "n", "m"))
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hde->bhe", h, r_h)            # (B, NH, 4dh)
@@ -352,8 +433,11 @@ def slstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
             ok = valid[:, t, None, None]
             h, c, n, m = (torch.where(ok, new, old) for new, old in
                           ((h_new, h), (c_new, c), (n_new, n), (m_new, m)))
-    for name, t in zip(("h", "c", "n", "m"), (h, c, n, m)):
-        state[name].copy_(t)
+    if state is None:
+        state = {"h": h, "c": c, "n": n, "m": m}
+    else:
+        for name, t in zip(("h", "c", "n", "m"), (h, c, n, m)):
+            state[name].copy_(t)
     hs = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
     up = nx.dense(hs, params["w_up"])
     u1, u2 = torch.split(up, d, dim=-1)

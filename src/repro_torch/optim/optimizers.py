@@ -7,7 +7,11 @@ dtype (bf16 at full size), f32 master copies and moments.
 
 The update rules are functional, as the JAX package's: ``init(params)``
 returns a state and ``update(grads, state, params)`` returns (new params,
-new state) without touching its arguments.  A state's ``step`` is a 0-dim
+new state) without touching its arguments.  ``update_`` is the rule
+itself: it computes the new values leaf by leaf in place, into ``state``
+and ``params``, and returns them (the port's form of the JAX driver's
+donated train state, which holds one optimizer state on the card, not
+two); ``update`` runs it on copies.  A state's ``step`` is a 0-dim
 int32 tensor on the CPU, so the schedule is evaluated on the host in f32
 without waiting on the device.
 """
@@ -76,8 +80,11 @@ def _master(params):
     return tree_map(lambda p: p.detach().float().clone(), params)
 
 
-def _cast_like(master, params):
-    return tree_map(lambda mp, p: mp.to(p.dtype), master, params)
+@torch.no_grad()
+def _on_copies(update_, grads, state, params):
+    """The functional form of an in-place ``update_``."""
+    return update_(grads, tree_map(torch.clone, state),
+                   tree_map(torch.clone, params))
 
 
 class AdamWState(NamedTuple):
@@ -102,24 +109,32 @@ class AdamW:
                           _master(params))
 
     def update(self, grads: Pytree, state: AdamWState, params: Pytree):
-        grads = tree_map(lambda g: g.float(), grads)
-        grads = clip_by_global_norm(grads, self.grad_clip_norm)
+        return _on_copies(self.update_, grads, state, params)
+
+    @torch.no_grad()
+    def update_(self, grads: Pytree, state: AdamWState, params: Pytree):
+        """One step, one leaf at a time, written in place into ``state``'s
+        moments and master weights and into ``params``; returns (params,
+        new state)."""
+        scale = _clip_scale(grads, self.grad_clip_norm)
         step = state.step + 1
         lr = self.schedule(step)
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu,
-                      grads)
         c1 = 1 - torch.pow(_f32(b1), step.float())
         c2 = 1 - torch.pow(_f32(b2), step.float())
-
-        def upd(master, m, v):
+        for g, m, v, master, p in zip(leaves(grads), leaves(state.mu),
+                                      leaves(state.nu),
+                                      leaves(state.master), leaves(params)):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             u = u + self.weight_decay * master
-            return master - lr * u
-
-        master = tree_map(upd, state.master, mu, nu)
-        return _cast_like(master, params), AdamWState(step, mu, nu, master)
+            master.sub_(lr * u)
+            p.copy_(master.to(p.dtype))
+        return params, AdamWState(step, state.mu, state.nu, state.master)
 
 
 # ---------------------------------------------------------------------------
@@ -145,15 +160,23 @@ class SGD:
                         _zeros_f32(params), _master(params))
 
     def update(self, grads: Pytree, state: SGDState, params: Pytree):
-        grads = tree_map(lambda g: g.float(), grads)
-        grads = clip_by_global_norm(grads, self.grad_clip_norm)
+        return _on_copies(self.update_, grads, state, params)
+
+    @torch.no_grad()
+    def update_(self, grads: Pytree, state: SGDState, params: Pytree):
+        """One step in place (see ``AdamW.update_``)."""
+        scale = _clip_scale(grads, self.grad_clip_norm)
         step = state.step + 1
         lr = self.schedule(step)
-        velocity = tree_map(
-            lambda v, g, m: self.momentum * v + g + self.weight_decay * m,
-            state.velocity, grads, state.master)
-        master = tree_map(lambda m, v: m - lr * v, state.master, velocity)
-        return _cast_like(master, params), SGDState(step, velocity, master)
+        for g, vel, master, p in zip(leaves(grads), leaves(state.velocity),
+                                     leaves(state.master), leaves(params)):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            vel.mul_(self.momentum).add_(g).add_(self.weight_decay * master)
+            master.sub_(lr * vel)
+            p.copy_(master.to(p.dtype))
+        return params, SGDState(step, state.velocity, state.master)
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +184,19 @@ class SGD:
 # ---------------------------------------------------------------------------
 
 
+def _clip_scale(grads: Pytree, max_norm: Optional[float]):
+    """min(1, max_norm / global_norm) of the f32 gradients, or None."""
+    if max_norm is None:
+        return None
+    norm = global_norm(grads)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(grads: Pytree, max_norm: Optional[float]) -> Pytree:
     """Scale every gradient by min(1, max_norm / global_norm)."""
-    if max_norm is None:
+    scale = _clip_scale(grads, max_norm)
+    if scale is None:
         return grads
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 
 

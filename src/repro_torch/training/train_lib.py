@@ -123,7 +123,7 @@ def value_and_grad(loss_fn, params, *args):
 
 
 def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, donate: bool = False):
     """Returns (init_state, train_step): ``init_state(params) ->
     TrainState`` and ``train_step(state, batch, key) -> (state, metrics)``
     with metrics ``loss``, ``aux_loss`` and ``grad_norm`` (0-dim tensors
@@ -131,7 +131,10 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
     prediction), or a stub frontend's ``batch["embeds"]`` (B, S, d) with
     ``batch["labels"]`` (B, S); an encoder-decoder's batch adds
     ``encoder_features``.  ``key`` is a host PRNG key (``core.prng``).  The
-    parameters live on ``device``."""
+    parameters live on ``device``.  ``donate``: the step consumes its
+    state, updating the parameters and the optimizer state in place
+    (``update_``: the same bits, one optimizer state on the device), as
+    the JAX driver donates its jitted step's state."""
     check_supported(mcfg)
     dev = resolve_device(device)
 
@@ -181,8 +184,8 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
                                               key)
         grads, ef = collectives.apply_compression(grads, tcfg.compression,
                                                   state.ef)
-        params, opt_state = optimizer.update(grads, state.opt_state,
-                                             state.params)
+        update = optimizer.update_ if donate else optimizer.update
+        params, opt_state = update(grads, state.opt_state, state.params)
         metrics = {"loss": loss, "aux_loss": aux,
                    "grad_norm": global_norm(grads)}
         return TrainState(params, opt_state, ef, state.step + 1), metrics

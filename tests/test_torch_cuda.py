@@ -247,9 +247,13 @@ def _flash_inputs(b, sq, skv, h, kh, d, dtype, seed):
                                    (1, 77, 200, 6, 3, 32),
                                    (1, 200, 77, 6, 3, 32),
                                    (2, 128, 1500, 8, 8, 64),
-                                   (1, 300, 300, 4, 4, 96)])
+                                   (1, 300, 300, 4, 4, 96),
+                                   (2, 300, 300, 10, 1, 256),
+                                   (1, 200, 77, 4, 2, 256)])
 def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
-    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/96/128;
+    """MHA, GQA, MQA with Sq != Skv, the evaluation shape; D 32/64/96/128
+    and 256 (recurrentgemma-2b's 10 / 1 heads: the query in shared memory,
+    32-key tiles);
     whisper's cross-attention (128 decoder queries over 1,500 frames);
     query lengths that are not whole 64-row blocks; Sq > Skv + window,
     where rows from Skv + window - 1 on see no key and take the plain
@@ -273,7 +277,8 @@ def test_cuda_flash_attention_matches_plain(shape, causal, window, dtype):
                                            (True, 100)])
 @pytest.mark.parametrize("shape", [(2, 300, 300, 8, 2, 32),
                                    (4, 512, 512, 15, 5, 64),
-                                   (1, 384, 640, 5, 1, 128)])
+                                   (1, 384, 640, 5, 1, 128),
+                                   (1, 300, 300, 10, 1, 256)])
 def test_cuda_flash_fma_route_on_bf16_matches_plain(shape, causal, window):
     """The FMA kernel (the f32 route) on bf16 inputs cast to f32, the A/B
     timing route against the tensor cores: within one bf16 ULP of the
@@ -285,6 +290,16 @@ def test_cuda_flash_fma_route_on_bf16_matches_plain(shape, causal, window):
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_other_head_dims():
+    """Head dims outside ``HEAD_DIMS`` raise on the card (no fallback)."""
+    _need_cuda()
+    for d in (48, 160, 512):
+        q, k, v = _flash_inputs(1, 64, 64, 2, 2, d, torch.bfloat16, d)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, k, v)
 
 
 @pytest.mark.cuda

@@ -62,7 +62,6 @@ from repro_torch.models import (
     Numerics,
     clone_state,
     decode_step,
-    forward,
     init_decode_state,
     init_params,
     pack_model_params,
@@ -223,24 +222,6 @@ def test_chunk_scan_at_chunk_4_matches_jax():
     for a, b_ in zip(tst, jst):
         np.testing.assert_allclose(a.numpy(), np.asarray(b_),
                                    rtol=FLOAT_TOL, atol=FLOAT_TOL)
-
-
-def test_parallel_forms_raise():
-    """The associative scan and chunked mLSTM belong to the cacheless
-    forward, which waits for a later slice."""
-    _, tm = _configs("xlstm-350m")
-    tp = init_params(0, tm, device="cpu")
-    x = torch.zeros(1, 4, tm.d_model)
-    nx = Numerics(QuantConfig(mode="float"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recurrent.mlstm_block(tp["layers"][0]["mlstm"], x, tm, nx)
-    _, rm = _configs("recurrentgemma-2b")
-    rp = init_params(0, rm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        recurrent.rglru_block(rp["layers"][0]["rglru"], x, rm, nx)
-    for mcfg, params in ((tm, tp), (rm, rp)):
-        with pytest.raises(NotImplementedError, match="forward"):
-            forward(params, torch.zeros(1, 4, dtype=torch.int32), mcfg)
 
 
 # ---------------------------------------------------------------------------
