@@ -164,9 +164,10 @@ Phases (any failure exits non-zero and prints no result line):
                breakdown of a decode replay and a 128-token prefill replay,
                kernel 1's device time for one tick's 201 launches (and per
                weight shape) beside its bound, and the peak device memory;
-               (b) xlstm-350m (12 mLSTM + 12 sLSTM) the same on the six
-               short prompts, eager and with graphs (121 kernel-1 launches
-               per tick).
+               (b) xlstm-350m at XL_SERVE_LAYERS = 6 of its 24 layers (3
+               mLSTM + 3 sLSTM, full width: the run's time limit) the same
+               on the six short prompts, eager and with graphs (31
+               kernel-1 launches per tick).
  14. moe    — full-width granite-moe-1b-a400m (24 layers, d_model 1,024,
                32 experts top-8, expert hidden 512) served as ``--arch
                granite-moe-1b-a400m --full --fused`` configures it (see
@@ -238,8 +239,9 @@ Phases (any failure exits non-zero and prints no result line):
  16. fleet  — the multi-model fleet (see ``fleet_phase``): (a) one
                ``ServingEngine(models=...)`` over full-width smollm-360m,
                whisper-base (1,500 stub frames per request from
-               ``attach_features``), xlstm-350m and recurrentgemma-2b as
-               ``--archs ... --full --fused`` configures them, capacity 8
+               ``attach_features``), xlstm-350m (at XL_SERVE_LAYERS, as in
+               phase 13b) and recurrentgemma-2b as ``--archs ... --full
+               --fused`` configures them, capacity 8
                (2 slots per lane), max_len 448 for every lane, 16 greedy
                requests routed round-robin (phase 4's prompt draws folded
                into each lane's vocabulary), served eagerly, with graphs
@@ -308,6 +310,30 @@ Phases (any failure exits non-zero and prints no result line):
                finite and every weight moved; the steps donate their state
                (in place: one AdamW state of 2.9 B parameters fits the
                card); median step time and peak device memory per recipe.
+ 19. abfp_ref — the paper's reference numerics served (``--full --quant
+               abfp``: the ``abfp_ref`` tile scan on float weights, tile
+               128, gain 8, noise 0.5; every dense call's key from the
+               pass's key table in the pass buffers, split and drawn on the
+               card inside the captured pass; see ``abfp_ref_phase``): (a)
+               full-width smollm-360m on phase 4's first four requests
+               (ABFP_REF_REQUESTS: the run's time limit), eagerly, with
+               graphs (blocking) and with graphs + overlap, the launch
+               counts zeroed just before each run and read just after:
+               4 of 4, streams equal across the three, kernels 1-5 never
+               launched; every pass shape's replay against the eager pass
+               under two pass keys (logits and state bit-equal, the keys'
+               logits differ); the workload's first prefill pass by replay
+               bit-equal to the same pass through the host-key scan; decode
+               and prefill medians, tokens/s, capture seconds, the peak
+               device memory with every shape captured, and profiles of a
+               decode replay and a 128-token prefill replay (kernels per
+               replay, device busy time, the int64 elementwise kernels'
+               share: the threefry); (b) full-width whisper-base, phase 15's
+               first four requests with their 1,500-frame features, eagerly
+               and with graphs: streams equal, the captured admission pass
+               (the key table's encoder and root rows) bit-equal to the
+               eager admission under two request keys, whose cross K/V
+               differ; admission replay host times.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -330,6 +356,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+_T0 = time.perf_counter()       # the log lines' clock
 
 # H100 SXM published peaks (dense): HBM bytes/s, int8 and bf16 tensor
 # ops/s, f32 (non-tensor) flop/s.
@@ -409,11 +436,16 @@ FAULT_SLO_TTFT = 64.0
 # recurrentgemma-2b's 2,048-token window (their ring buffers wrap inside
 # and across 128-token chunks), 13a's served runs in turns, and kernel 1's
 # launches per decode tick: 18 RG-LRU layers x 8 + 8 attention layers x 7
-# + the LM head, and 12 mLSTM x 7 + 12 sLSTM x 3 + the head.
+# + the LM head, and per mLSTM / sLSTM layer pair 7 + 3, + the head.
+# Phases 13b and 16 serve xlstm-350m at XL_SERVE_LAYERS of its 24 layers
+# (full width): its per-token sLSTM folds make its eager passes and its
+# graph captures (137 k kernels per 128-token pass at full depth) among
+# the run's costliest, and the run has a time limit.
 RG_LONG_PROMPTS = (2100, 2300)
-RG_TURNS = ("eager", "graphs", "overlap", "overlap", "graphs", "eager")
+RG_TURNS = ("eager", "graphs", "overlap")
 RG_DECODE_K1 = 201
-XL_DECODE_K1 = 121
+XL_SERVE_LAYERS = 6
+XL_DECODE_K1 = XL_SERVE_LAYERS // 2 * (7 + 3) + 1
 # Phase 14 (MoE): 14a's served runs in turns; 14c's evaluation forward of
 # MOE_EVAL_BATCH x MOE_EVAL_SEQ tokens.
 MOE_TURNS = ("eager", "graphs", "overlap")
@@ -462,6 +494,12 @@ FAMILY_FAULTS = {
 # the head.
 RECURRENT_TRAIN = {"recurrentgemma-2b": (26, 2560, 201, 8),
                    "xlstm-350m": (24, 1024, 121, 0)}
+# Phase 19 (abfp_ref served): the requests of each model, phase 4's first
+# four (one prefill pass at bucket 128, 15 ticks) and phase 15's first four
+# with their 1,500-frame features: an eager abfp_ref tick launches about
+# 94 k kernels (2 s of host time), so the whole workload would take the
+# run past its time limit.
+ABFP_REF_REQUESTS = 4
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -474,7 +512,8 @@ def fail(msg: str) -> None:
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - _T0:7.1f}s] {msg}",
+          flush=True)
 
 
 def bits(t):
@@ -666,10 +705,12 @@ def in_turns(fns: dict, time_fn) -> dict:
 
 def profile_pass(dev, fn, what: str, cpu: bool = True):
     """A profiler breakdown of one call of ``fn`` on the card (measurement
-    only): host time, device busy time, kernel launches and the top
-    kernels by device time; host activity is recorded too with ``cpu``.
-    None where the profiler's own import or set-up fails (an error in
-    ``fn`` fails the run)."""
+    only): host time, device busy time, kernel launches, the top kernels
+    by device time and the device time of the int64 elementwise kernels
+    (their names carry ``long``: the threefry's adds, shifts, ors, xors
+    and masks); host activity is recorded too with ``cpu``.  None where
+    the profiler's own import or set-up fails (an error in ``fn`` fails
+    the run)."""
     import torch
     if dev.type != "cuda":
         return None
@@ -690,18 +731,24 @@ def profile_pass(dev, fn, what: str, cpu: bool = True):
         host = time.perf_counter() - t0
     finally:
         prof.__exit__(None, None, None)
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dt = {e.key: getattr(e, "self_device_time_total", 0) for e in ev}
-    cnt = {e.key: e.count for e in ev}
+    # Device time (us) and launches by kernel name from the raw events:
+    # ``key_averages()`` builds the whole event tree first, which takes
+    # tens of seconds for a pass of 100 k kernels.
+    dt, cnt = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            dt[e.name()] = dt.get(e.name(), 0.0) + e.duration_ns() / 1e3
+            cnt[e.name()] = cnt.get(e.name(), 0) + 1
     total = sum(dt.values())
     top = [(k[:60], round(dt[k] / 1e3, 4), cnt[k])
            for k in sorted(dt, key=lambda k: -dt[k])[:8]]
+    i64 = sum(v for k, v in dt.items() if "long" in k)
     res = {"host_ms": host * 1e3, "device_busy_ms": total / 1e3,
-           "kernels": sum(cnt.values()), "top": top}
+           "kernels": sum(cnt.values()), "top": top, "int64_ms": i64 / 1e3}
     log(f"profile of one {what}: host {host * 1e3:.2f} ms, device busy "
         f"{total / 1e3:.3f} ms ({total / 1e3 / (host * 1e3):.1%}) in "
-        f"{res['kernels']} kernel launches; top by device ms: "
-        f"{json.dumps(top)}")
+        f"{res['kernels']} kernel launches (int64 elementwise "
+        f"{i64 / 1e3:.3f} ms); top by device ms: {json.dumps(top)}")
     return res
 
 
@@ -1904,6 +1951,8 @@ def recurrent_phase(dev, engine_cls, short_lens, rows: list) -> dict:
         mcfg, quant = serve_cli.model_and_quant(args)
         if quant.mode != "abfp_fused" or not mcfg.kv_quant:
             fail(f"phase 13 {arch}: unexpected serving config {quant}")
+        if arch == "xlstm-350m":
+            mcfg = dataclasses.replace(mcfg, num_layers=XL_SERVE_LAYERS)
         t0 = time.perf_counter()
         params = init_params(SEED, mcfg, device=dev)
         eng = engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
@@ -3169,6 +3218,8 @@ def fleet_phase(dev, engine_cls, rows: list, card: str) -> dict:
     if quant.mode != "abfp_fused" or not all(c.kv_quant
                                              for c in cfgs.values()):
         fail(f"phase 16: unexpected serving config {quant}")
+    cfgs["xlstm-350m"] = dataclasses.replace(cfgs["xlstm-350m"],
+                                             num_layers=XL_SERVE_LAYERS)
     # Whisper's lane takes its 30 s window of stub frames.
     runners = {a: EncDecRunner(c, enc_len=WHISPER_FRAMES)
                if c.is_encoder_decoder else runner_for(c)
@@ -4062,6 +4113,282 @@ def recurrent_train_phase(dev, rows: list) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], e5)
     for q in qat.values():
         q.pop("counts")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def abfp_ref_phase(dev, engine_cls, reqs, card: str) -> dict:
+    """Phase 19: the paper's reference numerics served (``--quant abfp``:
+    ``abfp_ref``, the tile scan on float weights, every dense call's key
+    from the pass's device key table, the noise drawn on the card inside
+    the captured passes; see the module docstring).  ``engine_cls`` is
+    phase 4's NaN-checking engine, ``reqs`` phase 4's workload.  Returns
+    the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import Numerics, init_params, prefill
+    from repro_torch.serving import EncDecRunner, Request
+    from repro_torch.serving.runners import state_tensors
+
+    t_phase = time.perf_counter()
+    res = {"card": card}
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+
+    class HostKeyed(Numerics):
+        """A pass's root Numerics that stays in key mode: every dense call
+        gets its host key (split and copied to the card per call), the
+        scan's route before the key table."""
+
+        def as_table(self, *a, **kw):
+            return self
+
+    def zero_launches(what):
+        got = ops.launch_counts()
+        if any(got.values()):
+            fail(f"phase 19 {what}: kernels 1-5 were launched: {got}")
+
+    def serve_run(e, rs, what):
+        """Serve ``rs`` on ``e`` (warmed), the launch counts zeroed just
+        before and read just after: every request finished, no kernel
+        1-5 launched; returns (streams, measurements)."""
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        fin = e.run(rs)
+        e.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        zero_launches(what)
+        if len(fin) != len(rs) or any(
+                not r.done or len(r.generated) != r.max_new_tokens
+                for r in fin):
+            fail(f"phase 19 {what}: {len(fin)} of {len(rs)} finished")
+        med, cnt = e.pass_stats()
+        toks = sum(len(r.generated) for r in fin)
+        out = {"wall_s": wall, "tokens": toks, "tokens_per_s": toks / wall,
+               "decode_ms": med["decode"] * 1e3,
+               "prefill_ms": med["prefill"] * 1e3, "passes_by_kind": cnt,
+               "tick_utilization": e.metrics.tick_utilization()["value"],
+               "launches": ops.launch_counts()}
+        log(f"phase 19 {what}: {len(fin)}/{len(rs)} requests, {toks} tokens "
+            f"in {wall:.3f}s ({out['tokens_per_s']:.2f} tokens/s), decode "
+            f"tick median {out['decode_ms']:.3f} ms, prefill pass median "
+            f"{out['prefill_ms']:.3f} ms ({cnt}), tick_utilization "
+            f"{out['tick_utilization']:.4f}, kernels 1-5 launched 0 times")
+        return {r.uid: list(r.generated) for r in fin}, out
+
+    # 19a. smollm-360m at full width as ``--full --quant abfp`` configures
+    # it: bf16 weights from the seed, kept float (no packing).
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--quant", "abfp", "--capacity", str(CAPACITY),
+         "--max-len", str(MAX_LEN), "--max-new", str(MAX_NEW), "--seed",
+         str(SEED)])
+    mcfg, quant = serve_cli.model_and_quant(args)
+    if (mcfg.name, quant.mode, quant.tile_width, quant.gain,
+            quant.noise_lsb) != ("smollm-360m", "abfp_ref", 128, 8.0, 0.5):
+        fail(f"phase 19: unexpected serving config {mcfg.name} {quant}")
+    params = init_params(SEED, mcfg, device=dev)
+
+    def engine(**kw):
+        return engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                          quant=quant, seed=SEED, device=dev, **kw)
+
+    def requests():
+        return [Request(uid=r.uid, prompt=list(r.prompt),
+                        max_new_tokens=MAX_NEW)
+                for r in reqs[:ABFP_REF_REQUESTS]]
+
+    xeng = engine(_graphs=False)
+    init_state = [t.clone() for t in state_tensors(xeng.state)]
+    want, res["eager"] = serve_run(xeng, requests(), "smollm-360m [eager]")
+    served = [t.clone() for t in state_tensors(xeng.state)]
+
+    geng = engine()
+    capture = {}
+    for k in shapes:
+        t1 = time.perf_counter()
+        geng._executable(k)
+        torch.cuda.synchronize()
+        capture["".join(str(p_) for p_ in k)] = time.perf_counter() - t1
+    geng._warmed_shapes.clear()
+    res["capture_s"] = capture
+    res["kernels_per_replay"] = {}
+    log(f"phase 19: captured {len(shapes)} pass shapes in "
+        f"{sum(capture.values()):.2f}s: {json.dumps(capture)}")
+
+    # Every captured shape's replay against the eager pass from the eager
+    # run's final state under two pass keys: logits (and the whole state)
+    # bit-equal, the two keys' logits different.
+    replay_against_eager(geng, xeng, served, shapes, mcfg.vocab_size,
+                         np.random.default_rng(SEED + 29), "phase 19")
+    zero_launches("replays")
+
+    # The first pass of the workload (the first four prompts, bucket 128,
+    # the engine's first pass key) by replay against the same pass through
+    # the host-key scan: logits bit-equal.
+    first = reqs[:CAPACITY]
+    width = 128
+    toks = np.zeros((CAPACITY, width), np.int64)
+    for i, r in enumerate(first):
+        toks[i, :len(r.prompt)] = r.prompt
+    n_tok = np.array([len(r.prompt) for r in first])
+    key = prng.split(prng.PRNGKey(SEED))[1]
+    for t, src in zip(state_tensors(geng.state), init_state):
+        t.copy_(src)
+    io, _ = geng._call(("prefill", width), key, tokens=toks,
+                       n_tokens=n_tok, prev_mask=np.zeros(CAPACITY, bool))
+    lg_graph = io.logits.clone()
+    hstate = xeng.runner.init_state(CAPACITY, MAX_LEN, dev)
+    t1 = time.perf_counter()
+    lg_host, _ = prefill(params, hstate, torch.from_numpy(toks).to(dev),
+                         torch.from_numpy(n_tok).to(dev), mcfg,
+                         HostKeyed(quant, key))
+    torch.cuda.synchronize()
+    res["host_key_prefill_s"] = time.perf_counter() - t1
+    if not torch.equal(lg_graph, lg_host.float()):
+        fail(f"phase 19: the first prefill pass by replay differs from the "
+             f"host-key scan's (max-abs "
+             f"{float((lg_graph - lg_host.float()).abs().max()):.4g})")
+    log(f"phase 19: the first prefill pass ({n_tok.tolist()} tokens) by "
+        f"replay (device key table) equals the host-key scan's bit for "
+        f"bit ({res['host_key_prefill_s']:.2f}s host-keyed)")
+
+    # The served runs: graphs (blocking, simulated clock, the captured
+    # engine from its initial state) and graphs + overlap (wall clock),
+    # each with the eager run's streams.
+    for t, src in zip(state_tensors(geng.state), init_state):
+        t.copy_(src)
+    streams, res["graphs"] = serve_run(geng, requests(),
+                                       "smollm-360m [graphs]")
+    if streams != want:
+        fail(f"phase 19: the graphs run's streams differ from eager: "
+             f"{[u for u in want if streams[u] != want[u]]}")
+    oeng = engine(clock=time.perf_counter, overlap=True)
+    for k in shapes[:1] + shapes[-1:]:      # the shapes the workload runs
+        oeng._executable(k)
+    oeng._warmed_shapes.clear()
+    torch.cuda.synchronize()
+    streams, res["overlap"] = serve_run(oeng, requests(),
+                                        "smollm-360m [graphs + overlap]")
+    if streams != want:
+        fail(f"phase 19: the overlapped run's streams differ from eager: "
+             f"{[u for u in want if streams[u] != want[u]]}")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    log(f"phase 19: smollm-360m abfp_ref streams equal eager / graphs / "
+        f"overlap; peak device memory {res['peak_gib']:.3f} GiB with "
+        f"{len(geng._passes) + len(oeng._passes)} pass shapes captured "
+        f"({res['reserved_gib']:.3f} "
+        f"GiB reserved)")
+
+    # Where a replay's device time goes: a decode tick and a 128-token
+    # prefill pass, and the share of int64 elementwise kernels (the
+    # threefry's operations).
+    fields = {"decode": dict(tokens=np.ones((CAPACITY, 1), np.int64),
+                             n_tokens=np.ones(CAPACITY, np.int64),
+                             prev_mask=np.zeros(CAPACITY, bool)),
+              "prefill128": dict(tokens=toks, n_tokens=n_tok,
+                                 prev_mask=np.zeros(CAPACITY, bool))}
+    res["profile"] = {}
+    for name, shape in (("decode", ("decode",)),
+                        ("prefill128", ("prefill", 128))):
+        for t, src in zip(state_tensors(geng.state), served):
+            t.copy_(src)
+        prof = profile_pass(
+            dev, lambda: geng._call(shape, key, **fields[name]),
+            f"phase 19 {name} replay", cpu=False)
+        res["profile"][name] = prof
+        if prof is not None:
+            res["kernels_per_replay"][name] = prof["kernels"]
+            prof["int64_share"] = prof["int64_ms"] / prof["device_busy_ms"]
+            log(f"phase 19 {name} replay: the int64 elementwise kernels "
+                f"(the threefry) take {prof['int64_share']:.1%} of its "
+                f"device time")
+    geng.close()
+    del xeng, geng, oeng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19b. whisper-base at full width in abfp_ref, 4 requests with 1,500
+    # stub frames each (phase 15's prompts and features), eagerly and
+    # with graphs: streams equal; the captured admission pass (its key
+    # table's encoder rows and root row) against the eager admission.
+    wl = WORKLOADS["whisper-base"]
+    args = serve_cli.build_parser().parse_args(
+        ["--arch", "whisper-base", "--full", "--quant", "abfp",
+         "--capacity", str(CAPACITY), "--max-len", str(WHISPER_MAX_LEN),
+         "--max-new", str(MAX_NEW), "--seed", str(SEED)])
+    wcfg, wquant = serve_cli.model_and_quant(args)
+    wparams = init_params(SEED, wcfg, device=dev)
+    runner = EncDecRunner(wcfg, enc_len=WHISPER_FRAMES)
+
+    def wrequests():
+        return [Request(uid=i, prompt=list(p), max_new_tokens=MAX_NEW,
+                        features=wl["features"][i])
+                for i, p in enumerate(wl["prompts"][:ABFP_REF_REQUESTS])]
+
+    def wengine(**kw):
+        return engine_cls(wparams, wcfg, capacity=CAPACITY,
+                          max_len=WHISPER_MAX_LEN, runner=runner,
+                          quant=wquant, seed=SEED, device=dev, **kw)
+
+    wx = wengine(_graphs=False)
+    wwant, res["whisper_eager"] = serve_run(wx, wrequests(),
+                                            "whisper-base [eager]")
+    wg = wengine()
+    t1 = time.perf_counter()
+    wg.warmup()
+    torch.cuda.synchronize()
+    res["whisper_capture_s"] = time.perf_counter() - t1
+    wstreams, res["whisper_graphs"] = serve_run(wg, wrequests(),
+                                                "whisper-base [graphs]")
+    if wstreams != wwant:
+        fail(f"phase 19: whisper's graphs streams differ from eager: "
+             f"{[u for u in wwant if wstreams[u] != wwant[u]]}")
+    wserved = [t.clone() for t in state_tensors(wx.state)]
+    encs = []
+    for uid in (100, 101):
+        req = Request(uid=uid, prompt=[1], max_new_tokens=1,
+                      features=wl["features"][uid % ABFP_REF_REQUESTS])
+        outs = []
+        for e in (wg, wx):
+            for dst, src in zip(state_tensors(e.state), wserved):
+                dst.copy_(src)
+            e._admit_pass(1, req)
+            outs.append([x.clone() for x in state_tensors(e.state)])
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            fail(f"phase 19: whisper's admission pass of uid {uid} by "
+                 f"replay differs from the eager pass")
+        encs.append([x.clone() for e_ in wx.state["enc"]
+                     for x in (e_["k"][1], e_["v"][1])])
+    if all(torch.equal(a, b) for a, b in zip(*encs)):
+        fail("phase 19: two admission keys gave equal cross K/V")
+    if wg._passes[("admit",)].graph is None:
+        fail("phase 19: whisper's admission pass was not captured")
+    zero_launches("whisper admissions")
+    admit_ms = []
+    req0 = Request(uid=0, prompt=[1], max_new_tokens=1,
+                   features=wl["features"][0])
+    for _ in range(3):
+        t1 = time.perf_counter()
+        wg._admit_pass(0, req0)
+        torch.cuda.synchronize()
+        admit_ms.append((time.perf_counter() - t1) * 1e3)
+    res["whisper_admit_ms"] = admit_ms
+    log(f"phase 19: whisper-base abfp_ref streams equal eager / graphs; the "
+        f"admission pass by replay equals eager under two request keys, "
+        f"the keys' cross K/V differ; admission replay host ms "
+        f"{[round(v, 2) for v in admit_ms]}")
+    wg.close()
+    del wx, wg, wparams
+    gc.collect()
+    torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
@@ -5328,6 +5655,13 @@ def main() -> None:
     rtr = recurrent_train_phase(dev, rows)
     log(f"recurrent training phase in {rtr['seconds']:.1f}s: "
         f"{json.dumps(rtr)}")
+
+    # 19. abfp_ref: the paper's reference numerics served from the device
+    # key table inside the captured passes ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = abfp_ref_phase(dev, CheckedEngine, reqs, card)
+    log(f"abfp_ref phase in {ref['seconds']:.1f}s: {json.dumps(ref)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -437,6 +437,13 @@ def adc(p_codes: Tensor, cfg: QuantConfig, noise_lsb_draw=None,
 REF_GROUP_ELEMENTS = 1 << 25
 
 
+def _is_key(key) -> bool:
+    """A host key (2,) or a device key slot ((2,) int64 tensor)."""
+    if isinstance(key, torch.Tensor):
+        return key.dtype == torch.int64 and tuple(key.shape) == (2,)
+    return not isinstance(key, int) and np.shape(key) == (2,)
+
+
 def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
                 tile_gains: Optional[Tensor] = None) -> Tensor:
     """y = ABFP(x @ w), x: (..., K), w: (K, N) -> (..., N) in
@@ -451,16 +458,18 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
     noise_lsb)``, JAX's draw bit for bit.  ``tile_gains`` (T,) swaps G for
     a per-tile G_t.  Tiles run in groups (one batched tile dot, one noise
     draw and the ADC per group) and accumulate one at a time, which gives
-    the scan's values.  ``key`` is a host PRNG key; required when
+    the scan's values.  ``key`` is a host PRNG key, or a device key slot:
+    a (2,) int64 tensor of uint32 words (a row of a pass's key table),
+    split and drawn from on its device with no host copy; required when
     ``noise_lsb > 0``."""
     noisy = cfg.noise_lsb > 0.0
     if key is None and noisy:
         raise ValueError("noise_lsb > 0 requires a PRNG key")
-    if key is not None and (isinstance(key, (int, torch.Tensor))
-                            or np.shape(key) != (2,)):
+    if key is not None and not _is_key(key):
         raise ValueError(
             "abfp_ref splits the call's PRNG key per tile: pass a key "
-            "(core.prng), not an int seed or a seed-table slot")
+            "(core.prng) or a key-table row, not an int seed or a "
+            "seed-table slot")
     batch = x.shape[:-1]
     n_out = w.shape[1]
     x2 = x.reshape(-1, x.shape[-1])

@@ -13,8 +13,13 @@ i)`` both hash the counter pair ``(0, i)`` under ``key``.
 
 Keys are numpy ``uint32`` arrays of shape (2,), the layout
 ``jax.random.key_data`` returns.  One key's chain is scalar host work, in
-plain Python integers; ``seed_table`` evaluates a whole pass's chain (every
-layer, every call) in one vectorised numpy pass.
+plain Python integers; ``key_table`` (and ``seed_table``, its keys'
+seeds) evaluates a whole pass's chain (every layer, every call) in one
+vectorised numpy pass.  ``split``, ``fold_in`` and ``key_bits`` also take
+a key held as an int64 tensor of its uint32 words (a row of a pass's key
+table on the card): they then run where the key lives, with no host copy
+and no sync, so a captured pass draws fresh noise from each replay's
+table.
 
 The tensor functions at the end (``random_bits``, ``uniform``, ``gumbel``,
 ``row_keys``) run JAX's sampler on any device, inside a CUDA graph too:
@@ -68,9 +73,15 @@ def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (JAX's name)
     return _key(0, seed)
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+def fold_in(key, data: int):
     """New key from ``key`` and a uint32 ``data`` (JAX ``fold_in``).  A
-    stack of keys (..., 2) folds ``data`` into each."""
+    stack of keys (..., 2) folds ``data`` into each.  A key held as an
+    int64 tensor of uint32 words folds where it lives (no host copy, no
+    sync) and returns a tensor of the same shape."""
+    if isinstance(key, torch.Tensor):
+        k = _words(key)
+        b0, b1 = _threefry_t(k[..., 0], k[..., 1], 0, int(data) & _M32)
+        return torch.stack([b0, b1], dim=-1)
     key = np.asarray(key, dtype=np.uint32)
     if key.ndim > 1:
         b0, b1 = _threefry_np(key[..., 0], key[..., 1], np.uint32(0),
@@ -79,9 +90,16 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     return _key(*threefry2x32(int(key[0]), int(key[1]), 0, int(data) & _M32))
 
 
-def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+def split(key, num: int = 2):
     """``num`` new keys as a (num, 2) array (JAX ``split`` in the
-    partitionable variant); row i hashes the counter pair (0, i)."""
+    partitionable variant); row i hashes the counter pair (0, i).  A key
+    held as a (2,) int64 tensor of uint32 words splits where it lives
+    (no host copy, no sync) into a (num, 2) tensor."""
+    if isinstance(key, torch.Tensor):
+        k = _words(key)
+        i = torch.arange(num, dtype=torch.int64, device=k.device)
+        b0, b1 = _threefry_t(k[..., :1], k[..., 1:], torch.zeros_like(i), i)
+        return torch.stack([b0, b1], dim=-1)
     b0, b1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]),
                           np.uint32(0), np.arange(num, dtype=np.uint32))
     return np.stack([b0, b1], axis=-1)
@@ -120,15 +138,16 @@ def _threefry_np(k0, k1, x0, x1):
     return x0, x1
 
 
-def seed_table(key: np.ndarray, num_layers: int, calls: int,
-               head_fold: int, extra=(), root: bool = False) -> np.ndarray:
-    """Every noise seed of one pass, in one vectorised evaluation: the
-    int32 ``key_to_seed(fold_in(fold_in(key, fold), call))`` for the folds
-    0..num_layers-1, then the folds ``extra`` (an encoder's layers), and
-    calls 0..calls-1 (fold-major); with ``root`` then the root key's own
-    calls, ``key_to_seed(fold_in(key, call))``; last the LM head's
-    ``key_to_seed(fold_in(fold_in(key, head_fold), 0))``.  Shape
-    ((num_layers + len(extra) + root) * calls + 1,)."""
+def key_table(key: np.ndarray, num_layers: int, calls: int,
+              head_fold: int, extra=(), root: bool = False) -> np.ndarray:
+    """Every dense call's key of one pass, in one vectorised evaluation:
+    ``fold_in(fold_in(key, fold), call)`` for the folds 0..num_layers-1,
+    then the folds ``extra`` (an encoder's layers), and calls
+    0..calls-1 (fold-major); with ``root`` then the root key's own calls,
+    ``fold_in(key, call)``; last the LM head's ``fold_in(fold_in(key,
+    head_fold), 0)``.  A (n, 2) uint32 array, n = (num_layers +
+    len(extra) + root) * calls + 1: the table the ``abfp_ref`` scan's
+    passes read on the device."""
     folds = np.concatenate([np.arange(num_layers, dtype=np.uint32),
                             np.asarray(extra, dtype=np.uint32),
                             [np.uint32(head_fold)]])
@@ -137,13 +156,21 @@ def seed_table(key: np.ndarray, num_layers: int, calls: int,
     lk0, lk1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]), zero,
                             folds)
     c0, c1 = _threefry_np(lk0[:, None], lk1[:, None], zero, calls_[None, :])
-    seeds = (c0 ^ c1).view(np.int32)
-    parts = [seeds[:-1].reshape(-1)]
+    keys = np.stack([c0, c1], axis=-1)                 # (folds, calls, 2)
+    parts = [keys[:-1].reshape(-1, 2)]
     if root:
         r0, r1 = _threefry_np(np.uint32(key[0]), np.uint32(key[1]), zero,
                               calls_)
-        parts.append((r0 ^ r1).view(np.int32))
-    return np.concatenate(parts + [seeds[-1, :1]])
+        parts.append(np.stack([r0, r1], axis=-1))
+    return np.concatenate(parts + [keys[-1, :1]])
+
+
+def seed_table(key: np.ndarray, num_layers: int, calls: int,
+               head_fold: int, extra=(), root: bool = False) -> np.ndarray:
+    """Every noise seed of one pass: the int32 ``key_to_seed`` of each key
+    of ``key_table`` (the same layout), shape (n,)."""
+    keys = key_table(key, num_layers, calls, head_fold, extra, root)
+    return (keys[:, 0] ^ keys[:, 1]).view(np.int32)
 
 
 def normal(key, shape, device=None) -> torch.Tensor:
@@ -202,24 +229,32 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 
 def key_bits(keys, shape, device=None) -> torch.Tensor:
-    """JAX's partitionable 32-bit ``random_bits(key, shape)`` for a host
-    key (2,), or for each key of a stack (G, 2) (then (G, *shape)): the xor
+    """JAX's partitionable 32-bit ``random_bits(key, shape)`` for a key
+    (2,), or for each key of a stack (G, 2) (then (G, *shape)): the xor
     of the two threefry words of the counter pair (0, i) over the
-    flattened shape.  int64 tensor holding uint32 values, on ``device``
-    (the key words go there by one pinned, non-blocking copy on a GPU)."""
-    keys = np.asarray(keys, dtype=np.uint32)
+    flattened shape.  int64 tensor holding uint32 values.  A host key
+    draws on ``device`` (its words go there by one pinned, non-blocking
+    copy on a GPU); a key held as an int64 tensor draws where it lives,
+    with no host copy and no sync (inside a captured pass too)."""
     shape = tuple(int(v) for v in shape)
     n = int(np.prod(shape, dtype=np.int64))
     if n >= 1 << 32:
         raise ValueError(f"a draw of {n} elements needs 64-bit counters")
-    dev = torch.device("cpu" if device is None else device)
-    kw = torch.from_numpy(keys.reshape(-1, 2).astype(np.int64))
-    if dev.type == "cuda":
-        kw = kw.pin_memory().to(dev, non_blocking=True)
+    if isinstance(keys, torch.Tensor):
+        one = keys.dim() == 1
+        kw = _words(keys).reshape(-1, 2)
+        dev = kw.device
+    else:
+        keys = np.asarray(keys, dtype=np.uint32)
+        one = keys.ndim == 1
+        dev = torch.device("cpu" if device is None else device)
+        kw = torch.from_numpy(keys.reshape(-1, 2).astype(np.int64))
+        if dev.type == "cuda":
+            kw = kw.pin_memory().to(dev, non_blocking=True)
     i = torch.arange(n, dtype=torch.int64, device=dev)[None]
     b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], torch.zeros_like(i), i)
     bits = (b0 ^ b1).reshape((-1,) + shape)
-    return bits[0] if keys.ndim == 1 else bits
+    return bits[0] if one else bits
 
 
 def bits_to_uniform(bits: torch.Tensor, minval: float,

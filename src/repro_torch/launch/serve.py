@@ -24,9 +24,10 @@ requests from the same ``--seed``.
 ADC gains (capped by ``--gain``), an int8 KV cache, and unpaged decode
 ticks through the fused QKV and int8-KV attention kernels (a paged tick
 runs the packed chain, as in the JAX package).  ``--quant abfp-packed``
-serves through the packed ABFP kernel alone; the JAX CLI's ``--quant
-abfp`` (the ``abfp_ref`` tile scan, a PRNG key per call) is not served:
-the engine's passes take seeds from a table.  Weights are random, from
+serves through the packed ABFP kernel alone; ``--quant abfp`` serves the
+paper's reference numerics (``abfp_ref``: the tile scan on float
+weights, each dense call's key from the pass's key table on the device,
+its noise drawn there).  Weights are random, from
 ``--seed``.  ``--device cpu`` runs the kernels' plain PyTorch versions on
 the CPU (for small ``--reduced`` configs).
 
@@ -117,15 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--quant", choices=("float", "abfp-kernel",
+    ap.add_argument("--quant", choices=("float", "abfp", "abfp-kernel",
                                         "abfp-packed"),
                     default="float",
-                    help="abfp-kernel: the unpacked ABFP kernel, weights "
+                    help="abfp: the abfp_ref tile scan (the paper's "
+                         "reference numerics, noise drawn on the device); "
+                         "abfp-kernel: the unpacked ABFP kernel, weights "
                          "quantized inside every call; abfp-packed: "
                          "weights quantized once at init, the packed ABFP "
-                         "kernel every pass (abfp, the abfp_ref scan, "
-                         "trains in repro_torch.launch.train but is not "
-                         "served)")
+                         "kernel every pass")
     ap.add_argument("--fused", action="store_true",
                     help="abfp_fused serving: per-tile ADC gains (capped "
                          "by --gain), int8 KV cache, fused QKV and "
@@ -281,7 +282,8 @@ def model_config(arch: str, args):
 
 def quant_config(args) -> QuantConfig:
     """The QuantConfig the flags ask for."""
-    mode = {"float": "float", "abfp-kernel": "abfp_kernel",
+    mode = {"float": "float", "abfp": "abfp_ref",
+            "abfp-kernel": "abfp_kernel",
             "abfp-packed": "abfp_packed"}[args.quant]
     if args.fused:
         mode = "abfp_fused"

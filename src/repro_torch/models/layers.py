@@ -33,12 +33,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.abfp import PackedWeight, QuantConfig
-from repro_torch.core.prng import fold_in, key_to_seed, seed_table
+from repro_torch.core.prng import fold_in, key_table, key_to_seed, seed_table
 from repro_torch.kernels import ops
 from repro_torch.kernels.abfp_decode_fused import (
     fused_qkv_packed,
@@ -82,13 +83,17 @@ class Numerics:
     the layers (an encoder's ``ENCODER_FOLD + g``) to their rows, and
     ``base`` places the root's own calls (the cross K/V) on theirs
     (``table_numerics``).
+
+    ``abfp_ref`` numerics read a KEY TABLE instead (``keys=``, the same
+    layout from ``core.prng.key_table``: an (n, 2) int64 tensor of the
+    keys' uint32 words): the tile scan splits each call's own key,
+    ``fold_in(layer key, counter)``, as the JAX package does, and draws its
+    noise on the device from the (2,) row it is handed.
+
     A key-mode ``Numerics(quant, key)`` turns into table mode at the top of
     a model pass (``as_table``); below a key-mode ``Numerics`` that was not
-    turned (DNF's per-layer factories), each call's seed is a host int.
-
-    ``abfp_ref`` numerics stay in key mode: the tile scan splits each
-    call's own key, ``fold_in(layer key, counter)``, so every call gets
-    that key, as in the JAX package (a seed table holds no keys).
+    turned (DNF's per-layer factories), each call gets its host key
+    (``abfp_ref``) or that key's seed as a host int.
 
     ``plain=True`` runs every kernel's plain PyTorch version instead of its
     wrapper, on any device: the whole-model reference a kernel run on the
@@ -96,12 +101,14 @@ class Numerics:
     """
 
     def __init__(self, quant: QuantConfig, key=None, plain: bool = False, *,
-                 seeds: Optional[Tensor] = None, calls: int = 0,
+                 seeds: Optional[Tensor] = None,
+                 keys: Optional[Tensor] = None, calls: int = 0,
                  base: int = 0, rows: Optional[dict] = None):
         self.quant = quant
         self._key = key
         self.plain = plain
         self.seeds = seeds
+        self.keys = keys
         self.calls = calls
         self._base = base
         self._rows = rows or {}
@@ -111,18 +118,27 @@ class Numerics:
     def noisy(self) -> bool:
         return self.quant.noise_lsb > 0.0 and self.quant.mode != "float"
 
+    @property
+    def _table(self) -> Optional[Tensor]:
+        return self.seeds if self.seeds is not None else self.keys
+
     def as_table(self, num_layers: int, calls: int, device, extra=(),
                  root: bool = False) -> "Numerics":
-        """This root key's whole pass as a seed table on ``device`` (one
-        host-to-device copy, pinned and non-blocking on a GPU), with rows
-        for the folds ``extra`` and, with ``root``, the root's own calls
-        (``core.prng.seed_table``); unchanged without a key, without noise
-        or already in table mode."""
-        if (self.seeds is not None or self._key is None or not self.noisy
-                or self.quant.mode == "abfp_ref"):
+        """This root key's whole pass as a seed table on ``device`` (a key
+        table in ``abfp_ref`` mode; one host-to-device copy, pinned and
+        non-blocking on a GPU), with rows for the folds ``extra`` and,
+        with ``root``, the root's own calls (``core.prng.seed_table``,
+        ``key_table``); unchanged without a key, without noise or already
+        in table mode."""
+        if self._table is not None or self._key is None or not self.noisy:
             return self
-        tbl = torch.from_numpy(seed_table(self._key, num_layers, calls,
-                                          LM_HEAD_FOLD, extra, root))
+        if self.quant.mode == "abfp_ref":
+            tbl = torch.from_numpy(key_table(
+                self._key, num_layers, calls, LM_HEAD_FOLD, extra,
+                root).astype(np.int64))
+        else:
+            tbl = torch.from_numpy(seed_table(self._key, num_layers, calls,
+                                              LM_HEAD_FOLD, extra, root))
         dev = torch.device(device)
         if dev.type == "cuda":
             tbl = tbl.pin_memory().to(dev, non_blocking=True)
@@ -130,28 +146,32 @@ class Numerics:
                               root, plain=self.plain)
 
     def fold(self, idx: int) -> "Numerics":
-        if self.seeds is not None:
-            base = (self.seeds.numel() - 1 if idx == LM_HEAD_FOLD
+        tbl = self._table
+        if tbl is not None:
+            base = (tbl.shape[0] - 1 if idx == LM_HEAD_FOLD
                     else self._rows.get(idx, idx) * self.calls)
             return Numerics(self.quant, plain=self.plain, seeds=self.seeds,
-                            calls=self.calls, base=base, rows=self._rows)
+                            keys=self.keys, calls=self.calls, base=base,
+                            rows=self._rows)
         key = None if self._key is None else fold_in(self._key, idx)
         return Numerics(self.quant, key, self.plain)
 
     def next_seeds(self, n: int):
         """The noise seeds of the next ``n`` dense calls, one counter step
-        each: an (n,) int32 slice of the seed table, n host ints (n keys
-        in ``abfp_ref`` mode), or n Nones without noise."""
+        each: an (n,) int32 slice of the seed table ((n, 2) rows of the
+        key table in ``abfp_ref`` mode), n host ints (n host keys in
+        ``abfp_ref`` mode), or n Nones without noise."""
         c = self._count
         self._count += n
         if not self.noisy:
             return [None] * n
-        if self.seeds is not None:
-            if self._base + c + n > min(self.seeds.numel(),
+        tbl = self._table
+        if tbl is not None:
+            if self._base + c + n > min(tbl.shape[0],
                                         self._base + max(self.calls, 1)):
                 raise ValueError(f"the seed table has no slot for call "
                                  f"{c + n - 1} at {self._base}")
-            return self.seeds[self._base + c:self._base + c + n]
+            return tbl[self._base + c:self._base + c + n]
         if self._key is None:
             return [None] * n
         keys = [fold_in(self._key, c + i) for i in range(n)]
@@ -164,16 +184,17 @@ class Numerics:
                          plain=self.plain)
 
 
-def table_numerics(quant: QuantConfig, seeds: Tensor, num_layers: int,
+def table_numerics(quant: QuantConfig, table: Tensor, num_layers: int,
                    calls: int, extra=(), root: bool = False,
                    plain: bool = False) -> Numerics:
-    """The root ``Numerics`` of a pass over the seed table ``seeds`` laid
-    out as ``core.prng.seed_table(key, num_layers, calls, LM_HEAD_FOLD,
-    extra, root)`` lays it out."""
+    """The root ``Numerics`` of a pass over ``table`` laid out as
+    ``core.prng.seed_table(key, num_layers, calls, LM_HEAD_FOLD, extra,
+    root)`` lays it out: a seed table (n,), or a key table (n, 2)."""
     rows = {f: num_layers + i for i, f in enumerate(extra)}
     base = (num_layers + len(extra)) * calls if root else 0
-    return Numerics(quant, plain=plain, seeds=seeds, calls=calls, base=base,
-                    rows=rows)
+    kind = "keys" if table.dim() == 2 else "seeds"
+    return Numerics(quant, plain=plain, calls=calls, base=base, rows=rows,
+                    **{kind: table})
 
 
 # ---------------------------------------------------------------------------

@@ -290,25 +290,52 @@ def pass_seed_table(mcfg: ModelConfig, key) -> np.ndarray:
                            LM_HEAD_FOLD, extra, root)
 
 
+def pass_key_table(mcfg: ModelConfig, key) -> np.ndarray:
+    """Every dense call's key of one pass of ``mcfg`` under the root
+    ``key``, the ``abfp_ref`` scan's table: ``core.prng.key_table`` with
+    ``pass_seed_table``'s folds, (n_pass_seeds(mcfg), 2) uint32."""
+    extra, root = _seed_folds(mcfg)
+    return prng.key_table(key, mcfg.num_layers, calls_per_layer(mcfg),
+                          LM_HEAD_FOLD, extra, root)
+
+
 def n_pass_seeds(mcfg: ModelConfig) -> int:
-    """Entries of ``pass_seed_table``."""
+    """Entries of ``pass_seed_table`` (rows of ``pass_key_table``)."""
     extra, root = _seed_folds(mcfg)
     return (mcfg.num_layers + len(extra) + root) * calls_per_layer(mcfg) + 1
 
 
+def n_pass_words(mcfg: ModelConfig, quant: QuantConfig) -> int:
+    """The int32 words of a pass's noise table: ``n_pass_seeds`` seeds,
+    or two words per key of the ``abfp_ref`` key table."""
+    return n_pass_seeds(mcfg) * (2 if quant.mode == "abfp_ref" else 1)
+
+
+def pass_words(mcfg: ModelConfig, quant: QuantConfig, key) -> np.ndarray:
+    """A pass's noise table under the root ``key`` as the int32 words
+    ``pass_numerics`` reads: the seed table, or in ``abfp_ref`` mode the
+    key table's words (row-major, by their bits)."""
+    if quant.mode == "abfp_ref":
+        return pass_key_table(mcfg, key).view(np.int32).reshape(-1)
+    return pass_seed_table(mcfg, key)
+
+
 def pass_numerics(quant: QuantConfig, seeds: Tensor, mcfg: ModelConfig,
                   plain: bool = False) -> Numerics:
-    """The root ``Numerics`` of a pass reading ``seeds``, a
-    ``pass_seed_table`` on the pass's device."""
+    """The root ``Numerics`` of a pass reading ``seeds``, the int32 words
+    of ``pass_words`` on the pass's device (in ``abfp_ref`` mode turned
+    into the (n, 2) int64 key table there, no host copy)."""
     extra, root = _seed_folds(mcfg)
+    if quant.mode == "abfp_ref":
+        seeds = seeds.view(-1, 2).to(torch.int64) & 0xFFFFFFFF
     return table_numerics(quant, seeds, mcfg.num_layers,
                           calls_per_layer(mcfg), extra, root, plain=plain)
 
 
 def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
                    device) -> Numerics:
-    """A pass's root Numerics in seed-table mode (float without one); an
-    ``abfp_ref`` Numerics stays in key mode (``Numerics.as_table``)."""
+    """A pass's root Numerics in table mode (a key table in ``abfp_ref``
+    mode; float without one): ``Numerics.as_table``."""
     nx = nx or Numerics(QuantConfig(mode="float"))
     extra, root = _seed_folds(mcfg)
     return nx.as_table(mcfg.num_layers, calls_per_layer(mcfg), device,

@@ -33,10 +33,12 @@ token is streamed to ``Request.on_token`` as it is sampled.
 
 Numerics
 --------
-``QuantConfig.mode`` picks ``float``, ``abfp_kernel`` (no packing: every
-pass through the unpacked ABFP kernel, which quantizes each weight inside
-the call), ``abfp_packed`` (every dense weight packed once at engine init,
-every pass through the packed ABFP kernel) or
+``QuantConfig.mode`` picks ``float``, ``abfp_ref`` (the paper's reference
+numerics: the tile scan on float weights, each dense call's key from the
+pass's key table, its noise drawn on the engine's device), ``abfp_kernel``
+(no packing: every pass through the unpacked ABFP kernel, which quantizes
+each weight inside the call), ``abfp_packed`` (every dense weight packed
+once at engine init, every pass through the packed ABFP kernel) or
 ``abfp_fused`` (packs with per-tile ADC gains; decode ticks run the fused
 QKV and int8-KV attention kernels).  The kernels run on the engine's
 device: the CUDA kernels on a GPU, their plain versions on the CPU.
@@ -58,8 +60,9 @@ later pass of that shape is a replay.  ``warmup()`` captures them all up
 front.  An overlapped pass in which some row samples at a temperature
 runs its shape's ``"draw"`` variant (the device Gumbel draw, captured at
 first use); a greedy one skips the draw.  A capture or replay that fails
-raises: there is no eager fallback.  Each pass's noise seeds live in its seed table, filled by the
-pass's one host-to-device copy, so every replay draws fresh noise.  A
+raises: there is no eager fallback.  Each pass's noise seeds (its keys,
+under ``abfp_ref``) live in its table, filled by the pass's one
+host-to-device copy, so every replay draws fresh noise.  A
 replay adds to ``kernels.ops.launch_counts()`` the launches its capture
 recorded.  On the CPU passes run eagerly through the same code.
 
@@ -293,12 +296,6 @@ class ServingEngine:
                                                  (FaultConfig, FaultPlan)):
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
                             f"got {type(faults).__name__}")
-        if quant.mode == "abfp_ref":
-            raise ValueError(
-                "the serving engine does not take abfp_ref numerics: its "
-                "passes hand the kernels seeds from a table (CUDA graphs "
-                "have no per-call keys), and the abfp_ref scan splits a "
-                "key per call; serve abfp_kernel, abfp_packed or abfp_fused")
         self.overlap = bool(overlap)
         if self.overlap and clock is None:
             raise ValueError(
@@ -406,7 +403,7 @@ class ServingEngine:
         self._noisy = quant.mode != "float" and quant.noise_lsb > 0.0
         widest = max((1,) + self.prefill_chunks)
         self._staging = Staging(
-            PassIO.n_words(capacity, widest, self.runner.n_seeds(),
+            PassIO.n_words(capacity, widest, self.runner.n_seeds(quant),
                            self.max_pages), depth, self.device)
         self._admit_staging = None      # the admission pass's (enc-dec)
 
@@ -518,7 +515,7 @@ class ServingEngine:
         if self.paged:
             fields["table"] = self._table
         if self._noisy:
-            fields["seeds"] = self.runner.seed_table(key)
+            fields["seeds"] = self.runner.seed_table(key, self.quant)
         self._staging.copy(io.pack(**fields), io.words)
         if fields["prev_mask"].any():
             io.prev.copy_(self._dev_next, non_blocking=True)
@@ -538,7 +535,8 @@ class ServingEngine:
         feats = (feats.detach().cpu() if isinstance(feats, torch.Tensor)
                  else to_tensor(feats, "cpu"))
         seeds = (self.runner.seed_table(prng.fold_in(
-            prng.PRNGKey(self.seed), req.uid)) if self._noisy else None)
+            prng.PRNGKey(self.seed), req.uid), self.quant)
+                 if self._noisy else None)
         self._admit_staging.copy(io.pack(feats, i, seeds), io.words)
         wp.run(self.state)
 

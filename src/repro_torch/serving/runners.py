@@ -21,8 +21,9 @@ Static buffers
 Each pass shape owns its inputs and outputs (``PassIO``), allocated once
 on the engine's device: one int32 word array holds the tokens, the
 per-row token counts, the previous-sample mask, the sampling inputs and
-the pass's seed table, and the host fills it with ONE copy per pass from
-pinned memory (``Staging``); under paging it also holds the (B, MP)
+the pass's noise table (the seed table; in ``abfp_ref`` mode the key
+table, two words per dense call), and the host fills it with ONE copy per
+pass from pinned memory (``Staging``); under paging it also holds the (B, MP)
 page table, which the pass body copies into ``state["page_table"]``
 before the layers read it, so a replay runs under each pass's table;
 ``prev`` takes the previous pass's device sample by a device-to-device
@@ -46,9 +47,9 @@ from repro_torch.models.lm import (
     encode,
     encode_cross_kv,
     init_decode_state,
-    n_pass_seeds,
+    n_pass_words,
     pass_numerics,
-    pass_seed_table,
+    pass_words,
     prefill,
     sample_tokens,
 )
@@ -57,8 +58,8 @@ from repro_torch.serving.pages import pages_needed
 Tensor = torch.Tensor
 
 # The int32 words of a pass's inputs, in order; "tokens" holds B x width
-# words, "seeds" the seed table, "table" the B x MP page table (none
-# unpaged), every other field B.
+# words, "seeds" the noise table (seeds, or key words), "table" the B x MP
+# page table (none unpaged), every other field B.
 FIELDS = ("tokens", "n_tokens", "prev_mask", "temps", "uids", "idxs",
           "seeds", "table")
 
@@ -73,8 +74,8 @@ def _field_sizes(capacity: int, width: int, n_seeds: int,
 
 class PassIO:
     """The static inputs and outputs of one pass shape on ``device``:
-    ``capacity`` rows of ``width`` tokens (1 for the decode tick), a seed
-    table of ``n_seeds`` entries and, under paging, a (capacity,
+    ``capacity`` rows of ``width`` tokens (1 for the decode tick), a noise
+    table of ``n_seeds`` words and, under paging, a (capacity,
     ``max_pages``) page table.  ``words`` is the int32 array the host
     fills; the named fields are views of it (``temps`` as f32)."""
 
@@ -176,13 +177,16 @@ class DecoderRunner:
         return init_decode_state(self.mcfg, capacity, max_len, device,
                                  page_size=page_size, pool_pages=pool_pages)
 
-    def n_seeds(self) -> int:
-        """Entries of a pass's seed table (``models.lm.pass_seed_table``)."""
-        return n_pass_seeds(self.mcfg)
+    def n_seeds(self, quant) -> int:
+        """The int32 words of a pass's noise table under ``quant``
+        (``models.lm.n_pass_words``: a seed per dense call, a key of two
+        words per call in ``abfp_ref`` mode)."""
+        return n_pass_words(self.mcfg, quant)
 
-    def seed_table(self, key) -> np.ndarray:
-        """The seed table of a pass under the root ``key``."""
-        return pass_seed_table(self.mcfg, key)
+    def seed_table(self, key, quant) -> np.ndarray:
+        """The noise table of a pass under the root ``key``, as int32
+        words (``models.lm.pass_words``)."""
+        return pass_words(self.mcfg, quant, key)
 
     def accepts(self, req) -> bool:
         """Model-specific request validation beyond the engine's
@@ -218,8 +222,8 @@ class DecoderRunner:
         decode = shape_key[0] == "decode"
         draw = shape_key[-1] == "draw"
         width = 1 if decode else int(shape_key[1])
-        io = PassIO(capacity, width, self.n_seeds(), self.mcfg.vocab_size,
-                    device, max_pages)
+        io = PassIO(capacity, width, self.n_seeds(quant),
+                    self.mcfg.vocab_size, device, max_pages)
         mcfg = self.mcfg
 
         def body(state: dict) -> None:
@@ -414,7 +418,7 @@ class EncDecRunner(DecoderRunner):
                                      capacity, device, sample, max_pages)
         mcfg = self.mcfg
         io = AdmitIO(self.enc_len, mcfg.d_model, mcfg.activation_dtype,
-                     self.n_seeds(), device)
+                     self.n_seeds(quant), device)
 
         def body(state: dict) -> None:
             nx = pass_numerics(quant, io.seeds, mcfg)

@@ -1365,3 +1365,95 @@ def test_cuda_moe_replay_equals_eager_over_two_keys(shape_key):
         assert launches == {"abfp_matmul_packed": 2 * 100 + 1}
     graph.close()
     eager.close()
+
+
+# ---------------------------------------------------------------------------
+# abfp_ref served: the key chain and the tile scan's draws on the device
+# ---------------------------------------------------------------------------
+
+
+def _dev_key(key):
+    return torch.from_numpy(np.asarray(key, np.uint32).astype(np.int64)
+                            ).to("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_device_key_chain_equals_host_chain():
+    """``split``, ``fold_in`` and ``key_bits`` on keys held in device
+    memory equal the host chain's words and bits."""
+    _need_cuda()
+    from repro_torch.core import prng
+
+    key = prng.fold_in(prng.PRNGKey(7), 3)
+    dk = _dev_key(key)
+    assert prng.split(dk, 9).cpu().numpy().tolist() == \
+        prng.split(key, 9).astype(np.int64).tolist()
+    for data in (0, 5, 999_983, 2**32 - 1):
+        assert prng.fold_in(dk, data).cpu().numpy().tolist() == \
+            prng.fold_in(key, data).astype(np.int64).tolist()
+    keys = prng.split(key, 4)
+    for shape in ((5,), (4, 512), (3, 128, 257)):
+        assert torch.equal(prng.key_bits(dk, shape).cpu(),
+                           prng.key_bits(key, shape))
+        assert torch.equal(prng.key_bits(_dev_key(keys), shape).cpu(),
+                           prng.key_bits(keys, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("k,n", [(960, 2560), (2560, 960)])
+def test_cuda_device_keyed_scan_equals_host_keyed_scan(m, k, n):
+    """The ``abfp_ref`` scan on a device key-table row gives the host
+    key's outputs bit for bit, at a decode tick's and a prefill pass's
+    rows (smollm-360m's MLP shapes, tile 128)."""
+    _need_cuda()
+    from repro_torch.core import abfp as core_abfp
+    from repro_torch.core import prng
+
+    cfg = QuantConfig(mode="abfp_ref", tile_width=128, gain=8.0,
+                      noise_lsb=0.5)
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+    w = (torch.randn(k, n, device="cuda", generator=g) * 0.05
+         ).to(torch.bfloat16)
+    key = prng.fold_in(prng.PRNGKey(11), m)
+    want = core_abfp.abfp_matmul(x, w, cfg, key)
+    got = core_abfp.abfp_matmul(x, w, cfg, _dev_key(key))
+    assert torch.equal(got, want)
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_captured_scan_draws_new_noise_per_staged_key():
+    """A CUDA graph of the scan that reads its key from device memory:
+    each replay after a new key is staged equals the eager scan under
+    that key, and two keys' outputs differ (a key copied inside the
+    capture would replay the capture's noise)."""
+    _need_cuda()
+    from repro_torch.core import abfp as core_abfp
+    from repro_torch.core import prng
+
+    cfg = QuantConfig(mode="abfp_ref", tile_width=128, gain=8.0,
+                      noise_lsb=0.5)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(4, 960, device="cuda", generator=g).to(torch.bfloat16)
+    w = (torch.randn(960, 320, device="cuda", generator=g) * 0.05
+         ).to(torch.bfloat16)
+    slot = torch.zeros(2, dtype=torch.int64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        core_abfp.abfp_matmul(x, w, cfg, slot)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = core_abfp.abfp_matmul(x, w, cfg, slot)
+    outs = []
+    for seed in (1, 2):
+        key = prng.fold_in(prng.PRNGKey(seed), 9)
+        slot.copy_(_dev_key(key))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, core_abfp.abfp_matmul(x, w, cfg, key))
+        outs.append(out.clone())
+    assert not torch.equal(outs[0], outs[1])

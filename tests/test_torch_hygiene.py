@@ -13,12 +13,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import smoke_config
+from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
-from repro_torch.models import init_decode_state, init_params
+from repro_torch.models import Numerics, init_decode_state, init_params
 from repro_torch.serving import ServingEngine
 
 torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
@@ -60,7 +63,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.distributed.fault",
                 "repro_torch.serving.stream", "repro_torch.serving.pages",
                 "repro_torch.serving.faults",
-                "repro_torch.core.tree",
+                "repro_torch.core.tree", "repro_torch.core.energy",
                 "repro_torch.kernels.ref", "repro_torch.optim.optimizers",
                 "repro_torch.distributed.collectives",
                 "repro_torch.training.train_lib",
@@ -136,14 +139,69 @@ def test_train_cli_without_device_raises_on_a_cpu_machine():
     assert "CUDA is not available" in out.stderr
 
 
-def test_engine_refuses_abfp_ref():
-    """A serving pass hands its kernels seeds from a table (a CUDA graph
-    has no per-call keys); the abfp_ref scan needs each call's key."""
+class _HostReads(TorchDispatchMode):
+    """Counts the host data a pass body reads: every operator input with
+    elements whose storage is none of the pass's own (the weights, the
+    decode state, the pass buffers, or a tensor an earlier operator of the
+    body made).  On the card each such input is a host-to-device copy,
+    which a captured graph would replay with the words it held at
+    capture.  A 0-dim host tensor is a constant that a kernel takes as a
+    launch argument (or one that never leaves the host), not a copy."""
+
+    def __init__(self, *trees):
+        super().__init__()
+        self.known = {t.untyped_storage().data_ptr()
+                      for t in _tensors(trees)}
+        self.reads = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in _tensors((args, kwargs)):
+            if (t.dim() and t.untyped_storage().data_ptr()
+                    not in self.known):
+                self.reads.append(str(func))
+        out = func(*args, **kwargs)
+        self.known.update(t.untyped_storage().data_ptr()
+                          for t in _tensors(out))
+        return out
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif hasattr(tree, "__dict__") and not isinstance(tree, type):
+        tree = list(vars(tree).values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.parametrize("shape", [("decode",), ("prefill", 16)])
+def test_abfp_ref_pass_body_makes_no_host_to_device_copy(shape):
+    """An ``abfp_ref`` pass reads each dense call's key from its key table
+    in the pass buffers: the body reads no host data (the count stays 0),
+    while a call handed a host key reads its words from the host."""
     mcfg = smoke_config("smollm-360m")
     params = init_params(0, mcfg, device="cpu")
-    with pytest.raises(ValueError, match="abfp_ref"):
-        ServingEngine(params, mcfg, capacity=1, device="cpu",
-                      quant=QuantConfig(mode="abfp_ref", tile_width=32))
+    quant = QuantConfig(mode="abfp_ref", tile_width=32, noise_lsb=0.5)
+    eng = ServingEngine(params, mcfg, capacity=2, max_len=32, device="cpu",
+                        quant=quant, prefill_chunks=(16,))
+    width = 1 if shape[0] == "decode" else shape[1]
+    io, _ = eng._call(shape, prng.PRNGKey(3),
+                      tokens=np.ones((2, width), np.int32),
+                      n_tokens=np.array([width, 1]),
+                      prev_mask=np.zeros(2, bool))
+    wp = eng._passes[shape]
+    with _HostReads(eng.params, eng.state, wp.io) as reads:
+        wp.body(eng.state)
+    assert reads.reads == []
+    assert torch.isfinite(io.logits).all()
+    with _HostReads(eng.params) as reads:
+        Numerics(quant, prng.PRNGKey(3)).fold(0).dense(
+            torch.ones(2, mcfg.d_model), params["layers"][0]["attn"]["wq"])
+    assert reads.reads
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
