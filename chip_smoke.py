@@ -334,6 +334,30 @@ Phases (any failure exits non-zero and prints no result line):
                (the key table's encoder and root rows) bit-equal to the
                eager admission under two request keys, whose cross K/V
                differ; admission replay host times.
+ 20. mesh   — tensor-parallel serving on a virtual (data, model) mesh
+               (every position on this card; see ``mesh_phase``) of
+               full-width tinyllama-1.1b (22 layers, d_model 2,048, 32 / 4
+               heads of 64, SwiGLU 5,632, vocab 32,000) as ``--arch
+               tinyllama-1.1b --full --fused`` configures it: (a) the
+               column-shard inputs of kernels 1, 2 and 4: at tp 2 and 4,
+               kernel 1 on layer 0's mlp.wi forced through each route
+               (decode at M = 4, fused at M = 512, two-launch at M =
+               512), kernel 2 on attn.wq|wk|wv (tp 2) and wq|mlp.wi|mlp.wg
+               (tp 4, where wk and wv are one block) at M = 4, kernel 4 on
+               the float mlp.wi at M = 512: every shard's launch at its
+               global column-block offset bit-equal to the same columns of
+               the one-device launch and to its plain version with the
+               offset (0 flips), a shard without its offset different;
+               the shards' device times beside the one-device launch's;
+               (b) phase 4's workload (prompts folded into the vocabulary)
+               served with graphs without a mesh and at MESH_SHAPES, the
+               launch counts zeroed just before each run and read just
+               after: 8 of 8, every mesh's streams bit-equal to the run
+               without one, every decode tick and prefill pass exactly
+               MESH_LAUNCHES, every pass shape's replay bit-equal to the
+               eager pass under two keys; decode tick, prefill pass and
+               tokens/s of each mesh beside the run without one (reported:
+               a virtual mesh only adds launches).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -500,6 +524,21 @@ RECURRENT_TRAIN = {"recurrentgemma-2b": (26, 2560, 201, 8),
 # 94 k kernels (2 s of host time), so the whole workload would take the
 # run past its time limit.
 ABFP_REF_REQUESTS = 4
+# Phase 20: the virtual meshes served (data, model), and the kernel
+# launches of each mesh's decode tick and prefill pass on full-width
+# tinyllama-1.1b (22 layers; kernel 1 on wq/wk/wv/wo/wi/wg/wo per layer
+# and the LM head, kernel 2 the fused QKV when wq, wk and wv all split,
+# kernel 3 the attention, never split).  At tp 4, wk and wv (256 columns)
+# and the LM head (250 blocks) do not split into whole 128-column blocks.
+MESH_SHAPES = ((1, 2), (2, 2), (1, 4))
+MESH_LAUNCHES = {
+    1: {"decode": (89, 22, 22), "prefill": (155, 0, 0)},
+    2: {"decode": (178, 44, 22), "prefill": (310, 0, 0)},
+    4: {"decode": (485, 0, 22), "prefill": (485, 0, 0)},
+}
+# The served runs and the plain kernel checks of phase 20a take the first
+# layer's weights; the model has all 22.
+MESH_ARCH = "tinyllama-1.1b"
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -2370,7 +2409,7 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     key = prng.split(prng.PRNGKey(SEED))[1]
     key_d = prng.fold_in(key, 1)
     sites = {k1: (ops, abfp_matmul_packed_ref),
-             k2: (model_layers, lambda x, pws, cfg, seeds, qkv=None:
+             k2: (ops, lambda x, pws, cfg, seeds, qkv=None:
                   fused_qkv_packed_ref(x, pws, cfg, seeds)),
              k3: (model_layers, quantized_decode_attention)}
     calls = {n: [] for n in sites}
@@ -2544,7 +2583,7 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
         nb3, f33 = nb3 + b_, f33 + f_
     del tick
     k1_fn = ops.abfp_matmul_packed
-    k2_fn = model_layers.fused_qkv_packed
+    k2_fn = ops.fused_qkv_packed
     k3_fn = model_layers.fused_quantized_decode_attention
     timed = {}
     for name, fn, plain, cs, (bms, by), reps in (
@@ -4393,6 +4432,294 @@ def abfp_ref_phase(dev, engine_cls, reqs, card: str) -> dict:
     return res
 
 
+def mesh_phase(dev, engine_cls, reqs, card: str, rows: list) -> dict:
+    """Phase 20: tensor-parallel serving on virtual meshes (see the module
+    docstring).  ``engine_cls`` is phase 4's NaN-checking engine that
+    records each pass's launches, ``reqs`` phase 4's workload, ``rows``
+    the kernel rows.  Returns the measurements."""
+    import torch
+
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        _fused_qkv_packed,
+        concat_qkv,
+        fused_qkv_packed_ref,
+    )
+    from repro_torch.kernels.abfp_matmul import (
+        DECODE_ROWS,
+        TWO_LAUNCH,
+        _abfp_matmul,
+        _abfp_matmul_packed,
+        abfp_matmul_packed_ref,
+        abfp_matmul_ref,
+        fused_rows,
+    )
+    from repro_torch.kernels.ops import shard_columns
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.packing import pack_model_params
+    from repro_torch.serving import Request
+    from repro_torch.serving.runners import state_tensors
+
+    t_phase = time.perf_counter()
+    res = {"card": card}
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--fused", "--arch", MESH_ARCH, "--capacity",
+         str(CAPACITY), "--max-len", str(MAX_LEN), "--max-new", str(MAX_NEW),
+         "--seed", str(SEED)])
+    mcfg, quant = serve_cli.model_and_quant(args)
+    if (mcfg.name, mcfg.num_layers, mcfg.d_model, mcfg.d_ff,
+            mcfg.vocab_size, quant.mode) != (MESH_ARCH, 22, 2048, 5632,
+                                             32000, "abfp_fused"):
+        fail(f"phase 20: unexpected serving config {mcfg.name} {quant}")
+    params = init_params(SEED, mcfg, device=dev)
+    packed = pack_model_params(params, quant, mcfg)
+    torch.cuda.synchronize()
+    lp = packed["layers"][0]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    seeds = torch.tensor([2024, -5, 77], dtype=torch.int32, device=dev)
+
+    def act(m, k):
+        return torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+
+    def same(got, want, what):
+        n, size, ulp, _ = bf16_diff(got, want)
+        if ulp:
+            fail(f"phase 20a {what}: {n}/{size} one-ULP flips, largest {ulp}")
+
+    def shards_check(what, tp, whole, outs, plains, unshifted=None):
+        """Every shard's output against its columns of the one-device
+        output and its plain version; a shard without its offset must
+        differ (its noise is another block's)."""
+        col = 0
+        for t, (o, pl) in enumerate(zip(outs, plains)):
+            same(o, whole[:, col:col + o.shape[1]],
+                 f"{what} tp={tp} shard {t} against the one-device columns")
+            same(o, pl, f"{what} tp={tp} shard {t} against its plain version")
+            col += o.shape[1]
+        if col != whole.shape[1]:
+            fail(f"phase 20a {what} tp={tp}: the shards hold {col} columns, "
+                 f"the one-device output {whole.shape[1]}")
+        if unshifted is not None and torch.equal(unshifted, outs[-1]):
+            fail(f"phase 20a {what} tp={tp}: the last shard without its "
+                 f"offset equals it with the offset")
+
+    # 20a. the column-shard inputs of kernels 1, 2 and 4.
+    t_a = time.perf_counter()
+    wi = lp["mlp"]["wi"]
+    n, nb = quant.tile_width, wi.n_padded // 128
+    routes = (("decode", 4, DECODE_ROWS),
+              ("fused", 512, fused_rows(512, n, nb, quant, wi.num_tiles)),
+              ("two-launch", 512, TWO_LAUNCH))
+    qkv3 = {2: (lp["attn"]["wq"], lp["attn"]["wk"], lp["attn"]["wv"]),
+            4: (lp["attn"]["wq"], lp["mlp"]["wi"], lp["mlp"]["wg"])}
+    qk = QuantConfig(mode="abfp_kernel", tile_width=quant.tile_width,
+                     gain=quant.gain, noise_lsb=quant.noise_lsb)
+    wf = params["layers"][0]["mlp"]["wi"]
+    timing, checked = {}, 0
+    for tp in (2, 4):
+        sh = shard_columns(wi, tp)
+        for route, m, rws in routes:
+            x = act(m, wi.k)
+            whole = _abfp_matmul_packed(x, wi, quant, seeds[:1], rws)
+            outs, plains = [], []
+            for t, w_ in enumerate(sh.shards):
+                off, nj = sh.grid(t)
+                outs.append(_abfp_matmul_packed(x, w_, quant, seeds[:1], rws,
+                                                off, nj))
+                plains.append(abfp_matmul_packed_ref(
+                    x, w_, quant, seeds[:1], col_block_offset=off,
+                    num_col_blocks=nj))
+            shards_check(f"kernel 1 mlp.wi {route} M={m}", tp, whole, outs,
+                         plains, _abfp_matmul_packed(
+                             x, sh.shards[-1], quant, seeds[:1], rws))
+            checked += tp
+        # Kernel 2 at decode size over three segments that all split.
+        pws = qkv3[tp]
+        pqkv = concat_qkv(pws, quant)
+        x = act(4, pws[0].k)
+        whole = _fused_qkv_packed(x, pws, quant, seeds, pqkv, DECODE_ROWS)
+        shs = [shard_columns(w_, tp) for w_ in pws]
+        locs, grids, outs, plains = [], [], [[], [], []], [[], [], []]
+        for t in range(tp):
+            loc = tuple(s_.shards[t] for s_ in shs)
+            offs, njs = zip(*(s_.grid(t) for s_ in shs))
+            locs.append((loc, concat_qkv(loc, quant)))
+            grids.append((offs, njs))
+            got = _fused_qkv_packed(x, loc, quant, seeds, locs[-1][1],
+                                    DECODE_ROWS, offs, njs)
+            want = fused_qkv_packed_ref(x, loc, quant, seeds,
+                                        col_block_offsets=offs,
+                                        num_col_blocks=njs)
+            for i in range(3):
+                outs[i].append(got[i])
+                plains[i].append(want[i])
+        for i, name in enumerate(("wq", "wk", "wv") if tp == 2
+                                 else ("wq", "mlp.wi", "mlp.wg")):
+            shards_check(f"kernel 2 segment {name} M=4", tp, whole[i],
+                         outs[i], plains[i])
+        checked += 3 * tp
+        # Kernel 4: the weight quantizer on a float column shard, then
+        # kernel 1's launch at the shard's offset.
+        shf = shard_columns(wf, tp)
+        x = act(512, wf.shape[0])
+        whole4 = _abfp_matmul(x, wf, qk, seeds[:1], None)
+        outs4, plains4 = [], []
+        for t, w_ in enumerate(shf.shards):
+            off, nj = shf.grid(t)
+            outs4.append(_abfp_matmul(x, w_, qk, seeds[:1], None, off, nj))
+            plains4.append(abfp_matmul_ref(x, w_, qk, seeds[:1],
+                                           col_block_offset=off,
+                                           num_col_blocks=nj))
+        shards_check("kernel 4 mlp.wi M=512", tp, whole4, outs4, plains4,
+                     _abfp_matmul(x, shf.shards[-1], qk, seeds[:1], None))
+        checked += tp
+
+        # Device times: the one-device launch against its tp shard
+        # launches (graph replay), at the serving shapes (kernels 1-2 at
+        # M = 4, kernel 4 at M = 512).
+        x4 = act(4, wi.k)
+        x512 = act(512, wf.shape[0])
+        fns = {
+            "abfp_matmul_packed": (
+                lambda: _abfp_matmul_packed(x4, wi, quant, seeds[:1], None),
+                lambda: [_abfp_matmul_packed(x4, w_, quant, seeds[:1], None,
+                                             *sh.grid(t))
+                         for t, w_ in enumerate(sh.shards)]),
+            "fused_qkv_packed": (
+                lambda: _fused_qkv_packed(x4, pws, quant, seeds, pqkv, None),
+                lambda: [_fused_qkv_packed(x4, lc, quant, seeds, q3, None,
+                                           *g_)
+                         for (lc, q3), g_ in zip(locs, grids)]),
+            "abfp_matmul": (
+                lambda: _abfp_matmul(x512, wf, qk, seeds[:1], None),
+                lambda: [_abfp_matmul(x512, w_, qk, seeds[:1], None,
+                                      *shf.grid(t))
+                         for t, w_ in enumerate(shf.shards)]),
+        }
+        for name, (one, per_shard) in fns.items():
+            turns = in_turns({"one": one, "shards": per_shard},
+                             lambda f: graph_ms(f, 20)[0])
+            timing.setdefault(name, {})[f"tp{tp}"] = {
+                "one_device_ms": statistics.mean(turns["one"]),
+                "shards_ms": statistics.mean(turns["shards"]),
+                "per_shard_ms": statistics.mean(turns["shards"]) / tp,
+                "turns_ms": turns}
+    res["kernel_checks"] = {"shard_launches_checked": checked,
+                            "flips": 0, "seconds": time.perf_counter() - t_a}
+    res["shard_timing"] = timing
+    log(f"phase 20a: {checked} shard launches of kernels 1, 2 and 4 at tp 2 "
+        f"and 4 (kernel 1 on the decode, fused and two-launch routes) "
+        f"bit-equal to the one-device columns and to their plain versions "
+        f"with their offsets (0 flips), a shard without its offset "
+        f"different; device ms (one device / all shards): "
+        + json.dumps({k: {t: [round(v["one_device_ms"], 4),
+                              round(v["shards_ms"], 4)]
+                          for t, v in d.items()}
+                      for k, d in timing.items()}))
+    del sh, shs, shf, locs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20b. the workload served without a mesh and on each mesh.
+    vocab = mcfg.vocab_size
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+
+    def requests():
+        return [Request(uid=r.uid,
+                        prompt=[t % (vocab - 1) + 1 for t in r.prompt],
+                        max_new_tokens=MAX_NEW) for r in reqs]
+
+    names = ("abfp_matmul_packed", "fused_qkv_packed",
+             "fused_quantized_decode_attention")
+    want = None
+    res["serve"] = {}
+    for shape in ((1, 1),) + MESH_SHAPES:
+        label = "none" if shape == (1, 1) else f"{shape[0]}x{shape[1]}"
+        mesh = None if shape == (1, 1) else make_host_mesh(*shape, dev)
+        t1 = time.perf_counter()
+        mp = packed if mesh is None else pack_model_params(packed, quant,
+                                                           mcfg, mesh=mesh)
+
+        def engine(**kw):
+            return engine_cls(mp, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                              quant=quant, seed=SEED, device=dev, mesh=mesh,
+                              **kw)
+
+        geng = engine()
+        capture = {}
+        for k in shapes:
+            t2 = time.perf_counter()
+            geng._executable(k)
+            torch.cuda.synchronize()
+            capture["".join(str(p_) for p_ in k)] = time.perf_counter() - t2
+        geng._warmed_shapes.clear()
+        setup = time.perf_counter() - t1
+        rs = requests()
+        ops.reset_launch_counts()
+        t2 = time.perf_counter()
+        fin = geng.run(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        counts = ops.launch_counts()
+        if len(fin) != len(rs) or any(
+                not r.done or len(r.generated) != r.max_new_tokens
+                for r in fin):
+            fail(f"phase 20b mesh {label}: {len(fin)} of {len(rs)} finished")
+        streams = {r.uid: list(r.generated) for r in fin}
+        if want is None:
+            want = streams
+        elif streams != want:
+            fail(f"phase 20b mesh {label}: the streams of requests "
+                 f"{[u for u in want if streams[u] != want[u]]} differ from "
+                 f"the run without a mesh")
+        tp = shape[1]
+        for kind in ("decode", "prefill"):
+            exp = {k: v for k, v in zip(names, MESH_LAUNCHES[tp][kind]) if v}
+            if not geng.per_pass[kind]:
+                fail(f"phase 20b mesh {label}: no {kind} pass ran")
+            for got in geng.per_pass[kind]:
+                if {k: v for k, v in got.items() if v} != exp:
+                    fail(f"phase 20b mesh {label}: a {kind} pass launched "
+                         f"{got}, want {exp}")
+        med, cnt = geng.pass_stats()
+        toks = sum(len(r.generated) for r in fin)
+        r_ = {"setup_s": setup, "capture_s": capture, "wall_s": wall,
+              "tokens": toks, "tokens_per_s": toks / wall,
+              "decode_ms": med["decode"] * 1e3,
+              "prefill_ms": med["prefill"] * 1e3, "passes_by_kind": cnt,
+              "launches": counts,
+              "launches_per_decode_tick": geng.per_pass["decode"][0],
+              "launches_per_prefill_pass": geng.per_pass["prefill"][0]}
+        served = [t.clone() for t in state_tensors(geng.state)]
+        xeng = engine(_graphs=False)
+        replay_against_eager(geng, xeng, served, shapes, vocab,
+                             np.random.default_rng(SEED + 20),
+                             f"phase 20b mesh {label}")
+        res["serve"][label] = r_
+        log(f"phase 20b mesh {label}: {len(fin)}/{len(rs)} requests, {toks} "
+            f"tokens in {wall:.3f}s ({r_['tokens_per_s']:.1f} tokens/s), "
+            f"graphs decode tick median {r_['decode_ms']:.3f} ms, prefill "
+            f"pass median {r_['prefill_ms']:.3f} ms ({cnt}), launches per "
+            f"decode tick {r_['launches_per_decode_tick']}, per prefill pass "
+            f"{r_['launches_per_prefill_pass']}, streams equal to the run "
+            f"without a mesh; set-up {setup:.1f}s")
+        del geng, xeng, served, mp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for row in rows:
+        name = row["name"]
+        row["launches_mesh_serve"] = {
+            k: v["launches"].get(name, 0) for k, v in res["serve"].items()}
+        if name in timing:
+            row["tp_shard_ms"] = timing[name]
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
                       encoder_features=None, check_calls: bool = False,
                       bar: float = EVAL_LOGIT_BAR):
@@ -4515,6 +4842,40 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
     return res, counts
 
 
+def checked_engine_cls():
+    """The serving engine the phases drive: it checks every fetched logits
+    block for NaN and records each pass's kernel launches (the counts'
+    growth across the pass) by pass kind."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    class CheckedEngine(ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.per_pass = {"decode": [], "prefill": []}
+
+        def _counted(self, kind, run, *a):
+            before = ops.launch_counts()
+            run(*a)
+            after = ops.launch_counts()
+            self.per_pass[kind].append(
+                {k: after[k] - before[k] for k in after})
+
+        def _prefill_pass(self, live):
+            self._counted("prefill", super()._prefill_pass, live)
+
+        def _decode_tick(self):
+            self._counted("decode", super()._decode_tick)
+
+        def _fetch_logits(self, kind, t0, logits, warm):
+            lg = super()._fetch_logits(kind, t0, logits, warm)
+            if not np.isfinite(lg).all():
+                fail(f"non-finite logits in a {kind} pass")
+            return lg
+
+    return CheckedEngine
+
+
 def main() -> None:
     try:
         import torch
@@ -4617,34 +4978,7 @@ def main() -> None:
         fail(f"unexpected serving config {mcfg.name} {quant}")
     params = init_params(SEED, mcfg, device=dev)
     from repro_torch.serving import Request, ServingEngine
-
-    class CheckedEngine(ServingEngine):
-        """Checks every fetched logits block for NaN and records each
-        pass's kernel launches (the counts' growth across the pass) by
-        pass kind."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.per_pass = {"decode": [], "prefill": []}
-
-        def _counted(self, kind, run, *a):
-            before = ops.launch_counts()
-            run(*a)
-            after = ops.launch_counts()
-            self.per_pass[kind].append(
-                {k: after[k] - before[k] for k in after})
-
-        def _prefill_pass(self, live):
-            self._counted("prefill", super()._prefill_pass, live)
-
-        def _decode_tick(self):
-            self._counted("decode", super()._decode_tick)
-
-        def _fetch_logits(self, kind, t0, logits, warm):
-            lg = super()._fetch_logits(kind, t0, logits, warm)
-            if not np.isfinite(lg).all():
-                fail(f"non-finite logits in a {kind} pass")
-            return lg
+    CheckedEngine = checked_engine_cls()
 
     t0 = time.perf_counter()
     eng = CheckedEngine(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
@@ -5051,7 +5385,7 @@ def main() -> None:
     key = prng.split(prng.PRNGKey(SEED))[1]
     key_d = prng.fold_in(key, 1)
     sites = {"abfp_matmul_packed": (ops, abfp_matmul_packed_ref),
-             "fused_qkv_packed": (model_layers, lambda x, pws, cfg, seeds,
+             "fused_qkv_packed": (ops, lambda x, pws, cfg, seeds,
                                   qkv=None: fused_qkv_packed_ref(
                                       x, pws, cfg, seeds)),
              "fused_quantized_decode_attention": (
@@ -5662,6 +5996,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     ref = abfp_ref_phase(dev, CheckedEngine, reqs, card)
     log(f"abfp_ref phase in {ref['seconds']:.1f}s: {json.dumps(ref)}")
+
+    # 20. mesh: tensor-parallel serving on virtual meshes of one card -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    msh = mesh_phase(dev, CheckedEngine, reqs, card, rows)
+    log(f"mesh phase in {msh['seconds']:.1f}s: {json.dumps(msh)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

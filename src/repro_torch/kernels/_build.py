@@ -36,7 +36,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "abfp_matmul": {
         "abfp_matmul_packed_launch": (
             [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I]   # x .. Ntot
-            + [_I] * 6 + [_P] + [_I] * 3                    # nseg .. nk
+            + [_I] * 9 + [_P] + [_I] * 3                    # nseg .. nk
             + [_F, _F, _I, _F, _F, _F, _F]                  # adc .. lx
             + [_I]                                          # rows (route)
             + [_P] * 5),                                    # buffers, stream

@@ -9,7 +9,10 @@
     TPU kernel ``fused_qkv_packed_pallas`` (``repro/kernels/
     abfp_decode_fused.py``).  The concatenated codes, scales and the
     (T, 3) gains table are built once, at pack time (``concat_qkv``),
-    instead of on every call.
+    instead of on every call.  Each segment may be a column shard of its
+    weight (``col_block_offsets`` / ``num_col_blocks``: the noise of the
+    whole weight's grid, as ``abfp_matmul_packed``).
+
 
 ``fused_quantized_decode_attention``
     Single-query GQA decode attention directly on the int8 KV codes
@@ -36,6 +39,7 @@ from repro_torch.kernels.abfp_matmul import (
     _seed_or_zero,
     abfp_matmul_packed_ref,
     check_packed,
+    col_grid,
     launch_segments,
 )
 
@@ -98,36 +102,62 @@ def concat_qkv(pws: Sequence[PackedWeight], cfg: QuantConfig) -> PackedQKV:
         gains=gains, pws=pws)
 
 
+Grids = Optional[Sequence[int]]
+
+
+def _grids(pws, col_block_offsets: Grids, num_col_blocks: Grids):
+    """Each segment's (global block count, first block)."""
+    offs = col_block_offsets or (0, 0, 0)
+    njs = num_col_blocks or (None, None, None)
+    return [col_grid(pw.n_padded, o, n) for pw, o, n in zip(pws, offs, njs)]
+
+
 def fused_qkv_packed_ref(x: Tensor, pws: Sequence[PackedWeight],
                          cfg: QuantConfig,
-                         seeds: Optional[Sequence[Optional[int]]] = None):
-    """Plain version: three packed matmuls with their own seeds."""
+                         seeds: Optional[Sequence[Optional[int]]] = None,
+                         *, col_block_offsets: Grids = None,
+                         num_col_blocks: Grids = None):
+    """Plain version: three packed matmuls with their own seeds (and,
+    for column shards, their own places in their weights' grids)."""
     validate_fused(tuple(pws), cfg)
     seeds = seeds if seeds is not None else (None, None, None)
-    return tuple(abfp_matmul_packed_ref(x, pw, cfg, s)
-                 for pw, s in zip(pws, seeds))
+    return tuple(abfp_matmul_packed_ref(x, pw, cfg, s, col_block_offset=o,
+                                        num_col_blocks=n)
+                 for pw, s, (n, o) in zip(pws, seeds, _grids(
+                     pws, col_block_offsets, num_col_blocks)))
 
 
 def fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight], cfg: QuantConfig,
                      seeds: Optional[Sequence[Optional[int]]] = None,
-                     qkv: Optional[PackedQKV] = None):
+                     qkv: Optional[PackedQKV] = None, *,
+                     col_block_offsets: Grids = None,
+                     num_col_blocks: Grids = None):
     """(x @ wq, x @ wk, x @ wv) in one launch; each output sliced to its
     weight's logical columns.  ``seeds``: three ints (or Nones), or a (3,)
     int32 tensor on x's device that the kernel reads (a seed-table slice).
-    ``qkv`` is the pack-time concatenation (built here when not given)."""
+    ``qkv`` is the pack-time concatenation (built here when not given).
+    ``col_block_offsets`` / ``num_col_blocks``: one per segment, each
+    segment's place in its whole weight's grid when it is a column
+    shard."""
     if not x.is_cuda:
-        return fused_qkv_packed_ref(x, pws, cfg, seeds)
-    return _fused_qkv_packed(x, pws, cfg, seeds, qkv, None)
+        return fused_qkv_packed_ref(x, pws, cfg, seeds,
+                                    col_block_offsets=col_block_offsets,
+                                    num_col_blocks=num_col_blocks)
+    return _fused_qkv_packed(x, pws, cfg, seeds, qkv, None,
+                             col_block_offsets, num_col_blocks)
 
 
 def _fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight],
                       cfg: QuantConfig,
                       seeds: Optional[Sequence[Optional[int]]],
-                      qkv: Optional[PackedQKV], rows: Optional[int]):
+                      qkv: Optional[PackedQKV], rows: Optional[int],
+                      col_block_offsets: Grids = None,
+                      num_col_blocks: Grids = None):
     """The CUDA path of ``fused_qkv_packed``; ``rows`` forces a route of
     ``launch_segments`` (an A/B entry for the card tests and
     ``chip_smoke.py``'s timing; no model path passes it)."""
     pws = tuple(pws)
+    grids = _grids(pws, col_block_offsets, num_col_blocks)
     if qkv is None:
         qkv = concat_qkv(pws, cfg)
     seeds = seeds if seeds is not None else (None, None, None)
@@ -137,7 +167,7 @@ def _fused_qkv_packed(x: Tensor, pws: Sequence[PackedWeight],
     if not isinstance(seeds, Tensor):
         seeds = [_seed_or_zero(s, cfg) for s in seeds]
     out = launch_segments(x, qkv.kcodes, qkv.scales, qkv.gains, pws[0], cfg,
-                          qkv.njs, seeds, rows)
+                          qkv.njs, grids, seeds, rows)
     fused_qkv_packed.launches += 1
     outs, col = [], 0
     for pw, nj in zip(pws, qkv.njs):

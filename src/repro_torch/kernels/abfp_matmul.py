@@ -19,6 +19,15 @@ auto_bm(M)``, ``bn = 128``, ``bk = default_bk(n, K)``; salt
 column within its 128-column block.  Both versions here recompute those
 coordinates, whatever their own tiling.
 
+A column shard of a weight (tensor-parallel serving, ``kernels.ops.
+dense_tp``) passes ``col_block_offset``, the global index of its first
+128-column block, and ``num_col_blocks``, the whole weight's block count
+``nj``: its column block ``j`` then draws the noise of global block
+``col_block_offset + j``, so the shards' outputs side by side equal the
+whole weight's call bit for bit (the TPU kernels' arguments of the same
+names).  Both are plain ints: fixed for the life of a shard's pack, a
+CUDA graph captures them as launch arguments.
+
 ``seed`` is an int or a one-element int32 tensor (a slot of a pass's
 seed table, ``models.layers.Numerics``); the CUDA kernel reads every
 segment's seed from device memory (``seed_buffer``), so a CUDA graph that
@@ -48,7 +57,7 @@ composition.  ``abfp_matmul.launches`` counts its calls on the card.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -204,10 +213,12 @@ def seed_buffer(seeds, nseg: int, cfg: QuantConfig, dev) -> Optional[Tensor]:
 
 
 def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
-                    grid: Grid, nj: int, row0: int = 0) -> Tensor:
+                    grid: Grid, nj: int, row0: int = 0,
+                    off: int = 0) -> Tensor:
     """(T, M, Np) f32 per-tile terms ``y_q * s_x * s_w [/ G_t]`` of the
     rows ``x2``, which start at row ``row0`` of the call (the noise
-    lattice is a function of the call's row index)."""
+    lattice is a function of the call's row index); the weight's column
+    blocks are blocks ``off ..`` of a grid of ``nj``."""
     dev = x2.device
     n, T = grid.n, grid.T
     m = x2.shape[0]
@@ -232,7 +243,7 @@ def _tile_terms_ref(x2: Tensor, pw: PackedWeight, cfg: QuantConfig, seed: int,
         tau = torch.arange(T, device=dev)
         rows = torch.arange(row0, row0 + m, device=dev)
         cols = torch.arange(npad, device=dev)
-        salt = ((rows // grid.bm)[None, :, None] * nj
+        salt = ((rows // grid.bm)[None, :, None] * nj + off
                 + (cols // DEFAULT_BN)[None, None, :]) * grid.nk \
             + (tau // grid.tk)[:, None, None]
         hrow = (tau % grid.tk)[:, None, None] * grid.bm \
@@ -264,11 +275,30 @@ def _reduce_terms_ref(term: Tensor, pw: PackedWeight, cfg: QuantConfig,
     return acc.to(cfg.out_dtype)
 
 
+def col_grid(n_padded: int, col_block_offset: int = 0,
+             num_col_blocks: Optional[int] = None) -> Tuple[int, int]:
+    """(global block count, first block) of a weight of ``n_padded``
+    columns: its own grid, or a column shard's place in the whole
+    weight's."""
+    nj = n_padded // DEFAULT_BN
+    nj_g = nj if num_col_blocks is None else int(num_col_blocks)
+    off = int(col_block_offset)
+    if off < 0 or off + nj > nj_g:
+        raise ValueError(f"column blocks {off}..{off + nj} do not lie in a "
+                         f"grid of {nj_g}")
+    return nj_g, off
+
+
 def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
-                           seed: Optional[int] = None) -> Tensor:
+                           seed: Optional[int] = None, *,
+                           col_block_offset: int = 0,
+                           num_col_blocks: Optional[int] = None) -> Tensor:
     """Plain PyTorch version of the packed ABFP kernel; x: (..., K) ->
-    (..., N) in ``cfg.out_dtype``."""
+    (..., N) in ``cfg.out_dtype``.  ``col_block_offset`` /
+    ``num_col_blocks``: a column shard's place in the whole weight's
+    grid (see the module docstring)."""
     check_packed(pw, cfg)
+    nj_g, off = col_grid(pw.n_padded, col_block_offset, num_col_blocks)
     if x.shape[-1] != pw.k:
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
     batch = x.shape[:-1]
@@ -280,9 +310,8 @@ def abfp_matmul_packed_ref(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
     # so the chunking changes no bit.
     step = max(1, REF_TERM_ELEMENTS // (grid.T * pw.n_padded))
     outs = [_reduce_terms_ref(
-        _tile_terms_ref(x2[r:r + step], pw, cfg, seed, grid,
-                        pw.n_padded // DEFAULT_BN, r), pw, cfg, grid)
-            for r in range(0, m, step)]
+        _tile_terms_ref(x2[r:r + step], pw, cfg, seed, grid, nj_g, r, off),
+        pw, cfg, grid) for r in range(0, m, step)]
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return out[:, :pw.n_cols].reshape(*batch, pw.n_cols)
 
@@ -339,14 +368,17 @@ def _seeds(seed, cfg: QuantConfig):
 
 def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
                     gains: Optional[Tensor], pw0, cfg: QuantConfig,
-                    njs: Sequence[int], seeds: Sequence[int],
-                    rows: Optional[int] = None) -> Tensor:
+                    njs: Sequence[int], grids: Sequence[Tuple[int, int]],
+                    seeds: Sequence[int], rows: Optional[int] = None
+                    ) -> Tensor:
     """One launch of ``csrc/abfp_matmul.cu`` over up to three weights whose
     column blocks are concatenated (``njs`` blocks each); ``pw0`` (a
     ``PackedWeight`` or ``Geometry``) gives their shared K side.  Returns
-    the (M, sum(njs) * 128) bf16 output.  ``rows`` overrides the route
-    (``fused_rows``): 0 for the two-launch route, 8 for the decode route
-    (M <= 8), 16/32/64 for the fused one; only the A/B entries pass it."""
+    the (M, sum(njs) * 128) bf16 output.  ``grids`` gives each segment's
+    (global block count, first block) (``col_grid``).  ``rows`` overrides
+    the route (``fused_rows``): 0
+    for the two-launch route, 8 for the decode route (M <= 8), 16/32/64
+    for the fused one; only the A/B entries pass it."""
     if not x.is_cuda:
         raise ValueError("the CUDA kernel takes CUDA tensors")
     if cfg.out_dtype != torch.bfloat16 or cfg.scale_dtype != torch.bfloat16:
@@ -366,7 +398,7 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
     ntot = kcodes.shape[1]
     nseg = len(njs)
     starts = [0, njs[0], njs[0] + (njs[1] if nseg > 1 else 0)]
-    nj = list(njs) + [0] * (3 - nseg)
+    grids = list(grids) + [(0, 0)] * (3 - nseg)
     sd = seed_buffer(seeds, nseg, cfg, dev)
     if rows is None:
         rows = fused_rows(m, n, ntot // DEFAULT_BN, cfg, T)
@@ -388,7 +420,8 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
         x2.data_ptr(), int(x2.dtype == torch.bfloat16), m, pw0.k,
         kcodes.data_ptr(), scales.data_ptr(),
         gains.data_ptr() if has_g else None, pw0.kp, T, n, ntot,
-        nseg, starts[1], starts[2], nj[0], nj[1], nj[2],
+        nseg, starts[1], starts[2], *(g for g, _ in grids),
+        *(off for _, off in grids),
         None if sd is None else sd.data_ptr(), grid.bm, grid.tk, grid.nk,
         f32_const(cfg.adc_base_scale if has_g else cfg.adc_code_scale),
         f32_const(2.0 * cfg.noise_lsb), int(cfg.noise_lsb > 0.0),
@@ -402,18 +435,27 @@ def launch_segments(x: Tensor, kcodes: Tensor, scales: Tensor,
 
 
 def abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
-                       seed: Optional[int] = None) -> Tensor:
+                       seed: Optional[int] = None, *,
+                       col_block_offset: int = 0,
+                       num_col_blocks: Optional[int] = None) -> Tensor:
     """y = ABFP(x @ W) from a packed weight; x: (..., K) -> (..., N) bf16.
+    ``col_block_offset`` / ``num_col_blocks``: a column shard's place in
+    the whole weight's grid (see the module docstring).
 
     CPU tensors run ``abfp_matmul_packed_ref``; CUDA tensors launch the
     CUDA kernel (and count one launch) or raise."""
     if not x.is_cuda:
-        return abfp_matmul_packed_ref(x, pw, cfg, seed)
-    return _abfp_matmul_packed(x, pw, cfg, seed, None)
+        return abfp_matmul_packed_ref(x, pw, cfg, seed,
+                                      col_block_offset=col_block_offset,
+                                      num_col_blocks=num_col_blocks)
+    return _abfp_matmul_packed(x, pw, cfg, seed, None, col_block_offset,
+                               num_col_blocks)
 
 
 def _abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
-                        seed: Optional[int], rows: Optional[int]) -> Tensor:
+                        seed: Optional[int], rows: Optional[int],
+                        col_block_offset: int = 0,
+                        num_col_blocks: Optional[int] = None) -> Tensor:
     """The CUDA path of ``abfp_matmul_packed``; ``rows`` forces a route
     (an A/B entry for the card tests and ``chip_smoke.py``'s timing; no
     model path passes it)."""
@@ -422,7 +464,9 @@ def _abfp_matmul_packed(x: Tensor, pw: PackedWeight, cfg: QuantConfig,
         raise ValueError(f"x K dim {x.shape[-1]} != packed weight K {pw.k}")
     gains = None if pw.gains is None else pw.gains.float().contiguous()
     out = launch_segments(x, pw.kcodes, pw.scales, gains, pw, cfg,
-                          [pw.n_padded // DEFAULT_BN], _seeds(seed, cfg), rows)
+                          [pw.n_padded // DEFAULT_BN],
+                          [col_grid(pw.n_padded, col_block_offset,
+                                    num_col_blocks)], _seeds(seed, cfg), rows)
     abfp_matmul_packed.launches += 1
     return out[:, :pw.n_cols].reshape(*x.shape[:-1], pw.n_cols)
 
@@ -447,18 +491,25 @@ def check_unpacked(w: Tensor, cfg: QuantConfig) -> None:
 
 
 def abfp_matmul_ref(x: Tensor, w: Tensor, cfg: QuantConfig,
-                    seed: Optional[int] = None) -> Tensor:
+                    seed: Optional[int] = None, *, col_block_offset: int = 0,
+                    num_col_blocks: Optional[int] = None) -> Tensor:
     """Plain version of the unpacked ABFP kernel: pack ``w`` and run the
     packed plain version (the reference holds packed and unpacked
     bit-identical).  x: (..., K), w: (K, N) -> (..., N) in
     ``cfg.out_dtype``."""
     check_unpacked(w, cfg)
-    return abfp_matmul_packed_ref(x, pack_abfp_weight(w, cfg), cfg, seed)
+    return abfp_matmul_packed_ref(x, pack_abfp_weight(w, cfg), cfg, seed,
+                                  col_block_offset=col_block_offset,
+                                  num_col_blocks=num_col_blocks)
 
 
 def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
-                seed: Optional[int] = None) -> Tensor:
+                seed: Optional[int] = None, *, col_block_offset: int = 0,
+                num_col_blocks: Optional[int] = None) -> Tensor:
     """y = ABFP(x @ W) on a float weight; x: (..., K) -> (..., N) bf16.
+    ``col_block_offset`` / ``num_col_blocks`` as in
+    ``abfp_matmul_packed``: the weight scales are per column, so a column
+    shard's quantized weight is the matching slice of the whole one's.
 
     CPU tensors run ``abfp_matmul_ref``.  CUDA tensors quantize ``w`` on
     the card (``abfp_quantize_w_launch``: bf16 max-abs scales per (K-tile,
@@ -466,8 +517,11 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
     run the packed kernel's launches on that scratch without gains (the
     scalar ``cfg.gain``); one count per call, or raise."""
     if not x.is_cuda:
-        return abfp_matmul_ref(x, w, cfg, seed)
-    return _abfp_matmul(x, w, cfg, seed, None)
+        return abfp_matmul_ref(x, w, cfg, seed,
+                               col_block_offset=col_block_offset,
+                               num_col_blocks=num_col_blocks)
+    return _abfp_matmul(x, w, cfg, seed, None, col_block_offset,
+                        num_col_blocks)
 
 
 def quantize_weight(w: Tensor, cfg: QuantConfig):
@@ -498,7 +552,9 @@ def quantize_weight(w: Tensor, cfg: QuantConfig):
 
 
 def _abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
-                 seed: Optional[int], rows: Optional[int]) -> Tensor:
+                 seed: Optional[int], rows: Optional[int],
+                 col_block_offset: int = 0,
+                 num_col_blocks: Optional[int] = None) -> Tensor:
     """The CUDA path of ``abfp_matmul``; ``rows`` forces a route (an A/B
     entry for the card tests and ``chip_smoke.py``'s timing; no model path
     passes it)."""
@@ -510,8 +566,9 @@ def _abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig,
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     geo, kcodes, scales = quantize_weight(w, cfg)
     out = launch_segments(x, kcodes, scales, None, geo, cfg,
-                          [kcodes.shape[1] // DEFAULT_BN], _seeds(seed, cfg),
-                          rows)
+                          [kcodes.shape[1] // DEFAULT_BN],
+                          [col_grid(kcodes.shape[1], col_block_offset,
+                                    num_col_blocks)], _seeds(seed, cfg), rows)
     abfp_matmul.launches += 1
     return out[:, :n_cols].reshape(*x.shape[:-1], n_cols)
 

@@ -11,8 +11,12 @@
 // Both compute y = ABFP(x @ W) from int8 weight codes, bf16 per-(tile,
 // column) scales and optional f32 per-tile ADC gains.  Kernel 2 is kernel 1
 // run over up to three weights whose column blocks are concatenated; each
-// segment keeps its own noise seed, column-block count and local block
-// index, so it draws the noise a stand-alone call for that weight draws.
+// segment keeps its own noise seed, column-block count and block index,
+// so it draws the noise a stand-alone call for that weight draws.  A
+// segment may be a column shard of a weight (tensor-parallel serving): it
+// then takes the whole weight's block count and its first block's global
+// index, and draws the noise the whole weight's call draws for its columns
+// (the TPU kernels' col_block_offset / num_col_blocks).
 // The seeds are read from device memory (a slice of the pass's seed
 // table), never passed by value: a CUDA graph that captured a launch then
 // draws the noise of whatever seeds the table holds at each replay.
@@ -281,7 +285,10 @@ abfp_quantize_w(const void* __restrict__ w, int w_bf16, int K, int N, int Np,
 
 struct Segments {
   int start1, start2;      // first column block of segments 1 and 2
-  int nj[3];               // column-block count of each segment's own grid
+  int nj[3];               // column-block count of each segment's global
+                           // grid (the whole weight's, for a column shard)
+  int off[3];              // global index of each segment's first column
+                           // block (0 unless the segment is a column shard)
   const int* seeds;        // noise seed of each segment, in device
                            // memory (read only when adc.noisy)
   int nseg;
@@ -359,7 +366,8 @@ abfp_tile_terms(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     if (adc.has_gains) v = __fmul_rn(v, g);
     if (adc.noisy) {
       int i = m / bm, rr = m % bm;
-      uint32_t salt = (uint32_t)((i * seg.nj[s] + j_local) * nk + kb);
+      uint32_t salt =
+          (uint32_t)((i * seg.nj[s] + seg.off[s] + j_local) * nk + kb);
       v = __fadd_rn(v, __fmul_rn(hash_u05((uint32_t)(tt * bm + rr),
                                           (uint32_t)cc, seed, salt),
                                  adc.noise2));
@@ -634,8 +642,8 @@ abfp_decode(const void* __restrict__ x, int x_bf16, int K, int Kp, int T,
     segment_of(seg, c0 / BN, s, j_local);
     const uint32_t seed = seed_of(seg, adc, s);
     // The salt of row block 0 and K block 0 (bm = 8 >= M: every row is in
-    // row block 0, hash row tt * 8 + m).
-    const uint32_t salt0 = (uint32_t)j_local * (uint32_t)nk;
+    // row block 0, hash row tt * 8 + m), at the slice's global block.
+    const uint32_t salt0 = (uint32_t)(seg.off[s] + j_local) * (uint32_t)nk;
     const int cb = c0 % BN + 4 * ch;           // hash column of column 0
     float bsum = -0.0f, acc = 0.0f;            // the fold thread's sums
     int kb = kb0, tt = tt0;                    // warp's tile t = kb tk + tt
@@ -895,7 +903,7 @@ abfp_fused(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
   // Per-row parts of the reference hash (row, seed and salt terms) that do
   // not change with the K-tile: hash row tt * bm + rr, salt
-  // (i * nj + j_local) * nk + kb.
+  // (i * nj + off + j_local) * nk + kb.
   const int m_row[2] = {m0 + r0 + g, m0 + r0 + g + 8};
   const uint32_t seed = seed_of(seg, adc, s);
   uint32_t hbase[2];
@@ -904,7 +912,8 @@ abfp_fused(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     const uint32_t i = (uint32_t)(m_row[h] / bm);
     const uint32_t rr = (uint32_t)(m_row[h] % bm);
     hbase[h] = rr * 0x9E3779B9u + seed * 0xC2B2AE35u +
-               (i * (uint32_t)seg.nj[s] + (uint32_t)j_local) * (uint32_t)nk *
+               (i * (uint32_t)seg.nj[s] + (uint32_t)(seg.off[s] + j_local)) *
+                   (uint32_t)nk *
                    0x27D4EB2Fu;
   }
   int magic[4] = {MAGIC_BITS, MAGIC_BITS, MAGIC_BITS, MAGIC_BITS};
@@ -1111,6 +1120,11 @@ bool host_pow2(float v) {
 
 }  // namespace
 
+// nj0..nj2: each segment's global column-block count, off0..off2 the
+// global index of its first block: a column shard of a weight draws the
+// noise the whole weight's grid draws for the same columns (salt
+// (i * nj + off + j_local) * nk + k).  A whole weight passes its own block
+// count and offset 0.
 // seeds: device pointer to the nseg segment seeds (null without noise).
 // rows: the route.  16, 32 or 64: the fused route's row block (M > 8);
 // 8: the decode route (M <= 8, one launch; xq, sx and terms unused); 0: the
@@ -1118,13 +1132,13 @@ bool host_pow2(float v) {
 extern "C" int abfp_matmul_packed_launch(
     const void* x, int x_bf16, int M, int K, const void* kcodes,
     const void* scales, const void* gains, int Kp, int T, int n, int Ntot,
-    int nseg, int start1, int start2, int nj0, int nj1, int nj2,
-    const void* seeds, int bm, int tk, int nk, float adc_scale,
+    int nseg, int start1, int start2, int nj0, int nj1, int nj2, int off0,
+    int off1, int off2, const void* seeds, int bm, int tk, int nk, float adc_scale,
     float noise2, int noisy, float ly, float bin_y, float gain, float lx,
     int rows, void* xq, void* sx, void* terms, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n % 4 != 0 || Ntot % BN != 0 || nseg < 1 || nseg > 3 || M < 1 ||
-      (noisy && seeds == nullptr))
+      (noisy && seeds == nullptr) || off0 < 0 || off1 < 0 || off2 < 0)
     return (int)cudaErrorInvalidValue;
   // The fused route's conditions: whole 32-deep k steps (n a power of two
   // from 32), s_x and s_w of every K-tile in shared memory (T <= 128), and
@@ -1142,6 +1156,7 @@ extern "C" int abfp_matmul_packed_launch(
   seg.start1 = start1;
   seg.start2 = start2;
   seg.nj[0] = nj0; seg.nj[1] = nj1; seg.nj[2] = nj2;
+  seg.off[0] = off0; seg.off[1] = off1; seg.off[2] = off2;
   seg.seeds = (const int*)seeds;
   seg.nseg = nseg;
   Adc adc;

@@ -60,6 +60,19 @@ clock:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --archs smollm-360m,xlstm-350m
 
+``--mesh dp,tp`` serves tensor-parallel on a (data, model) mesh
+(``launch.mesh.make_host_mesh``): every dense weight whose columns split
+over the ``tp`` model shards runs one kernel launch per shard at its
+global column-block offset, the outputs concatenated in shard order;
+greedy streams equal the run without a mesh at any mesh shape.  In this
+port a mesh is virtual: every shard lives on ``--device`` (one card, or
+the CPU); ``dp`` is validated and read by the spec trees.  It composes
+with ``--archs`` (every lane on the mesh), not with the fault flags (the
+multi-card slice's):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --fused \
+        --arch tinyllama-1.1b --mesh 1,2
+
 ``--wall-clock`` drives the engine on ``time.perf_counter`` (latencies in
 seconds, the tick utilization printed); ``--overlap`` (implies
 ``--wall-clock``) serves through the overlapped runtime: sampling on the
@@ -81,13 +94,14 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import frontends, init_params, param_count
 from repro_torch.serving import (
     EncDecRunner,
@@ -223,7 +237,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inflight", type=int, default=4,
                     help="dispatch-ahead depth for --overlap (bound on "
                          "submitted but undelivered passes)")
+    ap.add_argument("--mesh", default=None,
+                    help="dp,tp — serve tensor-parallel on a (data, model) "
+                         "mesh whose every position is --device (a virtual "
+                         "mesh)")
     return ap
+
+
+def parse_mesh(arg: Optional[str]) -> Optional[Tuple[int, int]]:
+    """'dp,tp' -> (dp, tp); None passes through (the one-device
+    engine)."""
+    if arg is None:
+        return None
+    try:
+        dp, tp = (int(v) for v in arg.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects 'dp,tp' (got {arg!r})")
+    if dp < 1 or tp < 1:
+        raise SystemExit(f"--mesh axes must be >= 1 (got {arg!r})")
+    return dp, tp
 
 
 def resolve_archs(args) -> List[str]:
@@ -341,7 +373,7 @@ def trace_workload(mcfg, args, rng: np.random.Generator) -> List[Request]:
     return reqs
 
 
-def serve_fleet(built: dict, quant: QuantConfig, args) -> None:
+def serve_fleet(built: dict, quant: QuantConfig, mesh, args) -> None:
     """Multi-model fleet serving: one lane per ``--archs`` entry on a
     shared clock, requests routed round-robin over the models (the
     requests of encoder-decoder lanes get stub frontend features)."""
@@ -354,8 +386,9 @@ def serve_fleet(built: dict, quant: QuantConfig, args) -> None:
         max_len=args.max_len, quant=quant, seed=args.seed,
         chunked=not args.no_chunked, policy=args.policy,
         prefill_chunks=tuple(int(c) for c in args.prefill_chunks.split(",")),
-        device=args.device, paged=args.paged, page_size=args.page_size,
-        pool_pages=args.pool_pages, prefix_cache=not args.no_prefix_cache)
+        device=args.device, mesh=mesh, paged=args.paged,
+        page_size=args.page_size, pool_pages=args.pool_pages,
+        prefix_cache=not args.no_prefix_cache)
     lanes = {n: l_.capacity for n, l_ in eng.lanes.items()}
     print(f"[serve] fleet: {len(built)} models, slots {lanes}, "
           f"quant={args.quant}, policy={args.policy}")
@@ -415,6 +448,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if args.overlap:
         args.wall_clock = True
+    mesh_shape = parse_mesh(args.mesh)
+    mesh = None if mesh_shape is None else make_host_mesh(*mesh_shape,
+                                                          args.device)
     if args.archs is not None:
         archs = resolve_archs(args)
         if args.fault_rate is not None:
@@ -427,7 +463,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         for a in archs:
             cfg = model_config(a, args)
             built[a] = (init_params(args.seed, cfg, device=args.device), cfg)
-        serve_fleet(built, quant, args)
+        serve_fleet(built, quant, mesh, args)
         return
     mcfg, quant = model_and_quant(args)
     try:
@@ -436,8 +472,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit(f"--page-watermarks expects 'hi,lo' "
                          f"(got {args.page_watermarks!r})")
     params = init_params(args.seed, mcfg, device=args.device)
+    mesh_note = (f", mesh=({mesh_shape[0]}x{mesh_shape[1]} data x model)"
+                 if mesh is not None else "")
     print(f"[serve] {args.arch}: {param_count(params) / 1e6:.1f}M params, "
-          f"quant={quant.mode}, policy={args.policy}, device={args.device}")
+          f"quant={quant.mode}, policy={args.policy}{mesh_note}, "
+          f"device={args.device}")
     faults = None
     if args.fault_rate is not None:
         faults = FaultConfig(
@@ -458,7 +497,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                         chunked=not args.no_chunked, policy=args.policy,
                         prefill_chunks=tuple(
                             int(c) for c in args.prefill_chunks.split(",")),
-                        device=args.device,
+                        device=args.device, mesh=mesh,
                         faults=faults, recovery=not args.no_recovery,
                         detect_every=args.detect_every,
                         paged=args.paged, page_size=args.page_size,

@@ -10,6 +10,7 @@ from repro_torch.models.layers import (  # noqa: F401
     attention_block,
     chunked_attention,
     decode_attention,
+    im2col,
     mlp_block,
     rmsnorm,
     rope,

@@ -42,8 +42,6 @@ from repro_torch.core.abfp import PackedWeight, QuantConfig
 from repro_torch.core.prng import fold_in, key_table, key_to_seed, seed_table
 from repro_torch.kernels import ops
 from repro_torch.kernels.abfp_decode_fused import (
-    fused_qkv_packed,
-    fused_qkv_packed_ref,
     fused_quantized_decode_attention,
     quantized_decode_attention,
 )
@@ -98,15 +96,22 @@ class Numerics:
     ``plain=True`` runs every kernel's plain PyTorch version instead of its
     wrapper, on any device: the whole-model reference a kernel run on the
     card is compared with.
+
+    ``mesh`` (a ``distributed.sharding.Mesh``; tensor-parallel serving):
+    with a 'model' axis of size > 1 every dense call dispatches
+    column-parallel through ``kernels.ops.dense_tp``, bit-identical to the
+    one-device call at any mesh shape; a weight the mesh cannot split runs
+    whole (replicated) in the same dispatch.
     """
 
     def __init__(self, quant: QuantConfig, key=None, plain: bool = False, *,
                  seeds: Optional[Tensor] = None,
                  keys: Optional[Tensor] = None, calls: int = 0,
-                 base: int = 0, rows: Optional[dict] = None):
+                 base: int = 0, rows: Optional[dict] = None, mesh=None):
         self.quant = quant
         self._key = key
         self.plain = plain
+        self.mesh = mesh
         self.seeds = seeds
         self.keys = keys
         self.calls = calls
@@ -143,7 +148,7 @@ class Numerics:
         if dev.type == "cuda":
             tbl = tbl.pin_memory().to(dev, non_blocking=True)
         return table_numerics(self.quant, tbl, num_layers, calls, extra,
-                              root, plain=self.plain)
+                              root, plain=self.plain, mesh=self.mesh)
 
     def fold(self, idx: int) -> "Numerics":
         tbl = self._table
@@ -152,9 +157,9 @@ class Numerics:
                     else self._rows.get(idx, idx) * self.calls)
             return Numerics(self.quant, plain=self.plain, seeds=self.seeds,
                             keys=self.keys, calls=self.calls, base=base,
-                            rows=self._rows)
+                            rows=self._rows, mesh=self.mesh)
         key = None if self._key is None else fold_in(self._key, idx)
-        return Numerics(self.quant, key, self.plain)
+        return Numerics(self.quant, key, self.plain, mesh=self.mesh)
 
     def next_seeds(self, n: int):
         """The noise seeds of the next ``n`` dense calls, one counter step
@@ -180,13 +185,20 @@ class Numerics:
         return [key_to_seed(k) for k in keys]
 
     def dense(self, x: Tensor, w) -> Tensor:
-        return ops.dense(x, w, self.quant, self.next_seeds(1)[0],
-                         plain=self.plain)
+        return self.dense_seeded(x, w, self.next_seeds(1)[0])
+
+    def dense_seeded(self, x: Tensor, w, seed) -> Tensor:
+        """A dense call with its noise seed (or key) given: column-parallel
+        on a mesh (``kernels.ops.dense_tp``), else ``kernels.ops.dense``."""
+        if ops.tp_size(self.mesh) > 1:
+            return ops.dense_tp(x, w, self.quant, seed, self.mesh,
+                                plain=self.plain)
+        return ops.dense(x, w, self.quant, seed, plain=self.plain)
 
 
 def table_numerics(quant: QuantConfig, table: Tensor, num_layers: int,
                    calls: int, extra=(), root: bool = False,
-                   plain: bool = False) -> Numerics:
+                   plain: bool = False, mesh=None) -> Numerics:
     """The root ``Numerics`` of a pass over ``table`` laid out as
     ``core.prng.seed_table(key, num_layers, calls, LM_HEAD_FOLD, extra,
     root)`` lays it out: a seed table (n,), or a key table (n, 2)."""
@@ -194,7 +206,7 @@ def table_numerics(quant: QuantConfig, table: Tensor, num_layers: int,
     base = (num_layers + len(extra)) * calls if root else 0
     kind = "keys" if table.dim() == 2 else "seeds"
     return Numerics(quant, plain=plain, calls=calls, base=base, rows=rows,
-                    **{kind: table})
+                    mesh=mesh, **{kind: table})
 
 
 # ---------------------------------------------------------------------------
@@ -688,16 +700,18 @@ def _fused_decode_attention_block(params, x, mcfg, nx: Numerics, *,
 
     PRNG contract: the fused launch consumes the same three (key, counter)
     pairs as three ``Numerics.dense`` calls for wq, wk, wv, so wo and every
-    later layer see an unchanged stream."""
+    later layer see an unchanged stream.
+
+    On a mesh the QKV runs per column shard (``ops.fused_qkv_dense``) and the
+    attention kernel stays on: attention is not partitioned here (the JAX
+    package swaps in its jnp form under a mesh only because a Pallas call
+    does not partition under GSPMD; the two are bit-identical)."""
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
     seeds = nx.next_seeds(3)
     pws = (params["wq"], params["wk"], params["wv"])
-    if nx.plain:
-        yq, yk, yv = fused_qkv_packed_ref(x, pws, nx.quant, seeds)
-    else:
-        yq, yk, yv = fused_qkv_packed(x, pws, nx.quant, seeds,
-                                      qkv=params.get("qkv"))
+    yq, yk, yv = ops.fused_qkv_dense(x, pws, nx.quant, seeds, nx.mesh,
+                                     qkv=params.get("qkv"), plain=nx.plain)
     q = yq.reshape(b, s, h, hd)
     k = yk.reshape(b, s, kh, hd)
     v = yv.reshape(b, s, kh, hd)
@@ -732,8 +746,13 @@ def _use_fused_decode(params, nx: Numerics, s, kv_cache, n_tokens,
     return (kv_cache is not None and nx.quant.mode == "abfp_fused"
             and s == 1 and n_tokens is None and window == 0
             and "k_pages" not in kv_cache and "k_scale" in kv_cache
-            and all(isinstance(params[w], PackedWeight)
-                    for w in ("wq", "wk", "wv")))
+            and all(_packed(params[w]) for w in ("wq", "wk", "wv")))
+
+
+def _packed(w) -> bool:
+    """A packed weight, whole or in column shards."""
+    return isinstance(w, PackedWeight) or (
+        isinstance(w, ops.ColumnShards) and w.packed)
 
 
 def _cacheless_attention(q, k, v, mcfg, nx: Numerics, *, causal: bool,
@@ -845,3 +864,24 @@ def mlp_block(params: dict, x: Tensor, mcfg, nx: Numerics) -> Tensor:
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     return nx.dense(h, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# im2col (how the paper maps convolutions onto tiled matmuls, Sec. V)
+# ---------------------------------------------------------------------------
+
+
+def im2col(x: Tensor, kh: int, kw: int, stride: int = 1) -> Tensor:
+    """(B, H, W, C) -> (B, H', W', kh*kw*C) patches, so a convolution
+    becomes a matmul that ABFP can tile: the paper's treatment of
+    ResNet50's convolutions.  Patch features run over (kernel row, kernel
+    column, channel), as the JAX package's ``im2col`` orders them."""
+    b, hh, ww, c = x.shape
+    oh = (hh - kh) // stride + 1
+    ow = (ww - kw) // stride + 1
+    idx_h = (torch.arange(oh, device=x.device) * stride)[:, None] \
+        + torch.arange(kh, device=x.device)[None, :]
+    idx_w = (torch.arange(ow, device=x.device) * stride)[:, None] \
+        + torch.arange(kw, device=x.device)[None, :]
+    patches = x[:, idx_h[:, None, :, None], idx_w[None, :, None, :], :]
+    return patches.reshape(b, oh, ow, kh * kw * c)

@@ -51,7 +51,6 @@ from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dnf import inject
-from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
@@ -321,15 +320,17 @@ def pass_words(mcfg: ModelConfig, quant: QuantConfig, key) -> np.ndarray:
 
 
 def pass_numerics(quant: QuantConfig, seeds: Tensor, mcfg: ModelConfig,
-                  plain: bool = False) -> Numerics:
+                  plain: bool = False, mesh=None) -> Numerics:
     """The root ``Numerics`` of a pass reading ``seeds``, the int32 words
     of ``pass_words`` on the pass's device (in ``abfp_ref`` mode turned
-    into the (n, 2) int64 key table there, no host copy)."""
+    into the (n, 2) int64 key table there, no host copy), dispatching
+    tensor-parallel on ``mesh``."""
     extra, root = _seed_folds(mcfg)
     if quant.mode == "abfp_ref":
         seeds = seeds.view(-1, 2).to(torch.int64) & 0xFFFFFFFF
     return table_numerics(quant, seeds, mcfg.num_layers,
-                          calls_per_layer(mcfg), extra, root, plain=plain)
+                          calls_per_layer(mcfg), extra, root, plain=plain,
+                          mesh=mesh)
 
 
 def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
@@ -395,11 +396,8 @@ def encode_cross_kv(params: dict, enc_out: Tensor, mcfg: ModelConfig,
     out = []
     for lp in params["layers"]:
         w = lp["cross"]
-        out.append((
-            ops.dense(enc_out, w["wk"], nx.quant, sk,
-                      plain=nx.plain).reshape(b, s, kh, hd),
-            ops.dense(enc_out, w["wv"], nx.quant, sv,
-                      plain=nx.plain).reshape(b, s, kh, hd)))
+        out.append(tuple(nx.dense_seeded(enc_out, w[n], sd).reshape(
+            b, s, kh, hd) for n, sd in (("wk", sk), ("wv", sv))))
     return out
 
 

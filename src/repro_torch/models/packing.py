@@ -16,6 +16,13 @@ package's pack of the stacked leaf.
 
 Embedding tables, norm scales and biases, and the MoE router (routing
 stays digital) stay in their original dtype.
+
+With a ``mesh`` (tensor-parallel serving) the packed tree is placed by
+``distributed.sharding.shard_serving_params``: every packed weight whose
+columns split over the mesh's 'model' axis becomes a
+``kernels.ops.ColumnShards`` (codes, kernel codes and scales split
+together), and each attention block's QKV concatenation is built per
+shard.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from repro_torch.core.abfp import PackedWeight, QuantConfig, pack_abfp_weight
 from repro_torch.kernels.abfp_decode_fused import PackedQKV, concat_qkv
+from repro_torch.kernels.ops import ColumnShards
 
 # Leaf names that feed Numerics.dense as the weight operand.
 DENSE_WEIGHT_NAMES = frozenset({
@@ -37,10 +45,11 @@ DENSE_WEIGHT_NAMES = frozenset({
 
 
 def pack_model_params(params: dict, cfg: QuantConfig,
-                      mcfg: Any = None) -> dict:
+                      mcfg: Any = None, mesh: Any = None) -> dict:
     """A copy of ``params`` with every dense weight packed at ``cfg``'s
     tile width and bit widths.  ``mcfg`` (optional) enables packing the
-    tied LM head (``embed.T`` under ``"lm_head"``)."""
+    tied LM head (``embed.T`` under ``"lm_head"``); ``mesh`` places the
+    packed tree over its 'model' axis."""
     adaptive = cfg.mode == "abfp_fused"
     # Windowed (hybrid) attention and mLSTM blocks never take the fused
     # decode, so they carry no QKV concatenation.
@@ -70,6 +79,9 @@ def pack_model_params(params: dict, cfg: QuantConfig,
     if getattr(mcfg, "tie_embeddings", False) and "lm_head" not in params:
         packed["lm_head"] = pack_abfp_weight(params["embed"].T, cfg,
                                              adaptive_gain=adaptive)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import shard_serving_params
+        packed = shard_serving_params(packed, mesh, cfg)
     return packed
 
 
@@ -85,4 +97,6 @@ def packed_param_bytes(params) -> int:
         return params.nbytes()
     if isinstance(params, PackedQKV):
         return 0
+    if isinstance(params, ColumnShards):
+        return params.nbytes()
     return params.numel() * params.element_size()

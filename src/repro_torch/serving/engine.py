@@ -145,7 +145,27 @@ Fleets
 ``serving.fleet.FleetEngine``: one single-model lane per entry on a
 shared clock, routed by ``Request.model``.
 
-Not ported (raises when asked for): meshes.
+Tensor-parallel serving
+-----------------------
+``mesh=`` (a ``distributed.sharding.Mesh`` with a 'model' axis and
+optional 'data'/'pod' axes, ``launch.mesh.make_host_mesh``) serves
+column-parallel: every dense weight whose columns split over 'model'
+(packed codes and scales together) is stored as ``tp`` column shards
+(``distributed.sharding.shard_serving_params``), each dense call runs one
+kernel launch per shard at its global column-block offset and
+concatenates the outputs in shard order (``kernels.ops.dense_tp``), and
+the fused decode tick's QKV runs per shard when wq, wk and wv all split.
+Column splits never cross an ABFP K-tile nor reorder an f32 contraction,
+so greedy streams are bit-identical to the one-device engine at any
+mesh shape, noise included.  Everything else (norms, rope, KV encoding,
+attention, sampling, the state) runs once, unsharded.  In this port a
+mesh is virtual: its every position is the engine's device, so the
+passes are captured into CUDA graphs as any others.  The 'data' axis is
+validated and read by the spec trees, and rows stay whole (a row split
+would also reorder the float matmuls' rounding).  A mesh over several
+devices and fault plans on a mesh (shard-drop injection, recovery onto
+the surviving shards) raise ``NotImplementedError``: they come in the
+multi-card slice.
 """
 
 from __future__ import annotations
@@ -163,6 +183,11 @@ from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.distributed.fault import StragglerMonitor
+from repro_torch.distributed.sharding import (
+    Mesh,
+    canonical_device,
+    shard_serving_params,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.convert import to_tensor
 from repro_torch.models.lm import clone_state
@@ -226,9 +251,6 @@ class Request:
     retry_after: Optional[float] = None  # backoff hint stamped when shed
 
 
-_UNPORTED = ("mesh",)
-
-
 @dataclasses.dataclass
 class WarmPass:
     """One pass shape, warmed: its static buffers, its body and, on a GPU,
@@ -245,6 +267,26 @@ class WarmPass:
         else:
             self.graph.replay()
             ops.add_launch_counts(self.launches)
+
+
+def _check_mesh(mesh, device: torch.device, faults) -> Optional[Mesh]:
+    """The engine's mesh, or None for the one-device engine (a mesh of
+    one position serves as it).  A mesh of this port is virtual: its every
+    position must be the engine's device."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh) or mesh.device_set() != {
+            canonical_device(device)}:
+        raise NotImplementedError(
+            f"repro_torch serves a mesh whose every position is the "
+            f"engine's device ({device}; launch.mesh.make_host_mesh), got "
+            f"{mesh!r}: shards on several devices come in the multi-card "
+            f"slice")
+    if faults is not None:
+        raise NotImplementedError(
+            "fault plans on a mesh (shard-drop injection, recovery onto the "
+            "surviving shards) come in the multi-card slice of the port")
+    return mesh
 
 
 class ServingEngine:
@@ -282,16 +324,8 @@ class ServingEngine:
                  overlap: bool = False,
                  inflight: int = 4,
                  stream: Optional[DeviceStream] = None,
-                 _graphs: Optional[bool] = None,
-                 **unported: Any):
-        asked = [k for k, v in unported.items() if v not in (None, False)]
-        bad = [k for k in unported if k not in _UNPORTED]
-        if bad:
-            raise TypeError(f"unknown ServingEngine arguments: {bad}")
-        if asked:
-            raise NotImplementedError(
-                f"repro_torch's ServingEngine does not port {asked}: "
-                f"meshes stay with the JAX package for now")
+                 mesh: Optional[Mesh] = None,
+                 _graphs: Optional[bool] = None):
         if faults is not None and not isinstance(faults,
                                                  (FaultConfig, FaultPlan)):
             raise TypeError(f"faults must be a FaultConfig or a FaultPlan, "
@@ -302,6 +336,7 @@ class ServingEngine:
                 "overlap=True needs a wall clock (clock=time.perf_counter): "
                 "the simulated clock is defined by blocking passes")
         self.device = resolve_device(device)
+        self.mesh = _check_mesh(mesh, self.device, faults)
         # CUDA graphs on a GPU; ``_graphs=False`` runs every pass eagerly
         # there too (for in-turn comparisons and the card tests only).
         self._graphs = (self.device.type == "cuda" if _graphs is None
@@ -311,9 +346,12 @@ class ServingEngine:
         self.runner = runner if runner is not None else runner_for(mcfg)
         if quant.mode in ("abfp_packed", "abfp_fused"):
             # Quantize once: pack every dense weight at engine init so
-            # passes only stream int8 codes + bf16 scales (+ gains).
+            # passes only stream int8 codes + bf16 scales (+ gains); on a
+            # mesh, split the packs into column shards in the same step.
             from repro_torch.models.packing import pack_model_params
-            params = pack_model_params(params, quant, mcfg)
+            params = pack_model_params(params, quant, mcfg, mesh=self.mesh)
+        elif self.mesh is not None:
+            params = shard_serving_params(params, self.mesh, quant)
         self.params = params
         self.mcfg = mcfg
         self.capacity = capacity
@@ -369,6 +407,8 @@ class ServingEngine:
             capacity, max_len, self.device,
             page_size=self.page_size if self.paged else None,
             pool_pages=self.pool.num_pages if self.paged else None)
+        if self.mesh is not None:
+            self.state = self.runner.shard_state(self.state, self.mesh)
         self.slots: List[Optional[Request]] = [None] * capacity
         self._next_input = np.zeros((capacity,), np.int32)
         self._reset_fn = self.runner.make_reset()
@@ -482,7 +522,8 @@ class ServingEngine:
                                              self.quant, self.seed,
                                              self.capacity, self.device,
                                              sample=self.overlap,
-                                             max_pages=self.max_pages)
+                                             max_pages=self.max_pages,
+                                             mesh=self.mesh)
             wp = WarmPass(io, body)
             if self._graphs:
                 wp.graph, wp.launches = self._capture(body)

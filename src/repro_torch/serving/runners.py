@@ -8,7 +8,8 @@ pass of each shape the engine runs (``make_pass``: the decode tick
 ``"draw"`` appended when a row samples at a temperature), the slot-state
 edits run between passes (``make_reset`` at admission, ``make_attach``
 for a prefix-cache hit, ``make_copy_page`` for a copy-on-write split) and
-what a request costs in pages (``capacity_cost``).  ``DecoderRunner``
+what a request costs in pages (``capacity_cost``), and the decode state's
+place on a mesh (``state_spec``, ``shard_state``).  ``DecoderRunner``
 serves full-attention decoders, MoE ones included, ``RecurrentRunner``
 the recurrent and hybrid families (fixed-size state per slot),
 ``EncDecRunner`` the encoder-decoders: an admission pass ``("admit",)``
@@ -198,9 +199,27 @@ class DecoderRunner:
         at full length."""
         return pages_needed(total_tokens, page_size)
 
+    def state_spec(self, state: dict, mesh) -> dict:
+        """The decode state's specs on ``mesh``: slots over the data axes
+        (``distributed.sharding.serving_state_spec_tree``)."""
+        from repro_torch.distributed.sharding import serving_state_spec_tree
+        return serving_state_spec_tree(state, mesh)
+
+    def shard_state(self, state: dict, mesh) -> dict:
+        """Place the decode state on ``mesh``.  Every position of a mesh
+        of this port is the state's own device (a virtual mesh), so the
+        placement keeps the state where it is: its specs are computed and
+        validated, and a mesh on another device raises."""
+        self.state_spec(state, mesh)
+        devs = {t.device for t in state_tensors(state)}
+        if not mesh.device_set() <= devs:
+            raise ValueError(f"the mesh's devices {mesh.device_set()} are "
+                             f"not the state's {devs}")
+        return state
+
     def make_pass(self, shape_key: tuple, params, quant, seed: int,
                   capacity: int, device, sample: bool = True,
-                  max_pages: int = 0
+                  max_pages: int = 0, mesh=None
                   ) -> Tuple[PassIO, Callable[[dict], None]]:
         """The static buffers and the body of one pass shape: ``("decode",)``
         or ``("prefill", bucket)``, with ``"draw"`` appended for a pass in
@@ -218,7 +237,9 @@ class DecoderRunner:
         the blocking engine samples on the host and skips it): the argmax,
         or under ``"draw"`` ``models.sample_tokens`` (JAX's Gumbel-max
         draw for temperature rows, the argmax for the others; its threefry
-        is about 550 small kernels, which a greedy pass skips)."""
+        is about 550 small kernels, which a greedy pass skips).  With a
+        ``mesh`` every dense call of the body runs tensor-parallel
+        (``models.layers.Numerics``)."""
         decode = shape_key[0] == "decode"
         draw = shape_key[-1] == "draw"
         width = 1 if decode else int(shape_key[1])
@@ -230,7 +251,7 @@ class DecoderRunner:
             if io.table is not None:
                 state["page_table"].copy_(io.table)
             first = torch.where(io.prev_mask != 0, io.prev, io.tokens[:, 0])
-            nx = pass_numerics(quant, io.seeds, mcfg)
+            nx = pass_numerics(quant, io.seeds, mcfg, mesh=mesh)
             enc_kv = self.enc_kv(state)
             if decode:
                 logits, _ = decode_step(params, state, first, mcfg, nx,
@@ -405,7 +426,7 @@ class EncDecRunner(DecoderRunner):
 
     def make_pass(self, shape_key: tuple, params, quant, seed: int,
                   capacity: int, device, sample: bool = True,
-                  max_pages: int = 0):
+                  max_pages: int = 0, mesh=None):
         """As ``DecoderRunner.make_pass``, plus the admission pass
         ``("admit",)``: ``(AdmitIO, body)``, whose body encodes
         ``io.features`` (``models.lm.encode``, encoder layer g under fold
@@ -415,13 +436,14 @@ class EncDecRunner(DecoderRunner):
         serves every admission."""
         if shape_key[0] != "admit":
             return super().make_pass(shape_key, params, quant, seed,
-                                     capacity, device, sample, max_pages)
+                                     capacity, device, sample, max_pages,
+                                     mesh)
         mcfg = self.mcfg
         io = AdmitIO(self.enc_len, mcfg.d_model, mcfg.activation_dtype,
                      self.n_seeds(quant), device)
 
         def body(state: dict) -> None:
-            nx = pass_numerics(quant, io.seeds, mcfg)
+            nx = pass_numerics(quant, io.seeds, mcfg, mesh=mesh)
             enc_out = encode(params, io.features[None], mcfg, nx)
             slot = io.slot.long()
             for e, (k, v) in zip(state["enc"],
