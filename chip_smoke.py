@@ -358,6 +358,31 @@ Phases (any failure exits non-zero and prints no result line):
                eager pass under two keys; decode tick, prefill pass and
                tokens/s of each mesh beside the run without one (reported:
                a virtual mesh only adds launches).
+ 21. mesh training — the training mesh and faults on a mesh (see
+               ``mesh_train_phase``): (a) full-width granite-moe-1b-a400m
+               (24 layers, d_model 1,024, 32 experts top-8 of 512, vocab
+               49,155; bf16 weights from seed 0) trained on batches of
+               4 x 129 through ``make_train_step(mesh=)`` on virtual (1, 4)
+               and (2, 4) meshes: every MoE layer on the expert-parallel
+               route (``moe_block_sharded``, float experts), float and QAT
+               abfp_kernel (tile 128, gain 8, noise 0.5), MESH_TRAIN_STEPS
+               donated steps each, the launch counts zeroed just before
+               each step and read just after (float none; QAT exactly
+               MESH_TRAIN_K4 of kernel 4: the attention projections and
+               the head), every weight moved; the QAT loss on batch 0
+               through the kernels bit-equal to the plain versions' and to
+               the step's, the gradients within TRAIN_GRAD_RTOL; step
+               medians past the first step and peak GiB; at capacity
+               factor MESH_CF_CHECK one float forward per mesh: its loss
+               within MESH_LOSS_RTOL of the forward's without a mesh, its
+               aux within MESH_AUX_RTOL of the mean over the data shards of
+               each shard's own aux without a mesh; (b) full-width
+               tinyllama-1.1b on phase 20b's workload in abfp_fused with
+               graphs on a (2, 4) mesh: under a rate-0 plan phase 20b's
+               streams and MESH_LAUNCHES,
+               and under a shard drop of shard 1 at tick MESH_DROP_TICK the
+               mesh re-planned to (1, 4) in place (every captured pass
+               kept), 1 reshard, conservation and 8 of 8 finished.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -539,6 +564,22 @@ MESH_LAUNCHES = {
 # The served runs and the plain kernel checks of phase 20a take the first
 # layer's weights; the model has all 22.
 MESH_ARCH = "tinyllama-1.1b"
+# Phase 21: the training mesh on full-width granite-moe-1b-a400m (the
+# meshes, the donated steps per run, kernel 4's launches per QAT step on a
+# mesh: 4 attention projections per layer and the head, the experts float
+# on the expert-parallel route), the capacity factor of the check against
+# the one-device forward and its bars (the reference MoE test's: loss
+# 2e-2 relative to the one-device forward's, aux 5e-2 relative to the mean
+# of the data shards' one-device aux: a mesh's aux is that mean, not the
+# whole batch's); 21b's mesh and the tick of its shard drop.
+MESH_TRAIN_ARCH = "granite-moe-1b-a400m"
+MESH_TRAIN_SHAPES = ((1, 4), (2, 4))
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_K4 = 24 * 4 + 1
+MESH_CF_CHECK = 8.0
+MESH_LOSS_RTOL, MESH_AUX_RTOL = 2e-2, 5e-2
+MESH_FAULT_SHAPE = (2, 4)
+MESH_DROP_TICK = 6
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -948,7 +989,7 @@ def run_train_driver(argv: list, arch: str):
 
 
 def qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys, measured,
-                      what, donate: bool = False) -> dict:
+                      what, donate: bool = False, mesh=None) -> dict:
     """QAT in abfp_kernel mode through ``make_train_step`` (AdamW), one
     step per key of ``keys`` on the synthetic batches of ``dcfg``, the
     launch counts zeroed just before each step and read just after (each
@@ -957,8 +998,10 @@ def qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys, measured,
     plain versions: the loss bit for bit (and equal to the first step's),
     the gradients within TRAIN_GRAD_RTOL.  ``measured(mode, fn)`` runs the
     steps under a peak-memory reading.  ``donate`` runs them in place on a
-    copy of ``params`` (one optimizer state on the card).  Returns step
-    times, losses, counts, how many weights moved, and the comparison."""
+    copy of ``params`` (one optimizer state on the card).  ``mesh`` goes
+    to ``make_train_step`` and the forwards (expert-parallel MoE layers).
+    Returns step times, losses, counts, how many weights moved, and the
+    comparison."""
     import torch
     from repro_torch.core.tree import leaves, tree_map
     from repro_torch.data import batch_at_step
@@ -974,7 +1017,7 @@ def qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys, measured,
 
     init, step = make_train_step(tm, AdamW(constant(1e-4)),
                                  TrainConfig(quant=kq), device=dev,
-                                 donate=donate)
+                                 donate=donate, mesh=mesh)
 
     def qat_kernel_run():
         start = tree_map(torch.clone, params) if donate else params
@@ -1015,7 +1058,7 @@ def qat_kernel_checks(dev, params, tm, dcfg, kq, per_step, keys, measured,
     def loss_fn(plain):
         def fn(tree, toks, key):
             nx = Numerics(kq, key, plain=plain)
-            hidden, aux = forward(tree, toks[:, :-1], tm, nx,
+            hidden, aux = forward(tree, toks[:, :-1], tm, nx, mesh=mesh,
                                   return_hidden=True)
             loss = chunked_cross_entropy(tree, hidden, toks[:, 1:], tm, nx)
             return loss, loss, aux
@@ -4717,6 +4760,258 @@ def mesh_phase(dev, engine_cls, reqs, card: str, rows: list) -> dict:
         if name in timing:
             row["tp_shard_ms"] = timing[name]
     res["seconds"] = time.perf_counter() - t_phase
+    return res, want
+
+
+def mesh_train_phase(dev, engine_cls, reqs, want_streams, no_mesh_forward,
+                     card: str, rows: list) -> dict:
+    """Phase 21: the training mesh and faults on a mesh (see the module
+    docstring).  ``engine_cls`` is phase 4's NaN-checking engine that
+    records each pass's launches, ``reqs`` phase 4's workload,
+    ``want_streams`` phase 20b's streams, ``no_mesh_forward`` phase 14c's
+    launches of one granite forward without a mesh.  Annotates kernel 4's
+    row with its launches per mesh step; returns the measurements."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data import DataConfig, batch_at_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import forward, init_params, param_count
+    from repro_torch.models.packing import pack_model_params
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.serving import FaultConfig, FaultPlan, Request
+    from repro_torch.serving.faults import FaultEvent
+    from repro_torch.training import (
+        TrainConfig,
+        chunked_cross_entropy,
+        make_train_step,
+    )
+    from repro_torch.training.train_lib import tokens_on
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "steps_s": {}, "peak_gib": {}, "losses": {}}
+
+    def measured(mode, fn):
+        """Run ``fn`` with the peak-memory counter reset just before."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        res["peak_gib"][mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    # 21a. full-width granite trained on virtual meshes.
+    mcfg = get_config(MESH_TRAIN_ARCH)
+    if (mcfg.num_layers, mcfg.d_model, mcfg.num_experts,
+            mcfg.experts_per_token, mcfg.d_ff, mcfg.vocab_size,
+            mcfg.param_dtype, mcfg.remat) != (
+                24, 1024, 32, 8, 512, 49155, torch.bfloat16, False):
+        fail(f"phase 21: unexpected config {mcfg}")
+    t0 = time.perf_counter()
+    params = init_params(SEED, mcfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 21a: {MESH_TRAIN_ARCH} ({param_count(params) / 1e9:.3f} B "
+        f"parameters) built in {time.perf_counter() - t0:.1f}s")
+    dcfg = DataConfig(mcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+    kq = QuantConfig(mode="abfp_kernel", tile_width=128, gain=8.0,
+                     noise_lsb=0.5)
+    keys = [prng.fold_in(prng.PRNGKey(SEED + 21), i)
+            for i in range(MESH_TRAIN_STEPS)]
+    per_step = {name: 0 for name in ops.launch_counts()}
+    per_step["abfp_matmul"] = MESH_TRAIN_K4
+
+    def float_steps(mesh, label):
+        init, step = make_train_step(mcfg, AdamW(constant(1e-4)),
+                                     TrainConfig(), device=dev, donate=True,
+                                     mesh=mesh)
+
+        def run():
+            st, times, losses = init(tree_map(torch.clone, params)), [], []
+            for i, key in enumerate(keys):
+                batch = batch_at_step(dcfg, i)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t1 = time.perf_counter()
+                st, met = step(st, batch, key)
+                losses.append([float(met[k]) for k in ("loss", "aux_loss",
+                                                       "grad_norm")])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                if sum(ops.launch_counts().values()):
+                    fail(f"{label}: a float step launched "
+                         f"{ops.launch_counts()}")
+            moved = sum(not torch.equal(a, b)
+                        for a, b in zip(leaves(st.params), leaves(params)))
+            return times, losses, moved
+
+        times, losses, moved = measured(label, run)
+        if not np.isfinite(losses).all() or moved != len(leaves(params)):
+            fail(f"{label}: losses {losses}, {moved} of "
+                 f"{len(leaves(params))} weights moved")
+        return times, losses
+
+    for shape in MESH_TRAIN_SHAPES:
+        mesh = make_host_mesh(*shape, dev)
+        tag = f"{shape[0]}x{shape[1]}"
+        label = f"phase 21a {tag} float"
+        times, losses = float_steps(mesh, label)
+        res["steps_s"][f"{tag}_float"] = times
+        res["losses"][f"{tag}_float"] = losses
+        log(f"{label}: {MESH_TRAIN_STEPS} donated steps, [loss, aux, "
+            f"grad_norm] {losses}, step {[round(t, 4) for t in times]} s, "
+            f"peak {res['peak_gib'][label]:.2f} GiB")
+        label = f"phase 21a {tag} QAT abfp_kernel"
+
+        def measured_q(mode, fn, label=label):
+            return measured(label, fn)
+
+        qk = qat_kernel_checks(dev, params, mcfg, dcfg, kq, per_step, keys,
+                               measured_q, label, donate=True, mesh=mesh)
+        if qk["moved"] != len(leaves(params)):
+            fail(f"{label}: {qk['moved']} of {len(leaves(params))} weights "
+                 f"moved")
+        res["steps_s"][f"{tag}_qat_abfp_kernel"] = qk.pop("steps_s")
+        res[f"{tag}_qat_abfp_kernel"] = qk
+    res["step_median_s"] = {k: statistics.median(v[1:])
+                            for k, v in res["steps_s"].items()}
+
+    # The mesh forward against the one-device forward, nothing dropped.
+    m8 = dataclasses.replace(mcfg, capacity_factor=MESH_CF_CHECK)
+    toks = tokens_on(batch_at_step(dcfg, 0), dev)
+    fwd, want_aux = {}, {}
+    with torch.no_grad():
+        for tag, mesh in [("none", None)] + [
+                (f"{d}x{t}", make_host_mesh(d, t, dev))
+                for d, t in MESH_TRAIN_SHAPES]:
+            hidden, aux = forward(params, toks[:, :-1], m8, mesh=mesh,
+                                  return_hidden=True)
+            loss = chunked_cross_entropy(params, hidden, toks[:, 1:], m8,
+                                         None)
+            fwd[tag] = (float(loss), float(aux))
+            del hidden
+        for dp in sorted({d for d, _ in MESH_TRAIN_SHAPES}):
+            rows_ = TRAIN_BATCH // dp
+            want_aux[dp] = sum(
+                float(forward(params, toks[i:i + rows_, :-1], m8)[1])
+                for i in range(0, TRAIN_BATCH, rows_)) / dp
+    for dp, tp_ in MESH_TRAIN_SHAPES:
+        tag = f"{dp}x{tp_}"
+        loss, aux = fwd[tag]
+        if (not np.isfinite([loss, aux]).all()
+                or abs(loss - fwd["none"][0]) > MESH_LOSS_RTOL
+                * abs(fwd["none"][0])
+                or abs(aux - want_aux[dp]) > MESH_AUX_RTOL * want_aux[dp]):
+            fail(f"phase 21a: the mesh {tag} forward's (loss, aux) "
+                 f"{(loss, aux)} against the one-device loss "
+                 f"{fwd['none'][0]!r} and the data shards' mean aux "
+                 f"{want_aux[dp]!r}")
+    res["forward_cf8"] = {"loss_aux": fwd, "data_shard_mean_aux": want_aux}
+    log(f"phase 21a: at capacity factor {MESH_CF_CHECK} the float forward's "
+        f"(loss, aux) " + json.dumps(fwd) + f" against the one-device loss "
+        f"(bar {MESH_LOSS_RTOL}) and the data shards' mean one-device aux "
+        + json.dumps(want_aux) + f" (bar {MESH_AUX_RTOL})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21b. full-width tinyllama served with graphs on a (2, 4) mesh under
+    # a rate-0 plan and under a shard drop.
+    t_b = time.perf_counter()
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--fused", "--arch", MESH_ARCH, "--capacity",
+         str(CAPACITY), "--max-len", str(MAX_LEN), "--max-new", str(MAX_NEW),
+         "--seed", str(SEED)])
+    tcfg, quant = serve_cli.model_and_quant(args)
+    packed = pack_model_params(init_params(SEED, tcfg, device=dev), quant,
+                               tcfg)
+    vocab = tcfg.vocab_size
+    names = ("abfp_matmul_packed", "fused_qkv_packed",
+             "fused_quantized_decode_attention")
+    want_launch = {kind: {k: v for k, v in zip(
+        names, MESH_LAUNCHES[MESH_FAULT_SHAPE[1]][kind]) if v}
+        for kind in ("decode", "prefill")}
+    plans = {"rate0": FaultConfig(rate=0.0),
+             "shard_drop": FaultPlan(
+                 [FaultEvent(MESH_DROP_TICK, "shard_drop", "", shard=1)],
+                 FaultConfig(rate=0.01))}
+    res["faults"] = {}
+    for label, plan in plans.items():
+        eng = engine_cls(packed, tcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                         quant=quant, seed=SEED, device=dev,
+                         mesh=make_host_mesh(*MESH_FAULT_SHAPE, dev),
+                         faults=plan, detect_every=FAULT_DETECT_EVERY)
+        eng.warmup()
+        built = {k: wp.graph for k, wp in eng._passes.items()}
+        rs = [Request(uid=r.uid, prompt=[t % (vocab - 1) + 1
+                                         for t in r.prompt],
+                      max_new_tokens=MAX_NEW) for r in reqs]
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        fin = eng.run(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        cons = eng.metrics.conservation()
+        if len(fin) != len(rs) or not all(r.done for r in fin) \
+                or not cons["ok"]:
+            fail(f"phase 21b {label}: {len(fin)} of {len(rs)} finished, "
+                 f"conservation {cons}")
+        streams = {r.uid: list(r.generated) for r in fin}
+        for kind in ("decode", "prefill"):
+            for got in eng.per_pass[kind]:
+                if {k: v for k, v in got.items() if v} != want_launch[kind]:
+                    fail(f"phase 21b {label}: a {kind} pass launched {got}, "
+                         f"want {want_launch[kind]}")
+        shape = tuple(eng.mesh.devices.shape)
+        kept = all(eng._passes[k].graph is g for k, g in built.items())
+        out = {"mesh_after": shape, "faults": dict(eng.metrics.faults),
+               "conservation": cons, "wall_s": wall, "passes_kept": kept,
+               "launches": ops.launch_counts()}
+        if label == "rate0":
+            parted = [u for u in want_streams
+                      if streams[u] != want_streams[u]]
+            if parted:
+                fail(f"phase 21b rate0: the streams of requests {parted} "
+                     f"differ from phase 20b's")
+            if eng.metrics.faults["injected"] or shape != MESH_FAULT_SHAPE:
+                fail(f"phase 21b rate0: {out}")
+        elif (shape != (1, MESH_FAULT_SHAPE[1])
+              or eng.metrics.faults["reshards"] != 1 or not kept):
+            fail(f"phase 21b shard_drop: {out}")
+        else:
+            out["streams_equal_to_20b"] = sum(
+                streams[u] == want_streams[u] for u in want_streams)
+        res["faults"][label] = out
+        log(f"phase 21b {label}: " + json.dumps(
+            {k: v for k, v in out.items() if k != "launches"})
+            + f", {len(fin)}/{len(rs)} requests in {wall:.3f}s")
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["faults_s"] = time.perf_counter() - t_b
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for row in rows:
+        if row["name"] == "abfp_matmul":
+            row["launches_mesh_qat_step"] = {
+                t: [c["abfp_matmul"] for c in res[f"{t}_qat_abfp_kernel"][
+                    "counts"]] for t in (f"{d}x{m}"
+                                         for d, m in MESH_TRAIN_SHAPES)}
+            row["launches_granite_forward_no_mesh"] = no_mesh_forward.get(
+                "abfp_matmul", 0)
+    for k in list(res):
+        if k.endswith("_qat_abfp_kernel"):
+            res[k].pop("counts")
+    res["seconds"] = time.perf_counter() - t_phase
     return res
 
 
@@ -6000,8 +6295,15 @@ def main() -> None:
     # 20. mesh: tensor-parallel serving on virtual meshes of one card -----
     gc.collect()
     torch.cuda.empty_cache()
-    msh = mesh_phase(dev, CheckedEngine, reqs, card, rows)
+    msh, mesh_streams = mesh_phase(dev, CheckedEngine, reqs, card, rows)
     log(f"mesh phase in {msh['seconds']:.1f}s: {json.dumps(msh)}")
+
+    # 21. mesh training and faults on a mesh -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtr = mesh_train_phase(dev, CheckedEngine, reqs, mesh_streams,
+                           moe["eval_forward"]["launches"], card, rows)
+    log(f"mesh training phase in {mtr['seconds']:.1f}s: {json.dumps(mtr)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

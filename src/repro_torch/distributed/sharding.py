@@ -19,21 +19,25 @@ The port's param and state trees hold per-layer lists where the JAX
 package stacks ``groups/j`` (and ``encoder/layers``) along a leading scan
 axis, so no port leaf is stacked: the spec of a port leaf is the JAX
 package's spec of its path without that axis.  A spec is a ``P``, a tuple
-per leaf: an axis name, a tuple of axis names, or None per dim.
+per leaf: an axis name, a tuple of axis names, or None per dim; a
+``NamedSharding`` pairs a spec with its mesh.
 
 A ``Mesh`` is a (data, model) grid of device positions
 (``launch.mesh.make_host_mesh``).  In this port every position is the
-engine's one device: a mesh is virtual.  The spec trees are computed and
-validated whole; the only placement that changes what runs is the model
-axis's column split of the dense weights (``shard_serving_params``:
-``kernels.ops.ColumnShards``, consumed by ``kernels.ops.dense_tp``).
-Every other spec (rows over 'data', an embedding's vocab over 'model',
-ZeRO-1's moments) describes a placement that a one-device mesh holds
-whole; spreading them over several cards is the multi-card slice's.
+engine's one device: a mesh is virtual, and placing a tensor on it
+(``shard_params``, ``shard_decode_state``) puts it on that device.  The
+spec trees are computed and validated whole; the only placement that
+changes what runs is the model axis's column split of the dense weights
+(``shard_serving_params``: ``kernels.ops.ColumnShards``, consumed by
+``kernels.ops.dense_tp``).  Every other spec (rows over 'data', an
+embedding's vocab over 'model', ZeRO-1's moments) describes a placement
+that a one-device mesh holds whole; spreading them over several cards is
+the multi-card slice's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -113,6 +117,25 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, as the JAX package's ``NamedSharding`` pairs
+    them."""
+    mesh: Mesh
+    spec: P
+
+
+def mesh_device(mesh: Mesh) -> torch.device:
+    """The one device of a virtual mesh; a mesh over several devices
+    raises (its placements come in the multi-card slice)."""
+    devs = mesh.device_set()
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"a mesh over several devices ({sorted(map(str, devs))}): "
+            f"placements across cards come in the multi-card slice")
+    return next(iter(devs))
 
 
 def _data_axes(mesh: Mesh):
@@ -231,17 +254,37 @@ def _leaf_base_spec(names: tuple, ndim: int) -> P:
     return spec
 
 
+def _layer_period(tree: Pytree) -> int:
+    """The period of ``tree["layers"]``' block pattern (of their sets of
+    block names); 1 without layers."""
+    layers = tree.get("layers") if isinstance(tree, dict) else None
+    if not layers:
+        return 1
+    kinds = [tuple(sorted(lp)) for lp in layers]
+    return next(p for p in range(1, len(kinds) + 1)
+                if all(kinds[i] == kinds[i % p] for i in range(len(kinds))))
+
+
 def _stacked_layers(tree: Pytree) -> int:
     """How many of ``tree["layers"]`` the JAX package stacks into its
-    ``groups``: the whole periods of the layers' block pattern (the period
-    of their sets of block names); the rest are its ``extra`` layers."""
+    ``groups``: the whole periods of the layers' block pattern; the rest
+    are its ``extra`` layers."""
     layers = tree.get("layers") if isinstance(tree, dict) else None
     if not layers:
         return 0
-    kinds = [tuple(sorted(lp)) for lp in layers]
-    period = next(p for p in range(1, len(kinds) + 1)
-                  if all(kinds[i] == kinds[i % p] for i in range(len(kinds))))
-    return len(kinds) // period * period
+    period = _layer_period(tree)
+    return len(layers) // period * period
+
+
+def _scan_len(tree: Pytree, path: tuple) -> int:
+    """The length of the JAX package's scan axis over the leaf at this
+    port path (its ``groups`` count, or its encoder's layer count); 0 for
+    a leaf the JAX package does not stack."""
+    if path[:2] == ("encoder", "layers"):
+        return len(tree["encoder"]["layers"])
+    if path[:1] == ("layers",) and int(path[1]) < _stacked_layers(tree):
+        return _stacked_layers(tree) // _layer_period(tree)
+    return 0
 
 
 def _stacked(path: tuple, n_stacked: int) -> bool:
@@ -273,6 +316,21 @@ def param_spec_tree(params: Pytree, mesh: Optional[Mesh] = None) -> Pytree:
         return spec
 
     return map_with_path(one, params)
+
+
+def named_sharding_tree(params: Pytree, mesh: Mesh) -> Pytree:
+    """``param_spec_tree(params)`` (unvalidated, as the JAX package's) on
+    ``mesh``: a tree of ``NamedSharding``."""
+    return map_with_path(
+        lambda path, leaf: NamedSharding(
+            mesh, _leaf_base_spec(path, leaf.ndim)), params)
+
+
+def shard_params(params: Pytree, mesh: Mesh) -> Pytree:
+    """Place a param tree on ``mesh`` by ``named_sharding_tree``'s specs:
+    on a virtual mesh every leaf goes to the mesh's one device, whole."""
+    dev = mesh_device(mesh)
+    return map_with_path(lambda path, leaf: leaf.to(dev), params)
 
 
 def abfp_param_spec_tree(params: Pytree,
@@ -412,6 +470,14 @@ def serving_state_spec_tree(state: Pytree, mesh: Mesh) -> Pytree:
     return map_with_path(one, state)
 
 
+def shard_decode_state(state: Pytree, mesh: Mesh) -> Pytree:
+    """Place a decode state on ``mesh`` by ``serving_state_spec_tree``'s
+    specs: on a virtual mesh every tensor goes to the mesh's one device,
+    whole."""
+    dev = mesh_device(mesh)
+    return map_with_path(lambda path, leaf: leaf.to(dev), state)
+
+
 def decode_state_spec_tree(state: Pytree, mesh: Mesh) -> Pytree:
     """Spec tree for a ``models.init_decode_state`` tree: batch over (pod,
     data); the widest per-token axis over 'model' when divisible (KV
@@ -468,3 +534,23 @@ def zero1_spec(spec: P, shape: tuple, mesh: Mesh) -> P:
         return spec
     parts[best] = "data"
     return P(*parts)
+
+
+def zero1_state_sharding(params: Pytree, mesh: Mesh) -> Pytree:
+    """``NamedSharding`` tree for the f32 moments and masters mirroring
+    ``params``: each leaf's param spec (unvalidated) extended by
+    ``zero1_spec``.  As in the JAX package the rule reads a stacked
+    leaf's shape with its scan axis, which it may pick for 'data': that
+    entry is then the scan axis's, and the port's leaf keeps the rest."""
+
+    def one(path, leaf):
+        spec, shape = _leaf_base_spec(path, leaf.ndim), tuple(leaf.shape)
+        scan = _scan_len(params, path)
+        if scan:
+            spec = P(*zero1_spec(P(None, *spec), (scan,) + shape,
+                                 mesh)[1:])
+        else:
+            spec = zero1_spec(spec, shape, mesh)
+        return NamedSharding(mesh, spec)
+
+    return map_with_path(one, params)

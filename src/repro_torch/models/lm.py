@@ -189,13 +189,15 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
                  kind: str, positions: Tensor,
                  state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
-                 page_table: Optional[Tensor] = None, enc_kv=None):
+                 page_table: Optional[Tensor] = None, enc_kv=None,
+                 mesh=None):
     """One pre-norm residual layer of ``kind``; returns (x, state, aux),
     ``aux`` the MoE block's f32 load-balance loss (None without one).
     Without a state (the teacher-forced forward) attention is cacheless
     and the returned state is None.  ``page_table`` (B, MP) routes a paged
     KV cache.  ``enc_kv`` (k, v) adds cross-attention over the encoder's
-    frames between the self-attention and the MLP."""
+    frames between the self-attention and the MLP.  With ``mesh`` an MoE
+    block takes the expert-parallel route (``moe.moe_block_sharded``)."""
     aux = None
     h = norm(x, lp["norm1"], mcfg.norm_type)
     if kind != "attention":
@@ -223,7 +225,10 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
         x = x + cross_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
     if mcfg.num_experts:
-        y, aux = moe_lib.moe_block(lp["moe"], h, mcfg, nx)
+        if mesh is not None:
+            y, aux = moe_lib.moe_block_sharded(lp["moe"], h, mcfg, nx, mesh)
+        else:
+            y, aux = moe_lib.moe_block(lp["moe"], h, mcfg, nx)
         x = x + y
     elif mcfg.d_ff:
         x = x + mlp_block(lp["mlp"], h, mcfg, nx)
@@ -422,14 +427,15 @@ def _positions(tokens: Tensor) -> Tensor:
 
 
 def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
-                   li: int, positions: Tensor, dnf, dnf_key, enc_kv=None):
+                   li: int, positions: Tensor, dnf, dnf_key, enc_kv=None,
+                   mesh=None):
     """Layer ``li`` of the teacher-forced forward under ``nx.fold(li)``,
     then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``;
     returns (x, aux).  Each call folds afresh, so a rematerialized layer
     draws what its first run drew."""
     x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li),
                              kind=mcfg.layer_kind(li), positions=positions,
-                             enc_kv=enc_kv)
+                             enc_kv=enc_kv, mesh=mesh)
     if dnf is None:
         return x, aux
     return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li)), aux
@@ -437,7 +443,8 @@ def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
 
 def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
             nx: Optional[Numerics] = None, *, encoder_features=None,
-            dnf=None, dnf_key=None, return_hidden: bool = False):
+            dnf=None, dnf_key=None, mesh=None,
+            return_hidden: bool = False):
     """Teacher-forced forward over whole sequences, without a cache.
 
     tokens: (B, S) int ids, or (B, S, d) float stub-frontend embeddings.
@@ -455,8 +462,12 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     output noise drawn from its histogram with key ``fold_in(dnf_key,
     li)`` (Eq. 9).  With ``mcfg.remat``, each layer (its DNF noise
     included) runs under ``torch.utils.checkpoint`` when autograd records,
-    and its attention is ``train_attention``.  The JAX signature's
-    ``mesh`` belongs to a later slice (ROADMAP queue 1)."""
+    and its attention is ``train_attention``.
+
+    ``mesh`` (a ``distributed.sharding.Mesh``): every MoE layer takes the
+    expert-parallel route (``moe.moe_block_sharded``); everything else
+    runs as without a mesh (``nx`` carries its own mesh, if any), as in
+    the JAX package."""
     check_supported(mcfg)
     if dnf is not None and dnf_key is None:
         raise ValueError("dnf needs a dnf_key")
@@ -468,7 +479,7 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(params["layers"]):
         args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key,
-                None if enc_kv is None else enc_kv[li])
+                None if enc_kv is None else enc_kv[li], mesh)
         x, a = (checkpoint(_forward_layer, *args, use_reentrant=False)
                 if remat else _forward_layer(*args))
         if a is not None:

@@ -1,9 +1,10 @@
-"""Mixture-of-Experts FFN: routing, the per-expert ABFP loop and the float
-route, as the JAX package's ``models/moe.py`` computes them.
+"""Mixture-of-Experts FFN: routing, the per-expert ABFP loop, the float
+route and the expert-parallel route, as the JAX package's
+``models/moe.py`` computes them.
 
 One routing front end (``_route``: an f32 router matmul, softmax, top-k,
 renormalized gates and the switch-style load-balance aux loss) feeds one
-of two routes:
+of three routes:
 
   * ABFP modes: ``_loop_moe``, the JAX package's per-expert loop.  Every
     token goes through every expert's wi, wg and wo (three
@@ -17,16 +18,25 @@ of two routes:
     no host sync (a CUDA graph captures it) and no float atomics.  The
     combine adds each token's contributions in ascending expert order,
     the order JAX's scatter-add meets them after its stable sort.
+  * on a mesh: ``moe_block_sharded``, the JAX package's expert-parallel
+    route (its ``shard_map``) computed shard by shard on the mesh's one
+    device: the experts split over 'model', the tokens over the data
+    axes; each (data, expert) shard routes its tokens, keeps the pairs
+    whose expert is local at a fixed capacity (GShard-style dropping),
+    runs them through the grouped float FFN (``_expert_ffn_ragged``) and
+    scatter-adds them; the expert shards' partial outputs are summed (the
+    ``psum``) and ``aux`` is the mean over all shards (the ``pmean``).
+    As in the JAX package this route ignores ``nx``: its experts are
+    float under any quant mode.
 
 Expert weights are (E, K, N) tensors, or lists of E ``PackedWeight``s once
 packed (``models.packing``); ``w[ex]`` picks expert ``ex`` from either.
-The router stays a float (f32) weight: routing is digital.  The JAX
-package's expert-parallel ``moe_block_sharded`` waits for tensor
-parallelism (ROADMAP queue 1 item 5).
+The router stays a float (f32) weight: routing is digital.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -146,3 +156,98 @@ def moe_block(params: dict, x: Tensor, mcfg, nx: Numerics):
     else:
         y = _loop_moe(xf, params, gates, eids, mcfg, nx)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel route (the JAX package's shard_map over 'model')
+# ---------------------------------------------------------------------------
+
+
+def _expert_ffn_ragged(xf: Tensor, token: Tensor, expert: Tensor,
+                       pos: Tensor, width: int, wi: Tensor, wg: Tensor,
+                       wo: Tensor, mcfg) -> Tensor:
+    """JAX's grouped SwiGLU/GeGLU over expert-sorted rows (its
+    ``ragged_dot``): every kept row (token ``token``, expert ``expert``,
+    place ``pos`` in its expert's group) through its expert's weights,
+    cast to the rows' dtype, with f32 products and the hidden rounded to
+    the rows' dtype before ``wo``.  The groups are computed as one batched
+    matmul over all experts, each group padded with zero rows to
+    ``width``; a padding row's output is never read.  Returns the rows'
+    outputs in f32, shaped like ``token`` plus (d,)."""
+    act, dt = _act(mcfg), xf.dtype
+    d = xf.shape[-1]
+    xpad = xf.new_zeros((wi.shape[0], width, d)).index_put(
+        (expert.reshape(-1), pos.reshape(-1)), xf[token.reshape(-1)])
+    hi = _f32_matmul(xpad, wi.to(dt))
+    hg = _f32_matmul(xpad, wg.to(dt))
+    h = (act(hg) * hi).to(dt)
+    return _f32_matmul(h, wo.to(dt))[expert, pos]
+
+
+def _local_pairs(gates: Tensor, eids: Tensor, lo: int, e_local: int,
+                 capacity: int):
+    """One expert shard's kept (token, expert) pairs, as JAX's local
+    function keeps them: a stable sort of the pairs' local expert ids (a
+    pair of another shard's expert sorts last), cut at ``capacity``.
+    Returns (the kept pairs' flat indices, their local ids (e_local for a
+    pair not the shard's), their gates (0 for those))."""
+    local = eids - lo
+    mine = (local >= 0) & (local < e_local)
+    flat_local = torch.where(mine, local, e_local).reshape(-1)
+    flat_gates = torch.where(mine, gates, 0.0).reshape(-1)
+    rows = torch.argsort(flat_local, stable=True)[:capacity]
+    ids = flat_local[rows]
+    return rows, ids, torch.where(ids < e_local, flat_gates[rows], 0.0)
+
+
+def moe_block_sharded(params: dict, x: Tensor, mcfg, nx: Numerics, mesh, *,
+                      batch_axes=("pod", "data"), expert_axis="model"):
+    """Expert-parallel MoE on ``mesh``: the experts split over
+    ``expert_axis``, x's batch over ``batch_axes`` (evenly, as the JAX
+    package's ``batch_spec`` splits it).  x: (B, S, d) -> (y (B, S, d),
+    aux f32 scalar).  ``nx`` is not read: the experts are float."""
+    batch_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    n_shards = mesh.shape[expert_axis]
+    n_data = int(np.prod([mesh.shape[a] for a in batch_axes]))
+    e, k = mcfg.num_experts, mcfg.experts_per_token
+    e_local = e // n_shards
+    if e_local * n_shards != e:
+        raise ValueError(f"{e} experts do not split over {n_shards} shards")
+    b, s, d = x.shape
+    if b % n_data:
+        raise ValueError(f"a batch of {b} does not split over {n_data} "
+                         f"data shards")
+    bl = b // n_data
+    t = bl * s
+    capacity = min(int((t * k / n_shards) * mcfg.capacity_factor) + 1,
+                   t * k)
+    ys, auxes = [], []
+    shard_lo = torch.arange(n_shards, device=x.device)[:, None] * e_local
+    for db in range(n_data):
+        xf = x[db * bl:(db + 1) * bl].reshape(t, d)
+        gates, eids, aux = _route(xf, params["router"], mcfg)
+        rows, ids, w_rows = (torch.stack(v) for v in zip(*(
+            _local_pairs(gates, eids, sh * e_local, e_local, capacity)
+            for sh in range(n_shards))))                  # (shards, C)
+        # Overflow and other shards' pairs fold into the last local group
+        # with a zero gate; each row's place in its group follows from
+        # the groups' sizes, of which the widest is the one host read.
+        group = ids.clamp(max=e_local - 1)
+        sizes = torch.zeros((n_shards, e_local), dtype=torch.int64,
+                            device=x.device).scatter_add_(
+            1, group, torch.ones_like(group))
+        pos = (torch.arange(capacity, device=x.device)
+               - (sizes.cumsum(1) - sizes).gather(1, group))
+        token = rows // k
+        out = _expert_ffn_ragged(xf, token, shard_lo + group, pos,
+                                 int(sizes.max()), params["wi"],
+                                 params["wg"], params["wo"], mcfg)
+        y = None                # the psum: the shards' partials in order
+        for sh in range(n_shards):
+            part = torch.zeros((t, d), dtype=torch.float32,
+                               device=x.device).index_add(
+                0, token[sh], out[sh] * w_rows[sh][:, None])
+            y = part if y is None else y + part
+        ys.append(y.reshape(bl, s, d).to(x.dtype))
+        auxes += [aux] * n_shards
+    return torch.cat(ys), torch.stack(auxes).mean()

@@ -118,7 +118,9 @@ fault is live, a detection round compares every site's fingerprint with
 its healthy baseline; with ``recovery`` it repairs what it found from a
 clean spare (a device clone of every site, made at init), requeues the
 requests that produced tokens under the fault, and on a shard drop
-re-programs the whole array and restarts every request in flight.
+re-programs the whole array (on a mesh, first re-planning the mesh
+without the lost model bank: see "Tensor-parallel serving") and
+restarts every request in flight.
 Detection runs before the tick's injections, so every fault is live for
 at least one pass.  Tokens produced under a live fault mark their request
 ``corrupted``.  With ``faults=None`` nothing of this exists on the hot
@@ -163,13 +165,23 @@ mesh is virtual: its every position is the engine's device, so the
 passes are captured into CUDA graphs as any others.  The 'data' axis is
 validated and read by the spec trees, and rows stay whole (a row split
 would also reorder the float matmuls' rounding).  A mesh over several
-devices and fault plans on a mesh (shard-drop injection, recovery onto
-the surviving shards) raise ``NotImplementedError``: they come in the
-multi-card slice.
+devices raises ``NotImplementedError``: it comes in the multi-card slice.
+
+Fault plans run on a mesh as in the JAX engine: a shard drop zeroes the
+lost model shard's columns of every weight split over 'model'
+(``serving.faults.inject_shard_drop``), and recovery re-plans the mesh
+without the lost bank (``distributed.fault.plan_recovery_mesh``: a data
+row's chip per model bank).  When the plan keeps the model axis (any
+mesh with two or more data rows) the column shards keep their layout, so
+the spare is copied into the served tensors in place and every captured
+pass stays valid; when it narrows the model axis (one data row) the
+weights are placed anew from the whole packed tree (kept for that from
+engine init) and every pass is built, and captured, again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -182,13 +194,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.distributed.fault import StragglerMonitor
+from repro_torch.distributed.fault import (
+    StragglerMonitor,
+    plan_recovery_mesh,
+)
 from repro_torch.distributed.sharding import (
     Mesh,
     canonical_device,
     shard_serving_params,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.ops import tp_size
 from repro_torch.models.convert import to_tensor
 from repro_torch.models.lm import clone_state
 from repro_torch.serving import faults as faultlib
@@ -269,6 +285,26 @@ class WarmPass:
             ops.add_launch_counts(self.launches)
 
 
+@contextlib.contextmanager
+def _refused_capture_restores(dev: torch.device):
+    """Around a graph capture: if it is refused, put back the device's
+    default CUDA generator state and current stream as they were before,
+    then raise.  A refused capture ends without the generator's capture
+    epilogue (it stays in capture mode, and every later random draw or
+    capture on the device fails) and without leaving the capture's stream
+    context."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    gen = torch.cuda.default_generators[idx]
+    saved = gen.clone_state()
+    stream = torch.cuda.current_stream(dev)
+    try:
+        yield
+    except BaseException:
+        gen.graphsafe_set_state(saved)
+        torch.cuda.set_stream(stream)
+        raise
+
+
 def _check_mesh(mesh, device: torch.device, faults) -> Optional[Mesh]:
     """The engine's mesh, or None for the one-device engine (a mesh of
     one position serves as it).  A mesh of this port is virtual: its every
@@ -277,15 +313,12 @@ def _check_mesh(mesh, device: torch.device, faults) -> Optional[Mesh]:
         return None
     if not isinstance(mesh, Mesh) or mesh.device_set() != {
             canonical_device(device)}:
+        what = "a fault plan on " if faults is not None else ""
         raise NotImplementedError(
-            f"repro_torch serves a mesh whose every position is the "
+            f"repro_torch serves {what}a mesh whose every position is the "
             f"engine's device ({device}; launch.mesh.make_host_mesh), got "
             f"{mesh!r}: shards on several devices come in the multi-card "
             f"slice")
-    if faults is not None:
-        raise NotImplementedError(
-            "fault plans on a mesh (shard-drop injection, recovery onto the "
-            "surviving shards) come in the multi-card slice of the port")
     return mesh
 
 
@@ -347,10 +380,14 @@ class ServingEngine:
         if quant.mode in ("abfp_packed", "abfp_fused"):
             # Quantize once: pack every dense weight at engine init so
             # passes only stream int8 codes + bf16 scales (+ gains); on a
-            # mesh, split the packs into column shards in the same step.
+            # mesh the packs are then split into column shards.
             from repro_torch.models.packing import pack_model_params
-            params = pack_model_params(params, quant, mcfg, mesh=self.mesh)
-        elif self.mesh is not None:
+            params = pack_model_params(params, quant, mcfg)
+        # The whole tree a fault plan re-places from when a recovery
+        # narrows the model axis (module docstring).
+        self._params_whole = (params if faults is not None
+                              and tp_size(self.mesh) > 1 else None)
+        if self.mesh is not None:
             params = shard_serving_params(params, self.mesh, quant)
         self.params = params
         self.mcfg = mcfg
@@ -474,7 +511,8 @@ class ServingEngine:
         self._lost_shard: Optional[int] = None
         self._fault_dirty = False       # unrepaired injected faults live
         if isinstance(faults, FaultConfig):
-            faults = faultlib.make_fault_plan(self.params, faults)
+            faults = faultlib.make_fault_plan(self.params, faults,
+                                              tp=tp_size(self.mesh))
         self.fault_plan: Optional[FaultPlan] = faults
         if self.fault_plan is not None:
             # The hot spare the repairs re-program from: a device clone
@@ -503,8 +541,9 @@ class ServingEngine:
         del scratch
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            body(self.state)
+        with _refused_capture_restores(dev):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                body(self.state)
         after = ops.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         ops.add_launch_counts(launches, -1)     # recorded, not launched
@@ -1125,7 +1164,8 @@ class ServingEngine:
                 # The injectable host-failure signal: recovery reads it as
                 # a health-check verdict.
                 self._lost_shard = ev.shard
-            faultlib.apply_event(self.params, ev)
+            faultlib.apply_event(self.params, ev, tp=tp_size(self.mesh),
+                                 quant=self.quant, mesh=self.mesh)
             self.metrics.on_fault(ev.kind)
             self._fault_dirty = True
 
@@ -1195,16 +1235,27 @@ class ServingEngine:
         self.scheduler.requeue(req)
 
     def _reshard_and_requeue(self):
-        """Shard-drop recovery on one card (the JAX engine's single-array
-        branch): re-program every site from the clean spare, reset the
-        decode state, rebuild the page pool when paged, and requeue every
+        """Shard-drop recovery: on a mesh, re-plan it without the lost
+        model bank (``plan_recovery_mesh``, as the JAX engine); then
+        re-program every site from the clean spare, reset the decode
+        state, rebuild the page pool when paged, and requeue every
         request in flight (conservation holds over the whole trace).
 
         The spare and a fresh state are copied INTO the served tensors in
         place: every captured graph keeps reading valid buffers, so no
-        pass is dropped or captured again."""
+        pass is dropped or captured again; only a plan that narrows the
+        model axis places the weights anew (``_replace_weights``)."""
         self._lost_shard = None
         faultlib.restore_sites(self.params, self._params_clean)
+        if self.mesh is not None and self.mesh.size > 1:
+            dp, tp = self.mesh.devices.shape
+            plan = plan_recovery_mesh(dp * tp - dp, tp, (dp, tp))
+            keep = list(self.mesh.devices.flat)[
+                :plan.new_shape[0] * plan.new_shape[1]]
+            self.mesh = Mesh(np.asarray(keep, dtype=object).reshape(
+                plan.new_shape), self.mesh.axis_names)
+            if plan.new_shape[1] != tp:
+                self._replace_weights()
         fresh = self.runner.init_state(
             self.capacity, self.max_len, self.device,
             page_size=self.page_size if self.paged else None,
@@ -1231,6 +1282,18 @@ class ServingEngine:
             self._restart(req)
         self.metrics.on_repair("reshards", 1)
         self._fault_dirty = False
+
+    def _replace_weights(self):
+        """Place the whole packed tree on the (narrower) recovery mesh,
+        take a new spare, and drop every built pass: each is built (and
+        captured) again at its next use.  The served tree's replicated
+        leaves are the whole tree's own, repaired in place just before."""
+        self.params = shard_serving_params(self._params_whole, self.mesh,
+                                           self.quant)
+        self._params_clean = faultlib.clone_sites(self.params)
+        self._passes = {}
+        self._warmed_shapes = set()
+        self._dev_next = None
 
     # -- one engine tick ------------------------------------------------------
     def step(self):

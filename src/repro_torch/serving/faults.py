@@ -13,8 +13,11 @@ Fault model (``FAULT_KINDS``)
   * ``scale_drift`` — per-(tile, col) multiplicative drift on the
     ``PackedWeight`` scales, drawn outside the bf16 scale-storage
     tolerance so every drift is detectable.
-  * ``shard_drop``  — the array dies: the port serves one card, so every
-    site loses all its columns (the JAX package's single-array branch).
+  * ``shard_drop``  — a whole model-axis shard dies: on a mesh, every
+    weight the JAX package's ``tp_shardable`` splits loses the shard's
+    columns (a ``ColumnShards`` leaf its whole shard), and replicated
+    weights survive; without a mesh the array dies and every site loses
+    all its columns (the JAX package's single-array branch).
 
 Sites
 -----
@@ -35,7 +38,11 @@ itself).  An MoE block's packed ``wi``/``wg``/``wo`` are lists of E
 site holds every expert of every layer (an unpacked (E, K, N) weight is
 one leaf).  Sites come sorted by path, so ``make_fault_plan`` draws
 JAX's events from the same seed.  The ``qkv`` entry
-(``models.packing``) is not a site.
+(``models.packing``) is not a site.  On a mesh a served weight may be a
+``kernels.ops.ColumnShards`` (``distributed.sharding``): its site is the
+whole weight, a column ``c`` lives in shard ``c // shard_cols``, and its
+fingerprint is the shards' concatenated; the layer's ``qkv`` is then a
+tuple of one ``PackedQKV`` per shard.
 
 Injection and repair are in place
 ---------------------------------
@@ -52,10 +59,10 @@ old weights.  The writes are enqueued on the current (serving) stream, so
 passes already in flight read the old values, as JAX's immutable arrays
 give them.  Gains stay, as in JAX.  A float site rewrites its weight.
 
-Plans are deterministic: ``make_fault_plan(params, cfg)`` draws every
-event (tick, kind, site, columns, tiles, drift factors) from one seeded
-numpy generator, so a trace replays exactly across runs and recovery
-settings.
+Plans are deterministic: ``make_fault_plan(params, cfg, tp)`` draws
+every event (tick, kind, site, columns, tiles, drift factors, the lost
+shard of a ``tp``-way model axis) from one seeded numpy generator, so
+a trace replays exactly across runs and recovery settings.
 
 Detection
 ---------
@@ -95,6 +102,7 @@ from repro_torch.core.abfp import (
     scale_storage_eps,
 )
 from repro_torch.kernels.abfp_decode_fused import PackedQKV
+from repro_torch.kernels.ops import ColumnShards, tp_shardable
 from repro_torch.models.packing import DENSE_WEIGHT_NAMES
 
 Tensor = torch.Tensor
@@ -225,10 +233,14 @@ def fault_sites(params: Any) -> List[FaultSite]:
     sites: List[FaultSite] = []
 
     def visit(path: str, node, name: str):
-        if isinstance(node, list) and node and isinstance(node[0],
-                                                          PackedWeight):
+        if isinstance(node, list) and node and isinstance(
+                node[0], (PackedWeight, ColumnShards)):
             node = node[0]          # the experts share one geometry
-        if isinstance(node, PackedWeight):
+        if isinstance(node, ColumnShards):
+            sites.append(FaultSite(
+                path, node.packed, node.n_cols, node.n_padded,
+                node.shards[0].num_tiles if node.packed else 1))
+        elif isinstance(node, PackedWeight):
             sites.append(FaultSite(path, True, node.n_cols, node.n_padded,
                                    node.num_tiles))
         elif isinstance(node, dict):
@@ -252,10 +264,34 @@ def fault_sites(params: Any) -> List[FaultSite]:
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """One served leaf of a site, with its layer's ``PackedQKV`` and the
-    leaf's column offset in it (wq/wk/wv in ``abfp_fused`` mode)."""
-    leaf: Any                       # PackedWeight or float Tensor
-    qkv: Optional[PackedQKV] = None
+    leaf's column offset in it (wq/wk/wv in ``abfp_fused`` mode).  On a
+    mesh the leaf may be a ``ColumnShards`` and ``qkv`` a tuple of one
+    ``PackedQKV`` per shard (``off`` the local offset in each)."""
+    leaf: Any                       # PackedWeight, float Tensor, shards
+    qkv: Any = None
     off: int = 0
+
+
+def _parts(e: _Leaf) -> List[Tuple[_Leaf, int, int]]:
+    """The stored pieces of a site leaf, as (piece, its first column of
+    the whole weight, its columns of the whole weight): the leaf itself,
+    or each shard of a ``ColumnShards`` with its own ``PackedQKV``."""
+    if not isinstance(e.leaf, ColumnShards):
+        return [(e, 0, _stored_cols(e.leaf))]
+    w = e.leaf.shard_cols
+    return [(_Leaf(sh, None if e.qkv is None else e.qkv[t], e.off), t * w, w)
+            for t, sh in enumerate(e.leaf.shards)]
+
+
+def _stored_cols(leaf) -> int:
+    return leaf.n_padded if isinstance(leaf, PackedWeight) else int(
+        leaf.shape[-1])
+
+
+def _local(cols: Sequence[int], first: int, width: int) -> List[int]:
+    """The columns of ``cols`` in ``[first, first + width)``, relative to
+    ``first``."""
+    return [int(c) - first for c in cols if first <= c < first + width]
 
 
 def _leaves(params: Any, path: str) -> List[_Leaf]:
@@ -281,9 +317,9 @@ def _leaves(params: Any, path: str) -> List[_Leaf]:
             out.extend(_Leaf(x) for x in leaf)
             continue
         qkv, off = parent.get("qkv"), 0
-        if isinstance(qkv, PackedQKV) and parts[-1] in _QKV:
-            i = _QKV.index(parts[-1])
-            off = sum(pw.n_padded for pw in qkv.pws[:i])
+        if isinstance(qkv, (PackedQKV, tuple)) and parts[-1] in _QKV:
+            pws = (qkv if isinstance(qkv, PackedQKV) else qkv[0]).pws
+            off = sum(pw.n_padded for pw in pws[:_QKV.index(parts[-1])])
         else:
             qkv = None
         out.append(_Leaf(leaf, qkv, off))
@@ -304,15 +340,17 @@ def site_leaves(params: Any, path: str) -> List[Any]:
 # ---------------------------------------------------------------------------
 
 
-def make_fault_plan(params: Any, cfg: FaultConfig) -> FaultPlan:
+def make_fault_plan(params: Any, cfg: FaultConfig,
+                    tp: int = 1) -> FaultPlan:
     """Draw a deterministic fault trace for ``params``: the JAX package's
-    ``make_fault_plan`` at one model-axis shard, draw for draw.
+    ``make_fault_plan``, draw for draw.
 
     Each tick faults with probability ``cfg.rate`` (site uniform over the
     dense weights, kind uniform over the available kinds); when ``rate >
     0`` at least one event lands within the horizon.  ``scale_drift``
     applies to packed sites only; ``shard_drop`` fires at most
-    ``max_shard_drops`` times (shard 0: one card).
+    ``max_shard_drops`` times and targets a uniform model-axis shard in
+    [0, tp).
     """
     rng = np.random.default_rng(cfg.seed)
     sites = fault_sites(params)
@@ -357,7 +395,7 @@ def make_fault_plan(params: Any, cfg: FaultConfig) -> FaultPlan:
         else:   # shard_drop
             shard_drops += 1
             events.append(FaultEvent(tick, kind, "",
-                                     shard=int(rng.integers(1))))
+                                     shard=int(rng.integers(max(1, tp)))))
     events.sort(key=lambda e: (e.tick, e.path, e.kind))
     return FaultPlan(events, cfg)
 
@@ -377,6 +415,13 @@ def _device(e: _Leaf):
 
 
 def _zero_cols(e: _Leaf, cols: Sequence[int]) -> None:
+    for part, first, width in _parts(e):
+        local = _local(cols, first, width)
+        if local:
+            _zero_piece_cols(part, local)
+
+
+def _zero_piece_cols(e: _Leaf, cols: Sequence[int]) -> None:
     idx = _index(cols, _device(e))
     if not isinstance(e.leaf, PackedWeight):
         e.leaf.index_fill_(-1, idx, 0)
@@ -403,36 +448,72 @@ def inject_scale_drift(params: Any, path: str,
     drift factors: an f32 product rounded to the bf16 storage (conductance
     drift re-read through the same DACs)."""
     for e in _leaves(params, path):
-        if not isinstance(e.leaf, PackedWeight):
-            raise ValueError(f"scale_drift targets PackedWeight (got {path})")
-        s = e.leaf.scales
-        t, j = _index([p[0] for p in tiles], s.device), _index(
-            [p[1] for p in tiles], s.device)
-        f = torch.as_tensor(list(factors), dtype=torch.float32,
-                            device=s.device)
-        new = (s[t, j].float() * f).to(s.dtype)
-        s.index_put_((t, j), new)
-        if e.qkv is not None:
-            e.qkv.scales.index_put_((t, j + e.off), new)
+        for part, first, width in _parts(e):
+            if not isinstance(part.leaf, PackedWeight):
+                raise ValueError(
+                    f"scale_drift targets PackedWeight (got {path})")
+            mine = [(p, f) for p, f in zip(tiles, factors)
+                    if first <= p[1] < first + width]
+            if not mine:
+                continue
+            s = part.leaf.scales
+            t = _index([p[0] for p, _ in mine], s.device)
+            j = _index([p[1] - first for p, _ in mine], s.device)
+            f = torch.as_tensor([f for _, f in mine], dtype=torch.float32,
+                                device=s.device)
+            new = (s[t, j].float() * f).to(s.dtype)
+            s.index_put_((t, j), new)
+            if part.qkv is not None:
+                part.qkv.scales.index_put_((t, j + part.off), new)
 
 
-def inject_shard_drop(params: Any) -> None:
-    """The array dies: the port serves one card (no mesh), so every site
-    loses all its columns, whatever the event's shard (the JAX package's
-    single-array branch)."""
+def _jax_shardable(params: Any, site: FaultSite, quant, mesh) -> bool:
+    """The JAX package's ``tp_shardable`` on the site's own leaf: never
+    for a leaf it stacks (a ``groups`` or encoder layer's, an MoE expert
+    stack: more than two dims), else the dispatch's rule on the port's
+    leaf (a ``ColumnShards`` of the mesh's shard count is split)."""
+    if site.path.startswith(("groups/", "encoder/layers/")):
+        return False
+    leaves_ = _leaves(params, site.path)
+    if len(leaves_) != 1:
+        return False
+    leaf = leaves_[0].leaf
+    if isinstance(leaf, Tensor) and leaf.ndim != 2:
+        return False
+    return tp_shardable(leaf, quant, mesh)
+
+
+def inject_shard_drop(params: Any, shard: int = 0, tp: int = 1,
+                      quant=None, mesh=None) -> None:
+    """Model-axis shard ``shard`` of a ``tp``-way mesh dies: every weight
+    that the JAX package's ``tp_shardable`` splits at this mesh loses
+    that shard's columns (a ``ColumnShards`` leaf its whole shard, the
+    QKV concatenation's segment included), and replicated weights
+    survive.  ``tp <= 1`` (or no mesh) is the JAX package's single-array
+    branch: the array dies and every site loses all its columns."""
     for site in fault_sites(params):
+        if tp <= 1 or mesh is None:
+            cols = range(site.n_padded)
+        elif quant is not None and not _jax_shardable(params, site, quant,
+                                                      mesh):
+            continue                    # replicated: survives the loss
+        else:
+            width = site.n_padded // tp
+            cols = range(shard * width, (shard + 1) * width)
         for e in _leaves(params, site.path):
-            _zero_cols(e, range(site.n_padded))
+            _zero_cols(e, cols)
 
 
-def apply_event(params: Any, ev: FaultEvent) -> None:
-    """Inject one event into ``params``, in place."""
+def apply_event(params: Any, ev: FaultEvent, *, tp: int = 1, quant=None,
+                mesh=None) -> None:
+    """Inject one event into ``params``, in place (``tp``, ``quant`` and
+    ``mesh`` locate a shard drop's columns)."""
     if ev.kind == "stuck_col":
         inject_stuck_cols(params, ev.path, ev.cols)
     elif ev.kind == "scale_drift":
         inject_scale_drift(params, ev.path, ev.tiles, ev.factors)
     elif ev.kind == "shard_drop":
-        inject_shard_drop(params)
+        inject_shard_drop(params, ev.shard, tp, quant=quant, mesh=mesh)
     else:
         raise ValueError(f"unknown fault kind {ev.kind!r}")
 
@@ -448,13 +529,17 @@ def _site_fingerprint_dev(params: Any, site: FaultSite) -> Tensor:
     norm, shaped (1, N)."""
     acc = None
     for e in _leaves(params, site.path):
-        if isinstance(e.leaf, PackedWeight):
-            fp = packed_tile_fingerprint(e.leaf)
-        else:
-            fp = torch.sum(e.leaf.abs(), dim=tuple(range(e.leaf.ndim - 1)),
-                           dtype=torch.float32)[None, :]
+        fp = torch.cat([_piece_fingerprint(part.leaf)[:, :width]
+                        for part, _, width in _parts(e)], dim=1)
         acc = fp if acc is None else acc + fp
     return acc
+
+
+def _piece_fingerprint(leaf) -> Tensor:
+    if isinstance(leaf, PackedWeight):
+        return packed_tile_fingerprint(leaf)
+    return torch.sum(leaf.abs(), dim=tuple(range(leaf.ndim - 1)),
+                     dtype=torch.float32)[None, :]
 
 
 def fingerprint_round(params: Any,
@@ -519,19 +604,31 @@ def clone_sites(params: Any) -> Any:
     and scales; float weights) and of each layer's ``PackedQKV``, in the
     params' nesting, so ``site_leaves`` addresses it as it does the
     params.  Every other leaf, and the gains, are shared: no fault touches
-    them."""
+    them.  A ``ColumnShards`` is cloned shard by shard, a per-shard
+    ``qkv`` tuple ``PackedQKV`` by ``PackedQKV``."""
+    def clone_qkv(qkv, pws):
+        return PackedQKV(kcodes=qkv.kcodes.clone(),
+                         scales=qkv.scales.clone(), gains=qkv.gains,
+                         pws=tuple(pws))
+
     def walk(node, name):
         if isinstance(node, PackedWeight):
             return dataclasses.replace(
                 node, codes=node.codes.clone(), scales=node.scales.clone(),
                 kcodes=None if node.kcodes is None else node.kcodes.clone())
+        if isinstance(node, ColumnShards):
+            return dataclasses.replace(node, shards=tuple(
+                walk(sh, name) if isinstance(sh, PackedWeight)
+                else sh.clone() for sh in node.shards))
         if isinstance(node, dict):
             out = {k: walk(v, k) for k, v in node.items()}
             qkv = node.get("qkv")
             if isinstance(qkv, PackedQKV):
-                out["qkv"] = PackedQKV(
-                    kcodes=qkv.kcodes.clone(), scales=qkv.scales.clone(),
-                    gains=qkv.gains, pws=tuple(out[w] for w in _QKV))
+                out["qkv"] = clone_qkv(qkv, (out[w] for w in _QKV))
+            elif isinstance(qkv, tuple):
+                out["qkv"] = tuple(
+                    clone_qkv(q, (out[w].shards[t] for w in _QKV))
+                    for t, q in enumerate(qkv))
             return out
         if isinstance(node, list):
             return [walk(v, name) for v in node]
@@ -544,15 +641,22 @@ def clone_sites(params: Any) -> Any:
 
 
 def _pairs(params: Any, clean: Any, path: str):
-    return zip(_leaves(params, path), _leaves(clean, path))
+    """(served piece, spare piece, first column, columns) of every stored
+    piece of the site's leaves (``_parts``)."""
+    for e, c in zip(_leaves(params, path), _leaves(clean, path)):
+        for (pe, first, width), (pc, _, _) in zip(_parts(e), _parts(c)):
+            yield pe, pc, first, width
 
 
 def repair_stuck(params: Any, clean: Any, path: str,
                  cols: Sequence[int]) -> None:
     """Remap stuck columns onto the spare: re-program codes, kcodes and
     scales (or float columns) of exactly those columns, in every leaf."""
-    for e, c in _pairs(params, clean, path):
-        idx = _index(cols, _device(e))
+    for e, c, first, width in _pairs(params, clean, path):
+        local = _local(cols, first, width)
+        if not local:
+            continue
+        idx = _index(local, _device(e))
         if not isinstance(e.leaf, PackedWeight):
             e.leaf.index_copy_(-1, idx, c.leaf.index_select(-1, idx))
             continue
@@ -571,12 +675,15 @@ def repair_drift(params: Any, clean: Any, path: str,
                  tiles: Sequence[Tuple[int, int]]) -> None:
     """Re-quantize on drift: restore ONLY the drifted (tile, col) scales
     from the spare, in every leaf; codes and healthy tiles stay."""
-    for e, c in _pairs(params, clean, path):
+    for e, c, first, width in _pairs(params, clean, path):
         if not isinstance(e.leaf, PackedWeight):
             raise ValueError(f"repair_drift targets PackedWeight (got {path})")
+        mine = [p for p in tiles if first <= p[1] < first + width]
+        if not mine:
+            continue
         s = e.leaf.scales
-        t, j = _index([p[0] for p in tiles], s.device), _index(
-            [p[1] for p in tiles], s.device)
+        t, j = _index([p[0] for p in mine], s.device), _index(
+            [p[1] - first for p in mine], s.device)
         s.index_put_((t, j), c.leaf.scales[t, j])
         if e.qkv is not None:
             e.qkv.scales.index_put_((t, j + e.off),
@@ -587,7 +694,7 @@ def restore_sites(params: Any, clean: Any) -> None:
     """Re-program every fault site from the spare, in place: all three
     copies of every packed leaf, and every float site."""
     for site in fault_sites(params):
-        for e, c in _pairs(params, clean, site.path):
+        for e, c, _, _ in _pairs(params, clean, site.path):
             if not isinstance(e.leaf, PackedWeight):
                 e.leaf.copy_(c.leaf)
                 continue
@@ -597,6 +704,6 @@ def restore_sites(params: Any, clean: Any) -> None:
                 if dst is not None:
                     dst.copy_(src)
             if e.qkv is not None:
-                cols = slice(e.off, e.off + site.n_padded)
+                cols = slice(e.off, e.off + e.leaf.n_padded)
                 e.qkv.kcodes[:, cols].copy_(c.qkv.kcodes[:, cols])
                 e.qkv.scales[:, cols].copy_(c.qkv.scales[:, cols])

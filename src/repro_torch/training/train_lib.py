@@ -14,8 +14,13 @@ The quant config picks the forward's numerics: ``float``, or QAT with the
 straight-through estimator (``abfp_ref``, the CUDA kernel's
 ``abfp_kernel``; ``kernels.ops``).
 
-``make_serve_steps`` builds prefill and decode callables.  Multi-host
-meshes and sharded states stay with the JAX package.
+``make_train_step(..., mesh=)`` passes the mesh to ``forward`` (the MoE
+layers take the expert-parallel route) while the loss's ``Numerics``
+carries none, as in the JAX package; the mesh is virtual (one device,
+``distributed.sharding``), and the moments' ZeRO-1 specs are
+``distributed.sharding.zero1_state_sharding``'s.
+
+``make_serve_steps`` builds prefill and decode callables.
 """
 
 from __future__ import annotations
@@ -123,7 +128,8 @@ def value_and_grad(loss_fn, params, *args):
 
 
 def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
-                    device: DeviceLike = None, donate: bool = False):
+                    device: DeviceLike = None, donate: bool = False,
+                    mesh=None):
     """Returns (init_state, train_step): ``init_state(params) ->
     TrainState`` and ``train_step(state, batch, key) -> (state, metrics)``
     with metrics ``loss``, ``aux_loss`` and ``grad_norm`` (0-dim tensors
@@ -134,7 +140,8 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
     parameters live on ``device``.  ``donate``: the step consumes its
     state, updating the parameters and the optimizer state in place
     (``update_``: the same bits, one optimizer state on the device), as
-    the JAX driver donates its jitted step's state."""
+    the JAX package's ``launch/train.py`` donates its jitted step's
+    state.  ``mesh`` goes to ``forward`` (expert-parallel MoE layers)."""
     check_supported(mcfg)
     dev = resolve_device(device)
 
@@ -146,7 +153,7 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
             inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         hidden, aux = forward(params, inputs, mcfg, nx,
                               encoder_features=batch.get("encoder_features"),
-                              return_hidden=True)
+                              mesh=mesh, return_hidden=True)
         loss = chunked_cross_entropy(params, hidden, labels, mcfg, nx)
         return loss + tcfg.aux_loss_weight * aux, loss, aux
 

@@ -1160,27 +1160,72 @@ def test_cuda_graph_replay_after_reshard_equals_eager():
         assert torch.isfinite(got[0]).all()
 
 
+_REFUSED_CAPTURE_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from test_torch_cuda import _smoke_engines
+from repro_torch.core import prng
+from repro_torch.serving import runners
+
+graph, eager, mcfg = _smoke_engines()
+real = runners.decode_step
+
+def syncing(*a, **kw):
+    logits, state = real(*a, **kw)
+    float(logits.sum())                 # a host sync: not capturable
+    return logits, state
+
+runners.decode_step = syncing
+try:
+    graph.warmup()
+except Exception as e:
+    print("REFUSED", type(e).__name__)
+else:
+    raise SystemExit("the capture of a syncing pass did not raise")
+assert ("decode",) not in graph._passes
+runners.decode_step = real
+# The process stays usable: the default generator draws, and a fresh
+# engine captures and replays its passes equal to the eager ones.
+torch.randn(8, device="cuda").sum().item()
+g2, x2, _ = _smoke_engines()
+g2.warmup()
+fields = dict(tokens=np.ones((g2.capacity, 1)),
+              prev_mask=np.zeros(g2.capacity, bool),
+              temps=np.zeros(g2.capacity, np.float32),
+              uids=np.arange(g2.capacity), idxs=np.arange(g2.capacity))
+got = [e._call(("decode",), prng.PRNGKey(4), **fields)[0].logits.clone()
+       for e in (g2, x2)]
+torch.cuda.synchronize()
+assert torch.equal(got[0], got[1])
+print("CAPTURE_AFTER_REFUSAL_OK")
+"""
+
+
 @pytest.mark.cuda
-def test_cuda_failing_capture_raises(monkeypatch):
+def test_cuda_failing_capture_raises():
     """A pass that cannot be captured (a host sync inside it) raises at
-    capture; the engine does not fall back to eager launches.  (Last in
-    this file: a refused capture may leave the process's CUDA state
-    unusable for later captures.)"""
+    capture; the engine does not fall back to eager launches.  After the
+    refusal the process's CUDA state stays usable (the engine puts back
+    the default generator and the current stream): a random draw works
+    and a fresh engine's captured decode tick replays equal to its eager
+    twin.  The refused capture runs in a process of its own, so a
+    regression cannot reach the tests after this one."""
     _need_cuda()
-    from repro_torch.serving import runners
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
 
-    graph, _, _ = _smoke_engines()
-    real = runners.decode_step
-
-    def syncing(*a, **kw):
-        logits, state = real(*a, **kw)
-        float(logits.sum())                 # a host sync: not capturable
-        return logits, state
-
-    monkeypatch.setattr(runners, "decode_step", syncing)
-    with pytest.raises(Exception):
-        graph.warmup()
-    assert ("decode",) not in graph._passes
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", _REFUSED_CAPTURE_SCRIPT,
+                        str(here)], capture_output=True, text=True,
+                       timeout=600, env=env)
+    assert "REFUSED" in r.stdout, r.stdout + r.stderr
+    assert "CAPTURE_AFTER_REFUSAL_OK" in r.stdout, r.stdout + r.stderr
 
 
 @pytest.mark.cuda

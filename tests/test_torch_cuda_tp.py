@@ -10,7 +10,9 @@ imports no JAX:
 Bar: every shard's launch at its global column-block offset equals the
 same columns of the one-device launch and its plain version with the
 offset bit for bit (0 flips), on every route of the ABFP core; a virtual
-mesh's engine serves the one-device engine's streams with CUDA graphs.
+mesh's engine serves the one-device engine's streams with CUDA graphs,
+and under a shard drop its graphs run equals its eager twin; the
+expert-parallel MoE block on the card is the CPU's within 1e-5.
 """
 
 import dataclasses
@@ -153,3 +155,73 @@ def test_cuda_mesh_engine_serves_the_one_device_streams(shape):
     (one, n1), (got, n2) = serve(None), serve(make_host_mesh(*shape))
     assert got == one
     assert n2["abfp_matmul_packed"] > n1["abfp_matmul_packed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4), (1, 2)], ids=["2x4", "1x2"])
+def test_cuda_mesh_shard_drop_with_graphs_equals_eager(shape):
+    """A shard drop on a mesh engine with CUDA graphs and on its eager
+    twin (tinyllama's smoke config in abfp_fused, noise on): equal
+    streams and counters, conservation, the mesh re-planned as the JAX
+    engine plans it; at (2, 4) the model axis is kept and every graph
+    captured before the drop is the one that replays after it, at (1, 2)
+    it narrows to (1, 1) and the passes are captured again."""
+    _need_cuda()
+    from repro_torch.serving import FaultConfig, FaultPlan
+    from repro_torch.serving.faults import FaultEvent
+
+    mcfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), kv_quant=True)
+    params = init_params(0, mcfg, device="cuda")
+    quant = QuantConfig(mode="abfp_fused", tile_width=32, gain=4.0,
+                        noise_lsb=0.5)
+    out = {}
+    for graphs in (True, False):
+        eng = ServingEngine(params, mcfg, capacity=4, max_len=64,
+                            quant=quant, seed=0, prefill_chunks=(4, 8),
+                            mesh=make_host_mesh(*shape), _graphs=graphs,
+                            detect_every=2, faults=FaultPlan(
+                                [FaultEvent(5, "shard_drop", "", shard=1)],
+                                FaultConfig(rate=0.01)))
+        eng.warmup()
+        captured = {k: wp.graph for k, wp in eng._passes.items()}
+        done = eng.run([Request(uid=i, prompt=list(range(1, 3 + 5 * i)),
+                                max_new_tokens=6) for i in range(6)])
+        out[graphs] = ({r.uid: r.generated for r in done},
+                       dict(eng.metrics.faults))
+        assert eng.metrics.conservation()["ok"] and len(done) == 6
+        assert eng.metrics.faults["reshards"] == 1
+        kept = tuple(eng.mesh.devices.shape) == (1, shape[1])
+        assert tuple(eng.mesh.devices.shape) == ((1, 4) if shape == (2, 4)
+                                                 else (1, 1))
+        if graphs:
+            assert all((eng._passes.get(k) is not None
+                        and eng._passes[k].graph is g) == kept
+                       for k, g in captured.items())
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_cuda_moe_block_sharded_equals_the_cpu_route():
+    """The expert-parallel MoE block on the card and on the CPU, on the
+    same f32 weights and input (granite's smoke config, capacity factors
+    8.0 and 1.25, meshes (2, 4) and (1, 4)): y within 1e-5, aux within
+    1e-6 relative (the card's f32 matmuls keep TF32 off)."""
+    _need_cuda()
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Numerics
+
+    mcfg0 = smoke_config("granite-moe-1b-a400m")
+    gen = torch.Generator().manual_seed(3)
+    p = moe.init_moe(gen, mcfg0, "cpu")
+    x = torch.randn(8, 16, mcfg0.d_model, generator=gen)
+    nx = Numerics(QuantConfig(mode="float"))
+    for cf in (8.0, 1.25):
+        mcfg = dataclasses.replace(mcfg0, capacity_factor=cf)
+        for shape in ((2, 4), (1, 4)):
+            y0, a0 = moe.moe_block_sharded(p, x, mcfg, nx,
+                                           make_host_mesh(*shape, "cpu"))
+            y1, a1 = moe.moe_block_sharded(
+                {k: v.cuda() for k, v in p.items()}, x.cuda(), mcfg, nx,
+                make_host_mesh(*shape, "cuda"))
+            torch.testing.assert_close(y1.cpu(), y0, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a1.cpu(), a0, rtol=1e-6, atol=0)

@@ -291,14 +291,16 @@ def test_fleet_serves_every_lane_on_the_mesh():
 
 
 def test_mesh_refusals(tinyllama):
-    """A fault plan on a mesh, a mesh of another device and a mesh that is
-    not the port's raise NotImplementedError naming the multi-card
-    slice."""
+    """A fault plan on a mesh of another device, a mesh of another device
+    and a mesh that is not the port's raise NotImplementedError naming
+    the multi-card slice (a fault plan on the engine's own mesh serves:
+    ``tests/test_torch_mesh_faults.py``)."""
     jm, jp, tm, tp = tinyllama
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        ServingEngine(tp, tm, capacity=2, mesh=_mesh((1, 2)), device="cpu",
-                      quant=PACKED, faults=FaultConfig(rate=0.1))
     meta = make_host_mesh(1, 2, "meta")
+    with pytest.raises(NotImplementedError,
+                       match="a fault plan on a mesh.*multi-card"):
+        ServingEngine(tp, tm, capacity=2, mesh=meta, device="cpu",
+                      quant=PACKED, faults=FaultConfig(rate=0.1))
     for bad in (meta, jax.make_mesh((1, 1), ("data", "model"))):
         with pytest.raises(NotImplementedError, match="multi-card"):
             ServingEngine(tp, tm, capacity=2, mesh=bad, device="cpu")
