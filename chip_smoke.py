@@ -383,6 +383,22 @@ Phases (any failure exits non-zero and prints no result line):
                and under a shard drop of shard 1 at tick MESH_DROP_TICK the
                mesh re-planned to (1, 4) in place (every captured pass
                kept), 1 reshard, conservation and 8 of 8 finished.
+ 22. dry run — the dry run's cost analysis against the card (see
+               ``dryrun_phase``): four cells of full-width smollm-360m on
+               a (1, 1) mesh built by ``launch.dryrun.build_cell`` at cut
+               shapes (DRYRUN_CELLS: float prefill 4 x 2,048, float decode
+               of 32 rows over a 4,096-position state, a float train step
+               on 8 x 512 tokens with 4 microbatches, remat, AdamW and the
+               state donated, an ``abfp`` (``abfp_ref``) prefill 1 x 256),
+               each traced on ``meta`` (``cost_analysis.traced_costs``),
+               then run on the card with bf16 weights from seed 0: (a)
+               ``FlopCounterMode``'s count of the card's run equal to the
+               trace's; (b) the peak allocated bytes above the bytes
+               before the cell's inputs were made within DRYRUN_PEAK_RTOL
+               or DRYRUN_PEAK_ATOL of the trace's ``live_bytes``; (c) the
+               median of DRYRUN_REPS timed runs after a warm-up (CUDA
+               events) not below ``roofline_terms``' max(compute_s,
+               memory_s) with the H100 constants, the ratio printed.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -580,6 +596,22 @@ MESH_CF_CHECK = 8.0
 MESH_LOSS_RTOL, MESH_AUX_RTOL = 2e-2, 5e-2
 MESH_FAULT_SHAPE = (2, 4)
 MESH_DROP_TICK = 6
+# Phase 22: the dry run's cells against the card on full-width
+# smollm-360m (label, (seq_len, global_batch, kind), quant), the
+# microbatches of its train cell, the bar on the peak (the larger of a
+# share of the trace's live bytes and a floor: the allocator's rounding
+# and library workspaces the trace cannot see), the timed runs.
+DRYRUN_ARCH = "smollm-360m"
+DRYRUN_CELLS = (
+    ("prefill", (2048, 4, "prefill"), "float"),
+    ("decode", (4096, 32, "decode"), "float"),
+    ("train", (512, 8, "train"), "float"),
+    ("abfp_prefill", (256, 1, "prefill"), "abfp"),
+)
+DRYRUN_MICROBATCHES = 4
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_PEAK_ATOL = 64 * 2 ** 20
+DRYRUN_REPS = 3
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -5015,6 +5047,111 @@ def mesh_train_phase(dev, engine_cls, reqs, want_streams, no_mesh_forward,
     return res
 
 
+def dryrun_phase(dev, card: str) -> dict:
+    """Phase 22: the dry run's cost analysis against the card (see the
+    module docstring); returns each cell's figures."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.cost_analysis import roofline_terms
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "cells": {}}
+    mesh = dryrun.make_mesh((1, 1))
+
+    def requested() -> int:
+        return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+    # The four meta traces run here, one after another, before any cell
+    # runs on the card: nothing else runs on the host while the cells are
+    # timed.
+    traces = {}
+    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+        cell = dryrun.build_cell(DRYRUN_ARCH,
+                                 ShapeConfig(label, seq, batch, kind), mesh,
+                                 quant, microbatches=DRYRUN_MICROBATCHES)
+        traces[label] = dryrun.trace_cell(cell)
+        del traces[label]["out"], cell
+    t_traces = time.perf_counter() - t_phase
+    runs = {}
+    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+        sc = ShapeConfig(label, seq, batch, kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base, base_req = torch.cuda.memory_allocated(), requested()
+        cell = dryrun.build_cell(DRYRUN_ARCH, sc, mesh, quant,
+                                 device=dev, seed=SEED,
+                                 microbatches=DRYRUN_MICROBATCHES)
+        torch.cuda.synchronize()
+        r = {"inputs_bytes": torch.cuda.memory_allocated() - base,
+             "inputs_requested_bytes": requested() - base_req}
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.args)                          # the warm-up
+        torch.cuda.synchronize()
+        r["flops"] = fc.get_total_flops()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DRYRUN_REPS):
+            s_ = torch.cuda.Event(enable_timing=True)
+            e_ = torch.cuda.Event(enable_timing=True)
+            s_.record()
+            cell.fn(*cell.args)
+            e_.record()
+            torch.cuda.synchronize()
+            times.append(s_.elapsed_time(e_))
+        r["times_ms"] = times
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        r["peak_requested_bytes"] = torch.cuda.memory_stats().get(
+            "requested_bytes.all.peak", 0) - base_req
+        runs[label] = r
+        del cell
+    log(f"phase 22: the traces took {t_traces:.1f}s (" + ", ".join(
+        f"{k} {v['seconds']:.1f}s, {v['ops']} ops"
+        for k, v in traces.items()) + "), then the cells ran in "
+        f"{time.perf_counter() - t_phase - t_traces:.1f}s")
+
+    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+        costs, r = traces[label], runs[label]
+        if r["flops"] != costs["flops_global"]:
+            fail(f"phase 22 {label}: the card counted {r['flops']} FLOPs, "
+                 f"the trace {costs['flops_global']}")
+        peak, live = r["peak_bytes"], costs["live_bytes"]
+        terms = roofline_terms(costs["flops"], costs["hbm_bytes"], 0.0, 1,
+                               peak_flops=mesh_lib.PEAK_FLOPS_BF16,
+                               hbm_bw=mesh_lib.HBM_BW,
+                               ici_bw=mesh_lib.ICI_BW)
+        bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
+        ms = statistics.median(r["times_ms"])
+        res["cells"][label] = dict(
+            r, shape=[batch, seq, kind], quant=quant,
+            hbm_bytes=costs["hbm_bytes"], live_bytes=live,
+            peak_over_live=peak / live, memory=costs["memory"], ms=ms,
+            bound_ms=bound_ms, bound_by=terms["bottleneck"],
+            ms_over_bound=ms / bound_ms, trace_s=costs["seconds"],
+            ops=costs["ops"])
+        log(f"phase 22 {label}: FLOPs {r['flops']} (card = trace), peak "
+            f"{peak / 2 ** 30:.3f} GiB (requested "
+            f"{r['peak_requested_bytes'] / 2 ** 30:.3f}) vs live "
+            f"{live / 2 ** 30:.3f} GiB ({peak / live:.4f}), median "
+            f"{ms:.3f} ms vs bound {bound_ms:.3f} ms "
+            f"({terms['bottleneck']}, x{ms / bound_ms:.2f})")
+        if abs(peak - live) > max(DRYRUN_PEAK_RTOL * live, DRYRUN_PEAK_ATOL):
+            fail(f"phase 22 {label}: peak {peak} bytes above the baseline, "
+                 f"the trace's live bytes {live} ({costs['memory']})")
+        if ms < bound_ms:
+            fail(f"phase 22 {label}: a median of {ms:.4f} ms below the "
+                 f"roofline bound {bound_ms:.4f} ms ({terms})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["traces_s"] = t_traces
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
                       encoder_features=None, check_calls: bool = False,
                       bar: float = EVAL_LOGIT_BAR):
@@ -6304,6 +6441,12 @@ def main() -> None:
     mtr = mesh_train_phase(dev, CheckedEngine, reqs, mesh_streams,
                            moe["eval_forward"]["launches"], card, rows)
     log(f"mesh training phase in {mtr['seconds']:.1f}s: {json.dumps(mtr)}")
+
+    # 22. the dry run's cost analysis against the card --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(dev, card)
+    log(f"dry-run phase in {dry['seconds']:.1f}s: {json.dumps(dry)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

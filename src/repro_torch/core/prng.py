@@ -251,6 +251,8 @@ def key_bits(keys, shape, device=None) -> torch.Tensor:
         kw = torch.from_numpy(keys.reshape(-1, 2).astype(np.int64))
         if dev.type == "cuda":
             kw = kw.pin_memory().to(dev, non_blocking=True)
+        elif dev.type != "cpu":
+            kw = kw.to(dev)                  # a meta trace's draw
     i = torch.arange(n, dtype=torch.int64, device=dev)[None]
     b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], torch.zeros_like(i), i)
     bits = (b0 ^ b1).reshape((-1,) + shape)

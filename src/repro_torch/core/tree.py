@@ -40,20 +40,23 @@ def flatten_with_names(tree) -> Tuple[List[str], List[Any]]:
     """(names, leaves) in leaf order; a name joins its path keys with "_"
     (a NamedTuple field as ".field"), as ``repro.checkpoint`` names them."""
     names, leaves = [], []
-
-    def walk(node, path):
-        if node is None:
-            return
-        ch = _children(node)
-        if ch is None:
-            names.append("_".join(path))
-            leaves.append(node)
-            return
-        for key, child in zip(*ch):
-            walk(child, path + [key])
-
-    walk(tree, [])
+    _walk(tree, [], names, leaves)
     return names, leaves
+
+
+# The walkers are module functions, not closures: a recursive closure is a
+# reference cycle, which would keep its lists of tensors alive until the
+# garbage collector runs (on the card, a whole gradient tree for a while).
+def _walk(node, path, names, leaves):
+    if node is None:
+        return
+    ch = _children(node)
+    if ch is None:
+        names.append("_".join(path))
+        leaves.append(node)
+        return
+    for key, child in zip(*ch):
+        _walk(child, path + [key], names, leaves)
 
 
 def leaves(tree) -> List[Any]:
@@ -64,19 +67,19 @@ def leaves(tree) -> List[Any]:
 def unflatten_like(tree, new_leaves) -> Any:
     """``tree``'s structure with ``new_leaves`` (in leaf order)."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        ch = _children(node)
-        if ch is None:
-            return next(it)
-        return _rebuild(node, [build(c) for c in ch[1]])
-
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    ch = _children(node)
+    if ch is None:
+        return next(it)
+    return _rebuild(node, [_build(c, it) for c in ch[1]])
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

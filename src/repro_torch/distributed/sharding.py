@@ -536,15 +536,20 @@ def zero1_spec(spec: P, shape: tuple, mesh: Mesh) -> P:
     return P(*parts)
 
 
-def zero1_state_sharding(params: Pytree, mesh: Mesh) -> Pytree:
+def zero1_state_sharding(params: Pytree, mesh: Mesh,
+                         specs: Optional[Pytree] = None) -> Pytree:
     """``NamedSharding`` tree for the f32 moments and masters mirroring
     ``params``: each leaf's param spec (unvalidated) extended by
     ``zero1_spec``.  As in the JAX package the rule reads a stacked
     leaf's shape with its scan axis, which it may pick for 'data': that
-    entry is then the scan axis's, and the port's leaf keeps the rest."""
+    entry is then the scan axis's, and the port's leaf keeps the rest.
+    ``specs`` (a spec tree mirroring ``params``) replaces the rule's
+    specs: the dry run extends its validated ones, as the JAX package's
+    dry run does."""
 
     def one(path, leaf):
-        spec, shape = _leaf_base_spec(path, leaf.ndim), tuple(leaf.shape)
+        spec, shape = (_leaf_base_spec(path, leaf.ndim) if specs is None
+                       else _at(specs, path)), tuple(leaf.shape)
         scan = _scan_len(params, path)
         if scan:
             spec = P(*zero1_spec(P(None, *spec), (scan,) + shape,
@@ -554,3 +559,10 @@ def zero1_state_sharding(params: Pytree, mesh: Mesh) -> Pytree:
         return NamedSharding(mesh, spec)
 
     return map_with_path(one, params)
+
+
+def _at(tree: Pytree, path: tuple):
+    """The node of ``tree`` at ``map_with_path``'s ``path``."""
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree

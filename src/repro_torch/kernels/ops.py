@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import abfp as core_abfp
+from repro_torch.core import cost_trace
 from repro_torch.core.abfp import (
     PackedWeight,
     QuantConfig,
@@ -326,8 +327,13 @@ def dense_tp(x: Tensor, w, cfg: QuantConfig, key=None, mesh=None,
     if not isinstance(w, ColumnShards):
         w = shard_columns(w, tp_size(mesh))
     seed = as_seed(key)
-    out = torch.cat([_shard_forward(x, wl, cfg, seed, w.grid(t), plain)
-                     for t, wl in enumerate(w.shards)], dim=-1)
+    trace = cost_trace.active()
+    parts = []
+    for t, wl in enumerate(w.shards):
+        with cost_trace.scope(trace, MODEL_AXIS):
+            parts.append(_shard_forward(x, wl, cfg, seed, w.grid(t), plain))
+    out = torch.cat(parts, dim=-1)
+    cost_trace.record_collective("all-gather", out, len(w.shards))
     return out[..., :w.n_cols] if w.packed else out
 
 
@@ -361,19 +367,23 @@ def _fused_qkv_tp(x: Tensor, pws, cfg: QuantConfig, seeds, mesh, qkv,
     shards = [pw if isinstance(pw, ColumnShards) else shard_columns(pw, tp)
               for pw in pws]
     outs = ([], [], [])
+    trace = cost_trace.active()
     for t in range(tp):
         local = tuple(s_.shards[t] for s_ in shards)
         offs, njs = zip(*(s_.grid(t) for s_ in shards))
         kw = dict(col_block_offsets=offs, num_col_blocks=njs)
-        if plain:
-            ys = fused_qkv_packed_ref(x, local, cfg, seeds, **kw)
-        else:
-            ys = fused_qkv_packed(x, local, cfg, seeds,
-                                  None if qkv is None else qkv[t], **kw)
+        with cost_trace.scope(trace, MODEL_AXIS):
+            if plain:
+                ys = fused_qkv_packed_ref(x, local, cfg, seeds, **kw)
+            else:
+                ys = fused_qkv_packed(x, local, cfg, seeds,
+                                      None if qkv is None else qkv[t], **kw)
         for o, y in zip(outs, ys):
             o.append(y)
-    return tuple(torch.cat(o, dim=-1)[..., :s_.n_cols]
-                 for o, s_ in zip(outs, shards))
+    cat = [torch.cat(o, dim=-1) for o in outs]
+    for c in cat:
+        cost_trace.record_collective("all-gather", c, tp)
+    return tuple(c[..., :s_.n_cols] for c, s_ in zip(cat, shards))
 
 
 def dense_tp_row(x: Tensor, w: Tensor, cfg: QuantConfig,
@@ -392,10 +402,13 @@ def dense_tp_row(x: Tensor, w: Tensor, cfg: QuantConfig,
         return dense(x, w, cfg, None)
     kl = w.shape[0] // tp
     out = None
+    trace = cost_trace.active()
     for t in range(tp):
-        p = torch.matmul(x[..., t * kl:(t + 1) * kl],
-                         w[t * kl:(t + 1) * kl].to(x.dtype))
+        with cost_trace.scope(trace, MODEL_AXIS):
+            p = torch.matmul(x[..., t * kl:(t + 1) * kl],
+                             w[t * kl:(t + 1) * kl].to(x.dtype))
         out = p if out is None else out + p
+    cost_trace.record_collective("all-reduce", out, tp)
     return out
 
 

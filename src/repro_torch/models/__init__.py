@@ -17,6 +17,7 @@ from repro_torch.models.layers import (  # noqa: F401
     train_attention,
 )
 from repro_torch.models.lm import (  # noqa: F401
+    abstract_params,
     clone_state,
     decode_step,
     encode,

@@ -147,6 +147,8 @@ class Numerics:
         dev = torch.device(device)
         if dev.type == "cuda":
             tbl = tbl.pin_memory().to(dev, non_blocking=True)
+        elif dev.type != "cpu":
+            tbl = tbl.to(dev)                # a meta trace's pass
         return table_numerics(self.quant, tbl, num_layers, calls, extra,
                               root, plain=self.plain, mesh=self.mesh)
 

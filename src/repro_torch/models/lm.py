@@ -44,7 +44,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
@@ -136,6 +136,18 @@ def init_params(seed: int, mcfg: ModelConfig,
     check_supported(mcfg, serving=True)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _build_params(gen, mcfg, dev)
+
+
+def abstract_params(mcfg: ModelConfig) -> dict:
+    """``init_params``' tree on the ``meta`` device: every leaf's shape and
+    dtype, no storage and no generator (the JAX package's
+    ``jax.eval_shape(init_params)``); what the dry run traces with."""
+    check_supported(mcfg, serving=True)
+    return _build_params(None, mcfg, torch.device("meta"))
+
+
+def _build_params(gen, mcfg: ModelConfig, dev) -> dict:
     d = mcfg.d_model
     params = {
         "embed": (torch.randn(mcfg.vocab_size, d, generator=gen, device=dev)
@@ -480,8 +492,14 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     for li, lp in enumerate(params["layers"]):
         args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key,
                 None if enc_kv is None else enc_kv[li], mesh)
-        x, a = (checkpoint(_forward_layer, *args, use_reentrant=False)
-                if remat else _forward_layer(*args))
+        if remat:
+            # The whole layer is recomputed: stopping early raises through
+            # the STE Functions' saved-tensor hooks, which on the card
+            # failed with a SystemError.
+            with set_checkpoint_early_stop(False):
+                x, a = checkpoint(_forward_layer, *args, use_reentrant=False)
+        else:
+            x, a = _forward_layer(*args)
         if a is not None:
             aux = aux + a
     x = norm(x, params["final_norm"], mcfg.norm_type)

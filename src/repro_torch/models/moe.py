@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import cost_trace
 from repro_torch.models.layers import Numerics
 
 Tensor = torch.Tensor
@@ -205,7 +206,16 @@ def moe_block_sharded(params: dict, x: Tensor, mcfg, nx: Numerics, mesh, *,
     """Expert-parallel MoE on ``mesh``: the experts split over
     ``expert_axis``, x's batch over ``batch_axes`` (evenly, as the JAX
     package's ``batch_spec`` splits it).  x: (B, S, d) -> (y (B, S, d),
-    aux f32 scalar).  ``nx`` is not read: the experts are float."""
+    aux f32 scalar).  ``nx`` is not read: the experts are float.
+
+    Each expert group is padded to the widest group, a host read of the
+    group sizes.  On the ``meta`` device (the dry run's trace) nothing can
+    be read: every group is padded to the shard's static capacity, the
+    width JAX's shapes carry, so the dry run's expert FLOPs and bytes are
+    an upper bound (every local expert at full capacity).  Under a cost
+    trace each (data, expert) shard's work goes to its positions, the
+    partial sums are an all-reduce over ``expert_axis`` and the aux mean
+    one over the whole mesh (``core.cost_trace``)."""
     batch_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
     n_shards = mesh.shape[expert_axis]
     n_data = int(np.prod([mesh.shape[a] for a in batch_axes]))
@@ -223,31 +233,41 @@ def moe_block_sharded(params: dict, x: Tensor, mcfg, nx: Numerics, mesh, *,
                    t * k)
     ys, auxes = [], []
     shard_lo = torch.arange(n_shards, device=x.device)[:, None] * e_local
+    trace = cost_trace.active()
     for db in range(n_data):
-        xf = x[db * bl:(db + 1) * bl].reshape(t, d)
-        gates, eids, aux = _route(xf, params["router"], mcfg)
-        rows, ids, w_rows = (torch.stack(v) for v in zip(*(
-            _local_pairs(gates, eids, sh * e_local, e_local, capacity)
-            for sh in range(n_shards))))                  # (shards, C)
-        # Overflow and other shards' pairs fold into the last local group
-        # with a zero gate; each row's place in its group follows from
-        # the groups' sizes, of which the widest is the one host read.
-        group = ids.clamp(max=e_local - 1)
-        sizes = torch.zeros((n_shards, e_local), dtype=torch.int64,
-                            device=x.device).scatter_add_(
-            1, group, torch.ones_like(group))
-        pos = (torch.arange(capacity, device=x.device)
-               - (sizes.cumsum(1) - sizes).gather(1, group))
-        token = rows // k
-        out = _expert_ffn_ragged(xf, token, shard_lo + group, pos,
-                                 int(sizes.max()), params["wi"],
-                                 params["wg"], params["wo"], mcfg)
-        y = None                # the psum: the shards' partials in order
-        for sh in range(n_shards):
-            part = torch.zeros((t, d), dtype=torch.float32,
-                               device=x.device).index_add(
-                0, token[sh], out[sh] * w_rows[sh][:, None])
-            y = part if y is None else y + part
-        ys.append(y.reshape(bl, s, d).to(x.dtype))
+        with cost_trace.scope(trace, *batch_axes):
+            xf = x[db * bl:(db + 1) * bl].reshape(t, d)
+            gates, eids, aux = _route(xf, params["router"], mcfg)
+            with cost_trace.scope(trace, expert_axis):
+                rows, ids, w_rows = (torch.stack(v) for v in zip(*(
+                    _local_pairs(gates, eids, sh * e_local, e_local,
+                                 capacity)
+                    for sh in range(n_shards))))          # (shards, C)
+                # Overflow and other shards' pairs fold into the last
+                # local group with a zero gate; each row's place in its
+                # group follows from the groups' sizes, of which the
+                # widest is the one host read.
+                group = ids.clamp(max=e_local - 1)
+                sizes = torch.zeros((n_shards, e_local), dtype=torch.int64,
+                                    device=x.device).scatter_add_(
+                    1, group, torch.ones_like(group))
+                pos = (torch.arange(capacity, device=x.device)
+                       - (sizes.cumsum(1) - sizes).gather(1, group))
+                token = rows // k
+                width = (capacity if x.device.type == "meta"
+                         else int(sizes.max()))
+                out = _expert_ffn_ragged(xf, token, shard_lo + group, pos,
+                                         width, params["wi"], params["wg"],
+                                         params["wo"], mcfg)
+            y = None            # the psum: the shards' partials in order
+            for sh in range(n_shards):
+                with cost_trace.scope(trace, expert_axis):
+                    part = torch.zeros((t, d), dtype=torch.float32,
+                                       device=x.device).index_add(
+                        0, token[sh], out[sh] * w_rows[sh][:, None])
+                y = part if y is None else y + part
+            ys.append(y.reshape(bl, s, d).to(x.dtype))
         auxes += [aux] * n_shards
+    cost_trace.record_collective("all-reduce", t * d * 4, n_shards)
+    cost_trace.record_collective("all-reduce", 4, n_shards * n_data)
     return torch.cat(ys), torch.stack(auxes).mean()

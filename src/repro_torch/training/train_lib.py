@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cost_trace
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.prng import fold_in
@@ -48,6 +49,12 @@ from repro_torch.models.lm import (
 from repro_torch.optim.optimizers import global_norm
 
 Tensor = torch.Tensor
+
+
+# The LM head's sequence chunk in the loss (positions per head call).
+CE_CHUNK = 256
+# Bytes per gradient element on the wire under each compression.
+_WIRE_ITEMSIZE = {"bf16": 2, "int8": 1}
 
 
 class TrainState(NamedTuple):
@@ -69,7 +76,7 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 def chunked_cross_entropy(params, hidden: Tensor, labels: Tensor,
                           mcfg: ModelConfig, nx: Numerics,
-                          chunk: int = 256) -> Tensor:
+                          chunk: int = CE_CHUNK) -> Tensor:
     """Cross-entropy without the whole (B, S, V) logits: the LM head over
     sequence chunks of ``chunk`` (S when ``chunk`` does not divide S).
     Every chunk's head call folds 999,983 into ``nx`` afresh, as the JAX
@@ -189,6 +196,13 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
         else:
             loss, aux, grads = value_and_grad(loss_fn, state.params, batch,
                                               key)
+        # The data axes' reduction of the gradients, loss and aux (a cost
+        # trace's events; nothing outside one).
+        cost_trace.record_grad_reduction(
+            grads, state.params, _WIRE_ITEMSIZE.get(tcfg.compression))
+        for _ in range(2):
+            cost_trace.record_collective("all-reduce", 4,
+                                         cost_trace.data_size())
         grads, ef = collectives.apply_compression(grads, tcfg.compression,
                                                   state.ef)
         update = optimizer.update_ if donate else optimizer.update
