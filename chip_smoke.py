@@ -20,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
                launch at each row block and the two-launch route) at M = 9
                to 2,048 on three weight shapes, and the LM head (not
                L2-resident: the wrapper's 32-row blocks and 64-row blocks)
-               at M = 17 and 40, bit-equal to the plain version;
+               at M = 17 and 40, bit-equal to the plain version; kernels
+               1, 3 and 5 at phase 23's shapes (``wide_kernel_checks``);
                kernel 4 (unpacked ABFP matmul) at the evaluation forward's
                shapes (M = 4 x 512 and M = 4, every weight shape of a layer
                and the LM head) bit-equal to kernel 1 on the packed weight
@@ -315,8 +316,9 @@ Phases (any failure exits non-zero and prints no result line):
                128, gain 8, noise 0.5; every dense call's key from the
                pass's key table in the pass buffers, split and drawn on the
                card inside the captured pass; see ``abfp_ref_phase``): (a)
-               full-width smollm-360m on phase 4's first four requests
-               (ABFP_REF_REQUESTS: the run's time limit), eagerly, with
+               full-width smollm-360m at its first ABFP_REF_LAYERS layers
+               on phase 4's first four requests (ABFP_REF_REQUESTS; both
+               cut for the run's time limit), eagerly, with
                graphs (blocking) and with graphs + overlap, the launch
                counts zeroed just before each run and read just after:
                4 of 4, streams equal across the three, kernels 1-5 never
@@ -398,7 +400,32 @@ Phases (any failure exits non-zero and prints no result line):
                or DRYRUN_PEAK_ATOL of the trace's ``live_bytes``; (c) the
                median of DRYRUN_REPS timed runs after a warm-up (CUDA
                events) not below ``roofline_terms``' max(compute_s,
-               memory_s) with the H100 constants, the ratio printed.
+               memory_s) with the H100 constants, the ratio printed;
+ 23. dense   — full-width gemma-7b (16 / 16 heads of 256, GeGLU, the tied
+               3,072 x 256,000 LM head behind the sqrt(d) embedding
+               scale) and chatglm3-6b (32 / 2 heads of 128, partial
+               rotary, vocab 65,024), all 28 layers, as ``--arch <a>
+               --full --fused`` configures them (see ``dense_phase``): (a)
+               phase 4's eight prompt lengths served eagerly, with graphs
+               and with graphs + overlap: 8 of 8 with equal streams,
+               kernels 1 / 2 / 3 launched 113 / 28 / 28 times per tick and
+               kernel 1 197 times per prefill pass, every pass shape's
+               replay bit-equal to the eager pass under two keys; (b) the
+               first prefill pass and decode tick at the first
+               DENSE_CHECK_LAYERS layers plus the head through the kernels
+               and the plain versions: kernels 1-2 at 0 flips and kernel 3
+               within its card tests' bar on every call's own inputs, the
+               logits within DECODE_LOGIT_BAR and bit-equal with kernel 3's
+               plain version; (c) one full-depth tick's worth of kernels
+               1-3 timed beside its bound and the plain versions; (d) the
+               ``abfp_kernel`` + flash evaluation forward over 4 x 512
+               tokens at full depth (kernels 4 / 5 launched 197 / 28
+               times; kernel 5's calls timed beside the bound, the plain
+               version and SDPA) and at DENSE_CHECK_LAYERS layers against
+               the plain versions (``eval_forward_runs``: EVAL_LOGIT_BAR,
+               bit-equal with kernel 5's plain version).  Phase 3 checks
+               kernels 3 and 5 at these head dims and groupings and kernel
+               1 on a 3,072 x 256,000 head first (``wide_kernel_checks``).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Weights are random from a seed.
@@ -565,6 +592,9 @@ RECURRENT_TRAIN = {"recurrentgemma-2b": (26, 2560, 201, 8),
 # 94 k kernels (2 s of host time), so the whole workload would take the
 # run past its time limit.
 ABFP_REF_REQUESTS = 4
+# ... and smollm-360m served there at its first 4 of 32 layers (an eager
+# tick at 32 layers takes about 2 s; the run's time limit since phase 23).
+ABFP_REF_LAYERS = 4
 # Phase 20: the virtual meshes served (data, model), and the kernel
 # launches of each mesh's decode tick and prefill pass on full-width
 # tinyllama-1.1b (22 layers; kernel 1 on wq/wk/wv/wo/wi/wg/wo per layer
@@ -612,6 +642,19 @@ DRYRUN_MICROBATCHES = 4
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PEAK_ATOL = 64 * 2 ** 20
 DRYRUN_REPS = 3
+# Phase 23 (dense archs never served before): full width and 28 layers
+# with the kernels; the passes held against the plain versions at the
+# first DENSE_CHECK_LAYERS layers plus the head (plain versions at full
+# depth would cost the run's time limit: one full-depth gemma-7b tick's
+# kernel-1 calls take 0.6 s through them); the evaluation forward's tokens.
+DENSE_ARCHS = ("gemma-7b", "chatglm3-6b")
+DENSE_CHECK_LAYERS = 4
+DENSE_EVAL_BATCH = 4
+DENSE_EVAL_SEQ = 512
+# Phase 3's checks at phase 23's shapes: (query heads, KV heads, head dim)
+# of gemma-7b and chatglm3-6b, and gemma's tied LM head (K, N).
+WIDE_HEADS = ((16, 16, 256), (32, 2, 128))
+WIDE_HEAD = (3072, 256_000)
 # The served workloads of phases 13-15 (prompts, features, the graphs
 # run's streams and launches), which phase 17 serves again under fault
 # plans and under a rate-0 plan.
@@ -2633,73 +2676,12 @@ def moe_phase(dev, engine_cls, lens, rows: list) -> dict:
     res["max_abs_err"] = dict(errs)
     del st_k, st_p, st_a, state0, lg_a
 
-    # Device time of one decode tick's worth of each kernel's launches (a
-    # graph replay of the tick's recorded calls), the plain versions' time
-    # and the bound from these calls' bytes and operations; kernel 1 per
-    # weight shape too.
-    k1_calls = [a for a, _, _ in tick[k1]]
-    nb = i8 = f32 = 0
-    for x, pw, _, _ in k1_calls:
-        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
-        nb, i8, f32 = nb + b_, i8 + i_, f32 + f_
-    k2_calls = [(a, kw) for a, kw, _ in tick[k2]]
-    nb2 = i82 = f322 = 0
-    for (x, pws, _, _), _ in k2_calls:
-        for pw in pws:
-            b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw,
-                                 x.element_size())
-            nb2, i82, f322 = nb2 + b_, i82 + i_, f322 + f_
-    k3_calls = [(a, kw) for a, kw, _ in tick[k3]]
-    nb3 = f33 = 0
-    for a, kw in k3_calls:
-        q, kc = a[0], a[1]
-        b_, f_ = k3_cost(kw["lengths"].tolist(), kc.shape[1], kc.shape[2],
-                         q.shape[2], q.shape[3])
-        nb3, f33 = nb3 + b_, f33 + f_
-    del tick
-    k1_fn = ops.abfp_matmul_packed
-    k2_fn = ops.fused_qkv_packed
-    k3_fn = model_layers.fused_quantized_decode_attention
-    timed = {}
-    for name, fn, plain, cs, (bms, by), reps in (
-            (k1, lambda: [k1_fn(*c) for c in k1_calls],
-             lambda: [abfp_matmul_packed_ref(*c) for c in k1_calls],
-             k1_calls, bound(nb, i8, f32), 1),
-            (k2, lambda: [k2_fn(*a, **kw) for a, kw in k2_calls],
-             lambda: [sites[k2][1](*a, **kw) for a, kw in k2_calls],
-             k2_calls, bound(nb2, i82, f322), 3),
-            (k3, lambda: [k3_fn(*a, **kw) for a, kw in k3_calls],
-             lambda: [quantized_decode_attention(*a, **kw)
-                      for a, kw in k3_calls],
-             k3_calls, bound(nb3, 0.0, f33), 3)):
-        ms, how = graph_ms(fn, 20)
-        timed[name] = {"launches": len(cs), "ms": ms, "timing": how,
-                       "plain_ms": median_ms(plain, reps), "bound_ms": bms,
-                       "bound_by": by}
-        log(f"phase 14: {name}'s {len(cs)} launches of one decode tick take "
-            f"{ms:.4f} ms ({how}; plain versions "
-            f"{timed[name]['plain_ms']:.3f} ms), bound {bms:.4f} ms by {by}")
-    timed[k1].update(bytes=nb, code_bytes=sum(pw.k * pw.n_cols
-                                               for _, pw, _, _ in k1_calls))
-    by_shape = {}
-    for c in k1_calls:
-        x, pw = c[0], c[1]
-        key_ = f"{pw.k}x{pw.n_cols}"
-        if key_ in by_shape:
-            by_shape[key_]["calls"] += 1
-            continue
-        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
-        one_ms = graph_ms(lambda c=c: k1_fn(*c), 20)[0]
-        by_shape[key_] = {"calls": 1, "ms": one_ms,
-                          "bound_ms": bound(b_, i_, f_)[0],
-                          "gb_per_s": b_ / one_ms / 1e6}
-    timed[k1]["by_shape"] = by_shape
-    log("phase 14: kernel 1 per weight shape (K x N: calls, ms per call, "
-        "bound ms, GB/s): " + json.dumps(
-            {k_: [v["calls"], round(v["ms"], 4), round(v["bound_ms"], 4),
-                  round(v["gb_per_s"], 1)] for k_, v in by_shape.items()}))
+    # Device time of one decode tick's worth of each kernel's launches.
+    timed = tick_kernel_times(
+        {n: [(a, kw) for a, kw, _ in c] for n, c in tick.items()},
+        "phase 14")
     res["tick"] = timed
-    del k1_calls, k2_calls, k3_calls, eng, packed
+    del tick, eng, packed
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4294,7 +4276,8 @@ def abfp_ref_phase(dev, engine_cls, reqs, card: str) -> dict:
         return {r.uid: list(r.generated) for r in fin}, out
 
     # 19a. smollm-360m at full width as ``--full --quant abfp`` configures
-    # it: bf16 weights from the seed, kept float (no packing).
+    # it, cut to its first ABFP_REF_LAYERS layers: bf16 weights from the
+    # seed, kept float (no packing).
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4307,6 +4290,7 @@ def abfp_ref_phase(dev, engine_cls, reqs, card: str) -> dict:
     if (mcfg.name, quant.mode, quant.tile_width, quant.gain,
             quant.noise_lsb) != ("smollm-360m", "abfp_ref", 128, 8.0, 0.5):
         fail(f"phase 19: unexpected serving config {mcfg.name} {quant}")
+    mcfg = dataclasses.replace(mcfg, num_layers=ABFP_REF_LAYERS)
     params = init_params(SEED, mcfg, device=dev)
 
     def engine(**kw):
@@ -5152,6 +5136,369 @@ def dryrun_phase(dev, card: str) -> dict:
     return res
 
 
+def dense_phase(dev, engine_cls, lens, rows: list) -> dict:
+    """Phase 23: full-width gemma-7b and chatglm3-6b (28 layers each)
+    served as ``--arch <a> --full --fused`` configures them, on phase 4's
+    prompt lengths (``lens``), and their evaluation forwards (see the
+    module docstring).  ``engine_cls`` is phase 4's NaN-checking engine
+    that records each pass's launches.  Annotates the kernel rows with
+    this path's launches and times; returns the measurements."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.abfp import QuantConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        fused_qkv_packed_ref,
+        quantized_decode_attention,
+    )
+    from repro_torch.kernels.abfp_matmul import abfp_matmul_packed_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import (
+        Numerics,
+        clone_state,
+        decode_step,
+        forward,
+        init_decode_state,
+        init_params,
+        prefill,
+    )
+    from repro_torch.models import layers as model_layers
+    from repro_torch.serving import Request
+    from repro_torch.serving.runners import state_tensors
+
+    t_phase = time.perf_counter()
+    k1, k2, k3 = SERVE_KERNELS
+    shapes = [("decode",)] + [("prefill", c) for c in (16, 64, 128)]
+    sites = {k1: (ops, abfp_matmul_packed_ref),
+             k2: (ops, lambda x, pws, cfg, seeds, qkv=None:
+                  fused_qkv_packed_ref(x, pws, cfg, seeds)),
+             k3: (model_layers, quantized_decode_attention)}
+    res = {}
+
+    @contextlib.contextmanager
+    def recording(calls, names):
+        """Record every call (inputs and output) of the kernels ``names``
+        (``sites``' wrappers, or kernel 5's) into ``calls``."""
+        where = dict(sites, flash_attention=(model_layers, None))
+        saved = {n: getattr(where[n][0], n) for n in names}
+
+        def wrap(name, fn):
+            def call(*a, **kw):
+                y = fn(*a, **kw)
+                calls[name].append((a, kw, y))
+                return y
+            return call
+
+        for n in names:
+            setattr(where[n][0], n, wrap(n, saved[n]))
+        try:
+            yield
+        finally:
+            for n in names:
+                setattr(where[n][0], n, saved[n])
+
+    for i, arch in enumerate(DENSE_ARCHS):
+        what = f"phase 23 {arch}"
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        args = serve_cli.build_parser().parse_args(
+            ["--arch", arch, "--full", "--fused", "--capacity",
+             str(CAPACITY), "--max-len", str(MAX_LEN), "--max-new",
+             str(MAX_NEW), "--seed", str(SEED)])
+        mcfg, quant = serve_cli.model_and_quant(args)
+        if (mcfg.name, mcfg.num_layers, quant.mode) != (arch, 28,
+                                                        "abfp_fused") \
+                or not mcfg.kv_quant:
+            fail(f"{what}: unexpected serving config {mcfg} {quant}")
+        nl, h = mcfg.num_layers, mcfg.num_heads
+        kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
+        # Launches per decode tick: kernel 1 on each layer's attn.wo and
+        # mlp.wi / wg / wo and on the (tied, packed) LM head; kernels 2 and
+        # 3 once per layer.  Per prefill pass: kernel 1 on wq, wk, wv, wo
+        # and the MLP, and the head.  Per evaluation forward: kernel 4 on
+        # the prefill pass's matmuls, kernel 5 once per layer.
+        per_tick = {k1: 4 * nl + 1, k2: nl, k3: nl}
+        per_prefill = {k1: 7 * nl + 1}
+        per_forward = {"abfp_matmul": 7 * nl + 1, "flash_attention": nl}
+        t0 = time.perf_counter()
+        params = init_params(SEED, mcfg, device=dev)
+        eng = engine_cls(params, mcfg, capacity=CAPACITY, max_len=MAX_LEN,
+                         quant=quant, seed=SEED, device=dev, _graphs=False)
+        torch.cuda.synchronize()
+        out = {"init_and_pack_s": time.perf_counter() - t0,
+               "head_dim": hd, "heads": [h, kh]}
+        packed = eng.params
+        head = packed["lm_head"]
+        log(f"{what}: {nl} layers, d={mcfg.d_model}, {h} / {kh} heads of "
+            f"{hd}, {mcfg.mlp_type} {mcfg.d_ff}, vocab {mcfg.vocab_size} "
+            f"(LM head {head.k} x {head.n_cols}, tied "
+            f"{mcfg.tie_embeddings}, rope fraction {mcfg.rope_fraction}) "
+            f"built and packed in {out['init_and_pack_s']:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+        rng = np.random.default_rng(SEED + 23 + i)
+        reqs = [Request(uid=u, prompt=rng.integers(1, mcfg.vocab_size,
+                                                   n).tolist(),
+                        max_new_tokens=MAX_NEW) for u, n in enumerate(lens)]
+
+        def fresh(**kw):
+            return engine_cls(packed, mcfg, capacity=CAPACITY,
+                              max_len=MAX_LEN, quant=quant, seed=SEED,
+                              device=dev, **kw)
+
+        # 23a. Served eagerly, with graphs and with graphs + overlap: 8 of
+        # 8 with equal streams, every pass's launches held to per_tick /
+        # per_prefill; every shape's replay against eager under two keys.
+        runs, _, geng = serve_in_turns(
+            eng, fresh, lambda: [Request(uid=r.uid, prompt=list(r.prompt),
+                                         max_new_tokens=MAX_NEW)
+                                 for r in reqs],
+            shapes, {"decode": per_tick, "prefill": per_prefill}, what)
+        out["runs"] = runs
+        out["per_decode_tick"], out["per_prefill_pass"] = per_tick, \
+            per_prefill
+        served = [t.clone() for t in state_tensors(eng.state)]
+        xeng = fresh(clock=time.perf_counter, overlap=True, _graphs=False)
+        replay_against_eager(geng, xeng, served, shapes, mcfg.vocab_size,
+                             np.random.default_rng(SEED + 24), what)
+        xeng.close()
+        geng.close()
+        del xeng, geng, served, eng
+        gc.collect()
+
+        # 23b. The first prefill pass and decode tick of the first four
+        # requests at depth DENSE_CHECK_LAYERS (the first layers and the
+        # head) through the kernels and through the plain versions: every
+        # kernel-1/2 call at 0 flips and every kernel-3 call within its
+        # card tests' bar (``k3_bar``, phase 14's) of its plain version
+        # on its own inputs; the logits within DECODE_LOGIT_BAR, and
+        # bit-equal where every kernel-1/2 call was (kernel 3 swapped for
+        # its plain version on the tick).
+        m4 = dataclasses.replace(mcfg, num_layers=DENSE_CHECK_LAYERS)
+        p4 = dict(packed, layers=packed["layers"][:DENSE_CHECK_LAYERS])
+        first = reqs[:CAPACITY]
+        n_tok = np.array([min(len(r.prompt), 128) for r in first], np.int32)
+        toks = np.zeros((CAPACITY, 128), np.int32)
+        for j, r in enumerate(first):
+            toks[j, :n_tok[j]] = r.prompt[:n_tok[j]]
+        toks_t = torch.from_numpy(toks).to(dev)
+        n_t = torch.from_numpy(n_tok).to(dev)
+        key = prng.split(prng.PRNGKey(SEED))[1]
+        key_d = prng.fold_in(key, 1)
+        calls = {n: [] for n in sites}
+        errs = {n: 0.0 for n in sites}
+
+        def check_calls(kind) -> bool:
+            torch.cuda.synchronize()
+            exact = True
+            for name, rec in calls.items():
+                n = size = 0
+                for a, kw, y in rec:
+                    want_ = sites[name][1](*a, **kw)
+                    for g, w in zip(*((y, want_) if isinstance(y, tuple)
+                                      else ((y,), (want_,)))):
+                        f_, z_, ulp, e_ = bf16_diff(g, w)
+                        if name == k3:
+                            e_ = k3_bar(g, w, f"{what} first {kind}: {name}",
+                                        quiet=True)
+                        elif f_ or ulp:
+                            fail(f"{what} first {kind}: {name} differs from "
+                                 f"its plain version ({f_}/{z_} flips)")
+                        n, size = n + f_, size + z_
+                        errs[name] = max(errs[name], e_)
+                exact = exact and (name == k3 or n == 0)
+                log(f"{what} first {kind} (depth {DENSE_CHECK_LAYERS}): "
+                    f"{name} on its {len(rec)} calls' own inputs against "
+                    f"its plain version: {n}/{size} one-ULP flips")
+                rec.clear()
+            return exact
+
+        def compare(kind, a, b, bar=None):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                fail(f"{what}: non-finite logits in the first {kind}")
+            same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            err = float((a - b).abs().max())
+            log(f"{what} first {kind} (depth {DENSE_CHECK_LAYERS}): logits "
+                f"max-abs difference {err:.4g}, greedy tokens equal "
+                f"{same:.0%}")
+            if bar is not None and err > bar:
+                fail(f"{what} first {kind}: logits differ by {err:.4g} > "
+                     f"{bar}")
+            return {"logits_max_abs": err, "greedy_equal": same}
+
+        state0 = init_decode_state(m4, CAPACITY, MAX_LEN, device=dev)
+        st_k, st_p = clone_state(state0), clone_state(state0)
+        with recording(calls, list(sites)):
+            lg_k, _ = prefill(p4, st_k, toks_t, n_t, m4,
+                              Numerics(quant, key))
+        if len(calls[k1]) != 7 * DENSE_CHECK_LAYERS + 1 or calls[k2] \
+                or calls[k3]:
+            fail(f"{what}: the first prefill pass made "
+                 f"{ {n: len(c) for n, c in calls.items()} } kernel calls")
+        exact = check_calls("prefill pass")
+        lg_p, _ = prefill(p4, st_p, toks_t, n_t, m4,
+                          Numerics(quant, key, plain=True))
+        out["first_prefill"] = compare("prefill pass", lg_k, lg_p,
+                                       DECODE_LOGIT_BAR)
+        if exact and not torch.equal(lg_k, lg_p):
+            fail(f"{what}: the prefill pass runs no kernel 3 and every "
+                 f"kernel-1 call was bit-equal, yet its logits differ")
+        tok = lg_k.argmax(-1).to(torch.int32)
+        st_a = clone_state(st_p)
+        with recording(calls, list(sites)):
+            lg_k, _ = decode_step(p4, st_k, tok, m4, Numerics(quant, key_d))
+        want4 = {k1: 4 * DENSE_CHECK_LAYERS + 1, k2: DENSE_CHECK_LAYERS,
+                 k3: DENSE_CHECK_LAYERS}
+        if {n: len(c) for n, c in calls.items()} != want4:
+            fail(f"{what}: the first decode tick made "
+                 f"{ {n: len(c) for n, c in calls.items()} } kernel calls")
+        exact = check_calls("decode tick")
+        lg_p, _ = decode_step(p4, st_p, tok, m4,
+                              Numerics(quant, key_d, plain=True))
+        out["first_decode"] = compare("decode tick", lg_k, lg_p,
+                                      DECODE_LOGIT_BAR)
+        saved3 = model_layers.fused_quantized_decode_attention
+        model_layers.fused_quantized_decode_attention = \
+            quantized_decode_attention
+        try:
+            lg_a, _ = decode_step(p4, st_a, tok, m4, Numerics(quant, key_d))
+        finally:
+            model_layers.fused_quantized_decode_attention = saved3
+        if exact and not torch.equal(lg_a, lg_p):
+            fail(f"{what}: the decode tick with kernel 3's plain version "
+                 f"differs from the plain run, yet every kernel-1/2 call "
+                 f"was bit-equal")
+        log(f"{what} first decode tick with kernel 3's plain version: "
+            f"logits bit-equal to the plain run's")
+        out["max_abs_err"] = dict(errs)
+        del st_k, st_p, st_a, state0, lg_a, p4
+
+        # 23c. One full-depth decode tick's worth of each kernel (the calls
+        # of a 28-layer tick after the first prefill pass, recorded): device
+        # time of their graph replay, the plain versions' time and the
+        # bound from these calls' bytes and operations; kernel 1 per weight
+        # shape too (the 256,000- or 65,024-column head among them).
+        st = init_decode_state(mcfg, CAPACITY, MAX_LEN, device=dev)
+        prefill(packed, st, toks_t, n_t, mcfg, Numerics(quant, key))
+        with recording(calls, list(sites)):
+            decode_step(packed, st, tok, mcfg, Numerics(quant, key_d))
+        tick = {n: [(a, kw) for a, kw, _ in c] for n, c in calls.items()}
+        for c in calls.values():
+            c.clear()
+        if {n: len(c) for n, c in tick.items()} != per_tick:
+            fail(f"{what}: a full-depth decode tick made "
+                 f"{ {n: len(c) for n, c in tick.items()} } kernel calls")
+        timed = tick_kernel_times(tick, what)
+        out["tick"] = timed
+        del tick, st, packed, head
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 23d. The cacheless evaluation forward (abfp_kernel, tile 128, gain
+        # 8, noise 0.5, flash attention on) over DENSE_EVAL_BATCH x
+        # DENSE_EVAL_SEQ tokens at full depth through the kernels: launches
+        # exactly per_forward, finite logits, host time; kernel 5's calls
+        # timed (graph replay) beside their bound, the plain version and
+        # SDPA.  Then at depth DENSE_CHECK_LAYERS through the kernels, the
+        # plain versions and kernel 5's plain version (see
+        # ``eval_forward_runs``: the logits within EVAL_LOGIT_BAR, the
+        # kernel-5-plain run bit-equal to the plain run).
+        emcfg = dataclasses.replace(mcfg, use_flash_attention=True)
+        equant = QuantConfig(mode="abfp_kernel",
+                             tile_width=quant.tile_width, gain=quant.gain,
+                             noise_lsb=quant.noise_lsb)
+        etoks = torch.from_numpy(rng.integers(
+            1, mcfg.vocab_size, (DENSE_EVAL_BATCH, DENSE_EVAL_SEQ)).astype(
+            np.int32)).to(dev)
+        ekey = prng.PRNGKey(SEED + 25)
+        calls5 = {"flash_attention": []}
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with recording(calls5, ["flash_attention"]), torch.no_grad():
+            lg, _ = forward(params, etoks, emcfg, Numerics(equant, ekey))
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        counts = {n: v for n, v in ops.launch_counts().items() if v}
+        if counts != per_forward:
+            fail(f"{what}: the evaluation forward launched {counts}, want "
+                 f"{per_forward}")
+        if not torch.isfinite(lg).all():
+            fail(f"{what}: non-finite logits in the evaluation forward")
+        del lg
+        cs5 = [(a, kw) for a, kw, _ in calls5["flash_attention"]]
+        calls5.clear()
+        fa = model_layers.flash_attention
+        b5, d5, f5 = k5_cost(DENSE_EVAL_BATCH, DENSE_EVAL_SEQ,
+                             DENSE_EVAL_SEQ, h, kh, hd, True, 0)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        cs5_t = [tuple(t.transpose(1, 2).contiguous() for t in a[:3])
+                 for a, _ in cs5]
+        ms5, how5 = graph_ms(lambda: [fa(*a, **kw) for a, kw in cs5], 5)
+        pms5 = median_ms(lambda: [flash_attention_ref(*a, **kw)
+                                  for a, kw in cs5], 1)
+        lib5 = graph_ms(lambda: [sdpa(q_, k_, v_, is_causal=True,
+                                      enable_gqa=True)
+                                 for q_, k_, v_ in cs5_t], 5)[0]
+        bms5, by5 = bound(b5 * nl, 0.0, f5 * nl, d5 * nl)
+        out["eval_forward"] = {"launches": counts, "host_s": host_s,
+                               "tokens": [DENSE_EVAL_BATCH, DENSE_EVAL_SEQ]}
+        out["flash"] = {"launches": len(cs5), "ms": ms5, "timing": how5,
+                        "plain_ms": pms5, "library_ms": lib5,
+                        "bound_ms": bms5, "bound_by": by5}
+        log(f"{what}: evaluation forward {tuple(etoks.shape)} at full depth "
+            f"({counts}) in {host_s:.2f}s host; kernel 5's {len(cs5)} calls "
+            f"({DENSE_EVAL_BATCH} x {DENSE_EVAL_SEQ}, {h} / {kh} heads of "
+            f"{hd}, causal, bf16) take {ms5:.4f} ms ({how5}; plain "
+            f"{pms5:.3f} ms, SDPA {lib5:.4f} ms), bound {bms5:.4f} ms by "
+            f"{by5}")
+        del cs5, cs5_t
+        ev, got_counts = eval_forward_runs(
+            dev, dict(params, layers=params["layers"][:DENSE_CHECK_LAYERS]),
+            etoks, dataclasses.replace(emcfg,
+                                       num_layers=DENSE_CHECK_LAYERS),
+            equant, ekey, f"{what} evaluation (depth {DENSE_CHECK_LAYERS})")
+        if got_counts != {"abfp_matmul": 7 * DENSE_CHECK_LAYERS + 1,
+                          "flash_attention": DENSE_CHECK_LAYERS}:
+            fail(f"{what}: the depth-{DENSE_CHECK_LAYERS} forward launched "
+                 f"{got_counts}")
+        out["eval_check"] = ev
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, etoks
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t_arch
+        g_ = runs["graphs"][0]
+        log(f"{what}: 8/8 eager / graphs / overlap; launches per tick "
+            f"{per_tick}, per prefill pass {per_prefill}; graphs tick "
+            f"{g_['decode_ms']:.3f} ms, prefill pass {g_['prefill_ms']:.3f} "
+            f"ms, {g_['tokens_per_s']:.1f} tokens/s; peak "
+            f"{out['peak_memory_gb']:.1f} GiB; {out['seconds']:.1f}s")
+        res[arch] = out
+
+        slug = arch.replace("-", "_").replace(".", "_")
+        for row in rows:
+            name = row["name"]
+            row[f"launches_{slug}_serve"] = g_["launches"].get(name, 0)
+            row[f"launches_{slug}_eval_forward"] = counts.get(name, 0)
+            t_ = timed.get(name) or (out["flash"] if name == "flash_attention"
+                                     else None)
+            if t_ is not None:
+                row.update({f"{slug}_ms": t_["ms"],
+                            f"{slug}_plain_ms": t_["plain_ms"],
+                            f"{slug}_bound_ms": t_["bound_ms"],
+                            f"{slug}_bound_by": t_["bound_by"]})
+                if name == "flash_attention":
+                    row[f"{slug}_library_ms"] = t_["library_ms"]
+            if name in errs:
+                row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
                       encoder_features=None, check_calls: bool = False,
                       bar: float = EVAL_LOGIT_BAR):
@@ -5272,6 +5619,185 @@ def eval_forward_runs(dev, params, inputs, mcfg, quant, key, what,
         fail(f"{what}: logits differ from the plain run's by {err:.4g} > "
              f"{bar:.4g}")
     return res, counts
+
+
+def tick_kernel_times(tick: dict, what: str) -> dict:
+    """Device time of one decode tick's worth of each serving kernel's
+    launches (a graph replay of the tick's recorded calls ``tick``, {name:
+    [(args, kwargs), ...]}), the plain versions' time and the bound from
+    these calls' bytes and operations (kernel 2's x read once for its
+    three segments); kernel 1 per weight shape too.  Returns the timings
+    by kernel name."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abfp_decode_fused import (
+        fused_qkv_packed_ref,
+        quantized_decode_attention,
+    )
+    from repro_torch.kernels.abfp_matmul import abfp_matmul_packed_ref
+    from repro_torch.models import layers as model_layers
+
+    k1, k2, k3 = SERVE_KERNELS
+    # (kernel, plain version, timed runs of the plain version)
+    fns = {k1: (ops.abfp_matmul_packed, abfp_matmul_packed_ref, 1),
+           k2: (ops.fused_qkv_packed,
+                lambda x, pws, cfg, seeds, qkv=None: fused_qkv_packed_ref(
+                    x, pws, cfg, seeds), 3),
+           k3: (model_layers.fused_quantized_decode_attention,
+                quantized_decode_attention, 3)}
+    cost = {n: [0.0, 0.0, 0.0] for n in fns}    # bytes, int8 ops, f32 ops
+    for name in (k1, k2):
+        for a, _ in tick[name]:
+            x = a[0]
+            for pw in (a[1] if name == k2 else (a[1],)):
+                for j, v in enumerate(k1_cost(x.numel() // x.shape[-1], pw,
+                                              x.element_size())):
+                    cost[name][j] += v
+            if name == k2:
+                cost[name][0] -= 2 * x.numel() * x.element_size()
+    for a, kw in tick[k3]:
+        b_, f_ = k3_cost(kw["lengths"].tolist(), a[1].shape[1],
+                         a[1].shape[2], a[0].shape[2], a[0].shape[3])
+        cost[k3][0] += b_
+        cost[k3][2] += f_
+    timed = {}
+    for name, (fn, plain, reps) in fns.items():
+        cs = tick[name]
+        ms, how = graph_ms(lambda: [fn(*a, **kw) for a, kw in cs], 20)
+        pms = median_ms(lambda: [plain(*a, **kw) for a, kw in cs], reps)
+        bms, by = bound(*cost[name])
+        timed[name] = {"launches": len(cs), "ms": ms, "timing": how,
+                       "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                       "bytes": cost[name][0]}
+        log(f"{what}: {name}'s {len(cs)} launches of one decode tick take "
+            f"{ms:.4f} ms ({how}; plain versions {pms:.3f} ms), bound "
+            f"{bms:.4f} ms by {by} ({cost[name][0] / 1e9:.3f} GB)")
+    by_shape = {}
+    for a, kw in tick[k1]:
+        x, pw = a[0], a[1]
+        key_ = f"{pw.k}x{pw.n_cols}"
+        if key_ in by_shape:
+            by_shape[key_]["calls"] += 1
+            continue
+        b_, i_, f_ = k1_cost(x.numel() // x.shape[-1], pw, x.element_size())
+        one_ms = graph_ms(lambda a=a, kw=kw: fns[k1][0](*a, **kw), 20)[0]
+        by_shape[key_] = {"calls": 1, "ms": one_ms,
+                          "bound_ms": bound(b_, i_, f_)[0],
+                          "gb_per_s": b_ / one_ms / 1e6}
+    timed[k1].update(by_shape=by_shape, code_bytes=sum(
+        a[1].k * a[1].n_cols for a, _ in tick[k1]))
+    log(f"{what}: kernel 1 per weight shape (K x N: calls, ms per call, "
+        f"bound ms, GB/s): " + json.dumps(
+            {k_: [v["calls"], round(v["ms"], 4), round(v["bound_ms"], 4),
+                  round(v["gb_per_s"], 1)] for k_, v in by_shape.items()}))
+    return timed
+
+
+def k3_bar(got, want, what: str, quiet: bool = False) -> float:
+    """Kernel 3 against its plain version with its card tests' bar (rtol
+    2**-7, one bf16 ULP, atol 1e-6; phase 14's): the one-ULP flips
+    counted, and the elements further apart (softmax sums in another
+    order, on outputs near 0) shown.  Returns the max-abs difference."""
+    err = allclose_bar(got, want, what, rtol=2 ** -7, atol=1e-6, quiet=True)
+    g, w = bits(got), bits(want)
+    far = np.abs(g - w) > 1
+    n = int((np.abs(g - w) == 1).sum())
+    if far.any() or not quiet:
+        log(f"{what}: {n}/{g.size} one-ULP flips, {int(far.sum())} "
+            f"elements further apart (got "
+            f"{got.float().cpu().numpy()[far][:4]}, want "
+            f"{want.float().cpu().numpy()[far][:4]}), max-abs {err:.3g}")
+    return err
+
+
+def wide_kernel_checks(dev, gen, quant) -> dict:
+    """Phase 3's checks at the shapes of gemma-7b and chatglm3-6b (phase
+    23's path; see the module docstring), each against its plain version
+    with phase 3's bars: kernel 3 at (4, 1, 16, 256) over 16 KV heads and
+    (4, 1, 32, 128) over 2 KV heads (16 query heads per KV head: four
+    blocks of four), lengths 0 / 1 / MAX_LEN / mixed, with its card tests'
+    bar (``k3_bar``: at (4, 1, 32, 128) an element lies two bf16 ULPs from
+    the plain version's on an H100); kernel 5 at 4 x 512, causal, D = 256 (16 / 16 heads) and D = 128 (32 /
+    2 heads), on bf16 (tensor cores, rtol 2**-7, atol 1e-5) and f32 (the
+    FMA kernel, rtol 1e-5, atol 2e-5); kernel 1's decode route on a
+    3,072 x 256,000 packed head (gemma's tied LM head) at M = 4, 0 flips.
+    Returns each kernel's max-abs difference."""
+    import torch
+
+    from repro_torch.core.abfp import pack_abfp_weight
+    from repro_torch.kernels.abfp_decode_fused import (
+        fused_quantized_decode_attention,
+        quantized_decode_attention,
+    )
+    from repro_torch.kernels.abfp_matmul import (
+        DECODE_ROWS,
+        abfp_matmul_packed,
+        abfp_matmul_packed_ref,
+        fused_rows,
+    )
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    errs = {"abfp_matmul_packed": 0.0, "fused_quantized_decode_attention":
+            0.0, "flash_attention": 0.0}
+    for h, kh, d in WIDE_HEADS:
+        q = randn(CAPACITY, 1, h, d)
+        kc, vc = (torch.randint(-127, 128, (CAPACITY, MAX_LEN, kh, d),
+                                generator=gen, device=dev, dtype=torch.int8)
+                  for _ in "kv")
+        ks, vs = ((torch.rand(CAPACITY, MAX_LEN, kh, generator=gen,
+                              device=dev) * 4).to(torch.bfloat16)
+                  for _ in "kv")
+        for lens3 in ([1, MAX_LEN, 77, 300], [0, 1, MAX_LEN, 300]):
+            lengths = torch.tensor(lens3, dtype=torch.int32, device=dev)
+            got = fused_quantized_decode_attention(q, kc, ks, vc, vs,
+                                                   lengths=lengths)
+            want = quantized_decode_attention(q, kc, ks, vc, vs,
+                                              lengths=lengths)
+            errs["fused_quantized_decode_attention"] = max(
+                errs["fused_quantized_decode_attention"], k3_bar(
+                    got, want, f"kernel 3 {tuple(q.shape)} over {kh} KV "
+                    f"heads, S_max={MAX_LEN} lengths {lens3}"))
+        qa = randn(EVAL_BATCH, EVAL_SEQ, h, d)
+        ka, va = (randn(EVAL_BATCH, EVAL_SEQ, kh, d) for _ in "kv")
+        what = f"kernel 5 {tuple(qa.shape)} kv {tuple(ka.shape)} causal"
+        got = flash_attention(qa, ka, va, causal=True)
+        want = flash_attention_ref(qa, ka, va, causal=True)
+        n, size, ulp, _ = bf16_diff(got, want)
+        errs["flash_attention"] = max(errs["flash_attention"], allclose_bar(
+            got, want, f"{what} bf16 tensor cores: {int((got != want).sum())}"
+            f"/{size} differ ({n} by one bf16 ULP; largest {ulp} ULP)"))
+        q32, k32, v32 = (t.float() for t in (qa, ka, va))
+        allclose_bar(flash_attention(q32, k32, v32, causal=True),
+                     flash_attention_ref(q32, k32, v32, causal=True),
+                     f"{what} f32 (FMA kernel)", rtol=1e-5, atol=2e-5)
+        del qa, ka, va, q32, k32, v32, got, want
+    k, n = WIDE_HEAD
+    pw = pack_abfp_weight(randn(k, n), quant,
+                          adaptive_gain=quant.mode == "abfp_fused")
+    if fused_rows(CAPACITY, quant.tile_width, pw.n_padded // 128, quant,
+                  pw.num_tiles) != DECODE_ROWS:
+        fail(f"kernel 1 on the {k} x {n} head does not take the decode "
+             f"route at M={CAPACITY}")
+    x = randn(CAPACITY, k)
+    got = abfp_matmul_packed(x, pw, quant, 4242)
+    want = abfp_matmul_packed_ref(x, pw, quant, 4242)
+    n_, size, ulp, err = bf16_diff(got, want)
+    if ulp:
+        fail(f"kernel 1 on the {k} x {n} head M={CAPACITY}: {n_}/{size} "
+             f"one-ULP flips, largest {ulp} ULP")
+    errs["abfp_matmul_packed"] = err
+    log(f"kernel 1 decode route on a {k} x {n} packed head ("
+        f"{pw.k * pw.n_cols / 1e6:.0f} MB of codes) M={CAPACITY}: 0 flips "
+        f"against the plain version")
+    del pw, x, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return errs
 
 
 def checked_engine_cls():
@@ -5609,6 +6135,8 @@ def main() -> None:
                      f"{what} f32 (FMA kernel)", rtol=1e-5, atol=2e-5)
     errs["flash_attention"] = max(e5)
     torch.cuda.synchronize()
+    for name, e_ in wide_kernel_checks(dev, gen, quant).items():
+        errs[name] = max(errs[name], e_)
 
     # 4. serve (the main path) -------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -6447,6 +6975,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     dry = dryrun_phase(dev, card)
     log(f"dry-run phase in {dry['seconds']:.1f}s: {json.dumps(dry)}")
+
+    # 23. dense: gemma-7b and chatglm3-6b at full width --------------------
+    t0 = time.perf_counter()
+    den = dense_phase(dev, CheckedEngine, [len(r.prompt) for r in reqs],
+                      rows)
+    log(f"dense phase in {den['seconds']:.1f}s: {json.dumps(den)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

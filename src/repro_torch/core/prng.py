@@ -9,7 +9,10 @@ same noise lattice as the JAX package for the same engine seed.
 
 The variant is JAX's ``threefry2x32`` with ``jax_threefry_partitionable``
 on (the default since JAX 0.5): ``split(key, n)[i]`` and ``fold_in(key,
-i)`` both hash the counter pair ``(0, i)`` under ``key``.
+i)`` both hash the counter pair ``(0, i)`` under ``key``, and
+``random_bits(key, shape)`` hashes, for each flat index ``i`` of the
+shape, the pair of its high and low 32-bit words ``(i >> 32, i &
+0xFFFFFFFF)`` (JAX's ``iota_2x32_shape``).
 
 Keys are numpy ``uint32`` arrays of shape (2,), the layout
 ``jax.random.key_data`` returns.  One key's chain is scalar host work, in
@@ -30,10 +33,14 @@ JAX's ``random_bits(key, shape)`` for host keys (one or a stack), and
 build JAX's samplers on it, bit for bit: the ABFP scan's ADC noise, DNF's
 histogram draws and the synthetic data; ``normal`` (the stub frontends'
 features) to the last bit of ``erfinv``.  A shape's bits are those of its
-flattened counter range, which holds below 2**32 elements.
+flattened 64-bit counter range: any draw JAX takes (up to 2**64
+elements), though on a card a draw still needs its int64 threefry chains
+(several tensors of 8 bytes per element) to fit in device memory.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -228,22 +235,34 @@ def random_bits(k0: torch.Tensor, k1: torch.Tensor, n: int) -> torch.Tensor:
 _TINY = float(np.finfo(np.float32).tiny)
 
 
+def counter_bits(kw: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """The 32-bit words of the flat counters ``start .. start + n - 1``
+    under each key of ``kw`` ((G, 2) int64 words): the xor of the two
+    threefry words of each counter's pair ``(i >> 32, i & 0xFFFFFFFF)``.
+    Returns (G, n) int64 holding uint32 values, where ``kw`` lives."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=kw.device)
+    b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], (i >> 32)[None],
+                         (i & _M32)[None])
+    return b0 ^ b1
+
+
 def key_bits(keys, shape, device=None) -> torch.Tensor:
     """JAX's partitionable 32-bit ``random_bits(key, shape)`` for a key
-    (2,), or for each key of a stack (G, 2) (then (G, *shape)): the xor
-    of the two threefry words of the counter pair (0, i) over the
-    flattened shape.  int64 tensor holding uint32 values.  A host key
-    draws on ``device`` (its words go there by one pinned, non-blocking
-    copy on a GPU); a key held as an int64 tensor draws where it lives,
-    with no host copy and no sync (inside a captured pass too)."""
+    (2,), or for each key of a stack (G, 2) (then (G, *shape)): the
+    ``counter_bits`` of the flattened shape's counters 0 .. n - 1.  int64
+    tensor holding uint32 values.  A host key draws on ``device`` (its
+    words go there by one pinned, non-blocking copy on a GPU); a key held
+    as an int64 tensor draws where it lives, with no host copy and no sync
+    (inside a captured pass too).  Below 2**32 elements every high word is
+    0; above 2**64 JAX refuses the draw, and so does this."""
     shape = tuple(int(v) for v in shape)
-    n = int(np.prod(shape, dtype=np.int64))
-    if n >= 1 << 32:
-        raise ValueError(f"a draw of {n} elements needs 64-bit counters")
+    n = math.prod(shape)
+    if n > 1 << 64:
+        raise NotImplementedError(
+            f"a draw of {n} elements exceeds 2**64 counters")
     if isinstance(keys, torch.Tensor):
         one = keys.dim() == 1
         kw = _words(keys).reshape(-1, 2)
-        dev = kw.device
     else:
         keys = np.asarray(keys, dtype=np.uint32)
         one = keys.ndim == 1
@@ -253,9 +272,7 @@ def key_bits(keys, shape, device=None) -> torch.Tensor:
             kw = kw.pin_memory().to(dev, non_blocking=True)
         elif dev.type != "cpu":
             kw = kw.to(dev)                  # a meta trace's draw
-    i = torch.arange(n, dtype=torch.int64, device=dev)[None]
-    b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], torch.zeros_like(i), i)
-    bits = (b0 ^ b1).reshape((-1,) + shape)
+    bits = counter_bits(kw, 0, n).reshape((-1,) + shape)
     return bits[0] if one else bits
 
 

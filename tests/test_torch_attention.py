@@ -87,6 +87,25 @@ def test_flash_ref_bf16_matches_pallas():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 160, 160, 32, 2, 128),     # chatglm3-6b: 32 / 2 heads of 128
+    (1, 160, 160, 16, 16, 256),    # gemma-7b: 16 / 16 heads of 256
+])
+def test_flash_ref_at_served_head_dims_matches_pallas(shape):
+    """Kernel 5's plain version on bf16 at the head dims and groupings of
+    gemma-7b and chatglm3-6b, causal, with the wrapper's own blocks,
+    against the Pallas kernel in interpret mode (bf16 bar: one ULP)."""
+    q, k, v = _qkv(*shape, seed=shape[3] + shape[5])
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(j_flash(*jb, causal=True), np.float32)
+    tb = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+          for a in jb]
+    got = flash_attention(*tb, causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == tb[0].shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("causal,window,chunk", [(True, 0, 128),
                                                  (False, 0, 64),
                                                  (True, 128, 128),
@@ -182,7 +201,7 @@ def _tensor_core_flash(q, k, v, causal, window, bq=64, bk=64):
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
                                            (False, 0)])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_tensor_core_arithmetic_matches_plain_and_pallas(d, causal, window):
     """The tensor-core route's rounding (q * scale hi/lo, the p hi/lo
     split, f32 sums over 16-wide fragments) against the plain version and

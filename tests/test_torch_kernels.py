@@ -366,14 +366,16 @@ def _split_decode_attention(q, kc, ks, vc, vs, lengths, splits, warps=8):
 
 
 @pytest.mark.parametrize("splits", [1, 3])
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("rep", [1, 3, 4])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 3, 4, 16])
 def test_split_decode_attention_order_matches_plain_and_pallas(rep, d,
                                                                splits):
     """Kernel 3's position split, online softmax and merges against the
     Pallas kernel in interpret mode and the plain version, lengths 0, 1, S
-    and one between, one split and three.  Bar: rtol 1e-5, atol 1e-6 in
-    f32 (the kernel-3 bar above; only the sum order differs)."""
+    and one between, one split and three; D = 256 (gemma-7b: two positions
+    a warp step) and 16 query heads per KV head (chatglm3-6b: four blocks
+    of four heads).  Bar: rtol 1e-5, atol 1e-6 in f32 (the kernel-3 bar
+    above; only the sum order differs)."""
     rng = np.random.default_rng(100 * rep + d + splits)
     b, s_max, kh = 4, 300, 2
     h = kh * rep
@@ -407,6 +409,11 @@ def test_decode_attention_split_rule():
     assert decode_attention_split(1, 32768, 6, 2) == (3, 1, 32)
     assert decode_attention_split(4, 32768, 15, 5) == (3, 1, 13)
     assert decode_attention_split(64, 4096, 8, 8) == (1, 1, 1)
+    # chatglm3-6b's 16 query heads per KV head: four blocks of four heads;
+    # gemma-7b's group of one.
+    assert decode_attention_split(4, 512, 32, 2) == (4, 4, 1)
+    assert decode_attention_split(4, 2048, 32, 2) == (4, 4, 2)
+    assert decode_attention_split(4, 512, 16, 16) == (1, 1, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -173,3 +173,43 @@ def test_random_bits_and_uniform_equal_jax_bit_for_bit(n):
         jg = np.asarray(jax.random.gumbel(jk, (n,), jnp.float32))
         d = np.abs(g[b] - jg) / np.maximum(np.abs(jg), 1.0)
         assert d.max() <= 2.0 ** -22, d.max()
+
+
+@pytest.mark.parametrize("start", [0, 2 ** 32 - 40, 3 * 2 ** 32 - 7])
+def test_counter_bits_hash_64_bit_counters_as_jax(start):
+    """``key_bits``' counter range is 64-bit: each flat index i hashes the
+    pair (i >> 32, i & 0xFFFFFFFF), JAX's ``iota_2x32_shape``.  A window of
+    80 counters (across 2**32 for the second and third starts) equals
+    JAX's ``threefry2x32_p`` on the same (hi, lo) words under two keys;
+    at start 0 it equals ``key_bits`` and JAX's ``random_bits``."""
+    from jax._src.prng import threefry2x32_p
+
+    n = 80
+    keys = np.array([[0, 7], [928981903, 3453687069]], np.uint32)
+    got = prng.counter_bits(torch.from_numpy(keys.astype(np.int64)), start,
+                            n).numpy()
+    i = np.arange(start, start + n, dtype=np.uint64)
+    hi = (i >> np.uint64(32)).astype(np.uint32)
+    lo = (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    for row, (k0, k1) in zip(got, keys):
+        b0, b1 = threefry2x32_p.bind(
+            jax.numpy.full(n, k0, np.uint32), jax.numpy.full(n, k1, np.uint32),
+            jax.numpy.asarray(hi), jax.numpy.asarray(lo))
+        np.testing.assert_array_equal(row, np.asarray(b0 ^ b1, np.int64))
+    if start == 0:
+        np.testing.assert_array_equal(got[1], prng.key_bits(keys[1], (n,))
+                                      .numpy())
+        jbits = jax.random.bits(jax.random.wrap_key_data(keys[1]), (n,))
+        np.testing.assert_array_equal(got[1], np.asarray(jbits, np.int64))
+
+
+def test_key_bits_draws_past_2_32_elements_on_meta():
+    """A draw of more than 2**32 elements is taken (on ``meta``: nothing
+    allocated), as JAX takes it; above 2**64 it is refused, as JAX's."""
+    shape = (2 ** 16, 2 ** 16 + 3)
+    bits = prng.key_bits(prng.PRNGKey(1), shape, device="meta")
+    assert bits.shape == shape and bits.dtype == torch.int64
+    u = prng.uniform(prng.PRNGKey(1), (2, 2 ** 32), -0.5, 0.5, "meta")
+    assert u.shape == (2, 2 ** 32) and u.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="2\\*\\*64"):
+        prng.key_bits(prng.PRNGKey(1), (2 ** 33, 2 ** 32), device="meta")
