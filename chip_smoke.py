@@ -386,21 +386,30 @@ Phases (any failure exits non-zero and prints no result line):
                mesh re-planned to (1, 4) in place (every captured pass
                kept), 1 reshard, conservation and 8 of 8 finished.
  22. dry run — the dry run's cost analysis against the card (see
-               ``dryrun_phase``): four cells of full-width smollm-360m on
-               a (1, 1) mesh built by ``launch.dryrun.build_cell`` at cut
-               shapes (DRYRUN_CELLS: float prefill 4 x 2,048, float decode
-               of 32 rows over a 4,096-position state, a float train step
-               on 8 x 512 tokens with 4 microbatches, remat, AdamW and the
-               state donated, an ``abfp`` (``abfp_ref``) prefill 1 x 256),
-               each traced on ``meta`` (``cost_analysis.traced_costs``),
-               then run on the card with bf16 weights from seed 0: (a)
+               ``dryrun_phase``): five cells of full-width smollm-360m
+               built by ``launch.dryrun.build_cell`` at cut shapes
+               (DRYRUN_CELLS: float prefill 4 x 2,048 on a (1, 1) mesh and
+               on a (1, 2) virtual mesh, where every dense weight runs one
+               model shard at a time, float decode of 32 rows over a
+               4,096-position state, a float train step on 8 x 512 tokens
+               with 4 microbatches, remat, AdamW and the state donated, an
+               ``abfp`` (``abfp_ref``) prefill 1 x 256), each traced on
+               ``meta`` (``cost_analysis.traced_costs``), then run on the
+               card with bf16 weights from seed 0: (a)
                ``FlopCounterMode``'s count of the card's run equal to the
-               trace's; (b) the peak allocated bytes above the bytes
-               before the cell's inputs were made within DRYRUN_PEAK_RTOL
-               or DRYRUN_PEAK_ATOL of the trace's ``live_bytes``; (c) the
-               median of DRYRUN_REPS timed runs after a warm-up (CUDA
-               events) not below ``roofline_terms``' max(compute_s,
-               memory_s) with the H100 constants, the ratio printed;
+               trace's whole-mesh count; (b) the peak allocated bytes
+               above the bytes before the cell's inputs were made within
+               DRYRUN_PEAK_RTOL or DRYRUN_PEAK_ATOL of the trace's
+               whole-mesh ``live_bytes_global`` (one card holds every
+               shard); (c) the median of DRYRUN_REPS timed runs after a
+               warm-up (CUDA events) not below ``roofline_terms``'
+               max(compute_s, memory_s) of the whole mesh's FLOPs and
+               bytes with the H100 constants, the ratio printed; (d) on
+               the mesh cell, the trace's sharded FLOPs the dense calls'
+               (from the config), the per-device FLOPs their half plus
+               the attention (15 query heads do not split over 2: whole,
+               as GSPMD gathers them), and the logits within
+               DRYRUN_MESH_LOGIT_BAR of the (1, 1) prefill's;
  23. dense   — full-width gemma-7b (16 / 16 heads of 256, GeGLU, the tied
                3,072 x 256,000 LM head behind the sqrt(d) embedding
                scale) and chatglm3-6b (32 / 2 heads of 128, partial
@@ -627,17 +636,23 @@ MESH_LOSS_RTOL, MESH_AUX_RTOL = 2e-2, 5e-2
 MESH_FAULT_SHAPE = (2, 4)
 MESH_DROP_TICK = 6
 # Phase 22: the dry run's cells against the card on full-width
-# smollm-360m (label, (seq_len, global_batch, kind), quant), the
-# microbatches of its train cell, the bar on the peak (the larger of a
+# smollm-360m (label, (seq_len, global_batch, kind), quant, mesh shape),
+# the microbatches of its train cell, the bar on the peak (the larger of a
 # share of the trace's live bytes and a floor: the allocator's rounding
-# and library workspaces the trace cannot see), the timed runs.
+# and library workspaces the trace cannot see), the timed runs, and the
+# bar on the (1, 2) mesh prefill's logits against the prefill's without a
+# mesh (the float bar of phases 5 and 7: its row-parallel calls round each
+# shard's bf16 product before their f32 sum, a last-bit move per call
+# carried through 32 layers).
 DRYRUN_ARCH = "smollm-360m"
 DRYRUN_CELLS = (
-    ("prefill", (2048, 4, "prefill"), "float"),
-    ("decode", (4096, 32, "decode"), "float"),
-    ("train", (512, 8, "train"), "float"),
-    ("abfp_prefill", (256, 1, "prefill"), "abfp"),
+    ("prefill", (2048, 4, "prefill"), "float", (1, 1)),
+    ("prefill_mesh", (2048, 4, "prefill"), "float", (1, 2)),
+    ("decode", (4096, 32, "decode"), "float", (1, 1)),
+    ("train", (512, 8, "train"), "float", (1, 1)),
+    ("abfp_prefill", (256, 1, "prefill"), "abfp", (1, 1)),
 )
+DRYRUN_MESH_LOGIT_BAR = 1.0
 DRYRUN_MICROBATCHES = 4
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PEAK_ATOL = 64 * 2 ** 20
@@ -5042,9 +5057,10 @@ def dryrun_phase(dev, card: str) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.cost_analysis import roofline_terms
 
+    from repro_torch.configs import get_config
+
     t_phase = time.perf_counter()
     res = {"card": card, "cells": {}}
-    mesh = dryrun.make_mesh((1, 1))
 
     def requested() -> int:
         return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
@@ -5053,16 +5069,18 @@ def dryrun_phase(dev, card: str) -> dict:
     # runs on the card: nothing else runs on the host while the cells are
     # timed.
     traces = {}
-    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+    for label, (seq, batch, kind), quant, shape in DRYRUN_CELLS:
         cell = dryrun.build_cell(DRYRUN_ARCH,
-                                 ShapeConfig(label, seq, batch, kind), mesh,
-                                 quant, microbatches=DRYRUN_MICROBATCHES)
+                                 ShapeConfig(label, seq, batch, kind),
+                                 dryrun.make_mesh(shape), quant,
+                                 microbatches=DRYRUN_MICROBATCHES)
         traces[label] = dryrun.trace_cell(cell)
         del traces[label]["out"], cell
     t_traces = time.perf_counter() - t_phase
-    runs = {}
-    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+    runs, outs = {}, {}
+    for label, (seq, batch, kind), quant, shape in DRYRUN_CELLS:
         sc = ShapeConfig(label, seq, batch, kind)
+        mesh = dryrun.make_mesh(shape)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -5083,10 +5101,13 @@ def dryrun_phase(dev, card: str) -> dict:
             s_ = torch.cuda.Event(enable_timing=True)
             e_ = torch.cuda.Event(enable_timing=True)
             s_.record()
-            cell.fn(*cell.args)
+            out = cell.fn(*cell.args)
             e_.record()
             torch.cuda.synchronize()
             times.append(s_.elapsed_time(e_))
+        if kind == "prefill":
+            outs[label] = out.float().cpu()
+        del out
         r["times_ms"] = times
         r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
         r["peak_requested_bytes"] = torch.cuda.memory_stats().get(
@@ -5098,13 +5119,16 @@ def dryrun_phase(dev, card: str) -> dict:
         for k, v in traces.items()) + "), then the cells ran in "
         f"{time.perf_counter() - t_phase - t_traces:.1f}s")
 
-    for label, (seq, batch, kind), quant in DRYRUN_CELLS:
+    # One card runs every shard of a virtual mesh: its FLOPs, peak and
+    # bound are the whole mesh's (at (1, 1) the per-device figures).
+    for label, (seq, batch, kind), quant, shape in DRYRUN_CELLS:
         costs, r = traces[label], runs[label]
         if r["flops"] != costs["flops_global"]:
             fail(f"phase 22 {label}: the card counted {r['flops']} FLOPs, "
                  f"the trace {costs['flops_global']}")
-        peak, live = r["peak_bytes"], costs["live_bytes"]
-        terms = roofline_terms(costs["flops"], costs["hbm_bytes"], 0.0, 1,
+        peak, live = r["peak_bytes"], costs["live_bytes_global"]
+        terms = roofline_terms(costs["flops_global"],
+                               costs["hbm_bytes_global"], 0.0, 1,
                                peak_flops=mesh_lib.PEAK_FLOPS_BF16,
                                hbm_bw=mesh_lib.HBM_BW,
                                ici_bw=mesh_lib.ICI_BW)
@@ -5116,7 +5140,16 @@ def dryrun_phase(dev, card: str) -> dict:
             peak_over_live=peak / live, memory=costs["memory"], ms=ms,
             bound_ms=bound_ms, bound_by=terms["bottleneck"],
             ms_over_bound=ms / bound_ms, trace_s=costs["seconds"],
-            ops=costs["ops"])
+            ops=costs["ops"], mesh=list(shape),
+            flops_per_device=costs["flops"],
+            live_bytes_per_device=costs["live_bytes"],
+            per_device_rule=dryrun.per_device_rule(get_config(DRYRUN_ARCH),
+                                                   kind),
+            collectives=costs["collectives"])
+        if shape != (1, 1):
+            res["cells"][label].update(_mesh_cell_checks(
+                label, costs, shape, batch * seq, batch, outs[label],
+                outs[label.removesuffix("_mesh")]))
         log(f"phase 22 {label}: FLOPs {r['flops']} (card = trace), peak "
             f"{peak / 2 ** 30:.3f} GiB (requested "
             f"{r['peak_requested_bytes'] / 2 ** 30:.3f}) vs live "
@@ -5134,6 +5167,44 @@ def dryrun_phase(dev, card: str) -> dict:
     res["traces_s"] = t_traces
     res["seconds"] = time.perf_counter() - t_phase
     return res
+
+
+def _mesh_cell_checks(label, costs, shape, tokens, rows, logits,
+                      logits_one) -> dict:
+    """Phase 22's mesh prefill cell: every dense call split over 'model'
+    (the trace's sharded FLOPs are the dense calls' FLOPs, counted from
+    the config), attention split too where the query heads split (15
+    heads over 2 do not: it runs whole on each device, as GSPMD's reshape
+    gathers it), so the per-device FLOPs are the sharded FLOPs over the
+    model size plus the rest; the logits within DRYRUN_MESH_LOGIT_BAR of
+    the prefill's without a mesh."""
+    from repro_torch.configs import get_config
+
+    m = get_config(DRYRUN_ARCH)
+    tp = shape[-1]
+    d, hd = m.d_model, m.resolved_head_dim
+    qc, kc = m.num_heads * hd, m.num_kv_heads * hd
+    per_token = d * qc + 2 * d * kc + qc * d + 3 * d * m.d_ff
+    dense = 2 * tokens * m.num_layers * per_token + 2 * rows * d * m.vocab_size
+    attn = costs["flops_global"] - dense
+    split = dense + (attn if m.num_heads % tp == 0 else 0)
+    got_split = costs["by_class"]["sharded"]["flops"]
+    want_dev = split / tp + (costs["flops_global"] - split)
+    if got_split != split or costs["flops"] != want_dev:
+        fail(f"phase 22 {label}: sharded FLOPs {got_split} (want {split}), "
+             f"per device {costs['flops']} (want {want_dev})")
+    err = float((logits - logits_one).abs().max())
+    agree = float((logits.argmax(-1) == logits_one.argmax(-1)).float().mean())
+    log(f"phase 22 {label}: dense FLOPs {dense} split over {tp}, attention "
+        f"{attn} {'split' if split > dense else 'whole'}; per device "
+        f"{costs['flops']} of {costs['flops_global']}; logits "
+        f"{err:.4f} from the no-mesh prefill's (bar "
+        f"{DRYRUN_MESH_LOGIT_BAR}), argmax {agree:.3f} equal; events "
+        + json.dumps(costs["collectives"]))
+    if not np.isfinite(err) or err > DRYRUN_MESH_LOGIT_BAR:
+        fail(f"phase 22 {label}: logits {err} from the no-mesh prefill's")
+    return {"dense_flops": dense, "attention_flops": attn,
+            "logits_max_abs_err": err, "argmax_equal": agree}
 
 
 def dense_phase(dev, engine_cls, lens, rows: list) -> dict:

@@ -445,7 +445,7 @@ def _is_key(key) -> bool:
 
 
 def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
-                tile_gains: Optional[Tensor] = None) -> Tensor:
+                tile_gains: Optional[Tensor] = None, cols=None) -> Tensor:
     """y = ABFP(x @ w), x: (..., K), w: (K, N) -> (..., N) in
     ``cfg.out_dtype``: the ``abfp_ref`` mode, JAX's tile scan.
 
@@ -461,7 +461,14 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
     the scan's values.  ``key`` is a host PRNG key, or a device key slot:
     a (2,) int64 tensor of uint32 words (a row of a pass's key table),
     split and drawn from on its device with no host copy; required when
-    ``noise_lsb > 0``."""
+    ``noise_lsb > 0``.
+
+    ``cols`` (first, total): ``w`` is columns ``first ..`` of a weight of
+    ``total`` columns (a column shard).  Its scales and codes are its
+    columns' own (per-(tile, column)), and its noise is drawn at its
+    columns' global counters, so the shard's output is the whole call's
+    columns bit for bit, as JAX's partitionable threefry draws under
+    GSPMD."""
     noisy = cfg.noise_lsb > 0.0
     if key is None and noisy:
         raise ValueError("noise_lsb > 0 requires a PRNG key")
@@ -488,7 +495,7 @@ def abfp_matmul(x: Tensor, w: Tensor, cfg: QuantConfig, key=None,
         sl = slice(g0, min(t, g0 + group))
         p = torch.bmm(xq_t[sl], w_q[sl])            # exact integer dots
         e = (prng.uniform(keys[sl], (m, n_out), -cfg.noise_lsb,
-                          cfg.noise_lsb, x.device) if noisy else None)
+                          cfg.noise_lsb, x.device, cols) if noisy else None)
         s = sx_t[sl][:, :, None] * s_w[sl][:, None, :]
         if tile_gains is None:
             term = adc(p, cfg, e) * bin_y * s / gain

@@ -46,6 +46,62 @@ def record_collective(kind: str, message, group: int) -> None:
     trace.collectives.append((kind, float(message), int(group)))
 
 
+def run_sharded(axes, fn, *args):
+    """``fn(*args)`` as one shard of the mesh axes ``axes``: its ops inside
+    ``scope``, and under autograd the backward of every node between its
+    outputs and its tensor arguments too (the autograd engine runs those
+    outside any forward scope; a pre-hook enters the scope and a hook
+    leaves it, node by node).  When an argument is batch-leading the
+    shard's work is per batch row: the data axes split all of it (its
+    inner products may lead with a head axis).  Outside a trace it is
+    ``fn(*args)``.
+
+    The walk stops at the arguments' own nodes, so every tensor the shard
+    reads that carries a gradient must be an argument.  A rematerialized
+    region upstream recomputes on its first saved-tensor read, which is a
+    dense call's backward (no hooked node): its forward keeps its own
+    scopes."""
+    trace = _TRACE.get()
+    if trace is None:
+        return fn(*args)
+    per_row = trace.batched([a for a in args if isinstance(a, torch.Tensor)])
+    with trace.scope(axes, per_row):
+        out = fn(*args)
+    if torch.is_grad_enabled():
+        stop = {a.grad_fn for a in args
+                if isinstance(a, torch.Tensor) and a.grad_fn is not None}
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        _hook_shard(trace, axes, per_row,
+                    [o.grad_fn for o in outs if isinstance(o, torch.Tensor)],
+                    stop)
+    return out
+
+
+def _hook_shard(trace, axes, per_row, roots, stop) -> None:
+    seen = set()
+    stack = [n for n in roots if n is not None]
+    while stack:
+        node = stack.pop()
+        if node in seen or node in stop:
+            continue
+        seen.add(node)
+        if node.name().endswith("AccumulateGrad"):
+            continue
+        held = []
+
+        def enter(grad_outputs, held=held):
+            cm = trace.scope(axes, per_row)
+            cm.__enter__()
+            held.append(cm)
+
+        def leave(grad_inputs, grad_outputs, held=held):
+            held.pop().__exit__(None, None, None)
+
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        stack.extend(f for f, _ in node.next_functions if f is not None)
+
+
 def data_size() -> int:
     """The running trace's data-axes size (1 outside a trace)."""
     trace = _TRACE.get()

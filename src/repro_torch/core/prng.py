@@ -246,7 +246,23 @@ def counter_bits(kw: torch.Tensor, start: int, n: int) -> torch.Tensor:
     return b0 ^ b1
 
 
-def key_bits(keys, shape, device=None) -> torch.Tensor:
+def column_bits(kw: torch.Tensor, rows: int, first: int, n: int,
+                total: int) -> torch.Tensor:
+    """The words of ``rows`` x ``n`` elements at columns ``first .. first +
+    n - 1`` of a (rows, ``total``) draw under each key of ``kw`` ((G, 2)
+    int64 words): the ``counter_bits`` of their flat counters ``r * total
+    + first + j``, so a column slice of a draw is the slice's own draw.
+    Returns (G, rows * n) int64 holding uint32 values."""
+    i = (torch.arange(rows, dtype=torch.int64, device=kw.device)[:, None]
+         * total + first
+         + torch.arange(n, dtype=torch.int64, device=kw.device)[None, :]
+         ).reshape(-1)
+    b0, b1 = _threefry_t(kw[:, :1], kw[:, 1:], (i >> 32)[None],
+                         (i & _M32)[None])
+    return b0 ^ b1
+
+
+def key_bits(keys, shape, device=None, cols=None) -> torch.Tensor:
     """JAX's partitionable 32-bit ``random_bits(key, shape)`` for a key
     (2,), or for each key of a stack (G, 2) (then (G, *shape)): the
     ``counter_bits`` of the flattened shape's counters 0 .. n - 1.  int64
@@ -254,7 +270,11 @@ def key_bits(keys, shape, device=None) -> torch.Tensor:
     words go there by one pinned, non-blocking copy on a GPU); a key held
     as an int64 tensor draws where it lives, with no host copy and no sync
     (inside a captured pass too).  Below 2**32 elements every high word is
-    0; above 2**64 JAX refuses the draw, and so does this."""
+    0; above 2**64 JAX refuses the draw, and so does this.
+
+    ``cols`` (first, total): the last dim of ``shape`` is columns ``first
+    ..`` of a draw whose last dim is ``total`` (``column_bits``): a column
+    shard draws what the whole draw holds at its columns."""
     shape = tuple(int(v) for v in shape)
     n = math.prod(shape)
     if n > 1 << 64:
@@ -272,7 +292,11 @@ def key_bits(keys, shape, device=None) -> torch.Tensor:
             kw = kw.pin_memory().to(dev, non_blocking=True)
         elif dev.type != "cpu":
             kw = kw.to(dev)                  # a meta trace's draw
-    bits = counter_bits(kw, 0, n).reshape((-1,) + shape)
+    if cols is None:
+        bits = counter_bits(kw, 0, n)
+    else:
+        bits = column_bits(kw, n // shape[-1], cols[0], shape[-1], cols[1])
+    bits = bits.reshape((-1,) + shape)
     return bits[0] if one else bits
 
 
@@ -294,14 +318,16 @@ def bits_to_uniform(bits: torch.Tensor, minval: float,
 
 
 def uniform(key, shape=None, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
+            device=None, cols=None) -> torch.Tensor:
     """JAX's f32 ``jax.random.uniform(key, shape, minval=, maxval=)`` on
-    ``device``, bit for bit.  Called with a tensor of random bits and no
+    ``device``, bit for bit (``cols``: a column slice of the draw, as
+    ``key_bits`` takes it).  Called with a tensor of random bits and no
     shape (the device sampler's form), it is ``uniform(minval=tiny,
     maxval=1)`` of those bits, the draw ``gumbel`` takes."""
     if shape is None:
         return bits_to_uniform(key, _TINY, 1.0)
-    return bits_to_uniform(key_bits(key, shape, device), minval, maxval)
+    return bits_to_uniform(key_bits(key, shape, device, cols), minval,
+                           maxval)
 
 
 def gumbel(bits: torch.Tensor) -> torch.Tensor:

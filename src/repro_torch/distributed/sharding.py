@@ -26,13 +26,15 @@ A ``Mesh`` is a (data, model) grid of device positions
 (``launch.mesh.make_host_mesh``).  In this port every position is the
 engine's one device: a mesh is virtual, and placing a tensor on it
 (``shard_params``, ``shard_decode_state``) puts it on that device.  The
-spec trees are computed and validated whole; the only placement that
-changes what runs is the model axis's column split of the dense weights
+spec trees are computed and validated whole; what changes what runs is
+the model axis: serving's column split of the dense weights
 (``shard_serving_params``: ``kernels.ops.ColumnShards``, consumed by
-``kernels.ops.dense_tp``).  Every other spec (rows over 'data', an
-embedding's vocab over 'model', ZeRO-1's moments) describes a placement
-that a one-device mesh holds whole; spreading them over several cards is
-the multi-card slice's.
+``kernels.ops.dense_tp``), and the mesh forward's and train step's routes
+(``tp_route``, ``model_split``: each 2-D leaf column-, row-parallel or
+whole by its spec, run one shard at a time).  Every other spec (rows over
+'data', ZeRO-1's moments) describes a placement that a one-device mesh
+holds whole; spreading them over several cards is the multi-card
+slice's.
 """
 
 from __future__ import annotations
@@ -46,9 +48,13 @@ import torch
 from repro_torch.core.abfp import PackedWeight
 from repro_torch.kernels.abfp_decode_fused import PackedQKV, concat_qkv
 from repro_torch.kernels.ops import (
+    COLUMN,
     DATA_AXES,
     MODEL_AXIS,
+    ROW,
+    WHOLE,
     ColumnShards,
+    ModelSplit,
     shard_columns,
     tp_col_quantum,
     tp_size,
@@ -348,6 +354,41 @@ def abfp_param_spec_tree(params: Pytree,
         return spec
 
     return map_with_path(one, params)
+
+
+def tp_route(path: tuple, shape: tuple, mesh: Mesh,
+             demote: bool = False) -> str:
+    """The route of the 2-D leaf at ``path`` (its tail is enough: the
+    rules match the last names) on ``mesh``'s 'model' axis, as GSPMD
+    partitions it under the JAX package's spec trees: its ``_RULES`` spec,
+    with ``demote`` the ABFP tree's (``_leaf_demote_k``: no 'model' on the
+    contraction axis), validated (``validate_spec``): ``ops.COLUMN`` when
+    'model' is on its columns, ``ops.ROW`` when on its rows (an embedding
+    table's vocab), else ``ops.WHOLE``."""
+    if tp_size(mesh) <= 1 or len(shape) != 2:
+        return WHOLE
+    spec = _leaf_base_spec(tuple(path), 2)
+    if demote:
+        spec = _leaf_demote_k(2, spec, False)
+    spec = validate_spec(spec, tuple(shape), mesh)
+    if spec[1] == MODEL_AXIS:
+        return COLUMN
+    if spec[0] == MODEL_AXIS:
+        return ROW
+    return WHOLE
+
+
+def model_split(mesh: Optional[Mesh], quant) -> Optional[ModelSplit]:
+    """The mesh forward's 'model' split for numerics ``quant``: routes by
+    ``param_spec_tree``'s rules, or ``abfp_param_spec_tree``'s in
+    ``abfp_ref`` mode (the kernel modes' dense calls stay whole:
+    ``ModelSplit.dense_route``); None without a mesh or at model 1."""
+    tp = tp_size(mesh)
+    if tp <= 1:
+        return None
+    demote = quant.mode != "float"
+    return ModelSplit(tp, quant, lambda path, shape: tp_route(
+        path, shape, mesh, demote))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,12 @@ shard order (the all-gather); ``fused_qkv_dense`` is the fused QKV
 projection's dispatch, with or without a mesh.  It is bit-identical to the one-device call
 at any shard count.  In this port every shard of a mesh runs on the one
 device that holds the mesh; the activations stay whole.
+
+``dense_column`` / ``dense_row`` are the Megatron routes of the mesh
+forward and train step (``models.lm.forward(mesh=)``): outputs kept split
+over 'model', and a contraction over split inputs, each a
+``torch.autograd.Function`` whose backward enters its shards' cost-trace
+scopes.
 """
 
 from __future__ import annotations
@@ -388,28 +394,200 @@ def _fused_qkv_tp(x: Tensor, pws, cfg: QuantConfig, seeds, mesh, qkv,
 
 def dense_tp_row(x: Tensor, w: Tensor, cfg: QuantConfig,
                  mesh=None) -> Tensor:
-    """Row-parallel float matmul: the contracting dim split over 'model',
-    each shard's partial product summed in shard order.  Reproducible, but
-    not bit-identical to the one-device call (the f32 reduction is
-    reordered): float mode only."""
-    if cfg.mode != "float":
-        raise ValueError(
-            "dense_tp_row is float-only: sharding the contracting dim "
-            "splits ABFP tile accumulation across devices, breaking the "
-            "per-tile ADC semantics (use column-parallel dense_tp)")
+    """Row-parallel float matmul of a whole ``x``: its slices along the
+    contracting dim over the mesh's 'model' shards (``dense_row``).
+    Reproducible, but not bit-identical to the one-device call (the f32
+    reduction is reordered): float mode only.  A contracting dim the mesh
+    cannot split runs whole."""
     tp = tp_size(mesh)
-    if tp <= 1 or w.shape[0] % tp != 0:
+    if cfg.mode == "float" and (tp <= 1 or w.shape[0] % tp):
         return dense(x, w, cfg, None)
-    kl = w.shape[0] // tp
-    out = None
+    return dense_row(split_columns(x, tp), w, cfg, tp)
+
+
+# ---------------------------------------------------------------------------
+# Megatron routes over 'model': the mesh forward and train step
+# ---------------------------------------------------------------------------
+#
+# The mesh forward (``models.lm.forward(mesh=)``) and train step split each
+# dense weight over 'model' as GSPMD partitions it under the JAX package's
+# spec trees (``distributed.sharding.tp_route``): COLUMN-parallel weights
+# keep their outputs split (``dense_column``, Megatron's "f": its backward
+# sums the shards' dx, an all-reduce), ROW-parallel weights contract split
+# inputs (``dense_row``, Megatron's "g": the partials summed in shard
+# order, an all-reduce).  Every shard runs on the mesh's one device, in a
+# cost-trace scope, forward and backward.  Float mode runs a
+# ``torch.matmul`` per shard; ``abfp_ref`` runs the tile scan on the
+# shard's columns, its noise at their global counters, so a column split
+# is bit-equal to the whole call (row splits are demoted for it: tiles
+# must not straddle shards).  The kernel modes (``abfp_kernel``,
+# ``abfp_packed``, ``abfp_fused``) stay whole, as JAX's Pallas calls do
+# under GSPMD (a custom call it does not partition).
+
+COLUMN, ROW, WHOLE = "column", "row", "whole"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """The 'model' axis of a mesh forward: ``size`` shards, and ``route``,
+    ``(path, shape) -> COLUMN | ROW | WHOLE`` by the spec tree of the
+    pass's numerics (``distributed.sharding.model_split`` builds it)."""
+    size: int
+    quant: QuantConfig
+    route: Any
+
+    def dense_route(self, path: tuple, w) -> str:
+        """The route of a dense call on ``w`` (a float (K, N) weight at
+        ``path``): its spec's, or WHOLE in a kernel mode or for a packed
+        weight."""
+        if (self.quant.mode not in ("float", "abfp_ref")
+                or not isinstance(w, Tensor) or w.ndim != 2):
+            return WHOLE
+        return self.route(tuple(path), tuple(w.shape))
+
+
+def gather_columns(parts) -> Tensor:
+    """Column shards' outputs concatenated in shard order: an all-gather
+    over 'model'."""
+    out = torch.cat(list(parts), dim=-1)
+    cost_trace.record_collective("all-gather", out, len(parts))
+    return out
+
+
+def split_columns(x: Tensor, tp: int):
+    """A whole (replicated) tensor's last dim in ``tp`` shards: each device
+    reads its slice, no collective."""
+    return list(x.chunk(tp, dim=-1))
+
+
+def _column_forward(x, w, cfg, key, tp):
+    n = w.shape[1]
+    c = n // tp
     trace = cost_trace.active()
+    out = []
     for t in range(tp):
         with cost_trace.scope(trace, MODEL_AXIS):
-            p = torch.matmul(x[..., t * kl:(t + 1) * kl],
-                             w[t * kl:(t + 1) * kl].to(x.dtype))
-        out = p if out is None else out + p
-    cost_trace.record_collective("all-reduce", out, tp)
+            wl = w[:, t * c:(t + 1) * c]
+            if cfg.mode == "float":
+                out.append(torch.matmul(x, wl.to(x.dtype)))
+            else:
+                out.append(core_abfp.abfp_matmul(x, wl, cfg, key,
+                                                 cols=(t * c, n)))
     return out
+
+
+def _row_forward(xs, w, cfg, tp):
+    kl = w.shape[0] // tp
+    trace = cost_trace.active()
+    out = None
+    for t, xl in enumerate(xs):
+        with cost_trace.scope(trace, MODEL_AXIS):
+            p = torch.matmul(xl, w[t * kl:(t + 1) * kl].to(xl.dtype))
+        out = p.float() if out is None else out + p.float()
+    cost_trace.record_collective("all-reduce", out, tp)
+    return out.to(xs[0].dtype)
+
+
+class _ColumnParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, cfg, key, tp):
+        ctx.save_for_backward(x, w)
+        ctx.tp = tp
+        return tuple(_column_forward(x, w, cfg, key, tp))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        c = w.shape[1] // ctx.tp
+        trace = cost_trace.active()
+        dx, dws = None, []
+        x2 = x.float().reshape(-1, x.shape[-1]) if need_w else None
+        for t, g in enumerate(gs):
+            with cost_trace.scope(trace, MODEL_AXIS):
+                g32 = g.float()
+                wl = w[:, t * c:(t + 1) * c]
+                if need_x:
+                    p = torch.matmul(g32, wl.float().t())
+                if need_w:
+                    dws.append(torch.matmul(
+                        x2.t(), g32.reshape(-1, g32.shape[-1])).to(w.dtype))
+            if need_x:
+                dx = p if dx is None else dx + p
+        if need_x:
+            cost_trace.record_collective("all-reduce", dx, ctx.tp)
+            dx = dx.to(x.dtype)
+        dw = torch.cat(dws, dim=1) if need_w else None
+        return dx, dw, None, None, None
+
+
+class _RowParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, cfg, tp, *xs):
+        ctx.save_for_backward(w, *xs)
+        ctx.tp = tp
+        return _row_forward(xs, w, cfg, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, *xs = ctx.saved_tensors
+        need_w = ctx.needs_input_grad[0]
+        kl = w.shape[0] // ctx.tp
+        trace = cost_trace.active()
+        g32 = g.float()
+        g2 = g32.reshape(-1, g32.shape[-1])
+        dxs, dws = [], []
+        for t, xl in enumerate(xs):
+            with cost_trace.scope(trace, MODEL_AXIS):
+                wl = w[t * kl:(t + 1) * kl]
+                dxs.append(torch.matmul(g32, wl.float().t()).to(xl.dtype)
+                           if ctx.needs_input_grad[3 + t] else None)
+                if need_w:
+                    dws.append(torch.matmul(
+                        xl.float().reshape(-1, xl.shape[-1]).t(),
+                        g2).to(w.dtype))
+        dw = torch.cat(dws, dim=0) if need_w else None
+        return (dw, None, None, *dxs)
+
+
+def dense_column(x: Tensor, w: Tensor, cfg: QuantConfig, key, tp: int):
+    """Column-parallel ``dense`` over ``tp`` model shards whose outputs
+    stay split: a list of ``tp`` tensors (..., N / tp), shard ``t`` holding
+    columns ``t * N / tp ..``.  Float: a matmul per shard; ``abfp_ref``:
+    the tile scan on the shard's columns at their global noise counters
+    (bit-equal to the whole call's columns).  Under autograd the
+    straight-through backward (``_DenseSTE``'s) per shard: dw by column
+    shards, dx the shards' f32 partials summed in shard order, an
+    all-reduce (Megatron's "f")."""
+    if cfg.mode not in ("float", "abfp_ref"):
+        raise ValueError(f"dense_column runs float and abfp_ref, not "
+                         f"{cfg.mode!r}: a kernel call stays whole")
+    if w.shape[1] % tp:
+        raise ValueError(f"{w.shape[1]} columns do not split over {tp}")
+    if _recording(x, w):
+        return list(_ColumnParallel.apply(x, w, cfg, key, tp))
+    return _column_forward(x, w, cfg, key, tp)
+
+
+def dense_row(xs, w: Tensor, cfg: QuantConfig, tp: int) -> Tensor:
+    """Row-parallel float ``dense`` over inputs split in ``tp`` shards
+    along K (``xs``, shard ``t`` rows ``t * K / tp ..`` of ``w``): each
+    shard's partial product, summed in shard order in f32 and rounded once
+    to the inputs' dtype, an all-reduce (Megatron's "g").  Reproducible,
+    not bit-identical to the whole call (the f32 reduction is reordered,
+    as GSPMD's is).  Under autograd each shard's dx and its rows of dw come
+    from its own shard (straight-through, f32)."""
+    if cfg.mode != "float":
+        raise ValueError(
+            "dense_row is float-only: sharding the contracting dim splits "
+            "ABFP tile accumulation across devices, breaking the per-tile "
+            "ADC semantics (the ABFP spec tree demotes it; use the column "
+            "split)")
+    if w.shape[0] % tp or len(xs) != tp:
+        raise ValueError(f"{w.shape[0]} rows in {len(xs)} shards of {tp}")
+    if _recording(w, *xs):
+        return _RowParallel.apply(w, cfg, tp, *xs)
+    return _row_forward(xs, w, cfg, tp)
 
 
 # Every kernel wrapper; each counts its launches in ``.launches``.

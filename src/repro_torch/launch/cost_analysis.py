@@ -30,7 +30,8 @@ would do:
   * Collectives: the events the step records (``core.cost_trace``'s
     recording points, which reach the running trace) at the points where
     a virtual mesh combines its shards (``ops.dense_tp``'s concatenation,
-    ``fused_qkv_dense``'s, ``dense_tp_row``'s shard sum,
+    ``fused_qkv_dense``'s, the Megatron routes' all-reduces (``ops.
+    dense_column``'s backward, ``dense_row``'s shard sum) and gathers,
     ``moe_block_sharded``'s partial sums and aux mean, the train step's
     gradient reduction, placed by its cell's specs, and loss means).
     ``collective_stats`` applies the JAX package's ring formulas to them.
@@ -42,9 +43,11 @@ the trace sees the whole mesh's work; each op's costs go to the devices
 that would run it:
 
   * work inside a shard scope (``scope``: one model shard of
-    ``dense_tp`` / ``fused_qkv_dense`` / ``dense_tp_row``, one (data,
-    expert) shard of ``moe_block_sharded``) goes to that shard's
-    positions: divided by the sizes of the scoped axes;
+    ``dense_tp`` / ``fused_qkv_dense`` / ``dense_column`` / ``dense_row``
+    or of ``cost_trace.run_sharded``'s ops, forward and backward, one
+    (data, expert) shard of ``moe_block_sharded``) goes to that shard's
+    positions: divided by the sizes of the scoped axes, and, for a model
+    shard of batch-leading work, by the data axes too;
   * otherwise, work whose leading dim is the batch that ``batch_spec``
     splits (a tensor input or output whose dim 0 is one of the step's
     batch row counts, or whose any dim is its token count, or a tensor of
@@ -233,7 +236,8 @@ class _Trace:
         if mesh is not None:
             self.data = int(np.prod([mesh.shape[a] for a in DATA_AXES
                                      if a in mesh.axis_names]))
-        self.divisors = [1]
+        # (divisor, scoped axes, per batch row): the shard scopes entered.
+        self.divisors = [(1, frozenset(), False)]
         self.flops = 0
         self.flops_dev = 0.0
         self.hbm = 0
@@ -244,29 +248,47 @@ class _Trace:
         self.new_dev = {}             # id -> per-device bytes, live ones
         self.live_dev = 0.0
         self.peak_dev = 0.0
+        self.new_glob = {}            # id -> bytes, the whole mesh's
+        self.live_glob = 0
+        self.peak_glob = 0
         self.ops = 0
 
     @contextlib.contextmanager
-    def scope(self, axes):
+    def scope(self, axes, per_row: bool = False):
+        """Ops inside run on one shard of ``axes``; with ``per_row`` the
+        shard's work is per batch row (a model shard of a batch-leading
+        computation), so the data axes split all of it."""
         d = 1
         if self.mesh is not None:
             d = int(np.prod([self.mesh.shape[a] for a in axes
                              if a in self.mesh.axis_names]))
-        self.divisors.append(self.divisors[-1] * d)
+        div, scoped, rows = self.divisors[-1]
+        self.divisors.append((div * d, scoped | frozenset(axes),
+                              rows or per_row))
         try:
             yield
         finally:
             self.divisors.pop()
 
+    def batched(self, tensors) -> bool:
+        """Is any of ``tensors`` batch-leading (the rule above)?"""
+        return any(t.dim() and (t.shape[0] in self.batch_rows
+                                or any(s in self.token_rows for s in t.shape)
+                                or (t.dim() > 2
+                                    and t.shape[0] in self.head_rows))
+                   for t in tensors)
+
     def _class(self, tensors):
+        div, scoped, rows = self.divisors[-1]
         if len(self.divisors) > 1:
-            return "sharded", self.divisors[-1]
-        for t in tensors:
-            if t.dim() and (t.shape[0] in self.batch_rows
-                            or any(s in self.token_rows for s in t.shape)
-                            or (t.dim() > 2
-                                and t.shape[0] in self.head_rows)):
-                return "batch", self.data
+            # A shard of axes that leave the batch whole (a model shard)
+            # still splits batch-leading work over the data axes.
+            if not scoped & set(DATA_AXES) and (rows
+                                                or self.batched(tensors)):
+                div *= self.data
+            return "sharded", div
+        if self.batched(tensors):
+            return "batch", self.data
         return "replicated", 1
 
     def per_device(self, nbytes, tensors) -> float:
@@ -309,6 +331,7 @@ class _Trace:
         b = self.new_dev.pop(key, None)
         if b is not None:
             self.live_dev -= b
+            self.live_glob -= self.new_glob.pop(key)
 
     def account(self, func, args, kwargs, out, flops):
         ins = _flat_tensors(args, [])
@@ -353,8 +376,11 @@ class _Trace:
             b = st.nbytes() / div
             self.new_dev[key] = b
             self.live_dev += b
+            self.new_glob[key] = st.nbytes()
+            self.live_glob += st.nbytes()
             weakref.finalize(st, self._forget, key)
         self.peak_dev = max(self.peak_dev, self.live_dev)
+        self.peak_glob = max(self.peak_glob, self.live_glob)
 
     def _forget(self, key):
         self.known.discard(key)
@@ -477,7 +503,8 @@ def traced_costs(fn, *args, mesh=None, batch_rows=(), token_rows=(),
     ``hbm_bytes_pessimistic`` (the same count), ``collectives``
     (``collective_stats``), ``events``, ``memory`` (argument, output,
     temp and alias bytes), ``live_bytes``, the global (whole-mesh)
-    ``flops_global`` / ``hbm_bytes_global`` and their split
+    ``flops_global`` / ``hbm_bytes_global`` / ``live_bytes_global`` (what
+    one card holding every shard of a virtual mesh holds) and their split
     ``by_class`` (replicated / batch / sharded), ``ops`` and ``seconds``.
     ``batch_rows``: the leading dims of the batch that the data axes
     split; ``token_rows``: its token counts; ``head_rows``: its row
@@ -487,11 +514,12 @@ def traced_costs(fn, *args, mesh=None, batch_rows=(), token_rows=(),
     train step's (param specs, ZeRO-1 specs) trees, the placements its
     gradient reduction is recorded by."""
     trace = _Trace(mesh, batch_rows, token_rows, head_rows, grad_specs)
-    arg_dev = {}
+    arg_dev, arg_glob = {}, {}
     for t, spec in paired(args, arg_specs):
         key = id(t.untyped_storage())
         arg_dev.setdefault(key, t.untyped_storage().nbytes()
                            / spec_split(spec, mesh))
+        arg_glob[key] = t.untyped_storage().nbytes()
     trace.known.update(arg_dev)
     t0 = time.perf_counter()
     token = _TRACE.set(trace)
@@ -501,7 +529,7 @@ def traced_costs(fn, *args, mesh=None, batch_rows=(), token_rows=(),
     finally:
         _TRACE.reset(token)
     seconds = time.perf_counter() - t0
-    out_bytes = alias = new_out = 0.0
+    out_bytes = alias = new_out = new_out_glob = 0.0
     seen = set()
     for t in _flat_tensors((out,), []):
         key = id(t.untyped_storage())
@@ -516,6 +544,8 @@ def traced_costs(fn, *args, mesh=None, batch_rows=(), token_rows=(),
                 key, t.untyped_storage().nbytes() / trace._class([t])[1])
             new_out += b
             out_bytes += b
+            new_out_glob += trace.new_glob.get(key,
+                                               t.untyped_storage().nbytes())
     argument = float(sum(arg_dev.values()))
     temp = max(0.0, trace.peak_dev - new_out)
     memory = {"argument_size_in_bytes": int(argument),
@@ -529,6 +559,8 @@ def traced_costs(fn, *args, mesh=None, batch_rows=(), token_rows=(),
             "collectives": collective_stats(trace.collectives),
             "events": list(trace.collectives),
             "memory": memory, "live_bytes": int(live),
+            "live_bytes_global": int(sum(arg_glob.values())
+                                     + max(trace.peak_glob, new_out_glob)),
             "flops_global": int(trace.flops),
             "hbm_bytes_global": int(trace.hbm),
             "by_class": {k: dict(v) for k, v in trace.by_class.items()},

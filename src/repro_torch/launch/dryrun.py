@@ -15,20 +15,25 @@ JAX's the difference is the ops', not the count's (see
 
 Cells:
   train_4k      -> train_step (AdamW + ZeRO-1 moments + remat + 4
-                   microbatches, the state donated; MoE archs through
-                   ``make_train_step(mesh=)``)
-  prefill_32k   -> the forward, then the last position's logits
-  decode_32k    -> decode_step over a 32k decode state (donated)
-  long_500k     -> decode_step at 524,288 positions (ssm / hybrid only)
+                   microbatches, the state donated) through
+                   ``make_train_step(mesh=)``
+  prefill_32k   -> ``forward(mesh=)``, then the last position's logits
+  decode_32k    -> ``decode_step(mesh=)`` over a 32k decode state
+                   (donated)
+  long_500k     -> ``decode_step(mesh=)`` at 524,288 positions (ssm /
+                   hybrid only)
 
 ``--quant abfp`` traces the paper's ABFP numerics (``abfp_ref``: tile
 128, gain 8, 8/8/8 bits, 0.5 LSB of ADC noise; QAT for train cells).
 The artifact keeps JAX's fields with ``fits_80g`` for ``fits_16g`` (one
 H100's 80 GB), ``compile_seconds`` the trace's seconds and
 ``flops_naive`` / ``hbm_bytes_naive`` -1.0 (no compiler analysis), and
-adds ``per_device_rule`` ("batch+moe only": dense dots and attention are
-never split over 'model', so the per-device figures are JAX's only at
-model 1) with ``by_class``, the whole mesh's FLOPs and bytes by class.
+adds ``per_device_rule`` with ``by_class``, the whole mesh's FLOPs and
+bytes by class.  The rule (``per_device_rule``) names what the cell's
+figures divide: "batch+model+moe" where the mesh route splits every dense
+weight, the attention and the recurrences over 'model' as GSPMD does
+under JAX's spec trees (every cell; a decode cell with ``--kv-quant``
+names its int8-KV attention whole).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -91,8 +96,18 @@ ART_DIR = os.environ.get("REPRO_TORCH_DRYRUN_ART_DIR") or os.path.join(
     "dryrun_torch")
 
 
-# What the artifact's per-device figures divide (``cost_analysis``).
-PER_DEVICE_RULE = "batch+moe only"
+# What an artifact's per-device figures divide (``cost_analysis``): the
+# batch over the data axes, MoE experts over 'model', and, where the cell
+# runs the mesh route, every dense weight that JAX's spec tree splits.
+RULE_MODEL = "batch+model+moe"
+
+
+def per_device_rule(mcfg, kind: str) -> str:
+    """The per-device rule a cell of ``kind`` follows for ``mcfg``: a
+    decode cell with an int8 KV cache runs its attention whole."""
+    if kind == "decode" and mcfg.kv_quant:
+        return RULE_MODEL + "; int8 KV attention whole"
+    return RULE_MODEL
 
 
 def _quant_cfg(quant: str) -> QuantConfig:
@@ -215,14 +230,13 @@ def build_cell(arch: str, shape, mesh: Mesh, quant: str = "float", *,
                         if a in mesh.axis_names]))
     b, s = sc.global_batch, sc.seq_len
     rows = (b,) if b % data == 0 else ()
-    moe_mesh = mesh if mcfg.num_experts else None
 
     if sc.kind == "train":
         opt = AdamW(schedule=constant(1e-6))
         tcfg = TrainConfig(microbatches=microbatches, quant=qc,
                            compression=compression)
         init_state, train_step = make_train_step(
-            mcfg, opt, tcfg, device=device, donate=True, mesh=moe_mesh)
+            mcfg, opt, tcfg, device=device, donate=True, mesh=mesh)
         state = init_state(params)
         z1 = map_with_path(lambda path, ns: ns.spec,
                            zero1_state_sharding(params, mesh, pspec))
@@ -250,8 +264,9 @@ def build_cell(arch: str, shape, mesh: Mesh, quant: str = "float", *,
                 hidden, _ = forward(
                     params, batch["tokens"], mcfg, nx,
                     encoder_features=batch.get("encoder_features"),
-                    return_hidden=True, mesh=moe_mesh)
-                return lm_head_logits(params, hidden[:, -1:], mcfg, nx)[:, 0]
+                    return_hidden=True, mesh=mesh)
+                return lm_head_logits(params, hidden[:, -1:], mcfg, nx,
+                                      mesh=mesh)[:, 0]
 
         batch_specs = {k: batch_spec(mesh, tuple(v.shape))
                        for k, v in batch.items()}
@@ -279,7 +294,7 @@ def build_cell(arch: str, shape, mesh: Mesh, quant: str = "float", *,
     def decode(params, state, token, key, enc_kv=None):
         with torch.no_grad():
             return decode_step(params, state, token, mcfg,
-                               Numerics(qc, key), enc_kv=enc_kv)
+                               Numerics(qc, key), enc_kv=enc_kv, mesh=mesh)
 
     return Cell(decode, (params, state, batch["token"], key, enc_kv),
                 (pspec, decode_state_spec_tree(state, mesh),
@@ -323,7 +338,7 @@ def _run_cell(arch: str, shape_name: str, mesh: Mesh, mesh_name: str,
         "compile_seconds": round(compile_s, 1),
         "flops_global": costs["flops_global"],
         "hbm_bytes_global": costs["hbm_bytes_global"],
-        "per_device_rule": PER_DEVICE_RULE,
+        "per_device_rule": per_device_rule(cell.mcfg, sc.kind),
         "by_class": costs["by_class"],
     }
     print(f"[dryrun] {arch} x {shape_name} x {mesh_name} ({quant}): "

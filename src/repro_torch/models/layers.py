@@ -31,6 +31,7 @@ under ``torch.utils.checkpoint``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import cost_trace
 from repro_torch.core.abfp import PackedWeight, QuantConfig
 from repro_torch.core.prng import fold_in, key_table, key_to_seed, seed_table
 from repro_torch.kernels import ops
@@ -677,6 +679,230 @@ def paged_append_attend(q: Tensor, k: Tensor, v: Tensor, kv_cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# The mesh forward's 'model' split (Megatron routes, ``kernels.ops``)
+# ---------------------------------------------------------------------------
+#
+# ``split`` (an ``ops.ModelSplit``) routes each dense call by its weight's
+# spec: a COLUMN call's outputs stay split (a list of ``split.size``
+# shards), the ops between a column and a row call run per shard
+# (``cost_trace.run_sharded``), and a ROW call contracts the shards.  A
+# value a call needs whole is gathered (an all-gather); a whole value a
+# row call needs split is sliced (each device reads its part).
+
+
+_NEXT = object()       # split_dense's default: the next counter's seed
+
+
+def split_dense(nx: Numerics, x, w, split, path: tuple, seed=_NEXT):
+    """``nx.dense(x, w)`` on ``w``'s route: a list of column shards'
+    outputs (COLUMN), else a whole tensor.  ``x`` is whole or a list of
+    shards (gathered first).  ``seed``: the call's seed (None without
+    noise), by default the next counter's."""
+    if seed is _NEXT:
+        seed = nx.next_seeds(1)[0]
+    if isinstance(x, list):
+        x = ops.gather_columns(x)
+    if split is not None and split.dense_route(path, w) == ops.COLUMN:
+        return ops.dense_column(x, w, nx.quant, seed, split.size)
+    return nx.dense_seeded(x, w, seed)
+
+
+def split_dense_row(nx: Numerics, x, w, split, path: tuple) -> Tensor:
+    """``nx.dense(x, w)`` for a weight whose rows may split: ROW contracts
+    ``x``'s shards (a whole ``x`` is sliced), else a whole call on the
+    gathered ``x``."""
+    seed = nx.next_seeds(1)[0]
+    if split is not None and split.dense_route(path, w) == ops.ROW:
+        xs = x if isinstance(x, list) else ops.split_columns(x, split.size)
+        return ops.dense_row(xs, w, nx.quant, split.size)
+    if isinstance(x, list):
+        x = ops.gather_columns(x)
+    return nx.dense_seeded(x, w, seed)
+
+
+def split_heads(y, b: int, s: int, n: int, hd: int, tp: int):
+    """A projection's output as heads: per shard (B, S, n / tp, hd) when
+    its columns split on head boundaries, else whole (B, S, n, hd) (a
+    split that cuts a head is gathered, as GSPMD reshards it)."""
+    if isinstance(y, list):
+        if n % tp == 0:
+            return [p.reshape(b, s, n // tp, hd) for p in y]
+        y = ops.gather_columns(y)
+    return y.reshape(b, s, n, hd)
+
+
+def _whole_heads(k):
+    if not isinstance(k, list):
+        return k
+    out = torch.cat(k, dim=2)
+    cost_trace.record_collective("all-gather", out, len(k))
+    return out
+
+
+def _kv_for_shard(k: Tensor, t: int, h: int, tp: int) -> Tensor:
+    """The KV heads (B, S, KH, D) that query shard ``t`` of ``tp`` (heads
+    ``t * h / tp ..``) reads: a slice when the shard holds whole GQA
+    groups, else one KV head per query head."""
+    rep = h // k.shape[2]
+    hl = h // tp
+    lo = t * hl
+    if hl % rep == 0:
+        return k[:, :, lo // rep:(lo + hl) // rep]
+    idx = torch.arange(lo, lo + hl, device=k.device) // rep
+    return k.index_select(2, idx)
+
+
+def _attention_split(params, x, mcfg, nx: Numerics, split, *, positions,
+                     causal: bool, window: int, cross_kv, train_mode: bool):
+    """``attention_block`` without a cache on ``split``: q/k/v column
+    shards, attention per query-head shard (each shard's KV heads its own
+    shard, or read from the gathered K/V when the KV split cuts a head),
+    ``wo`` row-parallel over the shards' outputs.  Query heads that do not
+    split run whole (replicated)."""
+    b, s, _ = x.shape
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    tp = split.size
+    block = "attn" if cross_kv is None else "cross"
+    q = split_heads(split_dense(nx, x, params["wq"], split, (block, "wq")),
+                    b, s, h, hd, tp)
+    roped = mcfg.pos_type == "rope" and cross_kv is None
+    if cross_kv is None:
+        k, v = (split_heads(split_dense(nx, x, params[n], split,
+                                        (block, n)), b, s, kh, hd, tp)
+                for n in ("wk", "wv"))
+    else:
+        k, v = cross_kv
+        causal, window = False, 0
+    if not isinstance(q, list):
+        k, v = _whole_heads(k), _whole_heads(v)
+
+    def pos(t):
+        return (rope(t, positions, mcfg.rope_theta, mcfg.rope_fraction)
+                if roped else t)
+
+    if not isinstance(k, list):
+        k = pos(k)
+
+    def core(qt, kt, vt, t=None):
+        if t is None:
+            kt = pos(kt)
+        else:
+            kt, vt = _kv_for_shard(kt, t, h, tp), _kv_for_shard(vt, t, h,
+                                                                 tp)
+        o = _cacheless_attention(pos(qt), kt, vt, mcfg, nx, causal=causal,
+                                 window=window, train_mode=train_mode)
+        return o.reshape(b, s, -1)
+
+    if isinstance(q, list):
+        kv_split = isinstance(k, list)
+        out = [cost_trace.run_sharded(
+            (ops.MODEL_AXIS,), core, q[t], k[t] if kv_split else k,
+            v[t] if kv_split else v, None if kv_split else t)
+            for t in range(tp)]
+    else:
+        out = _cacheless_attention(pos(q), k, v, mcfg, nx, causal=causal,
+                                   window=window, train_mode=train_mode
+                                   ).reshape(b, s, h * hd)
+    return split_dense_row(nx, out, params["wo"], split, (block, "wo"))
+
+
+def _decode_attention_split(params, x, mcfg, nx: Numerics, split, *,
+                            positions, window: int, kv_cache: dict):
+    """A decode tick of ``attention_block`` over a float cache on
+    ``split``: the q/k/v column shards; per head shard (query and KV heads
+    split) each shard writes its KV heads into its slice of the cache and
+    attends them; where the KV heads do not split, per head-dim shard (the
+    cache's spec splits its head dim, ``distributed.sharding.
+    decode_state_spec_tree``): each shard writes its slice of every head,
+    the partial scores are summed (an all-reduce), and each shard weighs
+    its slice of V (the outputs gathered); ``wo`` row-parallel.  Without
+    an even split of either it runs whole."""
+    b = x.shape[0]
+    h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
+    tp = split.size
+    q, k, v = (split_dense(nx, x, params[n], split, ("attn", n))
+               for n in ("wq", "wk", "wv"))
+    by_heads = (all(isinstance(y, list) for y in (q, k, v))
+                and h % tp == 0 and kh % tp == 0)
+    by_dims = not by_heads and hd % tp == 0
+    length = kv_cache["length"]
+    s_max = kv_cache["k"].shape[1]
+    bidx = torch.arange(b, device=x.device)
+    slot = (length % s_max if window > 0 else length).long()
+    filled = (torch.clamp(length + 1, max=s_max) if window > 0
+              else length + 1)
+
+    def pos(y):
+        return (rope(y, positions, mcfg.rope_theta, mcfg.rope_fraction)
+                if mcfg.pos_type == "rope" else y)
+
+    def write(kc, vc, kt, vt):
+        kc[bidx, slot] = kt[:, 0].to(kc.dtype)
+        vc[bidx, slot] = vt[:, 0].to(vc.dtype)
+
+    if by_heads:
+        hl, kl = h // tp, kh // tp
+
+        def shard(t, qt, kt, vt):
+            qt = pos(qt.reshape(b, 1, hl, hd))
+            kt = pos(kt.reshape(b, 1, kl, hd))
+            kc = kv_cache["k"][:, :, t * kl:(t + 1) * kl]
+            vc = kv_cache["v"][:, :, t * kl:(t + 1) * kl]
+            write(kc, vc, kt, vt.reshape(b, 1, kl, hd))
+            return decode_attention(qt, kc, vc, lengths=filled).reshape(
+                b, 1, hl * hd)
+
+        out = [cost_trace.run_sharded((ops.MODEL_AXIS,), shard, t, q[t],
+                                      k[t], v[t]) for t in range(tp)]
+    elif by_dims:
+        q, k, v = (ops.gather_columns(y) if isinstance(y, list) else y
+                   for y in (q, k, v))
+        q = pos(q.reshape(b, 1, h, hd))
+        k = pos(k.reshape(b, 1, kh, hd))
+        v = v.reshape(b, 1, kh, hd)
+        dl = hd // tp
+
+        def scores(t, qt, kt, vt):
+            sl = slice(t * dl, (t + 1) * dl)
+            kc, vc = kv_cache["k"][..., sl], kv_cache["v"][..., sl]
+            write(kc, vc, kt[..., sl], vt[..., sl])
+            qf = qt[..., sl].float() * (hd ** -0.5)
+            return torch.einsum("bshd,bchd->bhsc", qf,
+                                _repeat_kv(kc, h).float())[:, :, 0]
+
+        sc = None
+        for t in range(tp):
+            part = cost_trace.run_sharded((ops.MODEL_AXIS,), scores, t, q,
+                                          k, v)
+            sc = part if sc is None else sc + part
+        cost_trace.record_collective("all-reduce", sc, tp)
+        valid = torch.arange(s_max, device=x.device)[None, :] \
+            < filled[:, None]
+        p = torch.softmax(torch.where(valid[:, None], sc,
+                                      torch.full_like(sc, NEG)), dim=-1)
+
+        def weigh(t, p):
+            vc = kv_cache["v"][..., t * dl:(t + 1) * dl]
+            return torch.einsum("bhc,bchd->bhd", p,
+                                _repeat_kv(vc, h).float())
+
+        out = torch.cat([cost_trace.run_sharded((ops.MODEL_AXIS,), weigh, t,
+                                                p) for t in range(tp)], -1)
+        cost_trace.record_collective("all-gather", out, tp)
+        out = out[:, None].to(x.dtype).reshape(b, 1, h * hd)
+    else:
+        q, k, v = (ops.gather_columns(y) if isinstance(y, list) else y
+                   for y in (q, k, v))
+        out, _ = _append_attend_one(
+            pos(q.reshape(b, 1, h, hd)), pos(k.reshape(b, 1, kh, hd)),
+            v.reshape(b, 1, kh, hd), kv_cache, window)
+        return split_dense_row(nx, out.reshape(b, 1, h * hd), params["wo"],
+                               split, ("attn", "wo"))
+    length.add_(1)
+    return split_dense_row(nx, out, params["wo"], split, ("attn", "wo"))
+
+
+# ---------------------------------------------------------------------------
 # Attention block (projections through Numerics)
 # ---------------------------------------------------------------------------
 
@@ -777,7 +1003,7 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
                     kv_cache: Optional[dict] = None,
                     n_tokens: Optional[Tensor] = None, cross_kv=None,
                     train_mode: bool = False,
-                    page_table: Optional[Tensor] = None):
+                    page_table: Optional[Tensor] = None, split=None):
     """Self-attention (causal unless ``causal`` is False: the encoder's),
     over a KV cache or over the whole sequence, or cross-attention.
     Returns (output, kv_cache).  ``window`` > 0 is local attention over
@@ -800,7 +1026,26 @@ def attention_block(params: dict, x: Tensor, mcfg, nx: Numerics, *,
     ``cross_kv`` (k, v), each (B, Skv, KH, D), makes it cross-attention
     (the decoder of an encoder-decoder): q from ``x`` through ``wq``, k
     and v as given, no rope and no cache, every query over all Skv keys
-    (non-causal, cacheless), then ``wo``: two dense calls."""
+    (non-causal, cacheless), then ``wo``: two dense calls.
+
+    ``split`` (an ``ops.ModelSplit``, the mesh forward's or decode
+    step's) runs a cacheless call by the Megatron routes
+    (``_attention_split``; ``cross_kv`` may then hold per-shard K/V lists,
+    ``models.lm.encode_cross_kv``) and a decode tick over an unpaged float
+    cache by ``_decode_attention_split``."""
+    if split is not None and kv_cache is None:
+        return _attention_split(params, x, mcfg, nx, split,
+                                positions=positions, causal=causal,
+                                window=window, cross_kv=cross_kv,
+                                train_mode=train_mode), None
+    if (split is not None and x.shape[1] == 1 and n_tokens is None
+            and cross_kv is None and "k" in kv_cache
+            and "k_scale" not in kv_cache
+            and split.dense_route(("attn", "wq"), params["wq"])
+            == ops.COLUMN):
+        return _decode_attention_split(
+            params, x, mcfg, nx, split, positions=positions, window=window,
+            kv_cache=kv_cache), kv_cache
     b, s, _ = x.shape
     h, kh, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim
     if cross_kv is None and _use_fused_decode(params, nx, s, kv_cache,
@@ -855,17 +1100,35 @@ def init_mlp(gen: torch.Generator, mcfg, device) -> dict:
     return p
 
 
-def mlp_block(params: dict, x: Tensor, mcfg, nx: Numerics) -> Tensor:
-    h = nx.dense(x, params["wi"])
+def _mlp_act(mcfg, h: Tensor, g: Optional[Tensor] = None) -> Tensor:
     if mcfg.mlp_type == "swiglu":
-        g = nx.dense(x, params["wg"])
-        h = F.silu(g.float()).to(h.dtype) * h
-    elif mcfg.mlp_type == "geglu":
-        g = nx.dense(x, params["wg"])
-        h = F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
+        return F.silu(g.float()).to(h.dtype) * h
+    if mcfg.mlp_type == "geglu":
+        return F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
+    return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+
+
+def mlp_block(params: dict, x: Tensor, mcfg, nx: Numerics,
+              split=None) -> Tensor:
+    """The MLP: ``wi`` (and ``wg``), the activation, ``wo``.  On ``split``
+    (the mesh forward's) ``wi`` / ``wg`` run column-parallel, the
+    activation per shard and ``wo`` row-parallel, by their specs."""
+    path = ("mlp",)
+    h = split_dense(nx, x, params["wi"], split, path + ("wi",))
+    g = (split_dense(nx, x, params["wg"], split, path + ("wg",))
+         if mcfg.mlp_type in ("swiglu", "geglu") else None)
+    if isinstance(h, list) and (g is None or isinstance(g, list)):
+        h = [cost_trace.run_sharded((ops.MODEL_AXIS,),
+                                    functools.partial(_mlp_act, mcfg), h[t],
+                                    None if g is None else g[t])
+             for t in range(len(h))]
     else:
-        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return nx.dense(h, params["wo"])
+        if isinstance(h, list):
+            h = ops.gather_columns(h)
+        if isinstance(g, list):
+            g = ops.gather_columns(g)
+        h = _mlp_act(mcfg, h, g)
+    return split_dense_row(nx, h, params["wo"], split, path + ("wo",))
 
 
 # ---------------------------------------------------------------------------

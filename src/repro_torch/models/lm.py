@@ -47,10 +47,11 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import prng
+from repro_torch.core import cost_trace, prng
 from repro_torch.core.abfp import QuantConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dnf import inject
+from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (
@@ -62,6 +63,8 @@ from repro_torch.models.layers import (
     mlp_block,
     norm,
     sinusoidal_positions,
+    split_dense,
+    split_heads,
     table_numerics,
 )
 
@@ -202,14 +205,17 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
                  state: Optional[dict] = None,
                  n_tokens: Optional[Tensor] = None,
                  page_table: Optional[Tensor] = None, enc_kv=None,
-                 mesh=None):
+                 mesh=None, split=None):
     """One pre-norm residual layer of ``kind``; returns (x, state, aux),
     ``aux`` the MoE block's f32 load-balance loss (None without one).
     Without a state (the teacher-forced forward) attention is cacheless
     and the returned state is None.  ``page_table`` (B, MP) routes a paged
     KV cache.  ``enc_kv`` (k, v) adds cross-attention over the encoder's
     frames between the self-attention and the MLP.  With ``mesh`` an MoE
-    block takes the expert-parallel route (``moe.moe_block_sharded``)."""
+    block takes the expert-parallel route (``moe.moe_block_sharded``);
+    ``split`` (the mesh forward's ``ops.ModelSplit``) runs the attention,
+    MLP and recurrent blocks by the Megatron routes (``models.layers``,
+    ``models.recurrent``)."""
     aux = None
     h = norm(x, lp["norm1"], mcfg.norm_type)
     if kind != "attention":
@@ -218,22 +224,22 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
         name = {"recurrent": "rglru"}.get(kind, kind)
         y, st = block(lp[name], h, mcfg, nx,
                       state=None if state is None else state["rec"],
-                      n_tokens=n_tokens)
+                      n_tokens=n_tokens, split=split)
         x = x + y
         if kind == "recurrent":
             h = norm(x, lp["norm2"], mcfg.norm_type)
-            x = x + mlp_block(lp["mlp"], h, mcfg, nx)
+            x = x + mlp_block(lp["mlp"], h, mcfg, nx, split)
         return x, {"rec": st}, aux
     attn_out, kv = attention_block(
         lp["attn"], h, mcfg, nx, positions=positions, window=_window(mcfg),
         kv_cache=None if state is None else state["kv"], n_tokens=n_tokens,
-        train_mode=mcfg.remat, page_table=page_table)
+        train_mode=mcfg.remat, page_table=page_table, split=split)
     x = x + attn_out
     if enc_kv is not None:
         h = norm(x, lp["norm3"], mcfg.norm_type)
         cross_out, _ = attention_block(lp["cross"], h, mcfg, nx,
                                        positions=positions, cross_kv=enc_kv,
-                                       train_mode=mcfg.remat)
+                                       train_mode=mcfg.remat, split=split)
         x = x + cross_out
     h = norm(x, lp["norm2"], mcfg.norm_type)
     if mcfg.num_experts:
@@ -243,17 +249,51 @@ def _apply_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics, *,
             y, aux = moe_lib.moe_block(lp["moe"], h, mcfg, nx)
         x = x + y
     elif mcfg.d_ff:
-        x = x + mlp_block(lp["mlp"], h, mcfg, nx)
+        x = x + mlp_block(lp["mlp"], h, mcfg, nx, split)
     return x, None if state is None else {"kv": kv}, aux
 
 
+def _model_split(mesh, quant: QuantConfig):
+    """The mesh forward's 'model' split (``distributed.sharding.
+    model_split``; imported here, as that module imports this package's
+    packing); None without a mesh."""
+    if mesh is None:
+        return None
+    from repro_torch.distributed.sharding import model_split
+    return model_split(mesh, quant)
+
+
+def _embed_rows(emb: Tensor, ids: Tensor, tp: int) -> Tensor:
+    """The embedding lookup row-parallel over the vocab: each shard gathers
+    the ids in its rows (zeros elsewhere), and the shards' rows are summed
+    (an all-reduce): exactly the whole lookup, one nonzero per row."""
+    c = emb.shape[0] // tp
+    x = None
+    for t in range(tp):
+        def shard(e, t=t):
+            local = ids - t * c
+            ok = (local >= 0) & (local < c)
+            rows = e[t * c:(t + 1) * c][local.clamp(0, c - 1)]
+            return torch.where(ok[..., None], rows, torch.zeros(
+                (), dtype=rows.dtype, device=rows.device))
+        part = cost_trace.run_sharded((ops.MODEL_AXIS,), shard, emb)
+        x = part if x is None else x + part
+    cost_trace.record_collective("all-reduce", x, tp)
+    return x
+
+
 def _embed(params, tokens: Tensor, mcfg: ModelConfig,
-           positions: Tensor) -> Tensor:
+           positions: Tensor, split=None) -> Tensor:
     """Token ids (B, S), or a stub frontend's float embeddings (B, S, d)
     (cast to ``param_dtype`` first, as the JAX package casts them), in the
-    activation dtype; absolute positions add their sinusoidal embedding."""
+    activation dtype; absolute positions add their sinusoidal embedding.
+    On ``split`` an embedding whose vocab splits is looked up row-parallel
+    (``_embed_rows``)."""
     if tokens.is_floating_point():
         x = tokens.to(mcfg.param_dtype)
+    elif split is not None and split.dense_route(
+            ("embed",), params["embed"]) == ops.ROW:
+        x = _embed_rows(params["embed"], tokens.long(), split.size)
     else:
         x = params["embed"][tokens.long()]
     x = x.to(mcfg.activation_dtype)
@@ -264,11 +304,28 @@ def _embed(params, tokens: Tensor, mcfg: ModelConfig,
     return x
 
 
-def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics) -> Tensor:
+def _lm_head(params, x: Tensor, mcfg: ModelConfig, nx: Numerics,
+             split=None, keep_split: bool = False):
+    """f32 logits.  On ``split`` the head runs column-parallel over the
+    vocab when its spec splits it (a tied head when the embedding's vocab
+    splits); the logits are gathered, or with ``keep_split`` returned as
+    the list of vocab shards."""
     # An explicit "lm_head" wins even for tied embeddings: packing inserts
     # the pre-quantized embed.T there.
-    w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return nx.dense(x, w).float()
+    if "lm_head" in params:
+        w, path = params["lm_head"], ("lm_head",)
+    else:
+        w, path = params["embed"].T, ("lm_head",)
+        if split is not None and split.dense_route(
+                ("embed",), params["embed"]) != ops.ROW:
+            split = None
+    y = split_dense(nx, x, w, split, path)
+    if not isinstance(y, list):
+        return y.float()
+    if keep_split:
+        return [cost_trace.run_sharded((ops.MODEL_AXIS,), Tensor.float, p)
+                for p in y]
+    return ops.gather_columns(y).float()
 
 
 def calls_per_layer(mcfg: ModelConfig) -> int:
@@ -361,13 +418,13 @@ def _pass_numerics(nx: Optional[Numerics], mcfg: ModelConfig,
 
 
 def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None,
-                enc_kv=None):
+                enc_kv=None, split=None):
     pt = state.get("page_table")
     for li, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
         x, state["layers"][li], _ = _apply_layer(
             lp, x, mcfg, nx.fold(li), kind=mcfg.layer_kind(li),
             positions=positions, state=ls, n_tokens=n_tokens, page_table=pt,
-            enc_kv=None if enc_kv is None else enc_kv[li])
+            enc_kv=None if enc_kv is None else enc_kv[li], split=split)
     return norm(x, params["final_norm"], mcfg.norm_type)
 
 
@@ -377,12 +434,12 @@ def _run_layers(params, state, x, mcfg, nx, positions, n_tokens=None,
 
 
 def encode(params: dict, features: Tensor, mcfg: ModelConfig,
-           nx: Numerics) -> Tensor:
+           nx: Numerics, split=None) -> Tensor:
     """The whisper-style encoder over stub frame embeddings (B, S_enc, d):
     the features in the activation dtype plus sinusoidal positions, then
     each encoder layer ``g`` (non-causal self-attention and the MLP, pre-
     norm) under ``nx.fold(ENCODER_FOLD + g)``, then the encoder's final
-    norm.  Returns (B, S_enc, d)."""
+    norm.  Returns (B, S_enc, d).  ``split``: the mesh forward's."""
     b, s = features.shape[:2]
     positions = torch.arange(s, device=features.device)[None, :].expand(b, s)
     x = features.to(mcfg.activation_dtype)
@@ -393,39 +450,42 @@ def encode(params: dict, features: Tensor, mcfg: ModelConfig,
         h = norm(x, lp["norm1"], mcfg.norm_type)
         attn_out, _ = attention_block(lp["attn"], h, mcfg, nxg,
                                       positions=positions, causal=False,
-                                      train_mode=mcfg.remat)
+                                      train_mode=mcfg.remat, split=split)
         x = x + attn_out
         h = norm(x, lp["norm2"], mcfg.norm_type)
-        x = x + mlp_block(lp["mlp"], h, mcfg, nxg)
+        x = x + mlp_block(lp["mlp"], h, mcfg, nxg, split)
     return norm(x, enc["final_norm"], mcfg.norm_type)
 
 
 def encode_cross_kv(params: dict, enc_out: Tensor, mcfg: ModelConfig,
-                    nx: Numerics) -> list:
+                    nx: Numerics, split=None) -> list:
     """Every decoder layer's cross-attention (k, v), each (B, S_enc, KH,
     D), from an encoder output: the per-slot encoder cache of
     ``serving.runners.EncDecRunner``.  All layers take the root ``nx``'s
     calls 0 (wk) and 1 (wv), as the JAX package's ``vmap`` over its
-    stacked layers does."""
+    stacked layers does.  On ``split`` (the mesh forward's) a K or V whose
+    columns split on head boundaries is a list of per-shard heads."""
     b, s, _ = enc_out.shape
     kh, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
     sk, sv = nx.next_seeds(2)
+    tp = 1 if split is None else split.size
     out = []
     for lp in params["layers"]:
         w = lp["cross"]
-        out.append(tuple(nx.dense_seeded(enc_out, w[n], sd).reshape(
-            b, s, kh, hd) for n, sd in (("wk", sk), ("wv", sv))))
+        out.append(tuple(split_heads(split_dense(
+            nx, enc_out, w[n], split, ("cross", n), sd),
+            b, s, kh, hd, tp) for n, sd in (("wk", sk), ("wv", sv))))
     return out
 
 
-def _encoder_kv(params, encoder_features, mcfg, nx):
+def _encoder_kv(params, encoder_features, mcfg, nx, split=None):
     """The cross K/V of a cacheless pass: None without an encoder."""
     if not mcfg.is_encoder_decoder:
         return None
     if encoder_features is None:
         raise ValueError(f"{mcfg.name} needs encoder_features")
     return encode_cross_kv(params, encode(params, encoder_features, mcfg,
-                                          nx), mcfg, nx)
+                                          nx, split), mcfg, nx, split)
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +500,14 @@ def _positions(tokens: Tensor) -> Tensor:
 
 def _forward_layer(lp: dict, x: Tensor, mcfg: ModelConfig, nx: Numerics,
                    li: int, positions: Tensor, dnf, dnf_key, enc_kv=None,
-                   mesh=None):
+                   mesh=None, split=None):
     """Layer ``li`` of the teacher-forced forward under ``nx.fold(li)``,
     then DNF's noise ``dnf.layer(li).sample(fold_in(dnf_key, li))``;
     returns (x, aux).  Each call folds afresh, so a rematerialized layer
     draws what its first run drew."""
     x, _, aux = _apply_layer(lp, x, mcfg, nx.fold(li),
                              kind=mcfg.layer_kind(li), positions=positions,
-                             enc_kv=enc_kv, mesh=mesh)
+                             enc_kv=enc_kv, mesh=mesh, split=split)
     if dnf is None:
         return x, aux
     return inject(x, dnf.layer(li), prng.fold_in(dnf_key, li)), aux
@@ -477,21 +537,31 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     and its attention is ``train_attention``.
 
     ``mesh`` (a ``distributed.sharding.Mesh``): every MoE layer takes the
-    expert-parallel route (``moe.moe_block_sharded``); everything else
-    runs as without a mesh (``nx`` carries its own mesh, if any), as in
-    the JAX package."""
+    expert-parallel route (``moe.moe_block_sharded``), and every dense
+    weight that the JAX package's spec tree splits over 'model' runs one
+    model shard at a time, as GSPMD partitions the JAX package's dry-run
+    cells (``param_spec_tree``; ``abfp_param_spec_tree`` in ``abfp_ref``
+    mode): column-parallel q/k/v, MLP ``wi``/``wg`` and the head (its
+    outputs kept split), attention per head shard, row-parallel ``wo``
+    and MLP ``wo``, the embedding row-parallel over the vocab, with the
+    collectives recorded (``models.layers``, ``kernels.ops``); the
+    recurrent blocks split their channels or heads (``models.recurrent``).
+    The kernel modes' dense calls stay whole.  A column split is
+    bit-equal to the one-device forward; a row split reorders its f32
+    sum, as GSPMD's does."""
     check_supported(mcfg)
     if dnf is not None and dnf_key is None:
         raise ValueError("dnf needs a dnf_key")
     nx = _pass_numerics(nx, mcfg, tokens.device)
+    split = _model_split(mesh, nx.quant)
     positions = _positions(tokens)
-    x = _embed(params, tokens, mcfg, positions)
-    enc_kv = _encoder_kv(params, encoder_features, mcfg, nx)
+    x = _embed(params, tokens, mcfg, positions, split)
+    enc_kv = _encoder_kv(params, encoder_features, mcfg, nx, split)
     remat = mcfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(params["layers"]):
         args = (lp, x, mcfg, nx, li, positions, dnf, dnf_key,
-                None if enc_kv is None else enc_kv[li], mesh)
+                None if enc_kv is None else enc_kv[li], mesh, split)
         if remat:
             # The whole layer is recomputed: stopping early raises through
             # the STE Functions' saved-tensor hooks, which on the card
@@ -505,14 +575,18 @@ def forward(params: dict, tokens: Tensor, mcfg: ModelConfig,
     x = norm(x, params["final_norm"], mcfg.norm_type)
     if return_hidden:
         return x, aux
-    return _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD)), aux
+    return _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD), split), aux
 
 
 def lm_head_logits(params: dict, hidden: Tensor, mcfg: ModelConfig,
-                   nx: Optional[Numerics] = None) -> Tensor:
-    """Project (B, S, d) hidden states to f32 logits (fold 999_983)."""
+                   nx: Optional[Numerics] = None, mesh=None,
+                   keep_split: bool = False):
+    """Project (B, S, d) hidden states to f32 logits (fold 999_983).  On
+    ``mesh`` the head runs column-parallel over the vocab (``forward``'s
+    route); ``keep_split`` returns the vocab shards' logits as a list."""
     nx = nx or Numerics(QuantConfig(mode="float"))
-    return _lm_head(params, hidden, mcfg, nx.fold(LM_HEAD_FOLD))
+    return _lm_head(params, hidden, mcfg, nx.fold(LM_HEAD_FOLD),
+                    _model_split(mesh, nx.quant), keep_split)
 
 
 def forward_capture(params: dict, tokens: Tensor, mcfg: ModelConfig,
@@ -638,19 +712,28 @@ def clone_state(state):
 
 
 def decode_step(params: dict, state: dict, token: Tensor, mcfg: ModelConfig,
-                nx: Optional[Numerics] = None, *, enc_kv=None):
+                nx: Optional[Numerics] = None, *, enc_kv=None, mesh=None):
     """One decode tick.  token: (B,) int (or (B, d) embeddings).  Returns
     (logits (B, V) f32, state), the state updated in place.  ``enc_kv``:
     an encoder-decoder's cross (k, v) per decoder layer, each (B, S_enc,
     KH, D).
 
     In ``abfp_fused`` numerics every layer runs the fused QKV and int8-KV
-    attention kernels (``models.layers._fused_decode_attention_block``)."""
+    attention kernels (``models.layers._fused_decode_attention_block``).
+
+    ``mesh``: ``forward``'s Megatron routes, the attention over an unpaged
+    float cache per head shard (per head-dim shard where the KV heads do
+    not split: the cache's spec, ``distributed.sharding.
+    decode_state_spec_tree``) and the recurrent states per channel or head
+    shard, each shard writing its slice of the state in place; an int8 or
+    paged cache runs its attention whole."""
     nx = _pass_numerics(nx, mcfg, token.device)
+    split = _model_split(mesh, nx.quant)
     positions = state["position"][:, None]                      # (B, 1)
-    x = _embed(params, token[:, None], mcfg, positions)
-    x = _run_layers(params, state, x, mcfg, nx, positions, enc_kv=enc_kv)
-    logits = _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD))[:, 0]
+    x = _embed(params, token[:, None], mcfg, positions, split)
+    x = _run_layers(params, state, x, mcfg, nx, positions, enc_kv=enc_kv,
+                    split=split)
+    logits = _lm_head(params, x, mcfg, nx.fold(LM_HEAD_FOLD), split)[:, 0]
     state["position"].add_(1)
     return logits, state
 

@@ -30,6 +30,16 @@ Two paths, as in the JAX package:
 Function forms follow the JAX package's where PyTorch has a choice:
 softplus is ``logaddexp(x, 0)``, log-sigmoid ``-softplus(-x)`` and SiLU
 ``x * sigmoid(x)``.
+
+On a mesh (``split``, the mesh forward's ``ops.ModelSplit``; the parallel
+forms without a state) each block runs by the JAX package's rules: the
+wide projections column-parallel (their channels or heads stay split),
+the recurrence per channel shard (RG-LRU: ``lam`` and ``conv_w`` split
+with their channels) or per head shard (mLSTM, sLSTM: ``w_if`` and
+``r_h`` replicated, each shard reads its heads), ``w_out`` / ``w_down``
+row-parallel.  An input that column calls need whole is gathered once
+(an all-gather).  The mesh route returns no state: the cacheless forward
+discards it.
 """
 
 from __future__ import annotations
@@ -39,7 +49,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Numerics
+from repro_torch.core import cost_trace
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Numerics, split_dense, split_dense_row
 
 Tensor = torch.Tensor
 
@@ -163,9 +175,67 @@ def _causal_depthwise_conv(u: Tensor, w: Tensor, state: Optional[Tensor],
     return out, new_state
 
 
+def _shards(tp: int, fn, *parts):
+    """``fn(t, *parts[i][t])`` for each model shard ``t`` of ``tp``, each
+    one shard of 'model' (``cost_trace.run_sharded``); a whole (non-list)
+    entry of ``parts`` goes whole to every shard."""
+    return [cost_trace.run_sharded(
+        (ops.MODEL_AXIS,), fn, t,
+        *(p[t] if isinstance(p, list) else p for p in parts))
+        for t in range(tp)]
+
+
+def _splits(split, path: tuple, w) -> bool:
+    return (split is not None
+            and split.dense_route(path, w) == ops.COLUMN)
+
+
+def _rglru_split(params, x, mcfg, nx, split, state=None):
+    """The RG-LRU parallel form on ``split`` (module docstring), or with
+    ``state`` a decode step whose channel shards update their slices of
+    the state in place."""
+    path = ("rglru",)
+    tp = split.size
+    gate = split_dense(nx, x, params["w_gate"], split, path + ("w_gate",))
+    u = split_dense(nx, x, params["w_in"], split, path + ("w_in",))
+    c = u[0].shape[-1]
+
+    def conv(t, ut, w):
+        sl = slice(t * c, (t + 1) * c)
+        out, tail = _causal_depthwise_conv(
+            ut, w[:, sl], None if state is None else state["conv"][..., sl])
+        if state is not None:
+            state["conv"][..., sl].copy_(tail)
+        return out
+
+    u = _shards(tp, conv, u, params["conv_w"])
+    uw = ops.gather_columns(u)
+    rg = split_dense(nx, uw, params["w_rg"], split, path + ("w_rg",))
+    ig = split_dense(nx, uw, params["w_ig"], split, path + ("w_ig",))
+
+    def shard(t, ut, gt, rgt, igt, lam):
+        sl = slice(t * c, (t + 1) * c)
+        g = F.gelu(gt.float(), approximate="tanh")
+        r = torch.sigmoid(rgt.float())
+        i = torch.sigmoid(igt.float())
+        log_a = -_RGLRU_C * _softplus(lam[sl]) * r
+        a = torch.exp(log_a)
+        b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                   min=1e-12)) * (i * ut.float())
+        if state is None:
+            hs = _linear_recurrence(a, b)
+        else:
+            hs = (a[:, 0] * state["h"][:, sl] + b[:, 0])[:, None]
+            state["h"][:, sl].copy_(hs[:, 0])
+        return (hs * g).to(x.dtype)
+
+    hs = _shards(tp, shard, u, gate, rg, ig, params["lam"])
+    return split_dense_row(nx, hs, params["w_out"], split, path + ("w_out",))
+
+
 def rglru_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None,
-                n_tokens: Optional[Tensor] = None):
+                n_tokens: Optional[Tensor] = None, split=None):
     """Griffin recurrent block.  Returns (y, state).
 
     Serving: the decode step (a state, S == 1) or, with ``n_tokens`` (B,),
@@ -173,7 +243,11 @@ def rglru_block(params: dict, x: Tensor, mcfg, nx: Numerics,
     position; ``state`` ({"conv", "h"}) is updated in place.  Otherwise
     the associative scan over all S positions (a given state's h folded
     into position 0, as ``b.at[:, 0].add(a[:, 0] * h0)``), and the state
-    returned is new."""
+    returned is new.  ``split``: the mesh route (module docstring), taken
+    without a state or for a decode step when the channels split."""
+    if (n_tokens is None and (state is None or x.shape[1] == 1)
+            and _splits(split, ("rglru", "w_in"), params["w_in"])):
+        return _rglru_split(params, x, mcfg, nx, split, state), state
     serving = n_tokens is not None or (state is not None and x.shape[1] == 1)
     if n_tokens is not None and state is None:
         raise ValueError("chunked prefill needs a carried state")
@@ -244,10 +318,13 @@ def init_mlstm_block(gen: torch.Generator, mcfg, device) -> dict:
     }
 
 
-def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int, valid=None):
+def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int, valid=None,
+                      final_state: bool = True):
     """Chunkwise stabilized mLSTM.  q, k, v: (B, NH, S, D) f32; gates (B,
     NH, S).  state: (C (B, NH, D, D), n (B, NH, D), m (B, NH)).  Returns
-    (h (B, NH, S, D), new_state), the new state as new tensors.
+    (h (B, NH, S, D), new_state), the new state as new tensors; without
+    ``final_state`` the update after the last chunk is skipped (new_state
+    is then the state before it: a caller that discards it).
 
     ``valid`` (B, S) bool needs chunk == 1 (each step one token): steps
     with valid False leave the carried state unchanged."""
@@ -290,6 +367,8 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int, valid=None):
         denom = torch.maximum(torch.abs(n_inter + n_intra),
                               torch.exp(-m_new)) + 1e-6
         hs.append((h_inter + h_intra) / denom[..., None])
+        if c == nc - 1 and not final_state:
+            break
         # State update to the end of the chunk (stabilized by m_end).
         m_end = torch.maximum(total + m,
                               (csum[..., -1:] - csum + li).amax(dim=-1))
@@ -310,17 +389,83 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int, valid=None):
     return h, (cmat, n, m)
 
 
+def _mlstm_split(params, x, mcfg, nx, split, chunk: int, state=None):
+    """The mLSTM parallel form on ``split`` (module docstring): the scan
+    per head shard from the zero state; with ``state`` a decode step whose
+    head shards update their heads of the state in place."""
+    b, s, _ = x.shape
+    path = ("mlstm",)
+    tp, nh = split.size, mcfg.num_heads
+    up = split_dense(nx, x, params["w_up"], split, path + ("w_up",))
+    gate = split_dense(nx, x, params["w_gate"], split, path + ("w_gate",))
+    upw = ops.gather_columns(up)
+    inner = upw.shape[-1]
+    dh, hl, c = inner // nh, nh // tp, inner // tp
+    q, k, v = (split_dense(nx, upw, params[n], split, path + (n,))
+               for n in ("wq", "wk", "wv"))
+    # GSPMD contracts the replicated w_if over up's shards (partial sums,
+    # an all-reduce) rather than gathering up: float only (ABFP tiles do
+    # not straddle shards).
+    if nx.quant.mode == "float" and params["w_if"].shape[0] % tp == 0:
+        nx.next_seeds(1)
+        gl = ops.dense_row(up, params["w_if"], nx.quant, tp)
+    else:
+        gl = split_dense(nx, upw, params["w_if"], split, path + ("w_if",))
+    gl = gl.float()
+    log_i = gl[..., :nh].transpose(1, 2)                      # (B, NH, S)
+    if state is None:
+        log_f = _log_sigmoid(gl[..., nh:]).transpose(1, 2)
+    else:                                       # the serving form's shape
+        log_f = _log_sigmoid(gl[:, 0, nh:].contiguous())[..., None]
+
+    def shard(t, qt, kt, vt, upt, gt, li, lf, skip):
+        def heads(y):
+            return y.reshape(b, s, hl, dh).transpose(1, 2).float()
+
+        z = qt.new_zeros
+        hh = slice(t * hl, (t + 1) * hl)
+        if state is None:
+            start = (z((b, hl, dh, dh), dtype=torch.float32),
+                     z((b, hl, dh), dtype=torch.float32),
+                     z((b, hl), dtype=torch.float32))
+        else:
+            start = tuple(state[n][:, hh] for n in ("C", "n", "m"))
+        h, new = _mlstm_chunk_scan(
+            heads(qt), heads(kt), heads(vt), li[:, hh], lf[:, hh], start,
+            1 if state is not None else min(chunk, max(s, 1)),
+            final_state=state is not None)
+        if state is not None:
+            for n_, v_ in zip(("C", "n", "m"), new):
+                state[n_][:, hh].copy_(v_)
+        h = h.transpose(1, 2).reshape(b, s, c)
+        h = h + skip[t * c:(t + 1) * c][None, None].float() * upt.float()
+        return (h * _silu(gt.float())).to(x.dtype)
+
+    hs = _shards(tp, shard, q, k, v, up, gate, log_i, log_f,
+                 params["skip_scale"])
+    return split_dense_row(nx, hs, params["w_down"], split,
+                           path + ("w_down",))
+
+
 def mlstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None, chunk: int = 128,
-                n_tokens: Optional[Tensor] = None):
+                n_tokens: Optional[Tensor] = None, split=None):
     """xLSTM mLSTM block.  Returns (y, state).
 
     Serving runs the scan at chunk 1: the decode step (a state, S == 1)
     or, with ``n_tokens``, the chunked prefill with its padding masked;
     ``state`` ({"C", "n", "m"}) is updated in place.  Otherwise the
     chunkwise scan at ``min(chunk, S)`` from the given state or the JAX
-    package's zero state, and the state returned is new."""
+    package's zero state, and the state returned is new.  ``split``: the
+    mesh route (module docstring), taken without a state or for a decode
+    step when the heads split."""
     b, s, _ = x.shape
+    if (n_tokens is None and (state is None or s == 1)
+            and _splits(split, ("mlstm", "wq"), params["wq"])
+            and _splits(split, ("mlstm", "w_up"), params["w_up"])
+            and mcfg.num_heads % split.size == 0):
+        return _mlstm_split(params, x, mcfg, nx, split, chunk,
+                            state), state
     serving = n_tokens is not None or (state is not None and s == 1)
     nh = mcfg.num_heads
     up = nx.dense(x, params["w_up"])
@@ -391,24 +536,49 @@ def init_slstm_block(gen: torch.Generator, mcfg, device) -> dict:
 
 def slstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
                 state: Optional[dict] = None,
-                n_tokens: Optional[Tensor] = None):
+                n_tokens: Optional[Tensor] = None, split=None):
     """xLSTM sLSTM block with exponential input gate and stabilizer state,
     sequential over time.  Returns (y, state).  With a state (serving)
     ``state`` ({"h", "c", "n", "m"}) is updated in place, positions at or
     past n_tokens[b] leaving row b's state unchanged; without one the fold
     starts from the JAX package's h = c = n = 0, m = -1e30 and the state
-    returned is new."""
+    returned is new.  ``split``: the mesh route (module docstring), taken
+    without a state or for a decode step when the heads split."""
     b, s, d = x.shape
     nh = mcfg.num_heads
     dh = d // nh
+    if (n_tokens is None and (state is None or s == 1)
+            and _splits(split, ("slstm", "w_x"), params["w_x"])
+            and nh % split.size == 0):
+        return _slstm_split(params, x, mcfg, nx, split, state), state
     gx = nx.dense(x, params["w_x"]).float() + params["b"][None, None]
     r_h = params["r_h"].float()                               # (NH, dh, 4dh)
     valid = (None if n_tokens is None else
              torch.arange(s, device=x.device)[None, :] < n_tokens[:, None])
+    if state is None and n_tokens is not None:
+        raise ValueError("chunked prefill needs a carried state")
+    hs, (h, c, n, m) = _slstm_fold(gx, r_h, state, valid)
     if state is None:
-        if n_tokens is not None:
-            raise ValueError("chunked prefill needs a carried state")
-        zeros = torch.zeros((b, nh, dh), device=x.device)
+        state = {"h": h, "c": c, "n": n, "m": m}
+    else:
+        for name, t in zip(("h", "c", "n", "m"), (h, c, n, m)):
+            state[name].copy_(t)
+    hs = hs.reshape(b, s, d).to(x.dtype)
+    up = nx.dense(hs, params["w_up"])
+    u1, u2 = torch.split(up, d, dim=-1)
+    y = nx.dense(F.gelu(u1.float(), approximate="tanh").to(x.dtype) * u2,
+                 params["w_down"])
+    return y, state
+
+
+def _slstm_fold(gx: Tensor, r_h: Tensor, state: Optional[dict], valid):
+    """The sLSTM recurrence over gx (B, S, NH * 4dh) f32 with r_h (NH, dh,
+    4dh) f32, from ``state``'s h, c, n, m (B, NH, dh) or the JAX package's
+    zero state (m = -1e30).  Returns (hs (B, S, NH, dh), (h, c, n, m))."""
+    b, s = gx.shape[:2]
+    nh, dh = r_h.shape[0], r_h.shape[1]
+    if state is None:
+        zeros = torch.zeros((b, nh, dh), device=gx.device)
         h, c, n, m = zeros, zeros, zeros, torch.full_like(zeros, -1e30)
     else:
         h, c, n, m = (state[k] for k in ("h", "c", "n", "m"))
@@ -433,14 +603,36 @@ def slstm_block(params: dict, x: Tensor, mcfg, nx: Numerics,
             ok = valid[:, t, None, None]
             h, c, n, m = (torch.where(ok, new, old) for new, old in
                           ((h_new, h), (c_new, c), (n_new, n), (m_new, m)))
-    if state is None:
-        state = {"h": h, "c": c, "n": n, "m": m}
-    else:
-        for name, t in zip(("h", "c", "n", "m"), (h, c, n, m)):
-            state[name].copy_(t)
-    hs = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    up = nx.dense(hs, params["w_up"])
-    u1, u2 = torch.split(up, d, dim=-1)
-    y = nx.dense(F.gelu(u1.float(), approximate="tanh").to(x.dtype) * u2,
-                 params["w_down"])
-    return y, state
+    return torch.stack(hs, dim=1), (h, c, n, m)
+
+
+def _slstm_split(params, x, mcfg, nx, split, state=None):
+    """The sLSTM parallel form on ``split`` (module docstring): the fold
+    per head shard (with ``state`` a decode step updating its heads of the
+    state in place); ``w_up``'s two halves meet in the GELU product, so
+    its output is gathered and ``w_down`` contracts the product's
+    slices."""
+    b, s, d = x.shape
+    path = ("slstm",)
+    tp, nh = split.size, mcfg.num_heads
+    hl, c = nh // tp, 4 * d // tp
+    gx = split_dense(nx, x, params["w_x"], split, path + ("w_x",))
+
+    def shard(t, gxt, bias, r_h):
+        hh = slice(t * hl, (t + 1) * hl)
+        g = gxt.float() + bias[t * c:(t + 1) * c][None, None]
+        own = (None if state is None
+               else {n: state[n][:, hh] for n in ("h", "c", "n", "m")})
+        hs, new = _slstm_fold(g, r_h[hh].float(), own, None)
+        if state is not None:
+            for n, v in zip(("h", "c", "n", "m"), new):
+                own[n].copy_(v)
+        return hs.reshape(b, s, d // tp).to(x.dtype)
+
+    hs = _shards(tp, shard, gx, params["b"], params["r_h"])
+    up = split_dense(nx, hs, params["w_up"], split, path + ("w_up",))
+    u1, u2 = torch.split(up if not isinstance(up, list)
+                         else ops.gather_columns(up), d, dim=-1)
+    act = F.gelu(u1.float(), approximate="tanh").to(x.dtype) * u2
+    return split_dense_row(nx, act, params["w_down"], split,
+                           path + ("w_down",))

@@ -15,10 +15,14 @@ straight-through estimator (``abfp_ref``, the CUDA kernel's
 ``abfp_kernel``; ``kernels.ops``).
 
 ``make_train_step(..., mesh=)`` passes the mesh to ``forward`` (the MoE
-layers take the expert-parallel route) while the loss's ``Numerics``
-carries none, as in the JAX package; the mesh is virtual (one device,
-``distributed.sharding``), and the moments' ZeRO-1 specs are
-``distributed.sharding.zero1_state_sharding``'s.
+layers take the expert-parallel route, every dense weight that the JAX
+package's spec tree splits over 'model' runs shard by shard, forward and
+backward) and to the loss, whose head keeps its logits split over the
+vocab: the chunked cross-entropy reduces them with max and sum
+all-reduces.  The loss's ``Numerics`` carries no mesh, as in the JAX
+package; the mesh is virtual (one device, ``distributed.sharding``), and
+the moments' ZeRO-1 specs are ``distributed.sharding.
+zero1_state_sharding``'s.
 
 ``make_serve_steps`` builds prefill and decode callables.
 """
@@ -38,6 +42,7 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.prng import fold_in
 from repro_torch.core.tree import leaves, tree_map, unflatten_like
 from repro_torch.distributed import collectives
+from repro_torch.kernels.ops import MODEL_AXIS
 from repro_torch.models.layers import Numerics
 from repro_torch.models.lm import (
     check_supported,
@@ -74,20 +79,56 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     return _nll(logits, labels).mean()
 
 
+def _nll_split(parts, labels: Tensor) -> Tensor:
+    """``_nll`` of logits split over the vocab (a list of f32 shards, shard
+    ``t`` holding vocab ``t * V / tp ..``): each shard's max, an all-reduce
+    (max; the stabilizer carries no gradient); each shard's sum of
+    exponentials and its labels' logits (zero where a label lies in
+    another shard), two all-reduces (sum); then log-sum-exp minus the
+    label's logit."""
+    tp, c = len(parts), parts[0].shape[-1]
+    axes = (MODEL_AXIS,)
+    m = None
+    for p in parts:
+        mt = cost_trace.run_sharded(axes, lambda v: v.detach().amax(-1), p)
+        m = mt if m is None else torch.maximum(m, mt)
+    cost_trace.record_collective("all-reduce", m, tp)
+    lab = labels.long()
+    tot = pick = None
+    for t, p in enumerate(parts):
+        def shard(v, t=t):
+            local = lab - t * c
+            ok = (local >= 0) & (local < c)
+            z = torch.gather(v, -1, local.clamp(0, c - 1)[..., None])[..., 0]
+            return (torch.exp(v - m[..., None]).sum(-1),
+                    torch.where(ok, z, torch.zeros_like(z)))
+        e, z = cost_trace.run_sharded(axes, shard, p)
+        tot = e if tot is None else tot + e
+        pick = z if pick is None else pick + z
+    for v in (tot, pick):
+        cost_trace.record_collective("all-reduce", v, tp)
+    return torch.log(tot) + m - pick
+
+
 def chunked_cross_entropy(params, hidden: Tensor, labels: Tensor,
                           mcfg: ModelConfig, nx: Numerics,
-                          chunk: int = CE_CHUNK) -> Tensor:
+                          chunk: int = CE_CHUNK, mesh=None) -> Tensor:
     """Cross-entropy without the whole (B, S, V) logits: the LM head over
     sequence chunks of ``chunk`` (S when ``chunk`` does not divide S).
     Every chunk's head call folds 999,983 into ``nx`` afresh, as the JAX
-    package's scan traces one body."""
+    package's scan traces one body.  On ``mesh`` a head whose vocab
+    splits keeps its logits split (``_nll_split``)."""
     b, s, _ = hidden.shape
     if s % chunk:
         chunk = s
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        logits = lm_head_logits(params, hidden[:, c0:c0 + chunk], mcfg, nx)
-        total = total + _nll(logits, labels[:, c0:c0 + chunk]).sum()
+        logits = lm_head_logits(params, hidden[:, c0:c0 + chunk], mcfg, nx,
+                                mesh=mesh, keep_split=True)
+        lab = labels[:, c0:c0 + chunk]
+        nll = (_nll_split(logits, lab) if isinstance(logits, list)
+               else _nll(logits, lab))
+        total = total + nll.sum()
     return total / (b * s)
 
 
@@ -148,7 +189,8 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
     state, updating the parameters and the optimizer state in place
     (``update_``: the same bits, one optimizer state on the device), as
     the JAX package's ``launch/train.py`` donates its jitted step's
-    state.  ``mesh`` goes to ``forward`` (expert-parallel MoE layers)."""
+    state.  ``mesh`` goes to ``forward`` (expert-parallel MoE layers,
+    the dense weights shard by shard) and to the loss's head."""
     check_supported(mcfg)
     dev = resolve_device(device)
 
@@ -161,7 +203,8 @@ def make_train_step(mcfg: ModelConfig, optimizer, tcfg: TrainConfig,
         hidden, aux = forward(params, inputs, mcfg, nx,
                               encoder_features=batch.get("encoder_features"),
                               mesh=mesh, return_hidden=True)
-        loss = chunked_cross_entropy(params, hidden, labels, mcfg, nx)
+        loss = chunked_cross_entropy(params, hidden, labels, mcfg, nx,
+                                     mesh=mesh)
         return loss + tcfg.aux_loss_weight * aux, loss, aux
 
     def init_state(params) -> TrainState:

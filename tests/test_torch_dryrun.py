@@ -18,9 +18,11 @@
     port's mLSTM chunk scan updates its state after the last chunk, which
     XLA drops as dead code in the cacheless forward;
   * per-device FLOPs at (1, 2) and (2, 1) follow the stated rule from the
-    (1, 1) trace; a column-parallel call's shards and all-gather; a train
-    step's gradient reduction at (2, 1) and, event for event from the
-    cell's own placements, at (2, 2, 1);
+    (1, 1) trace (the data axes divide the batch-leading work; at model 2
+    every cell runs the mesh route, every dense weight and the attention
+    split over 'model', and halves); a column-parallel call's shards and
+    all-gather; a train step's gradient reduction at (2, 1) and, event
+    for event from the cell's own placements, at (2, 2, 1);
   * the CPU and ``meta`` counts agree op for op (``FlopCounterMode``),
     the trace's peak and argument bytes on a known function;
   * step 0's repairs keep the CPU numbers: ``abfp_ref``'s forward and
@@ -318,8 +320,10 @@ def test_meta_trace_flops_equal_flop_counter_on_cpu(arch):
 
 def test_per_device_flops_follow_the_rule():
     """At (2, 1) the batch-leading work halves and the rest stays; at
-    (1, 2) a dense model's work stays whole (no mesh on its Numerics, as
-    in JAX's dry run); a column-parallel call's shard work halves."""
+    (1, 2) a dense model's prefill, decode and train work halves (the mesh
+    route splits every dense weight and the attention heads over 'model',
+    as GSPMD does in JAX's dry run); a column-parallel call's shard work
+    halves."""
     mcfg = smoke_config("smollm-360m")
     for sc in (ShapeConfig("t", 32, 4, "train"),
                ShapeConfig("p", 32, 4, "prefill"),
@@ -332,13 +336,18 @@ def test_per_device_flops_follow_the_rule():
         assert cls["batch"]["flops"] > 0
         for shape, want in (((2, 1), cls["batch"]["flops"] / 2
                              + cls.get("replicated", {}).get("flops", 0)),
-                            ((1, 2), one["flops"])):
+                            ((1, 2), one["flops"] / 2)):
             got = dryrun.trace_cell(dryrun.build_cell(
                 "smollm-360m", sc, dryrun.make_mesh(shape), mcfg=mcfg,
                 microbatches=2))
             assert got["flops_global"] == one["flops_global"]
             assert got["flops"] == pytest.approx(want, rel=1e-12), (
                 sc.kind, shape)
+            if shape == (1, 2):
+                assert set(got["by_class"]) == {"batch", "replicated",
+                                                "sharded"}
+                assert got["by_class"]["sharded"]["flops"] == \
+                    one["flops_global"]
     x = torch.empty((4, 8, 64), device="meta")
     w = torch.empty((64, 256), device="meta")
     mesh = dryrun.make_mesh((1, 2))
@@ -536,7 +545,7 @@ def test_mini_cli_cell_writes_the_artifact(cell, mini_runs):
     assert d["fits_80g"] == (d["live_bytes_per_device"]
                              <= mesh_lib.HBM_PER_CHIP)
     # The per-device rule is named beside the figures, with the whole
-    # mesh's FLOPs split by class.
-    assert d["per_device_rule"] == "batch+moe only"
+    # mesh's FLOPs split by class: every cell runs the mesh route.
+    assert d["per_device_rule"] == "batch+model+moe"
     assert sum(v["flops"] for v in d["by_class"].values()) == \
         d["flops_global"]

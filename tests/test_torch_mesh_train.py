@@ -21,8 +21,14 @@ Bars (``tests/test_torch_train.py``'s and ``tests/test_torch_moe.py``'s):
     aux and grad_norm within 1e-5 (float) and 2e-3 / 5e-3 (QAT: loss and
     aux / grad_norm; the attention projections and the head are ABFP,
     where a last-bit difference moves a rare activation code);
-  * port only: a dense arch's forward and steps under a mesh are its
-    forward and steps without one, bit for bit; the donated mesh step
+  * a dense arch (tinyllama-1.1b's smoke config) under a (2, 4) mesh
+    takes the Megatron routes (every dense weight split over 'model' as
+    GSPMD splits it under JAX's ``param_spec_tree``): its float forward
+    within 1e-4 of JAX's GSPMD-compiled (2, 4) forward and two AdamW steps'
+    loss and grad_norm within 1e-5 relative of JAX's (row-parallel sums
+    reorder f32 sums, as GSPMD's do); its ``abfp_ref`` forward, whose ABFP
+    spec tree splits columns only, bit-equal to the one-device forward;
+  * port only: the donated mesh step
     equals the functional one bit for bit; at capacity factor 8.0 the
     mesh forward's logits are the one-device forward's within 1e-5, and
     its aux the mean of the data shards' own one-device losses within
@@ -52,6 +58,7 @@ from repro_torch.core.tree import leaves, tree_map
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import forward
 from repro_torch.models.convert import from_jax_params
+from repro_torch.models.layers import Numerics
 from repro_torch.training import TrainConfig, make_train_step
 
 torch.set_num_threads(1)  # small tensors: one intra-op thread per test worker
@@ -103,6 +110,36 @@ for dp, tp in ((2, 4), (1, 4)):
     res[f"logits_{dp}x{tp}"] = np.asarray(lg)
     res[f"aux_{dp}x{tp}"] = np.float32(aux)
 m = mesh(2, 4)
+# A dense arch compiled as GSPMD partitions it under param_spec_tree.
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.distributed.sharding import batch_spec, param_spec_tree
+tcfg = smoke_config("tinyllama-1.1b")
+tparams = init_params(jax.random.PRNGKey(0), tcfg)
+psh = jax.tree.map(lambda sp: NamedSharding(m, sp),
+                   param_spec_tree(tparams, m),
+                   is_leaf=lambda x: isinstance(x, P))
+rep = NamedSharding(m, P())
+bsh = NamedSharding(m, batch_spec(m, toks[0].shape))
+t0 = jnp.asarray(toks[0][:, :-1])
+res["dense_logits"] = np.asarray(jax.jit(
+    lambda p, t: forward(p, t, tcfg)[0],
+    in_shardings=(psh, NamedSharding(m, batch_spec(m, t0.shape))))(
+        jax.device_put(tparams, psh), t0))
+init, step = make_train_step(tcfg, jopt.AdamW(jopt.constant(1e-3)),
+                             TrainConfig())
+st = init(tparams)
+st_sh = type(st)(params=psh,
+                 opt_state=jax.tree.map(lambda _: rep, st.opt_state),
+                 ef=None, step=rep)
+step = jax.jit(step, in_shardings=(st_sh, {"tokens": bsh}, rep),
+               out_shardings=(st_sh, None))
+st, mets["dense"] = jax.device_put(st, st_sh), []
+for i in range(steps):
+    key = jax.device_put(jax.random.fold_in(jax.random.PRNGKey(10 + i), 5),
+                         rep)
+    st, met = step(st, {"tokens": jax.device_put(jnp.asarray(toks[i]),
+                                                 bsh)}, key)
+    mets["dense"].append({k: float(v) for k, v in met.items()})
 for name, (qkw, tkw, oname) in cases.items():
     opt = (jopt.AdamW(jopt.constant(1e-3)) if oname == "adamw"
            else jopt.SGD(jopt.constant(1e-2)))
@@ -196,26 +233,34 @@ def test_train_step_on_a_mesh_matches_jax(jax_run, granite, case):
     assert int(st.step) == STEPS
 
 
-def test_dense_arch_on_a_mesh_is_bit_equal():
-    """A dense arch has no MoE layer: its forward and two float steps
-    under a (2, 4) mesh are those without a mesh, bit for bit."""
+def test_dense_arch_on_a_mesh_is_bit_equal(jax_run):
+    """A dense arch under a (2, 4) mesh runs the Megatron routes: the
+    ``abfp_ref`` forward (columns split, rows whole by the ABFP spec
+    tree) is the one-device forward bit for bit; the float forward and
+    two AdamW steps (rows split too) hold JAX's GSPMD mesh run's bars."""
+    data, want = jax_run
     tm, tp = _pair("tinyllama-1.1b")
     mesh = make_host_mesh(2, 4, "cpu")
-    toks = torch.from_numpy(_tokens(0, tm.vocab_size)[:, :-1])
-    a, b = forward(tp, toks, tm), forward(tp, toks, tm, mesh=mesh)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    runs = []
-    for m in (None, mesh):
-        init, step = make_train_step(tm, _optimizer("adamw"), TrainConfig(),
-                                     device="cpu", mesh=m)
-        st, mets = init(tp), []
-        for i in range(STEPS):
-            st, met = step(st, {"tokens": _tokens(i, tm.vocab_size)},
-                           _key(i))
-            mets.append([float(met[k]) for k in sorted(met)])
-        runs.append((mets, leaves(st.params)))
-    assert runs[0][0] == runs[1][0]
-    assert all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1]))
+    toks = [_tokens(i, tm.vocab_size) for i in range(STEPS)]
+    t0 = torch.from_numpy(toks[0][:, :-1])
+    qref = QuantConfig(mode="abfp_ref", tile_width=32, gain=8.0,
+                       noise_lsb=0.5)
+    with torch.no_grad():
+        a, b = (forward(tp, t0, tm, Numerics(qref, prng.PRNGKey(3)),
+                        mesh=m)[0] for m in (None, mesh))
+    assert torch.equal(a, b)
+    logits, aux = forward(tp, t0, tm, mesh=mesh)
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               data["dense_logits"], rtol=0, atol=1e-4)
+    assert float(aux) == 0.0
+    init, step = make_train_step(tm, _optimizer("adamw"), TrainConfig(),
+                                 device="cpu", mesh=mesh)
+    st = init(tp)
+    for i in range(STEPS):
+        st, met = step(st, {"tokens": toks[i]}, _key(i))
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(met[k]),
+                                       want["dense"][i][k], rtol=1e-5)
 
 
 def test_donated_mesh_step_equals_functional_step(granite):
